@@ -1,0 +1,21 @@
+"""tpuwave_torch — the PyTorch / CUDA port of tpuwave.
+
+Same problem class as tpuwave (the 2D scalar wave equation with P1
+elements on a structured triangulated rectangle), same module layout and
+public names, on PyTorch tensors, with the hot stencil passes as CUDA C++
+kernels for Hopper (``ops/kernels.py``, ``csrc/stencil_kernels.cu``).
+
+This slice covers the structured-P1 wave step:
+
+- ``utils``   expressions, parameter files, CSV/VTU output, naming
+- ``core``    structured mesh, P1 shape functions, quadrature
+- ``ops``     element classes, constant 3x3 stencils, the CUDA kernels
+- ``solve``   Jacobi-preconditioned CG (ReductionControl semantics)
+- ``models``  FastWaveSolver (explicit leapfrog), the fast Newmark/theta
+              engines, O(grid) diagnostics and the run driver
+- ``cli``     ``python -m tpuwave_torch.cli.newmark|theta <preset>``
+
+The package imports neither ``jax`` nor ``tpuwave``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,324 @@
+// Hand-written Hopper (sm_90a) kernels for the structured-P1 wave step.
+//
+// Three kernels, each a port of one Pallas TPU kernel of
+// tpuwave/ops/pallas_kernels.py, templated on float and double:
+//
+//   B1  leapfrog_step          <- leapfrog_step_pallas (_kernel)
+//   B2  leapfrog_multistep     <- leapfrog_multistep_pallas (_multistep_kernel)
+//   B3  constrained_apply      <- constrained_stencil_apply_pallas
+//                                 (_constrained_apply_kernel)
+//
+// All three act on a row-major (H, W) vertex grid at its true shape: no
+// padding, no layout rule. The 3x3 stencil is a run-time argument
+// (s[1 + dj][1 + di] couples node (r, c) to node (r + dj, c + di)), so a new
+// dt or mesh needs no rebuild. A node is PINNED when its global row is
+// <= 0 or >= n_rows - 1, or its column is <= 0 or >= W - 1 (the Dirichlet
+// walls; B2 adds a global row offset for a row block of a larger grid).
+//
+// Plain C interface, bound from Python with ctypes (ops/kernels.py). Every
+// entry point launches on the stream it is given, allocates nothing,
+// does not synchronise, and returns cudaGetLastError() (0 = success).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Stencil9 {
+  double c[9];  // row-major s[1 + dj][1 + di]
+};
+
+__device__ __forceinline__ bool is_pinned(long long gr, long long gc,
+                                          long long n_rows, long long n_cols) {
+  return gr <= 0 || gr >= n_rows - 1 || gc <= 0 || gc >= n_cols - 1;
+}
+
+// ---------------------------------------------------------------------------
+// B3: constrained stencil apply (the CG matvec of every implicit solve).
+//
+//   interior node: sum_d s_d * xm[n + d], xm = x with pinned nodes set to 0
+//   pinned node:   diag * x[n]            (raw, unmasked x)
+//   diff = 1:      sum_{d != 0} s_d * (xm[n + d] - xm[n])  (zero-row-sum form)
+//
+// Bound on this card: memory. It reads 1 array and writes 1 (8 B/point in
+// f32, 16 B in f64) for ~9 multiply-adds per point. One thread per output
+// point, 32x8 blocks, so a warp reads 32 consecutive addresses of a row and
+// the 3x3 neighbourhood of a block is served by L1/L2 after the first
+// touch: device memory sees close to one read and one write per point.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void constrained_apply_kernel(const T* __restrict__ x,
+                                         T* __restrict__ out, int H, int W,
+                                         Stencil9 st, T diag, int diff) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= H || c >= W) return;
+  const size_t i = (size_t)r * W + c;
+  if (is_pinned(r, c, H, W)) {
+    out[i] = diag * __ldg(x + i);
+    return;
+  }
+  // every neighbour of an interior node lies inside the grid
+  T a[9];
+#pragma unroll
+  for (int dj = -1; dj <= 1; ++dj) {
+#pragma unroll
+    for (int di = -1; di <= 1; ++di) {
+      const bool p = is_pinned(r + dj, c + di, H, W);
+      a[(dj + 1) * 3 + (di + 1)] =
+          p ? T(0) : __ldg(x + (size_t)(r + dj) * W + (c + di));
+    }
+  }
+  T acc;
+  if (!diff) {
+    acc = T(st.c[4]) * a[4];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (k == 4) continue;
+      acc += T(st.c[k]) * a[k];
+    }
+  } else {
+    acc = T(0);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (k == 4) continue;
+      acc += T(st.c[k]) * (a[k] - a[4]);
+    }
+  }
+  out[i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// B1: one lumped leapfrog step, u' = 2u - u_prev - coef * S(u), pinned -> 0.
+//
+// Bound on this card: memory. It reads 2 arrays and writes 1 (12 B/point in
+// f32, 24 B in f64) for ~11 multiply-adds per point. Same one-thread-per-
+// point, 32x8-block design as B3: the 3x3 reads of u are coalesced along
+// rows and reused through L1/L2.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void leapfrog_step_kernel(const T* __restrict__ u,
+                                     const T* __restrict__ up,
+                                     T* __restrict__ out, int H, int W,
+                                     Stencil9 st, T coef) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= H || c >= W) return;
+  const size_t i = (size_t)r * W + c;
+  if (is_pinned(r, c, H, W)) {
+    out[i] = T(0);
+    return;
+  }
+  const T uc = __ldg(u + i);
+  T ku = T(st.c[4]) * uc;
+#pragma unroll
+  for (int dj = -1; dj <= 1; ++dj) {
+#pragma unroll
+    for (int di = -1; di <= 1; ++di) {
+      if (dj == 0 && di == 0) continue;
+      ku += T(st.c[(dj + 1) * 3 + (di + 1)]) *
+            __ldg(u + (size_t)(r + dj) * W + (c + di));
+    }
+  }
+  out[i] = (T(2) * uc - __ldg(up + i)) - coef * ku;
+}
+
+// ---------------------------------------------------------------------------
+// B2: n_steps leapfrog steps in one pass (temporal blocking).
+//
+// Each block owns a tile x tile square of output nodes. It loads u and
+// u_prev over the tile plus an n_steps-wide halo on all four sides into
+// dynamic shared memory (zeros outside the array), then runs n_steps
+// substeps there with one __syncthreads() between them. Substep s updates
+// the slab nodes at distance >= s from the slab edge, whose neighbours were
+// all valid after substep s - 1, so after n_steps substeps the centre tile
+// is exact. The global Dirichlet mask is applied at every substep. The
+// update is in place: u_next overwrites u_prev's slot (it reads only its
+// own u_prev value), and the two buffers swap roles.
+//
+// Bound on this card: shared memory bandwidth and the redundant halo work.
+// Device memory traffic is 2 reads + 2 writes per n_steps steps (16 B per
+// point per n_steps in f32); each substep reads 10 and writes 1 value of
+// shared memory per slab node, over a slab (tile + 2 n_steps)^2 that
+// shrinks by 2 per substep. The wrapper picks the largest tile (64, 32, 16)
+// whose two slabs fit the card's opt-in shared memory.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void leapfrog_multistep_kernel(const T* __restrict__ u,
+                                          const T* __restrict__ up,
+                                          T* __restrict__ out_u,
+                                          T* __restrict__ out_up, int H, int W,
+                                          Stencil9 st, T coef, int n_steps,
+                                          int tile, long long row_offset,
+                                          long long n_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = tile + 2 * n_steps;  // slab side
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* prv = cur + (size_t)S * S;
+  const int r0 = blockIdx.y * tile - n_steps;  // array row of slab row 0
+  const int c0 = blockIdx.x * tile - n_steps;  // array col of slab col 0
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx = blockDim.x, by = blockDim.y;
+
+  for (int sr = ty; sr < S; sr += by) {
+    const int r = r0 + sr;
+    const bool row_in = r >= 0 && r < H;
+    for (int sc = tx; sc < S; sc += bx) {
+      const int c = c0 + sc;
+      const bool in = row_in && c >= 0 && c < W;
+      const size_t g = (size_t)r * W + c;
+      cur[sr * S + sc] = in ? __ldg(u + g) : T(0);
+      prv[sr * S + sc] = in ? __ldg(up + g) : T(0);
+    }
+  }
+  __syncthreads();
+
+  T s[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) s[k] = T(st.c[k]);
+
+  for (int step = 1; step <= n_steps; ++step) {
+    const int hi = S - step;
+    for (int sr = step + ty; sr < hi; sr += by) {
+      const long long gr = row_offset + (long long)(r0 + sr);
+      const T* rm = cur + (sr - 1) * S;
+      const T* rc = cur + sr * S;
+      const T* rp = cur + (sr + 1) * S;
+      for (int sc = step + tx; sc < hi; sc += bx) {
+        T v = T(0);
+        if (!is_pinned(gr, c0 + sc, n_rows, W)) {
+          T ku = s[4] * rc[sc];
+          ku += s[0] * rm[sc - 1];
+          ku += s[1] * rm[sc];
+          ku += s[2] * rm[sc + 1];
+          ku += s[3] * rc[sc - 1];
+          ku += s[5] * rc[sc + 1];
+          ku += s[6] * rp[sc - 1];
+          ku += s[7] * rp[sc];
+          ku += s[8] * rp[sc + 1];
+          v = (T(2) * rc[sc] - prv[sr * S + sc]) - coef * ku;
+        }
+        prv[sr * S + sc] = v;
+      }
+    }
+    __syncthreads();
+    T* t = cur;
+    cur = prv;
+    prv = t;
+  }
+
+  // cur holds u after n_steps, prv holds it after n_steps - 1
+  for (int sr = n_steps + ty; sr < n_steps + tile; sr += by) {
+    const int r = r0 + sr;
+    if (r < 0 || r >= H) continue;
+    for (int sc = n_steps + tx; sc < n_steps + tile; sc += bx) {
+      const int c = c0 + sc;
+      if (c < 0 || c >= W) continue;
+      const size_t g = (size_t)r * W + c;
+      out_u[g] = cur[sr * S + sc];
+      out_up[g] = prv[sr * S + sc];
+    }
+  }
+}
+
+Stencil9 load_stencil(const double* s) {
+  Stencil9 st;
+  for (int k = 0; k < 9; ++k) st.c[k] = s[k];
+  return st;
+}
+
+dim3 point_grid(int H, int W, dim3 block) {
+  return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+}
+
+template <typename T>
+int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
+                     int H, int W, const double* s, double coef, int n_steps,
+                     int tile, long long row_offset, long long n_rows,
+                     cudaStream_t stream) {
+  const size_t side = (size_t)tile + 2 * (size_t)n_steps;
+  const size_t smem = 2 * side * side * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        leapfrog_multistep_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 block(32, 16);
+  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
+  leapfrog_multistep_kernel<T><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(up),
+      static_cast<T*>(out_u), static_cast<T*>(out_up), H, W, load_stencil(s),
+      (T)coef, n_steps, tile, row_offset, n_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = float64. Pointers are device pointers; s points to
+// 9 host doubles (row-major 3x3 stencil).
+
+int tw_constrained_apply(int dtype, const void* x, void* out, int H, int W,
+                         const double* s, double diag, int diff,
+                         void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid = point_grid(H, W, block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    constrained_apply_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), H, W,
+        load_stencil(s), (float)diag, diff);
+  } else {
+    constrained_apply_kernel<double><<<grid, block, 0, st>>>(
+        static_cast<const double*>(x), static_cast<double*>(out), H, W,
+        load_stencil(s), diag, diff);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tw_leapfrog_step(int dtype, const void* u, const void* up, void* out,
+                     int H, int W, const double* s, double coef,
+                     void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid = point_grid(H, W, block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    leapfrog_step_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(u), static_cast<const float*>(up),
+        static_cast<float*>(out), H, W, load_stencil(s), (float)coef);
+  } else {
+    leapfrog_step_kernel<double><<<grid, block, 0, st>>>(
+        static_cast<const double*>(u), static_cast<const double*>(up),
+        static_cast<double*>(out), H, W, load_stencil(s), coef);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tw_leapfrog_multistep(int dtype, const void* u, const void* up,
+                          void* out_u, void* out_up, int H, int W,
+                          const double* s, double coef, int n_steps, int tile,
+                          long long row_offset, long long n_rows,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_multistep<float>(u, up, out_u, out_up, H, W, s, coef,
+                                   n_steps, tile, row_offset, n_rows, st);
+  }
+  return launch_multistep<double>(u, up, out_u, out_up, H, W, s, coef,
+                                  n_steps, tile, row_offset, n_rows, st);
+}
+
+// Largest dynamic shared memory a block may opt in to on ``device``
+// (bytes), or -1 on error.
+int tw_max_dynamic_smem(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return -1;
+  }
+  return v;
+}
+
+}  // extern "C"

@@ -1,0 +1,410 @@
+"""Product-surface engines: the fast grid-stencil Newmark and theta solvers.
+
+:class:`FastThetaSolver` and :class:`FastNewmarkSolver` implement the
+EXACT parity step algebra of tpuwave's models/fast_engine.py — symmetric
+Dirichlet elimination with time-dependent g (reference solve_u/solve_v
+WaveTheta.cpp:251-339), the derived acceleration boundary formulas
+(WaveNewmark.cpp:177-262), the theta-weighted quadrature-consistent forcing
+(WaveTheta.cpp:119-186), the consistent a0 solve (WaveNewmark.cpp:298-390)
+and the same ReductionControl stopping contract — on grid-plane operators.
+
+Every constrained solve runs Jacobi-CG (solve/cg.py) whose matvec is
+``ops.kernels.constrained_stencil_apply``: on a CUDA device that is the
+hand-written kernel B3, in f32 and f64 alike; on the CPU its plain
+version. This covers the Newmark a-system, the theta u-system and the
+theta v (mass) system.
+
+Coverage of this slice: structured P1 rectangles, constant wave speed,
+``--solver 3term``, ``--precond jacobi``. Spatially varying or
+time-dependent C (ROADMAP A5), the other preconditioners and solvers (A6,
+A7), P2 (A9) and the parity engine (A10) raise NotImplementedError.
+
+State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
+the steppers reshape to the (ny+1, nx+1) vertex grid internally (free: the
+P1 DoF numbering is row-major over the grid).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tpuwave_torch.models.fast import FastWaveSolver
+from tpuwave_torch.ops import kernels
+from tpuwave_torch.solve.cg import pcg
+from tpuwave_torch.solve.cheby_iter import stencil_symbol_bounds
+from tpuwave_torch.utils.params import Params
+
+__all__ = ["FastGridState", "FastThetaSolver", "FastNewmarkSolver",
+           "fast_engine_ineligible_reason", "make_fast_solver",
+           "resolve_engine"]
+
+
+class FastGridState(NamedTuple):
+    u: torch.Tensor   # flat (n_dofs,)
+    v: torch.Tensor
+    a: torch.Tensor   # consistent acceleration (Newmark); zeros for theta
+    #: K(t^n) payload of `Time Dependent C` runs (tpuwave); always None
+    #: here until ROADMAP A5
+    k_payload: Optional[torch.Tensor] = None
+
+
+class _Op(NamedTuple):
+    """Grid operator: apply(u), assembled (scalar) diagonal, an upper
+    eigenvalue bound (for the f32 backward-error stopping floor) and the
+    constant 3x3 stencil the kernel applies."""
+    apply: Callable
+    diag: Any
+    lam_hi: Any
+    stencil: Any = None
+
+
+def fast_engine_ineligible_reason(problem) -> Optional[str]:
+    """None when ``problem`` (a Params) can run on the grid-stencil engine
+    of this port, else why not."""
+    if not isinstance(problem, Params):
+        return "the port's fast engine takes Params (parity engine: A10)"
+    p = problem
+    if p.mesh_file is not None:
+        return "imported mesh (unstructured meshes: ROADMAP A10)"
+    if p.r not in (1, 2):
+        return f"fast engine supports R = 1/2 (R = {p.r})"
+    if min(p.nel) < 2:
+        return "mesh has no interior band (Nel < 2)"
+    return None
+
+
+def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
+                     solver: str = "3term", **engine_kwargs):
+    """Factory used by the CLI ``--engine fast|auto`` routing."""
+    p = problem
+    if p.r == 2:
+        raise NotImplementedError("R = 2 (P2) is not ported yet "
+                                  "(ROADMAP A9)")
+    if family == "theta":
+        return FastThetaSolver(problem, precond=precond, solver=solver,
+                               **engine_kwargs)
+    if family == "newmark":
+        return FastNewmarkSolver(problem, precond=precond, solver=solver,
+                                 **engine_kwargs)
+    raise ValueError(f"unknown solver family {family!r}")
+
+
+def resolve_engine(params, family: str, engine: str, **solver_kwargs):
+    """``--engine auto|fast`` resolution. Returns ``(solver_or_None,
+    reason_or_None)``; the parity engine is not ported (ROADMAP A10), so
+    an ineligible problem returns (None, reason)."""
+    if engine == "parity":
+        raise NotImplementedError("--engine parity is not ported yet "
+                                  "(ROADMAP A10)")
+    if engine not in ("auto", "fast"):
+        raise ValueError(f"Unknown engine {engine!r}")
+    reason = fast_engine_ineligible_reason(params)
+    if reason is not None:
+        return None, reason
+    return make_fast_solver(params, family, **solver_kwargs), None
+
+
+class _FastEngineBase:
+    """Shared plumbing: operators, boundary/forcing data, elimination."""
+
+    def __init__(self, problem, *, dtype: torch.dtype = torch.float64,
+                 device=torch.device("cpu"), precond: str = "jacobi",
+                 solver: str = "3term"):
+        reason = fast_engine_ineligible_reason(problem)
+        if reason is not None:
+            raise ValueError(f"fast engine unavailable: {reason}")
+        if problem.r != 1:
+            raise NotImplementedError("R = 2 (P2) is not ported yet "
+                                      "(ROADMAP A9)")
+        if precond != "jacobi":
+            raise NotImplementedError(
+                f"--precond {precond} is not ported yet (ROADMAP A6)")
+        if solver != "3term":
+            item = "A7" if solver == "2term" else "A6"
+            raise NotImplementedError(
+                f"--solver {solver} is not ported yet (ROADMAP {item})")
+        p = problem
+        c_const = p.c.constant_value
+        if p.time_dependent_c and p.c.time_dependent:
+            raise NotImplementedError(
+                "time-dependent C is not ported yet (ROADMAP A5)")
+        if c_const is None:
+            raise NotImplementedError(
+                "spatially varying C is not ported yet (ROADMAP A5)")
+
+        from tpuwave_torch.models.grid_diag import GridDiagnostics
+        self.device = torch.device(device)
+        self.disc = GridDiagnostics(p, dtype=dtype, device=self.device)
+        self.dt = p.dt
+        self.fs = FastWaveSolver(
+            p.nel, p.geometry, p.dt, c=float(c_const),
+            scheme=self.method_name, beta=p.beta, gamma=p.gamma,
+            theta=p.theta, lumped=False, dtype=dtype, device=self.device)
+        fs = self.fs
+        self.dtype = dtype
+        self._max_iter = 10000 if dtype == torch.float64 else 2000
+
+        # problem data
+        self._g = p.g
+        self._dgdt = p.dgdt
+        self._f = p.f if not p.f.is_zero else None
+
+        #: system coefficient: M + coef * K
+        self.coef = (p.beta * p.dt * p.dt if self.method_name == "newmark"
+                     else (p.theta * p.dt) ** 2)
+
+        self._mass_op = _Op(fs.mass, fs.mass.stencil[1][1],
+                            stencil_symbol_bounds(fs.mass.stencil)[1],
+                            fs.mass.stencil)
+        self._k_static = _Op(fs.stiff, fs.stiff.stencil[1][1],
+                             stencil_symbol_bounds(fs.stiff.stencil)[1],
+                             fs.stiff.stencil)
+        self._prec_mass = 1.0 / fs.mass.stencil[1][1]
+
+    # -- operators -------------------------------------------------------
+    def _system_of(self, k_op: _Op) -> _Op:
+        coef = self.coef
+        if coef == 0.0:   # theta = 0 / beta = 0: the system is bare mass
+            return self._mass_op
+        m = self._mass_op
+
+        def apply(u):
+            return m.apply(u) + coef * k_op.apply(u)
+        st = tuple(tuple(mc + coef * kc for mc, kc in zip(mr, kr))
+                   for mr, kr in zip(m.stencil, k_op.stencil))
+        return _Op(apply, m.diag + coef * k_op.diag,
+                   m.lam_hi + coef * k_op.lam_hi, st)
+
+    # -- helpers -------------------------------------------------------
+    def _plane(self, expr, t):
+        """expr(x, y, t) on the full vertex grid (only boundary entries
+        are ever consumed; interior values are masked away)."""
+        shape = self.fs.shape
+        if expr.is_zero:
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        cv = expr.constant_value
+        if cv is not None:
+            return torch.full(shape, cv, dtype=self.dtype,
+                              device=self.device)
+        xs, ys = self.fs.grid_coords()
+        return torch.broadcast_to(expr.evaluate(xs, ys, t).to(self.dtype),
+                                  shape)
+
+    def _constrained_apply(self, op: _Op):
+        """The CG matvec: interior S(interior-masked w), pinned diag * w —
+        kernel B3 on a CUDA tensor, its plain version on a CPU one."""
+        st, diag = op.stencil, op.diag
+
+        def apply_c(w):
+            return kernels.constrained_stencil_apply(w, st, diag)
+        return apply_c
+
+    def _constrain(self, op: _Op, rhs, g_plane, x_prev, *, g_zero: bool):
+        """Grid-plane form of deal.II apply_boundary_values with
+        eliminate_columns=true: pinned diagonal boundary rows, rhs lifted
+        by -A(g 1_b), warm start with boundary entries set to g.
+        ``g_zero`` skips the lift apply for homogeneous data."""
+        fs = self.fs
+        apply_c = self._constrained_apply(op)
+        if g_zero:
+            rhs_c = torch.where(fs.interior, rhs, 0.0)
+            x0 = torch.where(fs.interior, x_prev, 0.0)
+            return apply_c, rhs_c, x0
+        g_ext = torch.where(fs.boundary, g_plane, 0.0)
+        rhs_c = torch.where(fs.interior, rhs - op.apply(g_ext),
+                            op.diag * g_ext)
+        x0 = torch.where(fs.boundary, g_ext, x_prev)
+        return apply_c, rhs_c, x0
+
+    def _abs_tol(self, rhs, x0, op: _Op):
+        """Reference 1e-12 floor in f64; backward-error floor in f32
+        (models/fast.py::_solve_abs_tol rationale)."""
+        if self.dtype == torch.float64:
+            return 1e-12
+        eta = 8 * float(torch.finfo(self.dtype).eps)
+        return eta * (op.lam_hi * torch.linalg.vector_norm(x0)
+                      + torch.linalg.vector_norm(rhs))
+
+    def _solve(self, op: _Op, rhs, g_plane, x_prev, precond, *,
+               g_zero: bool):
+        apply_c, rhs_c, x0 = self._constrain(op, rhs, g_plane, x_prev,
+                                             g_zero=g_zero)
+        return pcg(apply_c, rhs_c.contiguous(), x0.contiguous(),
+                   precond_inv_diag=precond,
+                   abs_tol=self._abs_tol(rhs_c, x0, op),
+                   max_iter=self._max_iter, reduction=self.fs.cg_reduction)
+
+    # -- time loops ----------------------------------------------------
+    def run_steps(self, state, times):
+        """Advance ``len(times)`` steps; returns (final_state, per-step
+        info as host numpy arrays, one transfer per call)."""
+        return self.run_steps_diag(state, times, None)
+
+    def run_steps_diag(self, state, times, diag_fn):
+        """``run_steps`` with ``diag_fn(new_state, t) -> dict of 0-d
+        tensors`` evaluated after every step and stacked."""
+        its1, its2, rows = [], [], []
+        for t in times:
+            state, info = self.step(state, float(t))
+            its1.append(info["iterations_1"])
+            its2.append(info["iterations_2"])
+            row = {"norm_u": info["norm_u"], "norm_v": info["norm_v"]}
+            if diag_fn is not None:
+                row.update(diag_fn(state, float(t)))
+            rows.append(row)
+        out = {"iterations_1": np.asarray(its1, dtype=np.int64),
+               "iterations_2": np.asarray(its2, dtype=np.int64)}
+        for key in (rows[0] if rows else {}):
+            out[key] = torch.stack([r[key] for r in rows]).cpu().numpy()
+        return state, out
+
+
+class FastThetaSolver(_FastEngineBase):
+    """theta-method on the grid planes — parity algebra of tpuwave's
+    models/theta.py (reference WaveTheta.cpp:119-339), including
+    time-dependent Dirichlet g and theta-weighted forcing."""
+
+    method_name = "theta"
+
+    def method_params_suffix(self) -> str:
+        from tpuwave_torch.utils.naming import clean_double
+        return "-theta" + clean_double(self.fs.theta)
+
+    def initial_state(self) -> FastGridState:
+        d = self.disc
+        u0 = d.interpolate(d.params.u0).to(self.dtype).contiguous()
+        v0 = d.interpolate(d.params.v0).to(self.dtype).contiguous()
+        return FastGridState(u=u0, v=v0, a=torch.zeros_like(u0))
+
+    def step(self, state: FastGridState, t: float):
+        fs = self.fs
+        dt, th = self.dt, fs.theta
+        u = state.u.reshape(fs.shape)
+        v = state.v.reshape(fs.shape)
+
+        k_n = k_np1 = self._k_static
+        sys_op = self._system_of(k_np1)
+        prec_sys = 1.0 / sys_op.diag      # Jacobi: the constant diagonal
+
+        mu, ku, mv = self._mass_op.apply(u), k_n.apply(u), \
+            self._mass_op.apply(v)
+
+        if self._f is not None:
+            f_avg = (th * fs.grid_load(self._f.evaluate, t)
+                     + (1.0 - th) * fs.grid_load(self._f.evaluate, t - dt))
+        else:
+            f_avg = None
+
+        # u system (WaveTheta.cpp:119-186, 251-294)
+        rhs_u = mu - (dt * dt * th * (1.0 - th)) * ku + dt * mv
+        if f_avg is not None:
+            rhs_u = rhs_u + (th * dt * dt) * f_avg
+        res_u = self._solve(sys_op, rhs_u, self._plane(self._g, t), u,
+                            prec_sys, g_zero=self._g.is_zero)
+        u_new = res_u.x.to(self.dtype)
+
+        # v system (WaveTheta.cpp:188-249, 296-339)
+        rhs_v = mv - (dt * (1.0 - th)) * ku - (dt * th) * k_np1.apply(u_new)
+        if f_avg is not None:
+            rhs_v = rhs_v + dt * f_avg
+        res_v = self._solve(self._mass_op, rhs_v,
+                            self._plane(self._dgdt, t), v,
+                            self._prec_mass, g_zero=self._dgdt.is_zero)
+        v_new = res_v.x.to(self.dtype)
+
+        new_state = FastGridState(u=u_new.reshape(-1), v=v_new.reshape(-1),
+                                  a=state.a)
+        info = {
+            "iterations_1": res_u.iterations,
+            "iterations_2": res_v.iterations,
+            "norm_u": torch.linalg.vector_norm(u_new),
+            "norm_v": torch.linalg.vector_norm(v_new),
+        }
+        return new_state, info
+
+
+class FastNewmarkSolver(_FastEngineBase):
+    """Newmark-beta on the grid planes — parity algebra of tpuwave's
+    models/newmark.py (reference WaveNewmark.cpp:116-390): consistent-mass
+    a-solve (also at beta = 0), derived acceleration boundary formulas,
+    consistent a0, per-step forcing."""
+
+    method_name = "newmark"
+
+    def method_params_suffix(self) -> str:
+        from tpuwave_torch.utils.naming import clean_double
+        return ("-gamma" + clean_double(self.fs.gamma)
+                + "-beta" + clean_double(self.fs.beta))
+
+    # -- acceleration boundary data (WaveNewmark.cpp:177-262) ----------
+    def _accel_bc_plane(self, t, z):
+        fs, dt = self.fs, self.dt
+        if fs.beta > 1e-12:
+            return (self._plane(self._g, t) - z) / (fs.beta * dt * dt)
+        g_p = self._plane(self._g, t)
+        g_0 = self._plane(self._g, t - dt)
+        g_m = self._plane(self._g, t - 2.0 * dt)
+        return (g_p - 2.0 * g_0 + g_m) / (dt * dt)
+
+    def initial_state(self) -> FastGridState:
+        """u0, v0 interpolation + consistent M a0 = F(0) - K(0) u0 with
+        a0|b = (g(dt) - 2 g(0) + g(-dt)) / dt^2 (reference :298-390)."""
+        d, fs, dt = self.disc, self.fs, self.dt
+        u0 = d.interpolate(d.params.u0).to(self.dtype).contiguous()
+        v0 = d.interpolate(d.params.v0).to(self.dtype).contiguous()
+        u0g = u0.reshape(fs.shape)
+        rhs = -self._k_static.apply(u0g)
+        if self._f is not None:
+            rhs = rhs + fs.grid_load(self._f.evaluate, 0.0)
+        g_p = self._plane(self._g, dt)
+        g_0 = self._plane(self._g, 0.0)
+        g_m = self._plane(self._g, -dt)
+        a0_bc = (g_p - 2.0 * g_0 + g_m) / (dt * dt)
+        res = self._solve(self._mass_op, rhs, a0_bc, torch.zeros_like(u0g),
+                          self._prec_mass, g_zero=self._g.is_zero)
+        self.initial_iterations = int(res.iterations)
+        return FastGridState(u=u0, v=v0,
+                             a=res.x.to(self.dtype).reshape(-1))
+
+    def step(self, state: FastGridState, t: float):
+        fs = self.fs
+        dt, beta, gamma = self.dt, fs.beta, fs.gamma
+        u = state.u.reshape(fs.shape)
+        v = state.v.reshape(fs.shape)
+        a = state.a.reshape(fs.shape)
+
+        # the elastic force acts at t^{n+1}
+        k_np1 = self._k_static
+        sys_op = self._system_of(k_np1)
+        prec_sys = 1.0 / sys_op.diag      # Jacobi: the constant diagonal
+
+        # z = u + dt v + dt^2 (1/2 - beta) a  (WaveNewmark.cpp:123-126)
+        z = u + dt * v + (dt * dt * (0.5 - beta)) * a
+        rhs = -k_np1.apply(z)
+        if self._f is not None:
+            rhs = rhs + fs.grid_load(self._f.evaluate, t)
+
+        a_bc = self._accel_bc_plane(t, z)
+        # NB for beta > 0 the derived BC (g - z)/(beta dt^2) is nonzero
+        # even for g == 0 whenever the state is nonzero on the boundary —
+        # the homogeneous shortcut applies only to the beta = 0
+        # second-difference formula
+        res = self._solve(sys_op, rhs, a_bc, a, prec_sys,
+                          g_zero=self._g.is_zero and fs.beta <= 1e-12)
+        a_new = res.x.to(self.dtype)
+
+        u_new = z + (beta * dt * dt) * a_new
+        v_new = v + dt * ((1.0 - gamma) * a + gamma * a_new)
+        new_state = FastGridState(u=u_new.reshape(-1).to(self.dtype),
+                                  v=v_new.reshape(-1).to(self.dtype),
+                                  a=a_new.reshape(-1))
+        info = {
+            "iterations_1": res.iterations,
+            "iterations_2": 0,
+            "norm_u": torch.linalg.vector_norm(u_new),
+            "norm_v": torch.linalg.vector_norm(v_new),
+        }
+        return new_state, info

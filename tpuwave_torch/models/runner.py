@@ -1,0 +1,352 @@
+"""Run driver: the time loop + diagnostics/IO orchestration.
+
+Host-side equivalent of the reference ``run()`` methods
+(WaveTheta.cpp:341-447, WaveNewmark.cpp:280-491) and of tpuwave's
+models/runner.py: time accumulation (``time += dt`` while ``time < T`` —
+reproduced with the same float accumulation so step counts and time
+stamps match bit-for-bit), divergence early-break at 1e130,
+log_every/print_every cadence, per-step VTU output, and the final
+convergence.csv row with wall-clock time. Folder names, CSV schemas and
+console lines are tpuwave's.
+
+Single process. Checkpoint/resume (tpuwave utils/checkpoint.py) is not
+ported yet (ROADMAP A1).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import shutil
+import time as _time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tpuwave_torch.config import env_flag_enabled
+from tpuwave_torch.utils.csvlog import RunLogs, fmt_e
+from tpuwave_torch.utils.naming import mesh_file_name, run_folder_name
+from tpuwave_torch.utils.profiling import PhaseTimer
+from tpuwave_torch.utils.vtu import write_mesh_vtk, write_vtu_record
+
+__all__ = ["RunConfig", "RunResult", "run_solver", "time_steps"]
+
+DIVERGENCE_THRESHOLD = 1e130
+
+
+@dataclass
+class RunConfig:
+    results_root: str = "results"
+    mesh_root: str = "mesh"
+    quiet: bool = False
+    write_mesh: bool = True
+    #: print a host-side per-phase wall-clock breakdown at the end
+    phase_timing: bool = False
+    #: number of VTU pieces per output record (row blocks of the mesh, the
+    #: ``partitioning`` cell field = piece id); 0 = one per device (1)
+    vtu_pieces: int = 1
+
+
+class RunResult(NamedTuple):
+    state: object
+    timestep_number: int
+    final_time: float
+    elapsed_s: float
+    total_iterations_1: int
+    total_iterations_2: int
+    diverged: bool
+    rel_l2: Optional[float]
+    rel_h1: Optional[float]
+    output_folder: Path
+
+
+def time_steps(t_final: float, dt: float):
+    """The exact time stamps the reference's ``while (time < T)`` loop
+    visits, including its float accumulation (WaveTheta.cpp:372-375)."""
+    times = []
+    t = 0.0
+    while t < t_final:
+        t += dt
+        times.append(t)
+    return times
+
+
+def run_solver(solver, problem_name: str,
+               config: Optional[RunConfig] = None) -> RunResult:
+    cfg = config or RunConfig()
+    d = solver.disc
+    p = d.params
+
+    def pcout(*args):
+        if not cfg.quiet:
+            print(*args)
+
+    pcout("===============================================")
+    pcout(f"Initializing the mesh\n  Number of elements = {d.mesh.n_cells}")
+    pcout(f"Initializing the finite element space\n  Degree                     = {p.r}")
+    pcout(f"Initializing the DoF handler\n  Number of DoFs = {d.n_dofs}")
+
+    if cfg.write_mesh:
+        if d.mesh.n_cells > 2_000_000:
+            # bench-scale meshes: the serial VTK snapshot alone would be
+            # ~100s of MB of host IO
+            pcout("  (mesh VTK snapshot skipped: > 2M cells)")
+        else:
+            try:
+                write_mesh_vtk(
+                    mesh_file_name(cfg.mesh_root, p.nel, p.geometry),
+                    d.mesh.vertex_coords, d.mesh.cells)
+            except OSError:
+                pass
+
+    folder = run_folder_name(cfg.results_root, problem_name, p.r, p.nel,
+                             p.dt, p.t_final, solver.method_params_suffix())
+    folder.mkdir(parents=True, exist_ok=True)
+    pcout(f"Output folder: {folder}/")
+
+    # copy the parameter file for reproducibility
+    # (reference WaveEquationBase.cpp:110-131 via NMPDE_PARAM_FILE)
+    param_src = os.environ.get("NMPDE_PARAM_FILE") or p.source_path
+    if param_src and Path(param_src).exists():
+        shutil.copyfile(param_src, folder / "parameters.json")
+
+    convergence_path = None
+    if p.has_exact_solution:
+        convergence_path = Path(cfg.results_root) / problem_name / "convergence.csv"
+    logs = RunLogs(folder, convergence_path)
+
+    # env-variable overrides (reference main-theta.cpp:104-114)
+    save_solution = env_flag_enabled("NMPDE_SAVE_SOLUTION", p.save_solution)
+    log_every = p.effective_log_every
+    env_log = os.environ.get("NMPDE_LOG_EVERY")
+    if env_log is not None:
+        try:
+            log_every = int(env_log)
+        except ValueError:
+            pass
+
+    pcout("Setting initial conditions...")
+    state = solver.initial_state()
+    norm_u0 = float(torch.linalg.vector_norm(state.u))
+    norm_v0 = float(torch.linalg.vector_norm(state.v))
+    pcout(f"||u0|| = {norm_u0}")
+    pcout(f"||v0|| = {norm_v0}")
+    pcout("-----------------------------------------------")
+
+    n_pieces = cfg.vtu_pieces if cfg.vtu_pieces > 0 else 1
+
+    # piece id per cell: contiguous row blocks of the structured mesh by
+    # centroid y. Built lazily: only when VTU output is written.
+    _shard_cache = []
+
+    def cell_shard():
+        if not _shard_cache:
+            coords = np.asarray(d.mesh.vertex_coords)
+            cy = coords[np.asarray(d.mesh.cells), 1].mean(axis=1)
+            y0, y1 = coords[:, 1].min(), coords[:, 1].max()
+            _shard_cache.append(np.minimum(
+                (np.maximum(cy - y0, 0.0) / max(y1 - y0, 1e-300)
+                 * n_pieces).astype(np.int64), n_pieces - 1))
+        return _shard_cache[0]
+
+    def output(timestep: int, t: float):
+        if not save_solution:
+            return
+        point_data = {"u": d.vertex_values(state.u),
+                      "v": d.vertex_values(state.v)}
+        if p.has_exact_solution:
+            point_data["u_exact"] = d.vertex_values(
+                d.interpolate(p.solution, t))
+        write_vtu_record(folder, "solution", timestep, d.mesh.vertex_coords,
+                         d.mesh.cells, point_data, cell_shard=cell_shard())
+
+    timestep_number = 0
+    current_time = 0.0
+    output(0, 0.0)
+
+    total_it1 = total_it2 = 0
+    current_energy = 0.0
+    diverged = False
+    times = time_steps(p.t_final, p.dt)
+
+    phases = PhaseTimer(enabled=cfg.phase_timing)
+
+    start = _time.perf_counter()
+
+    # Chunked branch: when the host needs nothing per step beyond CSV rows
+    # (no VTU output), steps run in chunks through solver.run_steps /
+    # run_steps_diag, whose per-step norms (and, at log_every == 1, the
+    # diagnostics) come back to the host once per chunk — the same
+    # trajectory, CG counts, console cadence and CSV bytes as the per-step
+    # loop.
+    scan_ok = not save_solution and not cfg.phase_timing
+    if scan_ok and log_every >= 0 and hasattr(solver, "run_steps"):
+        with_diag = log_every == 1
+        #: log_every > 1: chunks end exactly at log points, where
+        #: energy/errors/probe run once on the host side
+        host_diag = log_every > 1
+        has_sol = p.has_exact_solution
+
+        def diag_fn(st, t):
+            out = {"energy": d.energy(st.u, st.v), "probe": d.probe(st.u)}
+            if has_sol:
+                out["err"] = torch.stack(d.errors(st.u, t))
+            return out
+
+        chunk_len = 256
+        i = 0
+        while i < len(times):
+            if host_diag:
+                until_log = log_every - (timestep_number % log_every)
+                chunk = times[i:i + min(until_log, chunk_len)]
+            else:
+                chunk = times[i:i + chunk_len]
+            if with_diag:
+                state, infos = solver.run_steps_diag(state, chunk, diag_fn)
+            else:
+                state, infos = solver.run_steps(state, chunk)
+            it1 = infos["iterations_1"]
+            it2 = infos["iterations_2"]
+            nu = infos["norm_u"]
+            nv = infos["norm_v"]
+            if with_diag:
+                en = infos["energy"]
+                pr = infos["probe"]
+                err = infos["err"] if has_sol else None
+            n_ok = len(chunk)
+            bad = False
+            for j in range(len(chunk)):
+                if d.check_divergence(float(nu[j]), float(nv[j]),
+                                      DIVERGENCE_THRESHOLD):
+                    n_ok, bad = j + 1, True
+                    break
+            total_it1 += int(it1[:n_ok].sum())
+            total_it2 += int(it2[:n_ok].sum())
+            # the host loop breaks BEFORE logging/printing the diverged step
+            for j in range(n_ok - 1 if bad else n_ok):
+                ts_no = timestep_number + j + 1
+                tj = float(chunk[j])
+                if with_diag:
+                    current_energy = float(en[j])
+                    logs.log_energy(ts_no, tj, current_energy)
+                    if has_sol:
+                        logs.log_error(ts_no, tj,
+                                       *(float(x) for x in err[j]))
+                    logs.log_probe(ts_no, tj, float(pr[j]))
+                    logs.log_iterations(ts_no, tj, int(it1[j]),
+                                        int(it2[j]))
+                elif host_diag and j == n_ok - 1 and not bad \
+                        and ts_no % log_every == 0:
+                    # full aligned chunk: its final state IS the log-point
+                    # state (the partial last chunk of a non-divisible run
+                    # ends off-cadence and logs nothing, like the per-step
+                    # loop)
+                    current_energy = float(d.energy(state.u, state.v))
+                    logs.log_energy(ts_no, tj, current_energy)
+                    if has_sol:
+                        logs.log_error(ts_no, tj,
+                                       *(float(x) for x in
+                                         d.errors(state.u, tj)))
+                    logs.log_probe(ts_no, tj, float(d.probe(state.u)))
+                    logs.log_iterations(ts_no, tj, int(it1[j]),
+                                        int(it2[j]))
+                if ts_no % p.print_every == 0:
+                    line = (f"Step {ts_no:6d},  t={tj:9.3e}"
+                            f",  ||u||={float(nu[j]):9.3e}"
+                            f",  ||v||={float(nv[j]):9.3e}")
+                    if log_every > 0:
+                        line += f",  E={current_energy:9.3e}"
+                    pcout(line)
+            timestep_number += n_ok
+            current_time = float(chunk[n_ok - 1])
+            if bad:
+                # NB: state is end-of-chunk, not at the diverged step; a
+                # diverged run's final errors are garbage either way, as in
+                # the reference.
+                pcout(f"Divergence detected at step {timestep_number}, "
+                      f"t = {current_time}; stopping simulation.")
+                diverged = True
+                break
+            i += n_ok
+        times = []   # the per-step loop below is skipped
+
+    for t in times:
+        current_time = t
+        timestep_number += 1
+        with phases.phase("step"):
+            state, info = solver.step(state, t)
+            it1 = int(info["iterations_1"])
+            it2 = int(info["iterations_2"])
+            norm_u = float(info["norm_u"])
+            norm_v = float(info["norm_v"])
+        total_it1 += it1
+        total_it2 += it2
+
+        if d.check_divergence(norm_u, norm_v, DIVERGENCE_THRESHOLD):
+            pcout(f"Divergence detected at step {timestep_number}, "
+                  f"t = {current_time}; stopping simulation.")
+            diverged = True
+            break
+
+        if log_every > 0 and timestep_number % log_every == 0:
+            with phases.phase("diagnostics"):
+                current_energy = float(d.energy(state.u, state.v))
+                logs.log_energy(timestep_number, current_time, current_energy)
+                if p.has_exact_solution:
+                    l2, h1, rl2, rh1 = (float(x) for x in
+                                        d.errors(state.u, current_time))
+                    logs.log_error(timestep_number, current_time,
+                                   l2, h1, rl2, rh1)
+                logs.log_probe(timestep_number, current_time,
+                               float(d.probe(state.u)))
+                logs.log_iterations(timestep_number, current_time, it1, it2)
+
+        if timestep_number % p.print_every == 0:
+            line = (f"Step {timestep_number:6d},  t={current_time:9.3e}"
+                    f",  ||u||={norm_u:9.3e},  ||v||={norm_v:9.3e}")
+            if log_every > 0:
+                line += f",  E={current_energy:9.3e}"
+            pcout(line)
+
+        with phases.phase("output"):
+            output(timestep_number, current_time)
+
+    elapsed = _time.perf_counter() - start
+    if cfg.phase_timing:
+        pcout(phases.report())
+
+    pcout(f"\nSimulation completed: {timestep_number} steps, "
+          f"final time t = {current_time}")
+    pcout(f"Elapsed time: {elapsed:.3f} seconds")
+    avg1 = total_it1 / timestep_number if timestep_number else 0.0
+    pcout(f"Total CG iterations (1): {total_it1}, avg per step: {avg1:.1f}")
+    if total_it2:
+        avg2 = total_it2 / timestep_number if timestep_number else 0.0
+        pcout(f"Total CG iterations (2): {total_it2}, avg per step: {avg2:.1f}")
+
+    rel_l2 = rel_h1 = None
+    if p.has_exact_solution:
+        _, _, rl2, rh1 = (float(x) for x in d.errors(state.u, current_time))
+        rel_l2, rel_h1 = rl2, rh1
+        is_theta = solver.method_name == "theta"
+        h = 1.0 / math.sqrt(p.nel[0] * p.nel[1])
+        logs.log_convergence(
+            h=h, nel=p.nel, r=p.r, dt=p.dt, t_final=p.t_final,
+            problem_name=problem_name,
+            theta=p.theta if is_theta else None,
+            beta=None if is_theta else p.beta,
+            gamma=None if is_theta else p.gamma,
+            rel_l2=rl2, rel_h1=rh1, elapsed_s=elapsed)
+        pcout("Final (last-iteration) errors:")
+        pcout(f"  Relative L2 error  = {fmt_e(rl2)}")
+        pcout(f"  Relative H1 error  = {fmt_e(rh1)}")
+
+    logs.close()
+    return RunResult(state=state, timestep_number=timestep_number,
+                     final_time=current_time, elapsed_s=elapsed,
+                     total_iterations_1=total_it1, total_iterations_2=total_it2,
+                     diverged=diverged, rel_l2=rel_l2, rel_h1=rel_h1,
+                     output_folder=folder)

@@ -1,0 +1,234 @@
+"""The hand-written CUDA stencil kernels and their plain PyTorch versions.
+
+Counterpart of tpuwave/ops/pallas_kernels.py for the structured-P1 wave
+step. Each public function is a wrapper: on a CUDA tensor it launches its
+kernel from ``csrc/stencil_kernels.cu`` (built by ``ops/_build.py``) or
+raises; on a CPU tensor it runs the ``*_reference`` plain version, which
+the kernel is held against. Every tensor is the grid at its TRUE shape
+(ny+1, nx+1): no padding, no block-size rule.
+
+A node is pinned (Dirichlet) when its global row is <= 0 or >= n_rows - 1,
+or its column is <= 0 or >= W - 1; ``n_rows`` is the grid's own height
+unless a row block of a taller grid is stepped (``row_offset``).
+
+``LAUNCHES`` counts kernel launches per wrapper (only real CUDA launches,
+never the plain path), so a run can show it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpuwave_torch.ops.stencil import apply_stencil, apply_stencil_diff
+
+__all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
+           "constrained_stencil_apply", "constrained_stencil_apply_reference",
+           "leapfrog_step", "leapfrog_step_reference",
+           "leapfrog_multistep", "leapfrog_multistep_reference",
+           "multistep_tile"]
+
+#: kernel launches per wrapper since the last reset_launches()
+LAUNCHES = {"constrained_stencil_apply": 0, "leapfrog_step": 0,
+            "leapfrog_multistep": 0}
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+_TILES = (64, 32, 16)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# -- checks and marshalling -------------------------------------------------
+def _check(name: str, *tensors: torch.Tensor) -> None:
+    ref = tensors[0]
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected tensors, got {type(t)}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {t.device}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name}: dtype {t.dtype} (float32 | float64)")
+        if t.dim() != 2:
+            raise ValueError(f"{name}: expected a 2-D grid, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")
+        if (t.device, t.dtype, t.shape) != (ref.device, ref.dtype,
+                                             ref.shape):
+            raise ValueError(f"{name}: operands differ in device, dtype or "
+                             "shape")
+    if ref.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: grid of {ref.numel()} nodes exceeds the "
+                         "kernels' 32-bit indexing")
+
+
+def _stencil_arg(stencil):
+    flat = [float(c) for row in stencil for c in row]
+    if len(flat) != 9:
+        raise ValueError("stencil must be 3x3")
+    return (ctypes.c_double * 9)(*flat)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+
+
+def _lib():
+    from tpuwave_torch.ops._build import load_library
+    return load_library()
+
+
+# -- masks ---------------------------------------------------------------
+def pinned_mask(shape, device, *, row_offset: int = 0,
+                n_rows=None) -> torch.Tensor:
+    """(H, W) bool: Dirichlet nodes (global row <= 0 or >= n_rows - 1,
+    column <= 0 or >= W - 1)."""
+    h, w = shape
+    n_rows = h if n_rows is None else n_rows
+    gr = row_offset + torch.arange(h, device=device)[:, None]
+    gc = torch.arange(w, device=device)[None, :]
+    return (gr <= 0) | (gr >= n_rows - 1) | (gc <= 0) | (gc >= w - 1)
+
+
+# -- B3: constrained stencil apply -------------------------------------------
+def constrained_stencil_apply_reference(x, stencil, diag, diff=False):
+    """Interior: S(x masked to 0 on pinned nodes); pinned: diag * x (raw).
+    ``diff=True``: sum_{d != 0} s_d (xm_d - xm_c), the zero-row-sum
+    difference form."""
+    pinned = pinned_mask(x.shape, x.device)
+    a = torch.where(pinned, 0.0, x)
+    s = apply_stencil_diff(a, stencil) if diff else apply_stencil(a, stencil)
+    return torch.where(pinned, diag * x, s)
+
+
+def constrained_stencil_apply(x: torch.Tensor, stencil, diag: float,
+                              diff: bool = False) -> torch.Tensor:
+    """The constrained operator of the implicit solves (the CG matvec).
+
+    Replaces tpuwave's ``constrained_stencil_apply_pallas``: same algebra
+    on the true (H, W) grid."""
+    _check("constrained_stencil_apply", x)
+    if x.device.type == "cpu":
+        return constrained_stencil_apply_reference(x, stencil, diag, diff)
+    out = torch.empty_like(x)
+    h, w = x.shape
+    with torch.cuda.device(x.device):
+        rc = _lib().tw_constrained_apply(
+            _DTYPES[x.dtype], _ptr(x), _ptr(out), h, w,
+            _stencil_arg(stencil), float(diag), int(bool(diff)), _stream(x))
+    _raise_on(rc, "constrained_stencil_apply")
+    LAUNCHES["constrained_stencil_apply"] += 1
+    return out
+
+
+# -- B1: one leapfrog step ---------------------------------------------------
+def leapfrog_step_reference(u, u_prev, stencil, coef):
+    """u' = 2u - u_prev - coef * S(u), pinned nodes set to 0."""
+    un = 2.0 * u - u_prev - coef * apply_stencil(u, stencil)
+    return torch.where(pinned_mask(u.shape, u.device), 0.0, un)
+
+
+def leapfrog_step(u: torch.Tensor, u_prev: torch.Tensor, stencil,
+                  coef: float) -> torch.Tensor:
+    """One lumped leapfrog step (replaces ``leapfrog_step_pallas``);
+    ``coef`` = dt^2 / detJ."""
+    _check("leapfrog_step", u, u_prev)
+    if u.device.type == "cpu":
+        return leapfrog_step_reference(u, u_prev, stencil, coef)
+    out = torch.empty_like(u)
+    h, w = u.shape
+    with torch.cuda.device(u.device):
+        rc = _lib().tw_leapfrog_step(
+            _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(out), h, w,
+            _stencil_arg(stencil), float(coef), _stream(u))
+    _raise_on(rc, "leapfrog_step")
+    LAUNCHES["leapfrog_step"] += 1
+    return out
+
+
+# -- B2: n_steps leapfrog steps in one pass ----------------------------------
+def leapfrog_multistep_reference(u, u_prev, stencil, coef, n_steps: int,
+                                 row_offset: int = 0, n_rows=None):
+    """``n_steps`` leapfrog steps with the mask re-applied at every step.
+
+    Nodes outside the array start at 0 and are stepped too unless pinned
+    (what a row block of a taller grid sees at its edges): the grid is
+    extended by ``n_steps`` zero rows above and below, the domain of
+    dependence of ``n_steps`` steps, and sliced back. Columns 0 and W - 1
+    are pinned, so the column wrap of ``torch.roll`` reaches no stepped
+    node. Returns (u, u_prev) after the last step.
+    """
+    h, w = u.shape
+    k = int(n_steps)
+    n_rows = h if n_rows is None else n_rows
+    pad = (0, 0, k, k)
+    cur = torch.nn.functional.pad(u, pad)
+    prev = torch.nn.functional.pad(u_prev, pad)
+    pinned = pinned_mask(cur.shape, u.device, row_offset=row_offset - k,
+                         n_rows=n_rows)
+    for _ in range(k):
+        nxt = 2.0 * cur - prev - coef * apply_stencil(cur, stencil)
+        prev, cur = cur, torch.where(pinned, 0.0, nxt)
+    return cur[k:k + h].contiguous(), prev[k:k + h].contiguous()
+
+
+def multistep_tile(n_steps: int, dtype: torch.dtype, max_smem: int) -> int:
+    """Largest tile side whose two (tile + 2 n_steps)^2 slabs fit
+    ``max_smem`` bytes of shared memory; raises when none does."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for tile in _TILES:
+        if 2 * (tile + 2 * n_steps) ** 2 * itemsize <= max_smem:
+            return tile
+    side = _TILES[-1] + 2 * n_steps
+    raise ValueError(
+        f"leapfrog_multistep: n_steps={n_steps} needs two {side}x{side} "
+        f"{dtype} slabs ({2 * side * side * itemsize} B) of shared memory "
+        f"even at the smallest tile; the card allows {max_smem} B")
+
+
+def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
+                       coef: float, n_steps: int, row_offset: int = 0,
+                       n_rows=None):
+    """``n_steps`` fused leapfrog steps in one kernel pass (replaces
+    ``leapfrog_multistep_pallas``). Returns (u, u_prev).
+
+    ``row_offset``: global row of the tensor's row 0, for a row block of a
+    taller grid whose height is ``n_rows`` (default: the tensor's own)."""
+    _check("leapfrog_multistep", u, u_prev)
+    if int(n_steps) < 1:
+        raise ValueError("n_steps must be >= 1")
+    if u.device.type == "cpu":
+        return leapfrog_multistep_reference(u, u_prev, stencil, coef,
+                                            n_steps, row_offset, n_rows)
+    lib = _lib()
+    max_smem = lib.tw_max_dynamic_smem(u.device.index)
+    if max_smem <= 0:
+        raise RuntimeError("leapfrog_multistep: cannot read the card's "
+                           "shared-memory limit")
+    tile = multistep_tile(int(n_steps), u.dtype, max_smem)
+    h, w = u.shape
+    out_u = torch.empty_like(u)
+    out_up = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        rc = lib.tw_leapfrog_multistep(
+            _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(out_u),
+            _ptr(out_up), h, w, _stencil_arg(stencil), float(coef),
+            int(n_steps), tile, int(row_offset),
+            int(h if n_rows is None else n_rows), _stream(u))
+    _raise_on(rc, "leapfrog_multistep")
+    LAUNCHES["leapfrog_multistep"] += 1
+    return out_u, out_up

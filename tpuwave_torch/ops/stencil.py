@@ -1,0 +1,159 @@
+"""Grid-stencil operators: the P1 structured-mesh fast path (constant c).
+
+On the structured triangulated rectangle, P1 DoFs ARE the vertex grid
+(ny+1, nx+1), and for constant wave speed both M and K reduce to CONSTANT
+7-point stencils (the diagonal split couples (+1,+1) and (-1,-1) but not
+the anti-diagonal). ``s[1 + dj][1 + di]`` couples node (r, c) to node
+(r + dj, c + di): rows are y, columns are x.
+
+Boundary-row caveat: the shifted adds wrap cyclically (``torch.roll``
+semantics), so ONLY interior rows of the result are exact. Every solver use
+masks boundary rows anyway (Dirichlet elimination overrides them).
+
+These are the plain PyTorch forms; the CUDA kernels of ``ops/kernels.py``
+are held against them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tpuwave_torch.core.mesh import FeSpace
+
+__all__ = [
+    "class_matrices_to_stencil",
+    "apply_stencil",
+    "apply_stencil_diff",
+    "lumped_mass_grid",
+    "boundary_mask_grid",
+    "GridStencilOperator",
+    "P1_CLASS_CORNERS",
+]
+
+# local DoF -> (di, dj) grid offset from the cell anchor v00, per class
+_P1_OFFSETS = (
+    ((0, 0), (1, 0), (1, 1)),  # lower triangle (v00, v10, v11)
+    ((0, 0), (1, 1), (0, 1)),  # upper triangle (v00, v11, v01)
+)
+
+#: corner offsets (x, y) of the two triangle classes per structured grid
+#: cell (core/mesh.py::cells: lower (v00, v10, v11), upper (v00, v11, v01))
+P1_CLASS_CORNERS = (((0, 0), (1, 0), (1, 1)), ((0, 0), (1, 1), (0, 1)))
+
+
+def class_matrices_to_stencil(a_class: np.ndarray) -> np.ndarray:
+    """(2, 3, 3) per-class element matrices -> (3, 3) stencil coefficients.
+
+    Output s[1 + dj, 1 + di] is the coupling of an INTERIOR node to its
+    neighbour at grid offset (di, dj): the sum of A[i, j] over the six
+    incident triangles where local i sits on the node and local j on the
+    neighbour.
+    """
+    a = np.asarray(a_class)
+    s = np.zeros((3, 3))
+    for k in range(2):
+        offs = _P1_OFFSETS[k]
+        for i in range(3):
+            for j in range(3):
+                di = offs[j][0] - offs[i][0]
+                dj = offs[j][1] - offs[i][1]
+                s[1 + dj, 1 + di] += a[k, i, j]
+    return s
+
+
+def apply_stencil(u: torch.Tensor, s) -> torch.Tensor:
+    """y[n] = sum_d s[d] * u[n + d] with cyclic wrap (rows: y, cols: x).
+
+    Exact for interior nodes; boundary rows carry wrapped garbage that the
+    callers mask. Summation order is tpuwave's (centre, then dj, di in
+    -1, 0, 1 order), so f64 results agree to the last bits.
+    """
+    out = s[1][1] * u
+    # dim 0 = y (dj), dim 1 = x (di); u[n + d] = roll(u, -d)
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            if (di, dj) == (0, 0):
+                continue
+            c = s[1 + dj][1 + di]
+            if c == 0.0:
+                continue
+            out = out + c * torch.roll(u, shifts=(-dj, -di), dims=(0, 1))
+    return out
+
+
+def apply_stencil_diff(u: torch.Tensor, s) -> torch.Tensor:
+    """Zero-row-sum stencil in DIFFERENCE form:
+    y[n] = sum_{d != 0} s[d] * (u[n + d] - u[n]).
+
+    Algebraically equal to apply_stencil when the stencil rows sum to
+    zero (every stiffness stencil: K * const = 0), and numerically quieter
+    in f32: each neighbour difference rounds at eps * |u[n+d] - u[n]|
+    instead of eps * |u|. Same wrap caveat as apply_stencil.
+    """
+    out = None
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            if (di, dj) == (0, 0):
+                continue
+            c = s[1 + dj][1 + di]
+            if c == 0.0:
+                continue
+            shifted = torch.roll(u, shifts=(-dj, -di), dims=(0, 1))
+            t = c * (shifted - u)
+            out = t if out is None else out + t
+    return out if out is not None else torch.zeros_like(u)
+
+
+def lumped_mass_grid(space: FeSpace) -> np.ndarray:
+    """(ny+1, nx+1) row-sum lumped mass, exact INCLUDING boundary rows.
+
+    Each triangle contributes |T|/3 = detJ/6 to each of its vertices, so
+    the lumped value is detJ/6 x (#incident triangles): 6 in the interior,
+    3 on edges, and 1 or 2 at corners depending on the diagonal direction.
+    """
+    m = space.mesh
+    nx, ny = m.nx, m.ny
+    base = m.det_j / 6.0
+    plane = np.full((ny + 1, nx + 1), 6.0)
+    plane[0, :] = plane[-1, :] = 3.0
+    plane[:, 0] = plane[:, -1] = 3.0
+    plane[0, 0] = plane[-1, -1] = 2.0   # corners on the diagonal
+    plane[0, -1] = plane[-1, 0] = 1.0   # corners off the diagonal
+    return base * plane
+
+
+def boundary_mask_grid(space: FeSpace) -> np.ndarray:
+    """(ny+1, nx+1) boolean Dirichlet mask."""
+    m = space.mesh
+    mask = np.zeros((m.ny + 1, m.nx + 1), dtype=bool)
+    mask[0, :] = mask[-1, :] = True
+    mask[:, 0] = mask[:, -1] = True
+    return mask
+
+
+class GridStencilOperator:
+    """Constant-stencil operator acting on (ny+1, nx+1) grid tensors.
+
+    ``diag`` is the interior diagonal broadcast everywhere — boundary rows
+    are only ever used through Dirichlet elimination, where any nonzero
+    diagonal yields x_b = g_b exactly.
+    """
+
+    def __init__(self, stencil: np.ndarray, shape: Tuple[int, int],
+                 dtype: torch.dtype, device: torch.device):
+        self.stencil = tuple(tuple(float(c) for c in row)
+                             for row in np.asarray(stencil))
+        self.shape = shape
+        self.dtype = dtype
+        self.device = device
+
+    def __call__(self, u):
+        return apply_stencil(u, self.stencil)
+
+    def axpy(self, coef: float,
+             other: "GridStencilOperator") -> "GridStencilOperator":
+        s = np.asarray(self.stencil) + coef * np.asarray(other.stencil)
+        return GridStencilOperator(s, self.shape, self.dtype, self.device)
