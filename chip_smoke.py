@@ -7,24 +7,40 @@ CUDA toolkit's nvcc:
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from tpuwave_torch/csrc, checks
-each against its plain PyTorch version, then drives the port's main path
-through the entry points a user calls: the explicit leapfrog of
-FastWaveSolver at bench.py's configuration (4096^2 elements, f32) and both
-CLIs on the reference's scalability configuration (standing mode, 640^2
-elements, dt 8e-5). Phases:
+each against its plain PyTorch version, then drives the port's two main
+paths through the entry points a user calls. Path A: the explicit leapfrog
+of FastWaveSolver at bench.py's configuration (4096^2 elements, f32) and
+both CLIs on the reference's scalability configuration (standing mode,
+640^2 elements, dt 8e-5). Path B: the implicit solver family of the CLIs
+(--solver 2term|cheby, --precond mg|auto|chebyshev), up to the 2-term
+MG run at 2048^2 elements. Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
-  2. build the kernels, print the build time and nvcc's register report
-  3. each kernel against its plain version at the main path's shapes
+  2. build the kernels (one nvcc per source, in parallel), print the build
+     time and nvcc's register report
+  3. each kernel against its plain version at the main paths' shapes, with
+     its time, its bound (the least time the card could take: bytes over
+     3.35 TB/s or operations over the dtype's peak) and the share reached
   4. the leapfrog: 320 steps through kernel B1 and through kernel B2
      (k = 32), each against the plain loop; DoF*steps/s
   5. both CLIs (newmark beta 1/4, theta 1/2), 50 steps on --device cuda and
      on --device cpu: CSVs and per-step CG counts must agree
   6. the full-length newmark run (T = 0.05) on cuda: wall time, and its
      final relative L2 error against tpuwave's value for the same run
+  7. the solver family, 20 steps at 640^2 on --device cuda and on --device
+     cpu: CSVs and per-step counts must agree, and the cuda runs must
+     launch B3, B4 and (2-term) B5
+  8. newmark beta 1/4 --solver 2term --precond mg at 2048^2 elements
+     (4.2 M DoF), dt 4e-3, T 0.2 on cuda: wall time, DoF*steps/s, CG
+     iterations, and the final relative L2 error against tpuwave's
+  9. where the time of path B goes (torch.profiler): launches and device
+     time of one V-cycle at 2049^2, and the device's idle share over a
+     2-term MG CLI run
 
-Any failed check raises and the exit code is non-zero. The line before the
-last is ``{"kernels": [...]}``; the last line is
+Counts of kernel launches are set to 0 before each path and read after
+it; every kernel of a path must have launched. Any failed check raises and
+the exit code is non-zero. The line before the last is
+``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -59,12 +75,44 @@ ROOT = Path(__file__).resolve().parent
 #:       RunConfig(quiet=True, write_mesh=False)).rel_l2))"
 TPUWAVE_REL_L2 = 5.078370338852986e-06
 
-KERNEL_SOURCE = "tpuwave_torch/csrc/stencil_kernels.cu"
+#: tpuwave's final relative L2 error for the phase-8 run (standing-mode-wsol
+#: with Nel 2048, Dt 4e-3, T 0.2, Beta 0.25, Gamma 0.5, Save Solution and
+#: Enable Logging false; f64; 50 steps; --solver 2term --precond mg, 96 CG
+#: iterations), computed on the CPU with the JAX package, those overrides
+#: written into standing-mode-wsol.json:
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64();
+#:     from tpuwave.models.fast_engine import make_fast_solver;
+#:     from tpuwave.models.runner import RunConfig, run_solver;
+#:     from tpuwave.utils.params import load_params;
+#:     p = load_params('standing-mode-wsol.json');
+#:     print(repr(run_solver(make_fast_solver(p, 'newmark', solver='2term',
+#:       precond='mg'), 'newmark-standing-mode-wsol',
+#:       RunConfig(quiet=True, write_mesh=False)).rel_l2))"
+TPUWAVE_REL_L2_2TERM_2048 = 2.807588013360131e-05
+
+SOURCES = {
+    "constrained_stencil_apply": "tpuwave_torch/csrc/stencil_kernels.cu",
+    "leapfrog_step": "tpuwave_torch/csrc/stencil_kernels.cu",
+    "leapfrog_multistep": "tpuwave_torch/csrc/stencil_kernels.cu",
+    "cheby_block": "tpuwave_torch/csrc/solver_kernels.cu",
+    "recurrence_r0": "tpuwave_torch/csrc/solver_kernels.cu",
+}
 REPLACES = {
     "constrained_stencil_apply": "tpuwave/ops/pallas_kernels.py:1081",
     "leapfrog_step": "tpuwave/ops/pallas_kernels.py:1230",
     "leapfrog_multistep": "tpuwave/ops/pallas_kernels.py:1136",
+    "cheby_block": "tpuwave/ops/pallas_kernels.py:1013",
+    "recurrence_r0": "tpuwave/ops/pallas_kernels.py:605",
 }
+#: the kernels of each main path
+PATH_A = ("leapfrog_step", "leapfrog_multistep", "constrained_stencil_apply")
+PATH_B = ("constrained_stencil_apply", "cheby_block", "recurrence_r0")
+
+#: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
+#: memory, and the peak without tensor cores per dtype
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def say(*args):
@@ -107,6 +155,29 @@ def f32_bound(scale: float, n_steps: int = 1) -> float:
     return 22 * max(1.0, n_steps * n_steps / 2) * 1.1920929e-07 * scale
 
 
+def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over
+    the memory rate and its operations over the dtype's peak. Returns
+    (ms, "bytes" | "operations")."""
+    t_mem = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / PEAK_FLOPS[str(dtype)[6:]]
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations")
+
+
+def row(err, ms, pms, n_bytes, n_flops, dtype) -> dict:
+    """One measured kernel row, with its bound and the share reached."""
+    b_ms, by = bound_ms(n_bytes, n_flops, dtype)
+    return dict(err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
+
+
+def timing(r) -> str:
+    return (f"kernel={r['ms'] * 1e3:.1f}us plain={r['plain_ms'] * 1e3:.1f}us "
+            f"bound={r['bound_ms'] * 1e3:.1f}us ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound) ")
+
+
 def check(name: str, got, want, bound: float, extra: str = "") -> float:
     err = float((got.double() - want.double()).abs().max())
     ref = float(want.double().abs().max())
@@ -125,8 +196,10 @@ def check(name: str, got, want, bound: float, extra: str = "") -> float:
 # ---------------------------------------------------------------------------
 def phase_kernels(torch, dev, kn) -> dict:
     """Check and time each kernel; returns, per kernel, the numbers of its
-    main-path shape (max abs error, kernel and plain ms)."""
+    main-path shape (max abs error, kernel and plain ms, bound)."""
     from tpuwave_torch.models.fast import FastWaveSolver
+    from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
+                                                stencil_symbol_bounds)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -135,8 +208,9 @@ def phase_kernels(torch, dev, kn) -> dict:
         return (2 * torch.rand(shape, generator=gen, device=dev,
                                dtype=torch.float64) - 1).to(dtype)
 
-    # the stencils the main path uses: the CLI's Newmark system at 640^2,
-    # the stiffness stencil of bench.py's leapfrog at 4096^2
+    # the stencils the main paths use: the CLI's Newmark system at 640^2,
+    # the stiffness stencil of bench.py's leapfrog at 4096^2, the Newmark
+    # system of phase 8 (2048^2, dt 4e-3) and its stiffness
     cli = FastWaveSolver((640, 640), ((0.0, 0.0), (1.0, 1.0)), 8e-5,
                          beta=0.25, lumped=False, dtype=torch.float64,
                          device=dev)
@@ -144,16 +218,22 @@ def phase_kernels(torch, dev, kn) -> dict:
     lf = FastWaveSolver((4096, 4096), ((0.0, 0.0), (1.0, 1.0)), 8e-5,
                         beta=0.0, dtype=torch.float32, device=dev)
     stiff, coef = lf.stiff.stencil, lf.dt * lf.dt / lf.mesh.det_j
+    big = FastWaveSolver((2048, 2048), ((0.0, 0.0), (1.0, 1.0)), 4e-3,
+                         beta=0.25, lumped=False, dtype=torch.float64,
+                         device=dev)
     ssum = lambda st: sum(abs(c) for row in st for c in row)  # noqa: E731
 
     say("phase 3: kernels against their plain PyTorch versions "
-        "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound)")
+        "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
+        "operations counted per node: B1 21, B2 21 per step, B3 17 "
+        "(23 diff), B4 22 per degree, B5 33")
     rows, results = {}, {}
 
     # B3 constrained_stencil_apply
     for shape, dtype, n_k, n_p in (((641, 641), torch.float64, 200, 50),
                                    ((4097, 4097), torch.float32, 50, 10)):
         x = rnd(shape, dtype)
+        n = x.numel() * x.element_size()
         for diff in (False, True):
             st = stiff_640 if diff else sys_st
             diag = st[1][1]
@@ -168,11 +248,12 @@ def phase_kernels(torch, dev, kn) -> dict:
                 x, st, diag, diff), n_p)
             tag = (f"B3 constrained_apply {shape[0]}^2 "
                    f"{str(dtype)[6:]} diff={diff}")
-            err = check(tag, got, want, bound,
-                        f"kernel={ms * 1e3:.1f}us plain={pms * 1e3:.1f}us ")
-            rows[tag] = dict(err=err, ms=ms, plain_ms=pms)
-    main = rows["B3 constrained_apply 641^2 float64 diff=False"]
-    results["constrained_stencil_apply"] = main
+            r = row(0.0, ms, pms, 2 * n, (23 if diff else 17) * x.numel(),
+                    dtype)
+            r["err"] = check(tag, got, want, bound, timing(r))
+            rows[tag] = r
+    results["constrained_stencil_apply"] = rows[
+        "B3 constrained_apply 641^2 float64 diff=False"]
 
     # B1 leapfrog_step
     for dtype in (torch.float32, torch.float64):
@@ -186,9 +267,10 @@ def phase_kernels(torch, dev, kn) -> dict:
         pms = cuda_ms(lambda: kn.leapfrog_step_reference(u, up, stiff,
                                                          coef), 10)
         tag = f"B1 leapfrog_step 4097^2 {str(dtype)[6:]}"
-        err = check(tag, got, want, bound,
-                    f"kernel={ms * 1e3:.1f}us plain={pms * 1e3:.1f}us ")
-        rows[tag] = dict(err=err, ms=ms, plain_ms=pms)
+        r = row(0.0, ms, pms, 3 * u.numel() * u.element_size(),
+                21 * u.numel(), dtype)
+        r["err"] = check(tag, got, want, bound, timing(r))
+        rows[tag] = r
     results["leapfrog_step"] = rows["B1 leapfrog_step 4097^2 float32"]
 
     # B2 leapfrog_multistep
@@ -205,13 +287,90 @@ def phase_kernels(torch, dev, kn) -> dict:
         pms = cuda_ms(lambda: kn.leapfrog_multistep_reference(
             u, up, stiff, coef, k), 3, warm=1)
         tag = f"B2 leapfrog_multistep k={k} 4097^2 float32"
+        r = row(0.0, ms, pms, 4 * u.numel() * 4, 21 * k * u.numel(),
+                torch.float32)
         e1 = check(tag + " u", got[0], want[0], bound)
         e2 = check(tag + " u_prev", got[1], want[1], bound,
-                   f"kernel={ms * 1e3:.1f}us ({ms * 1e3 / k:.1f}us/step) "
-                   f"plain={pms * 1e3:.1f}us ")
-        rows[tag] = dict(err=max(e1, e2), ms=ms, plain_ms=pms)
+                   f"({ms * 1e3 / k:.1f}us/step) " + timing(r))
+        r["err"] = max(e1, e2)
+        rows[tag] = r
     results["leapfrog_multistep"] = rows[
         "B2 leapfrog_multistep k=32 4097^2 float32"]
+
+    # B4 cheby_block: the MG fine-level smoother (degree 2) and the
+    # --solver cheby block (degree 8) on phase 8's system, f64; degree 8
+    # in f32 at bench.py's size
+    sys_2048 = big.system.stencil
+    for size, dtype, degree, n_k in ((2049, torch.float64, 2, 20),
+                                     (2049, torch.float64, 8, 10),
+                                     (4097, torch.float32, 8, 10)):
+        lo, hi = stencil_symbol_bounds(sys_2048)
+        theta, coeffs = chebyshev_coefficients(lo, hi, degree)
+        x, r = rnd((size, size), dtype), rnd((size, size), dtype)
+        got = kn.cheby_block(x, r, sys_2048, theta, coeffs)
+        want = kn.cheby_block_reference(x, r, sys_2048, theta, coeffs)
+        ms = cuda_ms(lambda: kn.cheby_block(x, r, sys_2048, theta, coeffs),
+                     n_k)
+        pms = cuda_ms(lambda: kn.cheby_block_reference(
+            x, r, sys_2048, theta, coeffs), 3, warm=1)
+        tag = f"B4 cheby_block degree {degree} {size}^2 {str(dtype)[6:]}"
+        rw = row(0.0, ms, pms, 4 * x.numel() * x.element_size(),
+                 22 * degree * x.numel(), dtype)
+        errs = []
+        for name, g, w in (("x", got[0], want[0]), ("r", got[1], want[1])):
+            peak = float(w.abs().max())
+            # each step sums ~22 rounded terms of magnitude <= (1 +
+            # ssum / theta) * peak; the restarted block is a fixed
+            # polynomial of degree `degree`
+            bound = (1e-12 * peak if dtype == torch.float64 else
+                     f32_bound((1 + ssum(sys_2048) / theta) * peak, degree))
+            errs.append(check(f"{tag} {name}", g, w, bound,
+                              timing(rw) if name == "r" else ""))
+        # the in-kernel reduction against a dot product of the kernel's r
+        rr_dot = float(torch.dot(got[1].reshape(-1), got[1].reshape(-1)))
+        rel = 1e-12 if dtype == torch.float64 else 1e-5
+        check(f"{tag} rr", got[2].reshape(1), torch.tensor(
+            [rr_dot], device=dev, dtype=torch.float64), rel * rr_dot)
+        rw["err"] = max(errs)
+        rows[tag] = rw
+    results["cheby_block"] = rows["B4 cheby_block degree 2 2049^2 float64"]
+
+    # B5 recurrence_r0: phase 8's -dt^2 K stencil, Newmark gamma 1/2
+    dt = 4e-3
+    kneg = tuple(tuple(-dt * dt * c for c in row)
+                 for row in big.stiff.stencil)
+    for size, dtype, mask_combo in ((2049, torch.float64, False),
+                                    (2049, torch.float64, True),
+                                    (4097, torch.float32, False)):
+        u, up = rnd((size, size), dtype), rnd((size, size), dtype)
+        got = kn.recurrence_r0(u, up, kneg, 1.0, 0.0, mask_combo)
+        want = kn.recurrence_r0_reference(u, up, kneg, 1.0, 0.0,
+                                          mask_combo)
+        ms = cuda_ms(lambda: kn.recurrence_r0(u, up, kneg, 1.0, 0.0,
+                                              mask_combo), 50)
+        pms = cuda_ms(lambda: kn.recurrence_r0_reference(
+            u, up, kneg, 1.0, 0.0, mask_combo), 5, warm=1)
+        tag = (f"B5 recurrence_r0 {size}^2 {str(dtype)[6:]} "
+               f"mask_combo={mask_combo}")
+        rw = row(0.0, ms, pms, 4 * u.numel() * u.element_size(),
+                 33 * u.numel(), dtype)
+        errs = []
+        for name, g, w, sc in (("r0", got[0], want[0], 2 * ssum(kneg)),
+                               ("x0", got[1], want[1], 3.0)):
+            bound = (1e-12 * float(w.abs().max())
+                     if dtype == torch.float64 else f32_bound(sc))
+            errs.append(check(f"{tag} {name}", g, w, bound,
+                              timing(rw) if name == "x0" else ""))
+        rel = 1e-12 if dtype == torch.float64 else 1e-5
+        for name, nrm, v in (("rr0", got[2], got[0]), ("xx0", got[3],
+                                                       got[1])):
+            dot = float(torch.dot(v.reshape(-1), v.reshape(-1)))
+            check(f"{tag} {name}", nrm.reshape(1), torch.tensor(
+                [dot], device=dev, dtype=torch.float64), rel * dot)
+        rw["err"] = max(errs)
+        rows[tag] = rw
+    results["recurrence_r0"] = rows[
+        "B5 recurrence_r0 2049^2 float64 mask_combo=False"]
     return results
 
 
@@ -273,11 +432,12 @@ def _case(work: Path, **over) -> Path:
     return path
 
 
-def _cli(family: str, case: Path, out: Path, device: str, quiet=True):
+def _cli(family: str, case: Path, out: Path, device: str, quiet=True,
+         flags=()):
     import importlib
     mod = importlib.import_module(f"tpuwave_torch.cli.{family}")
     argv = [str(case), "--device", device, "--results-root",
-            str(out / "res"), "--mesh-root", str(out / "mesh")]
+            str(out / "res"), "--mesh-root", str(out / "mesh"), *flags]
     if quiet:
         argv.append("--quiet")
     buf = io.StringIO()
@@ -372,6 +532,175 @@ def phase_cli(torch, kn, work: Path):
         raise AssertionError("final rel L2 differs from tpuwave's")
 
 
+# ---------------------------------------------------------------------------
+# phases 7 to 9: path B, the implicit solver family
+# ---------------------------------------------------------------------------
+SOLVER_RUNS = (
+    # family, flags, overrides (standing mode, 640^2, 20 steps, f64)
+    ("newmark", ("--solver", "2term", "--precond", "mg"),
+     {"Beta": "0.25", "Dt": "1e-2"}),
+    ("theta", ("--precond", "auto"), {"Theta": "0.5", "Dt": "1e-2"}),
+    ("newmark", ("--solver", "cheby"), {"Beta": "0.25", "Dt": "8e-5"}),
+    ("theta", ("--precond", "chebyshev"), {"Theta": "0.5", "Dt": "8e-5"}),
+)
+
+
+def phase_solvers(torch, kn, work: Path):
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.utils.params import load_params
+
+    say("phase 7: the solver family, standing mode, 640^2 elements, 20 "
+        "steps, f64, Log Every 1: --device cuda against --device cpu "
+        "(q = beta dt^2 / h^2 = 10.2 at dt 1e-2)")
+    for family, flags, over in SOLVER_RUNS:
+        case = _case(work, T=str(20 * float(over["Dt"])),
+                     **{"Log Every": "1"}, **over)
+        if "auto" in flags:
+            resolved = make_fast_solver(load_params(str(case)), family,
+                                        precond="auto",
+                                        device="cpu").precond
+            say(f"  {family} --precond auto resolves to {resolved}")
+            if resolved != "mg":
+                raise AssertionError("--precond auto did not resolve to mg")
+        tag = f"{family} {' '.join(flags)}"
+        out = work / "solvers" / tag.replace(" ", "_")
+        before = dict(kn.LAUNCHES)
+        w_cuda, _ = _cli(family, case, out / "cuda", "cuda", flags=flags)
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_B}
+        w_cpu, _ = _cli(family, case, out / "cpu", "cpu", flags=flags)
+        rows = _compare_csvs(out / "cuda" / "res", out / "cpu" / "res")
+        say(f"  {tag:<36} cuda {w_cuda:6.2f} s  cpu {w_cpu:6.2f} s  "
+            f"{rows} CSV rows agree  launches {n}")
+        # B4 smooths the MG fine level and runs the cheby solver's blocks;
+        # the Chebyshev preconditioner is B3 applies
+        need = ["constrained_stencil_apply"]
+        if "chebyshev" not in flags:
+            need.append("cheby_block")
+        if "2term" in flags:
+            need.append("recurrence_r0")
+        for k in need:
+            if n[k] <= 0:
+                raise AssertionError(f"{tag}: the cuda run launched no {k}")
+
+
+def phase_2term_2048(torch, kn, work: Path):
+    say("phase 8: newmark beta 1/4 --solver 2term --precond mg, standing "
+        "mode, 2048^2 elements (4.2 M DoF), dt 4e-3 (q = 16.8), T 0.2, "
+        "f64, logging off, on cuda")
+    case = _case(work, Nel="2048", Dt="4e-3", T="0.2", Beta="0.25",
+                 Gamma="0.5", **{"Enable Logging": "false"})
+    out = work / "full2048"
+    wall, text = _cli("newmark", case, out, "cuda", quiet=False,
+                      flags=("--solver", "2term", "--precond", "mg"))
+    conv = list(csv.DictReader(
+        (out / "res" / "newmark-standing-mode-wsol" /
+         "convergence.csv").open()))[-1]
+    rel_l2 = float(conv["rel_L2_error_final"])
+    elapsed = float(conv["elapsed_time_s"])
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("Simulation completed", "Total CG"))]
+    for ln in lines:
+        say(f"  {ln}")
+    n_steps = int(lines[0].split(":")[1].split()[0])
+    dofs = 2049 * 2049
+    say(f"  CLI wall {wall:.2f} s (time loop {elapsed:.3f} s, "
+        f"{elapsed / n_steps * 1e3:.2f} ms/step, "
+        f"{dofs * n_steps / elapsed:.4e} DoF*steps/s)")
+    want = TPUWAVE_REL_L2_2TERM_2048
+    rel = abs(rel_l2 - want) / want
+    say(f"  final rel L2 {rel_l2:.10e}, tpuwave {want:.10e}, rel diff "
+        f"{rel:.2e} (bound 1e-6) {'ok' if rel <= 1e-6 else 'FAIL'}")
+    if rel > 1e-6:
+        raise AssertionError("final rel L2 differs from tpuwave's")
+
+
+def _device_events(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _device_time(prof):
+    """(device events: kernels and copies, device-busy ms) of a profiler
+    window, or None when the profiler saw no device activity."""
+    events = _device_events(prof)
+    n = sum(e.count for e in events)
+    us = sum(e.self_device_time_total for e in events)
+    return (n, us / 1e3) if n else None
+
+
+def phase_profile(torch, kn, work: Path):
+    """Where path B's time goes: one V-cycle at 2049^2 and one 2-term
+    MG CLI run at 640^2, each under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.utils.params import load_params
+
+    say("phase 9: torch.profiler over path B")
+    case = _case(work, Nel="2048", Dt="4e-3", T="0.2", Beta="0.25",
+                 **{"Enable Logging": "false"})
+    solver = make_fast_solver(load_params(str(case)), "newmark",
+                              solver="2term", precond="mg", device="cuda")
+    prec = solver._prec_sys
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    b = torch.rand(prec.levels[0].shape, generator=gen, device="cuda",
+                   dtype=torch.float64)
+    b = torch.where(~kn.pinned_mask(b.shape, b.device), b, 0.0)
+    prec(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        prec(b)
+    torch.cuda.synchronize()
+    host_plain = (time.perf_counter() - t0) / 10
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prec(b)
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    dev_t = _device_time(prof)
+    if dev_t is None:
+        say("  profiler saw no device time: not measured")
+        return
+    say(f"  one V-cycle, {len(prec.levels)} levels, fine 2049^2 f64: "
+        f"{dev_t[0]} device events, device busy {dev_t[1]:.3f} ms; wall "
+        f"{host_plain * 1e3:.3f} ms (mean of 10, host clock), "
+        f"{host * 1e3:.3f} ms under the profiler")
+    case = _case(work, T=str(20 * 1e-2), Dt="1e-2", Beta="0.25",
+                 **{"Enable Logging": "false"})
+    with profile(activities=acts) as prof:
+        wall, text = _cli("newmark", case, work / "prof", "cuda",
+                          quiet=False, flags=("--solver", "2term",
+                                              "--precond", "mg"))
+        torch.cuda.synchronize()
+    dev_t = _device_time(prof)
+    its = [ln for ln in text.splitlines() if ln.startswith("Total CG")]
+    say(f"  2-term MG CLI run, 640^2, 20 steps (logging off): wall "
+        f"{wall:.3f} s, {dev_t[0]} device events, device busy "
+        f"{dev_t[1]:.1f} ms, idle share {1 - dev_t[1] / 1e3 / wall:.3f} "
+        f"(under the profiler); {its[0] if its else ''}")
+    top = sorted(_device_events(prof),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        say(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
+            f"{e.key[:70]}")
+
+
+def _run_path(kn, name, kernels, fn) -> dict:
+    """Drive one main path with the launch counts at 0; every kernel of
+    the path must have launched."""
+    kn.reset_launches()
+    fn()
+    launches = {k: kn.LAUNCHES[k] for k in kernels}
+    say(f"path {name} launches: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by path "
+                                 f"{name}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -404,25 +733,35 @@ def main() -> int:
 
     results = phase_kernels(torch, dev, kn)
 
-    # the main path: counts start at 0 here and are read after phase 6
-    kn.reset_launches()
-    phase_leapfrog(torch, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        phase_cli(torch, kn, Path(tmp))
-    launches = dict(kn.LAUNCHES)
-    say(f"main-path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "main path")
+        work = Path(tmp)
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
-                    max_abs_err=results[name]["err"],
-                    ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"])
-               for name in ("leapfrog_step", "leapfrog_multistep",
-                            "constrained_stencil_apply")]
+        def path_a():
+            phase_leapfrog(torch, dev)
+            phase_cli(torch, kn, work)
+
+        def path_b():
+            phase_solvers(torch, kn, work)
+            phase_2term_2048(torch, kn, work)
+
+        launches_a = _run_path(kn, "A", PATH_A, path_a)
+        launches_b = _run_path(kn, "B", PATH_B, path_b)
+        phase_profile(torch, kn, work)
+
+    kernels = []
+    for name in ("leapfrog_step", "leapfrog_multistep",
+                 "constrained_stencil_apply", "cheby_block",
+                 "recurrence_r0"):
+        r = results[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name],
+            launches=launches_a.get(name, 0) + launches_b.get(name, 0),
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            # no single PyTorch call computes any of these (F.conv2d
+            # gives only the unmasked stencil term)
+            library_ms=None))
     say(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

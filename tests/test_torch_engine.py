@@ -8,7 +8,8 @@
 * Both CLIs, in-process, on two presets shrunk to Nel 16, T 0.1: equal
   exit codes, the same file set, CSVs equal within rtol 1e-10 (the
   convergence.csv wall-clock column aside) and identical iterations.csv.
-* Flags whose paths are not ported exit 1 with a one-line message.
+* Flags whose paths are not ported exit 1 with a one-line message (the
+  solver flags only together with a problem that is not ported).
 """
 
 import csv
@@ -125,8 +126,10 @@ def test_engine_refuses_unported_configurations():
     with pytest.raises(NotImplementedError, match="A5"):
         tfe.make_fast_solver(tload(tdep), "theta", dtype=torch.float64,
                              device=CPU)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tfe.make_fast_solver(tload(_driven_case()), "theta", precond="mg",
+    # the solver flags are ported; at R = 2 they are refused with it (A9)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tfe.make_fast_solver(tload(_driven_case(R="2")), "theta",
+                             precond="mg", solver="2term",
                              dtype=torch.float64, device=CPU)
     with pytest.raises(NotImplementedError, match="A9"):
         tfe.make_fast_solver(tload(_driven_case(R="2")), "theta",
@@ -220,11 +223,13 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 
 @pytest.mark.parametrize("flag,item", [
     (["--engine", "parity"], "A10"),
-    (["--precond", "chebyshev"], "A6"),
-    (["--precond", "mg"], "A6"),
-    (["--precond", "auto"], "A6"),
-    (["--solver", "2term"], "A7"),
-    (["--solver", "cheby"], "A6"),
+    # the solver flags are ported: refused only with what is not (P2,
+    # varying or time-dependent C)
+    (["--precond", "chebyshev", "R=2"], "A9"),
+    (["--precond", "mg", "R=2"], "A9"),
+    (["--precond", "auto", "C=x"], "A5"),
+    (["--solver", "2term", "C=t"], "A5"),
+    (["--solver", "cheby", "R=2"], "A9"),
     (["--shard", "rows"], "A11"),
     (["--distributed"], "A11"),
     (["--unstructured-sharding", "cells"], "A11"),
@@ -235,9 +240,17 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     from tpuwave_torch.cli import theta
-    over = {"R": "2"} if flag == ["R=2"] else {}
+    problem = {"R=2": {"R": "2"},
+               "C=x": {"C": {"Function expression": "1 + 0.5*x",
+                             "Variable names": "x, y, t"}},
+               "C=t": {"Time Dependent C": "true",
+                       "C": {"Function expression": "1 + 0.1*t",
+                             "Variable names": "x, y, t"}}}
+    over = {}
+    for f in flag:
+        over.update(problem.get(f, {}))
     path = _write_case(tmp_path, "standing-mode-wsol", **over)
-    extra = [] if flag == ["R=2"] else flag
+    extra = [f for f in flag if f not in problem]
     rc = theta.main([str(path), "--device", "cpu", "--results-root",
                      str(tmp_path / "r"), "--mesh-root",
                      str(tmp_path / "m")] + extra)

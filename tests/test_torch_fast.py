@@ -23,7 +23,8 @@ RTOL = 1e-12
 
 def _pair(**kw):
     j = JSolver(NEL, GEOM, DT, beta=0.0, dtype=jnp.float64, **kw)
-    t = TSolver(NEL, GEOM, DT, beta=0.0, dtype=torch.float64, **kw)
+    t = TSolver(NEL, GEOM, DT, beta=0.0, dtype=torch.float64, device="cpu",
+                **kw)
     return j, t
 
 
@@ -141,7 +142,8 @@ def test_solve_abs_tol_equals_tpuwave(f32):
     jd, td = (jnp.float32, torch.float32) if f32 else (jnp.float64,
                                                       torch.float64)
     j = JSolver(NEL, GEOM, DT, beta=0.25, lumped=False, dtype=jd)
-    t = TSolver(NEL, GEOM, DT, beta=0.25, lumped=False, dtype=td)
+    t = TSolver(NEL, GEOM, DT, beta=0.25, lumped=False, dtype=td,
+                device="cpu")
     rng = np.random.default_rng(3)
     rhs, x0 = rng.standard_normal((2,) + j.shape)
     want = j._solve_abs_tol(jnp.asarray(rhs, jd), jnp.asarray(x0, jd),

@@ -1,5 +1,5 @@
-"""The port's stencil kernels (tpuwave_torch/ops/kernels.py) against the
-JAX Pallas kernels they replace (tpuwave/ops/pallas_kernels.py).
+"""The port's stencil and solver kernels (tpuwave_torch/ops/kernels.py)
+against the JAX Pallas kernels they replace (tpuwave/ops/pallas_kernels.py).
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the Pallas kernels in interpret mode, in f64, on a random
@@ -27,11 +27,14 @@ RTOL, ATOL = 1e-12, 1e-14
 
 def _stencils():
     s = FastWaveSolver((W - 1, H - 1), ((0.0, 0.0), (1.0, 1.2)), 1e-3,
-                       beta=0.0, dtype=torch.float64)
-    return s.stiff.stencil, s.mass.stencil
+                       beta=0.0, dtype=torch.float64, device="cpu")
+    # the Newmark system M + beta dt^2 K at a CFL-breaking dt (SPD)
+    system = tuple(tuple(m + 0.25 * 0.02 ** 2 * k for m, k in zip(mr, kr))
+                   for mr, kr in zip(s.mass.stencil, s.stiff.stencil))
+    return s.stiff.stencil, s.mass.stencil, system
 
 
-STIFF, MASS = _stencils()
+STIFF, MASS, SYSTEM = _stencils()
 RAND = tuple(tuple(float(c) for c in row) for row in
              np.random.default_rng(7).uniform(-1.0, 1.0, (3, 3)))
 
@@ -162,7 +165,97 @@ def test_cpu_tensors_never_count_launches():
     tk.constrained_stencil_apply(_t(x), STIFF, 1.0)
     tk.leapfrog_step(_t(x), _t(x), STIFF, 0.1)
     tk.leapfrog_multistep(_t(x), _t(x), STIFF, 0.1, 2)
+    tk.cheby_block(_t(x), _t(x), SYSTEM, *_cheby_schedule(2))
+    tk.recurrence_r0(_t(x), _t(x), STIFF, 1.1, -0.1)
     assert all(v == 0 for v in tk.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# B4 cheby_block and B5 recurrence_r0
+# ---------------------------------------------------------------------------
+def _cheby_schedule(degree):
+    from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
+                                                stencil_symbol_bounds)
+    lo, hi = stencil_symbol_bounds(SYSTEM)
+    theta, coeffs = chebyshev_coefficients(lo, hi, degree)
+    return theta, tuple(coeffs)
+
+
+@pytest.mark.parametrize("br", [8, 16])
+@pytest.mark.parametrize("which", ["system", "rand"])
+def test_cheby_block_matches_pallas(pk, br, which):
+    """Degree 6 on the ragged grid; r is random on pinned nodes too (both
+    sides mask it). rr is held against the f64 dot product of the result
+    and against the Pallas kernel's f32 sum."""
+    # "rand": an asymmetric stencil at the system's scale
+    st = SYSTEM if which == "system" else tuple(
+        tuple(0.25 * SYSTEM[1][1] * c for c in row) for row in RAND)
+    theta, coeffs = _cheby_schedule(6)
+    x, r = _fields(11)
+    wx, wr, wrr = pk.cheby_block_pallas(
+        _pad(x, br), _pad(r, br), stencil=st, theta=theta, coeffs=coeffs,
+        block_rows=br, true_rows=H, true_cols=W, interpret=True)
+    wx, wr = np.asarray(wx)[:H, :W], np.asarray(wr)[:H, :W]
+    gx, gr, grr = tk.cheby_block(_t(x), _t(r), st, theta, coeffs)
+    np.testing.assert_allclose(gx.numpy(), wx, rtol=1e-12, atol=1e-13)
+    np.testing.assert_allclose(gr.numpy(), wr, rtol=1e-12, atol=1e-13)
+    np.testing.assert_allclose(float(grr), float(np.vdot(wr, wr)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(float(grr), float(wrr[0, 0]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("br", [8, 16])
+@pytest.mark.parametrize("mask_combo", [True, False])
+def test_recurrence_r0_matches_pallas(pk, br, mask_combo):
+    """Asymmetric random u, u_prev (nonzero on pinned nodes, which
+    mask_combo=False lets the stencil read) with gamma = 0.6."""
+    dt, gamma = 0.01, 0.6
+    c_u, c_up = gamma + 0.5, 0.5 - gamma
+    kneg = tuple(tuple(-dt * dt * c for c in row) for row in STIFF)
+    u, up = _fields(12)
+    want = pk.recurrence_r0_pallas(
+        _pad(u, br), _pad(up, br), k_stencil=kneg, c_u=c_u, c_up=c_up,
+        block_rows=br, true_rows=H, true_cols=W, interpret=True,
+        mask_combo=mask_combo)
+    r0, x0, rr0, xx0 = tk.recurrence_r0(_t(u), _t(up), kneg, c_u, c_up,
+                                        mask_combo=mask_combo)
+    wr0, wx0 = np.asarray(want[0])[:H, :W], np.asarray(want[1])[:H, :W]
+    np.testing.assert_allclose(r0.numpy(), wr0, rtol=RTOL,
+                               atol=RTOL * np.abs(wr0).max())
+    np.testing.assert_allclose(x0.numpy(), wx0, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(rr0), float(np.vdot(wr0, wr0)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(float(xx0), float(np.vdot(wx0, wx0)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(float(rr0), float(want[2][0, 0]), rtol=1e-5)
+    np.testing.assert_allclose(float(xx0), float(want[3][0, 0]), rtol=1e-5)
+
+
+def test_cheby_block_equals_generic_block():
+    """The kernel's plain version is solve/cheby_iter.py's chebyshev_block
+    on the constrained apply (B3) when r is zero on pinned nodes."""
+    from tpuwave_torch.solve.cheby_iter import chebyshev_block
+    theta, coeffs = _cheby_schedule(5)
+    x, r = _fields(13)
+    r = np.where(tk.pinned_mask((H, W), "cpu").numpy(), 0.0, r)
+    gx, gr, _ = tk.cheby_block(_t(x), _t(r), SYSTEM, theta, coeffs)
+    wx, wr = chebyshev_block(
+        lambda v: tk.constrained_stencil_apply(v, SYSTEM, SYSTEM[1][1]),
+        _t(x), _t(r), theta, coeffs)
+    np.testing.assert_allclose(gx.numpy(), wx.numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gr.numpy(), wr.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_cheby_tile_fits_and_refuses():
+    # r and d slabs plus the x tile in the H100's 227 KB opt-in limit
+    assert tk.cheby_tile(8, torch.float64, 232448) == 64
+    assert tk.cheby_tile(2, torch.float32, 232448) == 64
+    assert tk.cheby_tile(32, torch.float64, 232448) == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.cheby_tile(8, torch.float64, 16 * 1024)
+    x = torch.zeros((8, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="degree"):
+        tk.cheby_block(x, x, SYSTEM, 1.0, [(0.1, 0.1)] * 32)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +303,44 @@ def test_cuda_leapfrog_step(cuda_device, dtype):
     want = tk.leapfrog_step_reference(u, up, RAND, 0.05)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= _bound(dtype, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", [2, 8])
+def test_cuda_cheby_block(cuda_device, dtype, degree):
+    theta, coeffs = _cheby_schedule(degree)
+    x, r = _on(cuda_device, *_fields(14), dtype=dtype)
+    before = tk.LAUNCHES["cheby_block"]
+    got = tk.cheby_block(x, r, SYSTEM, theta, coeffs)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["cheby_block"] == before + 1
+    want = tk.cheby_block_reference(x, r, SYSTEM, theta, coeffs)
+    for g, w in zip(got[:2], want[:2]):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= _bound(dtype, scale, degree)
+    assert abs(float(got[2]) - float(want[2])) <= \
+        _bound(dtype, float(want[2]), degree) * H * W
+    # deterministic: a rerun is bitwise equal
+    again = tk.cheby_block(x, r, SYSTEM, theta, coeffs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mask_combo", [True, False])
+def test_cuda_recurrence_r0(cuda_device, dtype, mask_combo):
+    u, up = _on(cuda_device, *_fields(15), dtype=dtype)
+    kneg = tuple(tuple(-1e-4 * c for c in row) for row in STIFF)
+    before = tk.LAUNCHES["recurrence_r0"]
+    got = tk.recurrence_r0(u, up, kneg, 1.1, -0.1, mask_combo)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["recurrence_r0"] == before + 1
+    want = tk.recurrence_r0_reference(u, up, kneg, 1.1, -0.1, mask_combo)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= _bound(dtype, scale) * (
+            1 if g.dim() else H * W)
 
 
 @pytest.mark.cuda

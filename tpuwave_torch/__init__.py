@@ -3,16 +3,18 @@
 Same problem class as tpuwave (the 2D scalar wave equation with P1
 elements on a structured triangulated rectangle), same module layout and
 public names, on PyTorch tensors, with the hot stencil passes as CUDA C++
-kernels for Hopper (``ops/kernels.py``, ``csrc/stencil_kernels.cu``).
+kernels for Hopper (``ops/kernels.py``, ``csrc/*.cu``).
 
-This slice covers the structured-P1 wave step:
+The port covers the structured-P1 wave step and its implicit solvers:
 
 - ``utils``   expressions, parameter files, CSV/VTU output, naming
 - ``core``    structured mesh, P1 shape functions, quadrature
 - ``ops``     element classes, constant 3x3 stencils, the CUDA kernels
-- ``solve``   Jacobi-preconditioned CG (ReductionControl semantics)
+- ``solve``   preconditioned CG (ReductionControl semantics), Chebyshev
+              iteration and preconditioning, geometric multigrid
 - ``models``  FastWaveSolver (explicit leapfrog), the fast Newmark/theta
-              engines, O(grid) diagnostics and the run driver
+              engines (3-term and 2-term), O(grid) diagnostics and the
+              run driver
 - ``cli``     ``python -m tpuwave_torch.cli.newmark|theta <preset>``
 
 The package imports neither ``jax`` nor ``tpuwave``.

@@ -59,11 +59,20 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
     parser.add_argument("--precond",
                         choices=["jacobi", "chebyshev", "mg", "auto"],
                         default="jacobi",
-                        help="CG preconditioner (only jacobi is ported)")
+                        help="CG preconditioner of the implicit system "
+                             "(mg = geometric multigrid, dt-independent "
+                             "iteration counts at CFL-breaking dt; auto = "
+                             "mg when the system is stiffness-dominated, "
+                             "else jacobi)")
     parser.add_argument("--solver", choices=("3term", "2term", "cheby"),
                         default="3term",
-                        help="implicit-solve strategy (only 3term, the "
-                             "parity CG contract, is ported)")
+                        help="implicit-solve strategy: 3term = the parity "
+                             "CG contract (default); 2term = displacement-"
+                             "form recurrence, ~1 MG-PCG iteration per "
+                             "step, pair with --precond mg (Beta > 0 for "
+                             "newmark; velocity reconstructed at log "
+                             "points); cheby = dot-product-free restarted "
+                             "Chebyshev solve blocks")
     parser.add_argument("--shard", choices=("none", "rows", "blocks"),
                         default="none",
                         help="partition the run across devices (not "
@@ -85,12 +94,6 @@ def _refused(args):
     """The one-line refusal for a flag whose path is not ported, or None."""
     if args.engine == "parity":
         return "--engine parity is not ported yet (ROADMAP A10)"
-    if args.precond != "jacobi":
-        return f"--precond {args.precond} is not ported yet (ROADMAP A6)"
-    if args.solver == "2term":
-        return "--solver 2term is not ported yet (ROADMAP A7)"
-    if args.solver == "cheby":
-        return "--solver cheby is not ported yet (ROADMAP A6)"
     if args.shard != "none":
         return f"--shard {args.shard} is not ported yet (ROADMAP A11)"
     if args.distributed:
@@ -166,13 +169,25 @@ def run_main(family: str, argv=None) -> int:
 
     try:
         from tpuwave_torch.models.fast_engine import resolve_engine
-        solver, reason = resolve_engine(params, family, args.engine,
-                                        dtype=dtype, device=device)
+        try:
+            solver, reason = resolve_engine(
+                params, family, args.engine, precond=args.precond,
+                solver=args.solver, dtype=dtype, device=device)
+        except ValueError as e:
+            if args.solver == "3term":
+                raise
+            print(f"--solver {args.solver} unavailable for this problem: "
+                  f"{e}\nHint: use the default --solver 3term.",
+                  file=sys.stderr)
+            return 1
         if solver is None:
             print(f"--engine {args.engine} unavailable for this problem: "
                   f"{reason}", file=sys.stderr)
             return 1
-        print("  Engine: fast (grid-stencil)")
+        banner = "  Engine: fast (grid-stencil)"
+        if args.solver != "3term":
+            banner += f" [{args.solver}]"
+        print(banner)
         cfg = RunConfig(results_root=args.results_root,
                         mesh_root=args.mesh_root, quiet=args.quiet,
                         phase_timing=args.phase_timing,

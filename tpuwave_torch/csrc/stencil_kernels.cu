@@ -19,19 +19,9 @@
 // entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "grid_common.cuh"
 
 namespace {
-
-struct Stencil9 {
-  double c[9];  // row-major s[1 + dj][1 + di]
-};
-
-__device__ __forceinline__ bool is_pinned(long long gr, long long gc,
-                                          long long n_rows, long long n_cols) {
-  return gr <= 0 || gr >= n_rows - 1 || gc <= 0 || gc >= n_cols - 1;
-}
 
 // ---------------------------------------------------------------------------
 // B3: constrained stencil apply (the CG matvec of every implicit solve).
@@ -219,16 +209,6 @@ __global__ void leapfrog_multistep_kernel(const T* __restrict__ u,
       out_up[g] = prv[sr * S + sc];
     }
   }
-}
-
-Stencil9 load_stencil(const double* s) {
-  Stencil9 st;
-  for (int k = 0; k < 9; ++k) st.c[k] = s[k];
-  return st;
-}
-
-dim3 point_grid(int H, int W, dim3 block) {
-  return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
 
 template <typename T>

@@ -24,6 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from tpuwave_torch.config import resolve_device
 from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave_torch.core.quadrature import gauss_simplex
 from tpuwave_torch.ops import kernels
@@ -69,14 +70,15 @@ class FastWaveSolver:
     c             : constant wave speed
     scheme        : 'newmark' (beta/gamma) or 'theta' (theta)
     lumped        : explicit beta=0 diagonal-mass path (no CG)
-    dtype, device : of every tensor the solver builds
+    dtype, device : of every tensor the solver builds; the device defaults
+                    to "cuda" and raises where there is no card
     """
 
     def __init__(self, nel: Tuple[int, int], geometry, dt: float, *,
                  c: float = 1.0, scheme: str = "newmark", beta: float = 0.0,
                  gamma: float = 0.5, theta: float = 0.5, lumped: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 device=torch.device("cpu"), cg_reduction: float = 1e-6):
+                 device="cuda", cg_reduction: float = 1e-6):
         self.mesh = StructuredTriMesh(tuple(nel), geometry)
         self.space = FeSpace(self.mesh, 1)
         self.shape = (self.mesh.ny + 1, self.mesh.nx + 1)
@@ -87,7 +89,7 @@ class FastWaveSolver:
         self.gamma = float(gamma)
         self.theta = float(theta)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         #: CG relative-reduction factor (reference ReductionControl 1e-6)
         self.cg_reduction = float(cg_reduction)
         self.lumped = bool(lumped) and scheme == "newmark" and beta == 0.0

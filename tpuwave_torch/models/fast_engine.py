@@ -8,16 +8,24 @@ WaveTheta.cpp:251-339), the derived acceleration boundary formulas
 (WaveTheta.cpp:119-186), the consistent a0 solve (WaveNewmark.cpp:298-390)
 and the same ReductionControl stopping contract — on grid-plane operators.
 
-Every constrained solve runs Jacobi-CG (solve/cg.py) whose matvec is
-``ops.kernels.constrained_stencil_apply``: on a CUDA device that is the
+Every constrained solve runs preconditioned CG (solve/cg.py) whose matvec
+is ``ops.kernels.constrained_stencil_apply``: on a CUDA device that is the
 hand-written kernel B3, in f32 and f64 alike; on the CPU its plain
 version. This covers the Newmark a-system, the theta u-system and the
-theta v (mass) system.
+theta v (mass) system. The preconditioner of the implicit system is
+``precond`` = jacobi | chebyshev | mg | auto (tpuwave's set): mg is the
+geometric V-cycle of solve/multigrid.py, whose fine level runs as kernel
+B4 blocks. ``solver="cheby"`` replaces CG by restarted Chebyshev
+iteration, one kernel-B4 pass per block (``_solve_cheby``);
+``solver="2term"`` is the displacement recurrence of
+models/fast_engine_2term.py (``make_fast_solver`` routes it). tpuwave
+uses its fused kernels only for f32 on an accelerator, because Mosaic has
+no f64; the CUDA kernels take both, so every run on the card goes through
+them.
 
-Coverage of this slice: structured P1 rectangles, constant wave speed,
-``--solver 3term``, ``--precond jacobi``. Spatially varying or
-time-dependent C (ROADMAP A5), the other preconditioners and solvers (A6,
-A7), P2 (A9) and the parity engine (A10) raise NotImplementedError.
+Coverage of this slice: structured P1 rectangles, constant wave speed.
+Spatially varying or time-dependent C (ROADMAP A5), P2 (A9) and the
+parity engine (A10) raise NotImplementedError.
 
 State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
 the steppers reshape to the (ny+1, nx+1) vertex grid internally (free: the
@@ -31,10 +39,15 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuwave_torch.config import resolve_device
 from tpuwave_torch.models.fast import FastWaveSolver
 from tpuwave_torch.ops import kernels
 from tpuwave_torch.solve.cg import pcg
-from tpuwave_torch.solve.cheby_iter import stencil_symbol_bounds
+from tpuwave_torch.solve.chebyshev import chebyshev_apply
+from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
+                                            stencil_symbol_bounds)
+from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
+                                           auto_precond, gmg_for_system)
 from tpuwave_torch.utils.params import Params
 
 __all__ = ["FastGridState", "FastThetaSolver", "FastNewmarkSolver",
@@ -77,19 +90,34 @@ def fast_engine_ineligible_reason(problem) -> Optional[str]:
 
 
 def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
-                     solver: str = "3term", **engine_kwargs):
-    """Factory used by the CLI ``--engine fast|auto`` routing."""
+                     cheby_degree: int = 3, solver: str = "3term",
+                     **engine_kwargs):
+    """Factory used by the CLI ``--engine fast|auto`` routing.
+
+    ``solver``: the implicit-solve strategy (``--solver``): ``3term`` (the
+    parity CG contract, default), ``2term`` (the displacement recurrence,
+    models/fast_engine_2term.py) or ``cheby`` (restarted Chebyshev
+    iteration). ``engine_kwargs`` take ``dtype`` and ``device`` (default
+    "cuda", which raises where there is no card)."""
     p = problem
     if p.r == 2:
         raise NotImplementedError("R = 2 (P2) is not ported yet "
                                   "(ROADMAP A9)")
-    if family == "theta":
-        return FastThetaSolver(problem, precond=precond, solver=solver,
-                               **engine_kwargs)
-    if family == "newmark":
-        return FastNewmarkSolver(problem, precond=precond, solver=solver,
-                                 **engine_kwargs)
-    raise ValueError(f"unknown solver family {family!r}")
+    if solver == "2term":
+        from tpuwave_torch.models.fast_engine_2term import (
+            Fast2TermNewmarkSolver, Fast2TermThetaSolver)
+        cls = {"theta": Fast2TermThetaSolver,
+               "newmark": Fast2TermNewmarkSolver}.get(family)
+        if cls is None:
+            raise ValueError(f"unknown solver family {family!r}")
+        return cls(problem, precond=precond, cheby_degree=cheby_degree,
+                   **engine_kwargs)
+    cls = {"theta": FastThetaSolver,
+           "newmark": FastNewmarkSolver}.get(family)
+    if cls is None:
+        raise ValueError(f"unknown solver family {family!r}")
+    return cls(problem, precond=precond, cheby_degree=cheby_degree,
+               solver=solver, **engine_kwargs)
 
 
 def resolve_engine(params, family: str, engine: str, **solver_kwargs):
@@ -111,21 +139,19 @@ class _FastEngineBase:
     """Shared plumbing: operators, boundary/forcing data, elimination."""
 
     def __init__(self, problem, *, dtype: torch.dtype = torch.float64,
-                 device=torch.device("cpu"), precond: str = "jacobi",
-                 solver: str = "3term"):
+                 device="cuda", precond: str = "jacobi",
+                 cheby_degree: int = 3, solver: str = "3term",
+                 cheby_solver_degree: int = 8):
         reason = fast_engine_ineligible_reason(problem)
         if reason is not None:
             raise ValueError(f"fast engine unavailable: {reason}")
+        if solver not in ("3term", "cheby"):
+            raise ValueError(f"unknown solver {solver!r} for this engine "
+                             "(3term | cheby; 2term is the displacement-"
+                             "form classes in models/fast_engine_2term.py)")
         if problem.r != 1:
             raise NotImplementedError("R = 2 (P2) is not ported yet "
                                       "(ROADMAP A9)")
-        if precond != "jacobi":
-            raise NotImplementedError(
-                f"--precond {precond} is not ported yet (ROADMAP A6)")
-        if solver != "3term":
-            item = "A7" if solver == "2term" else "A6"
-            raise NotImplementedError(
-                f"--solver {solver} is not ported yet (ROADMAP {item})")
         p = problem
         c_const = p.c.constant_value
         if p.time_dependent_c and p.c.time_dependent:
@@ -136,7 +162,7 @@ class _FastEngineBase:
                 "spatially varying C is not ported yet (ROADMAP A5)")
 
         from tpuwave_torch.models.grid_diag import GridDiagnostics
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.disc = GridDiagnostics(p, dtype=dtype, device=self.device)
         self.dt = p.dt
         self.fs = FastWaveSolver(
@@ -164,6 +190,32 @@ class _FastEngineBase:
                              fs.stiff.stencil)
         self._prec_mass = 1.0 / fs.mass.stencil[1][1]
 
+        # preconditioner of the implicit system; the theta v-system is the
+        # bare mass (mesh-independent conditioning): Jacobi always
+        if solver == "cheby":
+            precond = "jacobi"   # cheby IS the solver; skip mg setup
+        elif precond == "auto":
+            precond = auto_precond(p, fs.mesh, self.coef)
+        self.precond = precond
+        self.cheby_degree = int(cheby_degree)
+        self._solver = solver
+        self._cheby_solver_degree = int(cheby_solver_degree)
+        if precond == "mg":
+            gmg = gmg_for_system((fs.mesh.nx, fs.mesh.ny), fs.mesh.geometry,
+                                 float(c_const), self.coef)
+            if len(gmg.levels) >= 2:
+                self._prec_sys = KernelGmgPreconditioner(
+                    gmg.levels, gmg.coarse_theta, gmg.coarse_coeffs)
+            else:
+                # tpuwave's routing (fast_engine.py:374-382): a one-level
+                # hierarchy has no fine level to fuse, so the plain cycle
+                # runs (and the 2-term step takes its unfused setup)
+                self._prec_sys = gmg
+        elif precond in ("jacobi", "chebyshev"):
+            self._prec_sys = None   # derived from the system op per solve
+        else:
+            raise ValueError(f"Unknown preconditioner {precond!r}")
+
     # -- operators -------------------------------------------------------
     def _system_of(self, k_op: _Op) -> _Op:
         coef = self.coef
@@ -177,6 +229,25 @@ class _FastEngineBase:
                    for mr, kr in zip(m.stencil, k_op.stencil))
         return _Op(apply, m.diag + coef * k_op.diag,
                    m.lam_hi + coef * k_op.lam_hi, st)
+
+    def _sys_precond(self, sys_op: _Op):
+        """The preconditioner of the implicit system operator: the
+        V-cycle, the Jacobi inverse diagonal, or the Chebyshev polynomial
+        on the constrained apply (the symbol bound majorises it: pinned
+        rows are pure diagonal)."""
+        if self.precond == "mg":
+            return self._prec_sys
+        inv_diag = 1.0 / sys_op.diag
+        if self.precond == "jacobi":
+            return inv_diag
+        apply_c = self._constrained_apply(sys_op)
+        lmax = sys_op.lam_hi / sys_op.diag
+        deg = self.cheby_degree
+
+        def prec(r):
+            return chebyshev_apply(apply_c, inv_diag, r, lambda_max=lmax,
+                                   degree=deg)
+        return prec
 
     # -- helpers -------------------------------------------------------
     def _plane(self, expr, t):
@@ -232,10 +303,24 @@ class _FastEngineBase:
                g_zero: bool):
         apply_c, rhs_c, x0 = self._constrain(op, rhs, g_plane, x_prev,
                                              g_zero=g_zero)
-        return pcg(apply_c, rhs_c.contiguous(), x0.contiguous(),
-                   precond_inv_diag=precond,
+        rhs_c, x0 = rhs_c.contiguous(), x0.contiguous()
+        if self._solver == "cheby":
+            return self._solve_cheby(op, rhs_c, x0)
+        return pcg(apply_c, rhs_c, x0, precond_inv_diag=precond,
                    abs_tol=self._abs_tol(rhs_c, x0, op),
                    max_iter=self._max_iter, reduction=self.fs.cg_reduction)
+
+    def _solve_cheby(self, op: _Op, rhs_c, x0):
+        """Restarted Chebyshev iteration on the constrained system
+        (--solver cheby): coefficient schedules from the analytic
+        stencil-symbol bounds, so a block of ``cheby_solver_degree``
+        iterations has no dot product and is one B4 pass; r0 comes
+        through B3. The loop reads ||r||^2 back once per block and stops
+        by the ReductionControl contract of the CG paths."""
+        return chebyshev_solve(
+            op.stencil, rhs_c, x0, degree=self._cheby_solver_degree,
+            abs_tol=self._abs_tol(rhs_c, x0, op),
+            reduction=self.fs.cg_reduction, max_iter=self._max_iter)
 
     # -- time loops ----------------------------------------------------
     def run_steps(self, state, times):
@@ -287,7 +372,7 @@ class FastThetaSolver(_FastEngineBase):
 
         k_n = k_np1 = self._k_static
         sys_op = self._system_of(k_np1)
-        prec_sys = 1.0 / sys_op.diag      # Jacobi: the constant diagonal
+        prec_sys = self._sys_precond(sys_op)
 
         mu, ku, mv = self._mass_op.apply(u), k_n.apply(u), \
             self._mass_op.apply(v)
@@ -379,7 +464,7 @@ class FastNewmarkSolver(_FastEngineBase):
         # the elastic force acts at t^{n+1}
         k_np1 = self._k_static
         sys_op = self._system_of(k_np1)
-        prec_sys = 1.0 / sys_op.diag      # Jacobi: the constant diagonal
+        prec_sys = self._sys_precond(sys_op)
 
         # z = u + dt v + dt^2 (1/2 - beta) a  (WaveNewmark.cpp:123-126)
         z = u + dt * v + (dt * dt * (0.5 - beta)) * a

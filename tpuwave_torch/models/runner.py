@@ -128,10 +128,19 @@ def run_solver(solver, problem_name: str,
         except ValueError:
             pass
 
+    # velocity accessor: displacement-form (2-term) solvers carry v
+    # implicitly in the state pair and reconstruct it on demand
+    # (models/fast_engine_2term.py::state_velocity); 3-array solvers
+    # store it directly
+    _sv = getattr(solver, "state_velocity", None)
+
+    def state_v(st, t):
+        return st.v if _sv is None else _sv(st, t)
+
     pcout("Setting initial conditions...")
     state = solver.initial_state()
     norm_u0 = float(torch.linalg.vector_norm(state.u))
-    norm_v0 = float(torch.linalg.vector_norm(state.v))
+    norm_v0 = float(torch.linalg.vector_norm(state_v(state, 0.0)))
     pcout(f"||u0|| = {norm_u0}")
     pcout(f"||v0|| = {norm_v0}")
     pcout("-----------------------------------------------")
@@ -156,7 +165,7 @@ def run_solver(solver, problem_name: str,
         if not save_solution:
             return
         point_data = {"u": d.vertex_values(state.u),
-                      "v": d.vertex_values(state.v)}
+                      "v": d.vertex_values(state_v(state, t))}
         if p.has_exact_solution:
             point_data["u_exact"] = d.vertex_values(
                 d.interpolate(p.solution, t))
@@ -191,7 +200,8 @@ def run_solver(solver, problem_name: str,
         has_sol = p.has_exact_solution
 
         def diag_fn(st, t):
-            out = {"energy": d.energy(st.u, st.v), "probe": d.probe(st.u)}
+            out = {"energy": d.energy(st.u, state_v(st, t)),
+                   "probe": d.probe(st.u)}
             if has_sol:
                 out["err"] = torch.stack(d.errors(st.u, t))
             return out
@@ -244,7 +254,8 @@ def run_solver(solver, problem_name: str,
                     # state (the partial last chunk of a non-divisible run
                     # ends off-cadence and logs nothing, like the per-step
                     # loop)
-                    current_energy = float(d.energy(state.u, state.v))
+                    current_energy = float(d.energy(state.u,
+                                                    state_v(state, tj)))
                     logs.log_energy(ts_no, tj, current_energy)
                     if has_sol:
                         logs.log_error(ts_no, tj,
@@ -293,7 +304,8 @@ def run_solver(solver, problem_name: str,
 
         if log_every > 0 and timestep_number % log_every == 0:
             with phases.phase("diagnostics"):
-                current_energy = float(d.energy(state.u, state.v))
+                current_energy = float(d.energy(
+                    state.u, state_v(state, current_time)))
                 logs.log_energy(timestep_number, current_time, current_energy)
                 if p.has_exact_solution:
                     l2, h1, rl2, rh1 = (float(x) for x in

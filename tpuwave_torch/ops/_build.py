@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain
-C interface, at first use, into ``tpuwave_torch/_build/`` (git-ignored).
-The library's file name carries a hash of the sources and the flags, so a
-stale build is never loaded. Nothing is built or imported when this module
-is imported.
+Each source is compiled with ``nvcc -c`` (one process per source, all
+started together), then the objects are linked into one shared library
+with a plain C interface, at first use, into ``tpuwave_torch/_build/``
+(git-ignored). The library's file name carries a hash of the sources, the
+headers and the flags, so a stale build is never loaded. Nothing is built
+or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -18,14 +19,18 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["COMPILE_FLAGS", "LINK_FLAGS", "build_library", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "stencil_kernels.cu",)
+_CSRC = _PKG / "csrc"
+_SOURCES = (_CSRC / "stencil_kernels.cu", _CSRC / "solver_kernels.cu")
+_HEADERS = (_CSRC / "grid_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 _VP, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_double)
@@ -38,6 +43,11 @@ _SIGNATURES = {
     "tw_leapfrog_multistep": (_I, _VP, _VP, _VP, _VP, _I, _I, _DP, _D, _I,
                               _I, _LL, _LL, _VP),
     "tw_max_dynamic_smem": (_I,),
+    "tw_cheby_block": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
+                       _D, _DP, _DP, _I, _I, _VP),
+    "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
+                         _D, _D, _I, _VP),
+    "tw_recurrence_r0_block": (_I,),
 }
 
 
@@ -56,9 +66,9 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*COMPILE_FLAGS, *LINK_FLAGS)).encode())
     return BUILD_DIR / f"libtpuwave_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -73,17 +83,33 @@ def build_library() -> tuple:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, secs, proc.stdout + proc.stderr
+    try:
+        cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        logs = ["".join(proc.communicate()) for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{logs[-1]}")
+        os.replace(tmp, lib)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return lib, time.perf_counter() - t0, "\n".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

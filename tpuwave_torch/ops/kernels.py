@@ -1,11 +1,13 @@
 """The hand-written CUDA stencil kernels and their plain PyTorch versions.
 
 Counterpart of tpuwave/ops/pallas_kernels.py for the structured-P1 wave
-step. Each public function is a wrapper: on a CUDA tensor it launches its
-kernel from ``csrc/stencil_kernels.cu`` (built by ``ops/_build.py``) or
+step and its implicit solvers. Each public function is a wrapper: on a
+CUDA tensor it launches its kernel from ``csrc/stencil_kernels.cu`` (B1-B3)
+or ``csrc/solver_kernels.cu`` (B4, B5), built by ``ops/_build.py``, or
 raises; on a CPU tensor it runs the ``*_reference`` plain version, which
 the kernel is held against. Every tensor is the grid at its TRUE shape
-(ny+1, nx+1): no padding, no block-size rule.
+(ny+1, nx+1): no padding, no block-size rule. Squared norms come back as
+0-d tensors of the grid's dtype on its device, reduced without atomics.
 
 A node is pinned (Dirichlet) when its global row is <= 0 or >= n_rows - 1,
 or its column is <= 0 or >= W - 1; ``n_rows`` is the grid's own height
@@ -27,14 +29,18 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
            "constrained_stencil_apply", "constrained_stencil_apply_reference",
            "leapfrog_step", "leapfrog_step_reference",
            "leapfrog_multistep", "leapfrog_multistep_reference",
-           "multistep_tile"]
+           "multistep_tile", "cheby_block", "cheby_block_reference",
+           "cheby_tile", "MAX_CHEBY_DEGREE", "recurrence_r0",
+           "recurrence_r0_reference"]
 
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"constrained_stencil_apply": 0, "leapfrog_step": 0,
-            "leapfrog_multistep": 0}
+            "leapfrog_multistep": 0, "cheby_block": 0, "recurrence_r0": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _TILES = (64, 32, 16)
+#: highest block degree kernel B4 takes (csrc/solver_kernels.cu kMaxCoeffs)
+MAX_CHEBY_DEGREE = 32
 
 
 def reset_launches() -> None:
@@ -90,6 +96,30 @@ def _raise_on(rc: int, name: str) -> None:
 def _lib():
     from tpuwave_torch.ops._build import load_library
     return load_library()
+
+
+def _max_smem(lib, name: str, device: torch.device) -> int:
+    max_smem = lib.tw_max_dynamic_smem(device.index)
+    if max_smem <= 0:
+        raise RuntimeError(f"{name}: cannot read the card's shared-memory "
+                           "limit")
+    return max_smem
+
+
+def _largest_tile(name: str, slab_bytes, max_smem: int) -> int:
+    """Largest tile side in _TILES whose shared-memory slabs
+    (``slab_bytes(tile)`` bytes) fit ``max_smem``; raises when none
+    does."""
+    for tile in _TILES:
+        if slab_bytes(tile) <= max_smem:
+            return tile
+    raise ValueError(
+        f"{name} needs {slab_bytes(_TILES[-1])} B of shared memory even at "
+        f"the smallest tile; the card allows {max_smem} B")
+
+
+def _dot(a: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), a.reshape(-1))
 
 
 # -- masks ---------------------------------------------------------------
@@ -190,14 +220,9 @@ def multistep_tile(n_steps: int, dtype: torch.dtype, max_smem: int) -> int:
     """Largest tile side whose two (tile + 2 n_steps)^2 slabs fit
     ``max_smem`` bytes of shared memory; raises when none does."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    for tile in _TILES:
-        if 2 * (tile + 2 * n_steps) ** 2 * itemsize <= max_smem:
-            return tile
-    side = _TILES[-1] + 2 * n_steps
-    raise ValueError(
-        f"leapfrog_multistep: n_steps={n_steps} needs two {side}x{side} "
-        f"{dtype} slabs ({2 * side * side * itemsize} B) of shared memory "
-        f"even at the smallest tile; the card allows {max_smem} B")
+    return _largest_tile(
+        f"leapfrog_multistep: n_steps={n_steps} in {dtype}",
+        lambda t: 2 * (t + 2 * n_steps) ** 2 * itemsize, max_smem)
 
 
 def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
@@ -215,11 +240,8 @@ def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
         return leapfrog_multistep_reference(u, u_prev, stencil, coef,
                                             n_steps, row_offset, n_rows)
     lib = _lib()
-    max_smem = lib.tw_max_dynamic_smem(u.device.index)
-    if max_smem <= 0:
-        raise RuntimeError("leapfrog_multistep: cannot read the card's "
-                           "shared-memory limit")
-    tile = multistep_tile(int(n_steps), u.dtype, max_smem)
+    tile = multistep_tile(int(n_steps), u.dtype,
+                          _max_smem(lib, "leapfrog_multistep", u.device))
     h, w = u.shape
     out_u = torch.empty_like(u)
     out_up = torch.empty_like(u)
@@ -232,3 +254,109 @@ def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
     _raise_on(rc, "leapfrog_multistep")
     LAUNCHES["leapfrog_multistep"] += 1
     return out_u, out_up
+
+
+# -- B4: one restarted Chebyshev block ---------------------------------------
+def cheby_block_reference(x, r, stencil, theta: float, coeffs):
+    """One restarted Chebyshev block of degree 1 + len(coeffs) on the
+    constrained system: r masked to 0 on pinned nodes, d = r / theta,
+    x += d, r = masked(r - S d), then d = c1 d + c2 r, x += d,
+    r = masked(r - S d) per coefficient pair. Returns (x, r, ||r||^2)."""
+    pinned = pinned_mask(x.shape, x.device)
+    r = torch.where(pinned, 0.0, r)
+    d = (1.0 / theta) * r
+    x = x + d
+    r = torch.where(pinned, 0.0, r - apply_stencil(d, stencil))
+    for c1, c2 in coeffs:
+        d = c1 * d + c2 * r
+        x = x + d
+        r = torch.where(pinned, 0.0, r - apply_stencil(d, stencil))
+    return x, r, _dot(r)
+
+
+def cheby_tile(degree: int, dtype: torch.dtype, max_smem: int) -> int:
+    """Largest tile side whose r and d slabs, (tile + 2 degree)^2 each,
+    and x tile fit ``max_smem`` bytes of shared memory."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _largest_tile(
+        f"cheby_block: degree {degree} in {dtype}",
+        lambda t: (2 * (t + 2 * degree) ** 2 + t * t) * itemsize, max_smem)
+
+
+def cheby_block(x: torch.Tensor, r: torch.Tensor, stencil, theta: float,
+                coeffs):
+    """One restarted Chebyshev block in one kernel pass (replaces
+    ``cheby_block_pallas``). ``theta`` / ``coeffs`` come from
+    ``solve/cheby_iter.py::chebyshev_coefficients``. Returns
+    ``(x_new, r_new, rr)``, rr = ||r_new||^2 as a 0-d tensor of the
+    inputs' dtype on their device."""
+    _check("cheby_block", x, r)
+    coeffs = [(float(c1), float(c2)) for c1, c2 in coeffs]
+    degree = 1 + len(coeffs)
+    if degree > MAX_CHEBY_DEGREE:
+        raise ValueError(f"cheby_block: degree {degree} exceeds "
+                         f"{MAX_CHEBY_DEGREE}")
+    if x.device.type == "cpu":
+        return cheby_block_reference(x, r, stencil, theta, coeffs)
+    lib = _lib()
+    tile = cheby_tile(degree, x.dtype,
+                      _max_smem(lib, "cheby_block", x.device))
+    h, w = x.shape
+    n_blocks = -(-h // tile) * -(-w // tile)
+    out_x, out_r = torch.empty_like(x), torch.empty_like(r)
+    partials = torch.empty(n_blocks, dtype=x.dtype, device=x.device)
+    rr = torch.empty((), dtype=x.dtype, device=x.device)
+    n = max(len(coeffs), 1)
+    c1 = (ctypes.c_double * n)(*(c for c, _ in coeffs))
+    c2 = (ctypes.c_double * n)(*(c for _, c in coeffs))
+    with torch.cuda.device(x.device):
+        rc = lib.tw_cheby_block(
+            _DTYPES[x.dtype], _ptr(x), _ptr(r), _ptr(out_x), _ptr(out_r),
+            _ptr(partials), n_blocks, _ptr(rr), h, w, _stencil_arg(stencil),
+            1.0 / float(theta), c1, c2, len(coeffs), tile, _stream(x))
+    _raise_on(rc, "cheby_block")
+    LAUNCHES["cheby_block"] += 1
+    return out_x, out_r, rr
+
+
+# -- B5: the fused 2-term step setup -------------------------------------------
+def recurrence_r0_reference(u, u_prev, k_stencil, c_u: float, c_up: float,
+                            mask_combo: bool = True):
+    """x0 = masked(2u - u_prev); r0 = masked(DiffStencil(k_stencil, combo)),
+    combo = c_u u + c_up u_prev (pinned values zeroed when
+    ``mask_combo``). Returns (r0, x0, ||r0||^2, ||x0||^2)."""
+    pinned = pinned_mask(u.shape, u.device)
+    combo = c_u * u + c_up * u_prev
+    if mask_combo:
+        combo = torch.where(pinned, 0.0, combo)
+    r0 = torch.where(pinned, 0.0, apply_stencil_diff(combo, k_stencil))
+    x0 = torch.where(pinned, 0.0, 2.0 * u - u_prev)
+    return r0, x0, _dot(r0), _dot(x0)
+
+
+def recurrence_r0(u: torch.Tensor, u_prev: torch.Tensor, k_stencil,
+                  c_u: float, c_up: float, mask_combo: bool = True):
+    """The setup of one displacement-recurrence step in one kernel pass
+    (replaces ``recurrence_r0_pallas``). ``k_stencil`` carries the -dt^2
+    scale and is evaluated in difference form. Returns
+    ``(r0, x0, rr0, xx0)`` with the squared norms as 0-d tensors."""
+    _check("recurrence_r0", u, u_prev)
+    if u.device.type == "cpu":
+        return recurrence_r0_reference(u, u_prev, k_stencil, c_u, c_up,
+                                       mask_combo)
+    lib = _lib()
+    h, w = u.shape
+    n_blocks = (-(-w // lib.tw_recurrence_r0_block(0))
+                * -(-h // lib.tw_recurrence_r0_block(1)))
+    r0, x0 = torch.empty_like(u), torch.empty_like(u)
+    partials = torch.empty(2 * n_blocks, dtype=u.dtype, device=u.device)
+    norms = torch.empty(2, dtype=u.dtype, device=u.device)
+    with torch.cuda.device(u.device):
+        rc = lib.tw_recurrence_r0(
+            _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(r0), _ptr(x0),
+            _ptr(partials), 2 * n_blocks, _ptr(norms), h, w,
+            _stencil_arg(k_stencil), float(c_u), float(c_up),
+            int(bool(mask_combo)), _stream(u))
+    _raise_on(rc, "recurrence_r0")
+    LAUNCHES["recurrence_r0"] += 1
+    return r0, x0, norms[0], norms[1]

@@ -35,12 +35,17 @@ def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor, *,
         precond_inv_diag=None, max_iter: int = 10000, abs_tol=1e-12,
-        reduction: float = 1e-6) -> CgResult:
+        reduction: float = 1e-6, r0=None, norm0_sq=None) -> CgResult:
     """Solve A x = b with (Jacobi-)preconditioned CG.
 
     ``precond_inv_diag``: elementwise inverse diagonal (a float or a
     tensor), a callable SPD preconditioner, or None. ``abs_tol`` may be a
     float or a 0-d tensor (the f32 backward-error floor).
+
+    ``r0`` / ``norm0_sq``: optional precomputed initial residual
+    ``b - A x0`` and its squared norm (a 0-d tensor, e.g. from the fused
+    2-term setup kernel); they skip the operator application and the
+    reduction here.
     """
     if precond_inv_diag is None:
         def precond(r):
@@ -51,8 +56,9 @@ def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor, *,
         def precond(r):
             return precond_inv_diag * r
 
-    r = b - apply_a(x0)
-    norm0 = torch.linalg.vector_norm(r)
+    r = b - apply_a(x0) if r0 is None else r0
+    norm0 = (torch.linalg.vector_norm(r) if norm0_sq is None
+             else torch.sqrt(norm0_sq).to(b.dtype))
     tol = torch.clamp(reduction * norm0,
                       min=torch.as_tensor(abs_tol, dtype=b.dtype,
                                           device=b.device))

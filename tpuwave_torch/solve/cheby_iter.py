@@ -1,19 +1,33 @@
-"""Analytic spectrum bounds of a constant-stencil operator.
+"""Chebyshev iteration as the linear solver of the implicit fast path.
 
-Only :func:`stencil_symbol_bounds` of tpuwave's solve/cheby_iter.py is
-ported so far: the fast engines use its upper bound in the f32
-backward-error stopping floor. The Chebyshev iteration itself
-(``--solver cheby``) is still to be ported (ROADMAP A6).
+Counterpart of tpuwave's solve/cheby_iter.py. For the wave-equation
+systems ``M + c K`` the iteration coefficients are data-independent
+scalars computed on the host from ANALYTIC eigenvalue bounds (the range
+of the constant stencil's symbol), so a block of ``degree`` iterations
+needs no dot product and runs as one pass of kernel B4
+(``ops/kernels.py::cheby_block``). Blocks are restarted between residual
+checks, which keeps every block identical.
+
+:func:`chebyshev_solve` is a Python loop over blocks with one host read of
+``||r||^2`` per block; its stopping rule is tpuwave's ReductionControl
+contract, ``||r|| <= max(abs_tol, reduction * ||r0||)``, evaluated as
+``||r||^2`` against the squared tolerance.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+import math
+from typing import Callable, List, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["stencil_symbol_bounds"]
+from tpuwave_torch.ops import kernels
+from tpuwave_torch.solve.cg import CgResult, vdot
+
+__all__ = ["stencil_symbol_bounds", "chebyshev_coefficients",
+           "block_contraction", "chebyshev_block", "chebyshev_solve"]
 
 
 def stencil_symbol_bounds(stencil, n: int = 512,
@@ -53,3 +67,84 @@ def _symbol_bounds_impl(stencil, n: int, pad_rel: float):
     lo, hi = float(lam.min()), float(lam.max())
     pad = pad_rel * (hi - lo)
     return lo - pad, hi + pad
+
+
+def chebyshev_coefficients(lam_min: float, lam_max: float,
+                           degree: int) -> Tuple[float, List[Tuple[float, float]]]:
+    """Host-side coefficient schedule for one degree-``degree`` block.
+
+    Returns (theta, [(c1_j, c2_j)]) for the three-term recurrence
+    (Saad, Iterative Methods, alg. 12.1):
+
+        d_1 = r / theta;  x += d_1;  r -= A d_1
+        for j = 1..degree-1:
+            d_{j+1} = c1_j d_j + c2_j r;  x += d_{j+1};  r -= A d_{j+1}
+
+    with c1_j = rho_j rho_{j-1}, c2_j = 2 rho_j / delta.
+    """
+    if not (0.0 < lam_min < lam_max):
+        raise ValueError(f"need 0 < lam_min < lam_max, got "
+                         f"[{lam_min}, {lam_max}]")
+    theta = 0.5 * (lam_max + lam_min)
+    delta = 0.5 * (lam_max - lam_min)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    coeffs = []
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        coeffs.append((rho_new * rho, 2.0 * rho_new / delta))
+        rho = rho_new
+    return theta, coeffs
+
+
+def block_contraction(lam_min: float, lam_max: float, degree: int) -> float:
+    """Guaranteed residual-reduction factor of one block: 1 / T_k(sigma)."""
+    sigma = (lam_max + lam_min) / (lam_max - lam_min)
+    return 1.0 / math.cosh(degree * math.acosh(sigma))
+
+
+def chebyshev_block(apply_a: Callable, x, r, theta: float, coeffs):
+    """One restarted Chebyshev block for any operator ``apply_a``.
+    Returns (x, r); the constant-stencil form of the same block is
+    kernel B4 (``ops/kernels.py::cheby_block``)."""
+    d = r * (1.0 / theta)
+    x = x + d
+    r = r - apply_a(d)
+    for c1, c2 in coeffs:
+        d = c1 * d + c2 * r
+        x = x + d
+        r = r - apply_a(d)
+    return x, r
+
+
+def chebyshev_solve(stencil, b, x0, *, degree: int = 8, abs_tol=1e-12,
+                    reduction: float = 1e-6, max_iter: int = 10000,
+                    r0=None, norm0_sq=None) -> CgResult:
+    """Solve the constrained system of the constant ``stencil`` (interior
+    rows S(x masked on pinned rows), pinned rows s[1][1] * x) by restarted
+    Chebyshev iteration with the analytic symbol bounds: r0 through
+    kernel B3, every block of ``degree`` iterations one pass of kernel B4.
+
+    Same stopping contract and result type as solve/cg.py::pcg;
+    ``iterations`` counts ``degree`` per block. ``b`` and ``x0`` follow
+    the constrained-system convention (pinned entries consistent with the
+    diagonal rows), so the residual is zero on pinned rows and the
+    iterates keep x0 there. ``r0`` / ``norm0_sq`` as in pcg.
+    """
+    lo, hi = stencil_symbol_bounds(stencil)
+    theta, coeffs = chebyshev_coefficients(lo, hi, degree)
+    if r0 is None:
+        r0 = b - kernels.constrained_stencil_apply(x0, stencil, stencil[1][1])
+    rr = vdot(r0, r0) if norm0_sq is None else norm0_sq
+    tol = torch.clamp(reduction * torch.sqrt(rr).to(b.dtype),
+                      min=torch.as_tensor(abs_tol, dtype=b.dtype,
+                                          device=b.device))
+    tol_sq = float(tol) ** 2
+    x, r, k = x0, r0, 0
+    # one host read of ||r||^2 per block
+    while k < max_iter and float(rr) > tol_sq:
+        x, r, rr = kernels.cheby_block(x, r, stencil, theta, coeffs)
+        k += degree
+    rnorm = torch.sqrt(rr).to(b.dtype)
+    return CgResult(x=x, iterations=k, residual_norm=rnorm,
+                    converged=float(rr) <= tol_sq)
