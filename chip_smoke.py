@@ -13,7 +13,9 @@ of FastWaveSolver at bench.py's configuration (4096^2 elements, f32) and
 both CLIs on the reference's scalability configuration (standing mode,
 640^2 elements, dt 8e-5). Path B: the implicit solver family of the CLIs
 (--solver 2term|cheby, --precond mg|auto|chebyshev), up to the 2-term
-MG run at 2048^2 elements. Phases:
+MG run at 2048^2 elements. Path C: the R = 2 (P2) engine of the CLIs on
+plane canvases, up to the 2-term MG run at 1024^2 elements (4.2 M DoF,
+the DoF count of phase 8) and an f32 run at 4096^2 (67 M DoF). Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
@@ -36,6 +38,18 @@ MG run at 2048^2 elements. Phases:
   9. where the time of path B goes (torch.profiler): launches and device
      time of one V-cycle at 2049^2, and the device's idle share over a
      2-term MG CLI run
+ 10. the R = 2 solver family, standing mode, 160^2 elements, 20 steps, on
+     --device cuda and on --device cpu: CSVs agree and per-step CG counts
+     are equal; the cuda runs launch B11 (and B12, B13, B4, B3 with mg)
+ 11. newmark beta 1/4 --solver 2term --precond mg at R = 2, 1024^2
+     elements (4.2 M DoF), dt 4e-3, T 0.2 on cuda: wall time, ms/step,
+     DoF*steps/s, CG iterations, and the final relative L2 error against
+     tpuwave's
+ 11b. newmark --f32 --precond mg at R = 2, 4096^2 elements (67 M DoF),
+     dt 4e-3, 10 steps on cuda: ms/step, CG iterations, peak device memory
+ 12. where the time of path C goes (torch.profiler): launches and device
+     time of one P2 V-cycle at 1024^2, and the device's idle share over
+     phase 10's 2-term MG run
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. Any failed check raises and
@@ -91,12 +105,24 @@ TPUWAVE_REL_L2 = 5.078370338852986e-06
 #:       RunConfig(quiet=True, write_mesh=False)).rel_l2))"
 TPUWAVE_REL_L2_2TERM_2048 = 2.807588013360131e-05
 
+#: tpuwave's final relative L2 error for the phase-11 run (standing-mode-wsol
+#: with R 2, Nel 1024, Dt 4e-3, T 0.2, Beta 0.25, Gamma 0.5, Save Solution
+#: and Enable Logging false; f64; 50 steps; --solver 2term --precond mg, 150
+#: CG iterations, smoother lambda_max 2.5687343127455877), computed on the
+#: CPU with the JAX package, those overrides written into
+#: standing-mode-wsol.json, by the command of TPUWAVE_REL_L2_2TERM_2048
+TPUWAVE_REL_L2_P2_2TERM_1024 = 2.8787273449426318e-05
+TPUWAVE_ITERS_P2_2TERM_1024 = 150
+
 SOURCES = {
     "constrained_stencil_apply": "tpuwave_torch/csrc/stencil_kernels.cu",
     "leapfrog_step": "tpuwave_torch/csrc/stencil_kernels.cu",
     "leapfrog_multistep": "tpuwave_torch/csrc/stencil_kernels.cu",
     "cheby_block": "tpuwave_torch/csrc/solver_kernels.cu",
     "recurrence_r0": "tpuwave_torch/csrc/solver_kernels.cu",
+    "p2_constrained_apply": "tpuwave_torch/csrc/p2_kernels.cu",
+    "p2_presmooth": "tpuwave_torch/csrc/p2_kernels.cu",
+    "p2_postsmooth": "tpuwave_torch/csrc/p2_kernels.cu",
 }
 REPLACES = {
     "constrained_stencil_apply": "tpuwave/ops/pallas_kernels.py:1081",
@@ -104,15 +130,22 @@ REPLACES = {
     "leapfrog_multistep": "tpuwave/ops/pallas_kernels.py:1136",
     "cheby_block": "tpuwave/ops/pallas_kernels.py:1013",
     "recurrence_r0": "tpuwave/ops/pallas_kernels.py:605",
+    "p2_constrained_apply": "tpuwave/ops/pallas_p2.py:170",
+    "p2_presmooth": "tpuwave/ops/pallas_p2.py:394",
+    "p2_postsmooth": "tpuwave/ops/pallas_p2.py:429",
 }
 #: the kernels of each main path
 PATH_A = ("leapfrog_step", "leapfrog_multistep", "constrained_stencil_apply")
 PATH_B = ("constrained_stencil_apply", "cheby_block", "recurrence_r0")
+PATH_C = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
+          "cheby_block", "constrained_stencil_apply")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: bytes written before each timed call to evict the card's L2 (50 MB)
+L2_FLUSH_BYTES = 256 << 20
 
 
 def say(*args):
@@ -131,19 +164,25 @@ def nvidia_smi_line() -> str:
 # timing and comparison helpers
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, n: int, warm: int = 2) -> float:
-    """Mean device time of ``fn`` over ``n`` back-to-back calls (ms)."""
+    """Mean device time of ``fn`` over ``n`` calls (ms), each timed alone
+    by CUDA events after L2_FLUSH_BYTES were written: every call reads its
+    inputs from device memory, as the bound assumes, whatever the call
+    before it left in the L2."""
     import torch
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    events = []
     for _ in range(n):
+        flush.fill_(0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
-    b.record()
+        b.record()
+        events.append((a, b))
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    return sum(a.elapsed_time(b) for a, b in events) / n
 
 
 def f32_bound(scale: float, n_steps: int = 1) -> float:
@@ -226,7 +265,8 @@ def phase_kernels(torch, dev, kn) -> dict:
     say("phase 3: kernels against their plain PyTorch versions "
         "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
         "operations counted per node: B1 21, B2 21 per step, B3 17 "
-        "(23 diff), B4 22 per degree, B5 33")
+        "(23 diff), B4 22 per degree, B5 33; times: mean of calls each "
+        "timed alone after an L2 flush")
     rows, results = {}, {}
 
     # B3 constrained_stencil_apply
@@ -374,6 +414,124 @@ def phase_kernels(torch, dev, kn) -> dict:
     return results
 
 
+def p2_system(nel: int, dt: float, beta: float, dtype, dev):
+    """The P2 Newmark system M + beta dt^2 K (c = 1) on the unit square at
+    Nel x Nel, as the engine builds it."""
+    from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
+    from tpuwave_torch.core.quadrature import gauss_simplex
+    from tpuwave_torch.ops.assembly import (element_mass_class,
+                                            element_stiffness_class)
+    from tpuwave_torch.ops.stencil_p2 import P2PlaneStencil
+    space = FeSpace(StructuredTriMesh((nel, nel), ((0.0, 0.0), (1.0, 1.0))),
+                    2)
+    quad = gauss_simplex(3)
+    mass = P2PlaneStencil(space, element_mass_class(space, quad), dtype, dev)
+    stiff = P2PlaneStencil(space, element_stiffness_class(space, quad, 1.0),
+                           dtype, dev)
+    return mass.axpy(beta * dt * dt, stiff)
+
+
+def phase_p2_kernels(torch, dev, kn) -> dict:
+    """Phase 3, the P2 kernels B11-B13 at phase 11's shape (Nel 1024 f64)
+    and phase 11b's (Nel 4096 f32), on phase 11's system stencil."""
+    from tpuwave_torch.ops import kernels_p2 as kp
+    from tpuwave_torch.solve.cheby_iter import chebyshev_coefficients
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    say("phase 3 (P2): B11-B13 on the Newmark system M + dt^2/4 K at dt "
+        "4e-3 (f64 bound: 1e-12 x max|plain|; f32: see f32_bound); "
+        "operations counted per canvas site: B11 92 (46 multiply-adds), "
+        "B12 116 per apply, B13 116 per apply + 8; smoothing degree 4 "
+        "on [lambda/8, lambda], lambda = 2.5687 (tpuwave's estimate at "
+        "Nel 1024)")
+    lam = 2.5687343127455877
+    theta, cf = chebyshev_coefficients(lam / 8.0, lam, 4)
+    sm = tuple((float(a), float(b)) for a, b in cf)
+    rows, results = {}, {}
+    for nel, dtype, n_k, n_p in ((1024, torch.float64, 50, 5),
+                                 (4096, torch.float32, 10, 2)):
+        st = p2_system(nel, 4e-3, 0.25, dtype, dev)
+        coeffs = st.terms
+        diags = tuple(float(st.plane_diag[q]) for q in "VHWD")
+        inv = tuple(1.0 / d for d in diags)
+        gersh = max(sum(abs(c) for ia, _, _, _, c in coeffs if ia == p)
+                    for p in range(4))
+        cshape = (nel + 3, nel + 3)
+        interior = kp.p2_canvas_interior(nel, nel, cshape, dev)
+        ri = torch.arange(cshape[0], device=dev)[:, None]
+        support = torch.stack([(ri >= 1) & (ri <= nel + 1 - a)
+                               & (ri.T >= 1) & (ri.T <= nel + 1 - b)
+                               for a, b in ((0, 0), (0, 1), (1, 0),
+                                            (1, 1))])
+        n_site = cshape[0] * cshape[1]
+        stack = 4 * n_site * torch.empty((), dtype=dtype).element_size()
+        name = f"{nel + 3}^2 x 4 {str(dtype)[6:]}"
+
+        def rnd(mask):
+            x = 2 * torch.rand((4, *cshape), generator=gen, device=dev,
+                               dtype=torch.float64) - 1
+            return torch.where(mask, x, 0.0).to(dtype)
+
+        def bound(want, scale, n=1):
+            return (1e-12 * float(want.abs().max()) if dtype == torch.float64
+                    else f32_bound(scale, n))
+
+        # B11, both forms
+        x = rnd(support)
+        for mask_input in (True, False):
+            dg = diags if mask_input else (0.0,) * 4
+            got = kp.p2_constrained_apply(x, coeffs, dg, nel, nel,
+                                          mask_input)
+            want = kp.p2_constrained_apply_reference(x, coeffs, dg, nel,
+                                                     nel, mask_input)
+            ms = cuda_ms(lambda: kp.p2_constrained_apply(
+                x, coeffs, dg, nel, nel, mask_input), n_k)
+            pms = cuda_ms(lambda: kp.p2_constrained_apply_reference(
+                x, coeffs, dg, nel, nel, mask_input), n_p, warm=1)
+            tag = f"B11 p2_constrained_apply {name} mask_input={mask_input}"
+            r = row(0.0, ms, pms, 2 * stack, 92 * n_site, dtype)
+            r["err"] = check(tag, got, want,
+                             bound(want, gersh * float(x.abs().max())),
+                             timing(r))
+            rows[tag] = r
+        # B12 and B13
+        b, r_in = rnd(interior), rnd(interior)
+        x, corr = rnd(support), rnd(support)
+        sm_scale = (1.0 + gersh * max(inv) / theta)
+        for kname, fn, ref_fn, n_in, n_out, ops in (
+                ("B12 p2_presmooth", lambda: kp.p2_presmooth(
+                    b, coeffs, inv, theta, sm, nel, nel),
+                 lambda: kp.p2_presmooth_reference(
+                     b, coeffs, inv, theta, sm, nel, nel), 1, 2, 4 * 116),
+                ("B13 p2_postsmooth", lambda: kp.p2_postsmooth(
+                    x, r_in, corr, coeffs, inv, theta, sm, nel, nel),
+                 lambda: kp.p2_postsmooth_reference(
+                     x, r_in, corr, coeffs, inv, theta, sm, nel, nel), 3, 1,
+                 4 * 116 + 8)):
+            got, want = fn(), ref_fn()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            ms = cuda_ms(fn, n_k)
+            pms = cuda_ms(ref_fn, n_p, warm=1)
+            tag = f"{kname} {name}"
+            r = row(0.0, ms, pms, (n_in + n_out) * stack, ops * n_site,
+                    dtype)
+            errs = []
+            for i, (g, w) in enumerate(zip(got, want)):
+                peak = max(1.0, float(w.abs().max()))
+                errs.append(check(f"{tag} out{i}", g, w,
+                                  bound(w, sm_scale * peak, 5),
+                                  timing(r) if i == len(got) - 1 else ""))
+            r["err"] = max(errs)
+            rows[tag] = r
+    results["p2_constrained_apply"] = rows[
+        "B11 p2_constrained_apply 1027^2 x 4 float64 mask_input=True"]
+    results["p2_presmooth"] = rows["B12 p2_presmooth 1027^2 x 4 float64"]
+    results["p2_postsmooth"] = rows["B13 p2_postsmooth 1027^2 x 4 float64"]
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the explicit leapfrog at bench.py's configuration
 # ---------------------------------------------------------------------------
@@ -459,10 +617,10 @@ def _quantum(s: str) -> float:
     return 10.0 ** (exp - dec)
 
 
-def _compare_csvs(a: Path, b: Path) -> int:
+def _compare_csvs(a: Path, b: Path, its_tol: int = 1) -> int:
     """CSV rows of two runs: numbers within rtol 1e-9 plus one unit in
     the last printed digit (the files print 7 or 11 significant digits);
-    iteration counts within +-1; the wall-clock column skipped."""
+    iteration counts within +-its_tol; the wall-clock column skipped."""
     n = 0
     for fa in sorted(a.rglob("*.csv")):
         fb = b / fa.relative_to(a)
@@ -476,7 +634,7 @@ def _compare_csvs(a: Path, b: Path) -> int:
                 if u == v or col == "elapsed_time_s":
                     continue
                 if col.startswith("iterations"):
-                    if abs(int(u) - int(v)) > 1:
+                    if abs(int(u) - int(v)) > its_tol:
                         raise AssertionError(f"{fa.name} {col}: {u} vs {v}")
                     continue
                 fu, fv = float(u), float(v)
@@ -687,6 +845,189 @@ def phase_profile(torch, kn, work: Path):
             f"{e.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 10 to 12: path C, the R = 2 (P2) engine
+# ---------------------------------------------------------------------------
+P2_RUNS = (
+    # family, flags, overrides (standing mode, R 2, 160^2, 20 steps, f64);
+    # q = beta dt^2 / h^2 = (theta dt / h)^2 = 10.2 at dt 4e-2
+    ("newmark", ("--solver", "2term", "--precond", "mg"),
+     {"Beta": "0.25", "Dt": "4e-2"}),
+    ("newmark", ("--precond", "mg"), {"Beta": "0.25", "Dt": "4e-2"}),
+    ("newmark", ("--solver", "cheby"), {"Beta": "0.25", "Dt": "2e-3"}),
+    ("theta", ("--precond", "auto"), {"Theta": "0.5", "Dt": "4e-2"}),
+    ("theta", ("--precond", "chebyshev"), {"Theta": "0.5", "Dt": "2e-3"}),
+    ("theta", ("--precond", "jacobi"), {"Theta": "0.5", "Dt": "2e-3"}),
+)
+
+
+def _p2_case(work: Path, family_over: dict, **over) -> Path:
+    """Phase 10's R = 2 case: standing mode, 160^2, 20 steps."""
+    return _case(work, Nel="160", R="2",
+                 T=str(20 * float(family_over["Dt"])),
+                 **{"Log Every": "1"}, **family_over, **over)
+
+
+def phase_p2_cli(torch, kn, work: Path):
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.utils.params import load_params
+
+    say("phase 10: the R = 2 solver family, standing mode, 160^2 elements "
+        "(103,041 DoF), 20 steps, f64, Log Every 1: --device cuda against "
+        "--device cpu (CSVs within rtol 1e-9, per-step CG counts equal)")
+    for family, flags, over in P2_RUNS:
+        case = _p2_case(work, over)
+        if "auto" in flags:
+            resolved = make_fast_solver(load_params(str(case)), family,
+                                        precond="auto",
+                                        device="cpu").precond
+            say(f"  {family} --precond auto resolves to {resolved}")
+            if resolved != "mg":
+                raise AssertionError("--precond auto did not resolve to mg")
+        tag = f"{family} {' '.join(flags)}"
+        out = work / "p2" / tag.replace(" ", "_")
+        before = dict(kn.LAUNCHES)
+        w_cuda, _ = _cli(family, case, out / "cuda", "cuda", flags=flags)
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_C}
+        w_cpu, _ = _cli(family, case, out / "cpu", "cpu", flags=flags)
+        rows = _compare_csvs(out / "cuda" / "res", out / "cpu" / "res",
+                             its_tol=0)
+        say(f"  {tag:<36} cuda {w_cuda:6.2f} s  cpu {w_cpu:6.2f} s  "
+            f"{rows} CSV rows agree  launches {n}")
+        need = ["p2_constrained_apply"]
+        if "mg" in flags or "auto" in flags:
+            need += ["p2_presmooth", "p2_postsmooth", "cheby_block",
+                     "constrained_stencil_apply"]
+        for k in need:
+            if n[k] <= 0:
+                raise AssertionError(f"{tag}: the cuda run launched no {k}")
+
+
+def _cli_summary(out: Path, text: str):
+    """(final rel L2, time loop s, steps, CG iterations) of a CLI run."""
+    conv = list(csv.DictReader(
+        (out / "res" / "newmark-standing-mode-wsol" /
+         "convergence.csv").open()))[-1]
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("Simulation completed", "Total CG"))]
+    for ln in lines:
+        say(f"  {ln}")
+    n_steps = int(lines[0].split(":")[1].split()[0])
+    its = int(lines[1].split(":")[1].split(",")[0])
+    return (float(conv["rel_L2_error_final"]),
+            float(conv["elapsed_time_s"]), n_steps, its)
+
+
+def phase_p2_1024(torch, kn, work: Path):
+    say("phase 11: newmark beta 1/4 --solver 2term --precond mg, R = 2, "
+        "standing mode, 1024^2 elements (4,198,401 DoF), dt 4e-3, T 0.2, "
+        "f64, logging off, on cuda")
+    case = _case(work, Nel="1024", R="2", Dt="4e-3", T="0.2", Beta="0.25",
+                 Gamma="0.5", **{"Enable Logging": "false"})
+    out = work / "p2_1024"
+    wall, text = _cli("newmark", case, out, "cuda", quiet=False,
+                      flags=("--solver", "2term", "--precond", "mg"))
+    rel_l2, elapsed, n_steps, its = _cli_summary(out, text)
+    say(f"  CLI wall {wall:.2f} s (time loop {elapsed:.3f} s, "
+        f"{elapsed / n_steps * 1e3:.2f} ms/step, "
+        f"{4198401 * n_steps / elapsed:.4e} DoF*steps/s); CG iterations "
+        f"{its}, tpuwave {TPUWAVE_ITERS_P2_2TERM_1024} (a difference can "
+        f"come only from the smoother's lambda_max start vector)")
+    want = TPUWAVE_REL_L2_P2_2TERM_1024
+    rel = abs(rel_l2 - want) / want
+    say(f"  final rel L2 {rel_l2:.10e}, tpuwave {want:.10e}, rel diff "
+        f"{rel:.2e} (bound 1e-6) {'ok' if rel <= 1e-6 else 'FAIL'}")
+    if rel > 1e-6:
+        raise AssertionError("final rel L2 differs from tpuwave's")
+
+
+def phase_p2_4096(torch, kn, work: Path):
+    say("phase 11b: newmark beta 1/4 --f32 --precond mg (3term), R = 2, "
+        "standing mode, 4096^2 elements (67,125,249 DoF), dt 4e-3, 10 "
+        "steps, logging off, on cuda")
+    case = _case(work, Nel="4096", R="2", Dt="4e-3", T=str(10 * 4e-3),
+                 Beta="0.25", Gamma="0.5", **{"Enable Logging": "false"})
+    out = work / "p2_4096"
+    torch.cuda.reset_peak_memory_stats()
+    wall, text = _cli("newmark", case, out, "cuda", quiet=False,
+                      flags=("--f32", "--precond", "mg"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel_l2, elapsed, n_steps, its = _cli_summary(out, text)
+    say(f"  CLI wall {wall:.2f} s (time loop {elapsed:.3f} s, "
+        f"{elapsed / n_steps * 1e3:.2f} ms/step, "
+        f"{67125249 * n_steps / elapsed:.4e} DoF*steps/s); CG iterations "
+        f"{its}; peak device memory {peak:.2f} GiB; final rel L2 "
+        f"{rel_l2:.6e} (bound: finite and < 1e-3)")
+    if not (rel_l2 == rel_l2 and rel_l2 < 1e-3):
+        raise AssertionError("phase 11b: final rel L2 is not finite "
+                             "and < 1e-3")
+
+
+def phase_p2_profile(torch, kn, work: Path):
+    """Where path C's time goes: one P2 V-cycle at 1024^2 and phase 10's
+    2-term MG run, each under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.utils.params import load_params
+
+    say("phase 12: torch.profiler over path C")
+    case = _case(work, Nel="1024", R="2", Dt="4e-3", T="0.2", Beta="0.25",
+                 **{"Enable Logging": "false"})
+    solver = make_fast_solver(load_params(str(case)), "newmark",
+                              solver="2term", precond="mg", device="cuda")
+    prec = solver._prec_sys
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    b = torch.rand((4, *solver._cshape), generator=gen, device="cuda",
+                   dtype=torch.float64)
+    b = torch.where(solver.interior, b, 0.0)
+    prec(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        prec(b)
+    torch.cuda.synchronize()
+    host_plain = (time.perf_counter() - t0) / 10
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prec(b)
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    dev_t = _device_time(prof)
+    if dev_t is None:
+        say("  profiler saw no device time: not measured")
+        return
+    say(f"  one P2 V-cycle, P1 tail of {len(prec.p1_cycle.levels)} levels, "
+        f"canvases 4 x 1027^2 f64: {dev_t[0]} device events, device busy "
+        f"{dev_t[1]:.3f} ms; wall {host_plain * 1e3:.3f} ms (mean of 10, "
+        f"host clock), {host * 1e3:.3f} ms under the profiler")
+    top = sorted(_device_events(prof),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        say(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x "
+            f"{e.key[:70]}")
+    family, flags, over = P2_RUNS[0]
+    # device activity only: the host events of a whole run (~10^6) make
+    # the profiler's own accounting take minutes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall, text = _cli(family, _p2_case(work, over), work / "p2prof",
+                          "cuda", quiet=False, flags=flags)
+        torch.cuda.synchronize()
+    dev_t = _device_time(prof)
+    its = [ln for ln in text.splitlines() if ln.startswith("Total CG")]
+    say(f"  phase 10's {family} {' '.join(flags)} run, 160^2, 20 steps, "
+        f"Log Every 1: wall {wall:.3f} s, {dev_t[0]} device events, device "
+        f"busy {dev_t[1]:.1f} ms, idle share "
+        f"{1 - dev_t[1] / 1e3 / wall:.3f} (under the profiler); "
+        f"{its[0] if its else ''}")
+    top = sorted(_device_events(prof),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        say(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
+            f"{e.key[:70]}")
+
+
 def _run_path(kn, name, kernels, fn) -> dict:
     """Drive one main path with the launch counts at 0; every kernel of
     the path must have launched."""
@@ -732,6 +1073,7 @@ def main() -> int:
             say(f"  {ln.strip()}")
 
     results = phase_kernels(torch, dev, kn)
+    results.update(phase_p2_kernels(torch, dev, kn))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
@@ -744,19 +1086,25 @@ def main() -> int:
             phase_solvers(torch, kn, work)
             phase_2term_2048(torch, kn, work)
 
+        def path_c():
+            phase_p2_cli(torch, kn, work)
+            phase_p2_1024(torch, kn, work)
+            phase_p2_4096(torch, kn, work)
+
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
         phase_profile(torch, kn, work)
+        launches_c = _run_path(kn, "C", PATH_C, path_c)
+        phase_p2_profile(torch, kn, work)
 
     kernels = []
-    for name in ("leapfrog_step", "leapfrog_multistep",
-                 "constrained_stencil_apply", "cheby_block",
-                 "recurrence_r0"):
+    for name in SOURCES:
         r = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=launches_a.get(name, 0) + launches_b.get(name, 0),
+            launches=sum(ln.get(name, 0) for ln in (launches_a, launches_b,
+                                                    launches_c)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

@@ -126,13 +126,13 @@ def test_engine_refuses_unported_configurations():
     with pytest.raises(NotImplementedError, match="A5"):
         tfe.make_fast_solver(tload(tdep), "theta", dtype=torch.float64,
                              device=CPU)
-    # the solver flags are ported; at R = 2 they are refused with it (A9)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfe.make_fast_solver(tload(_driven_case(R="2")), "theta",
+    # R = 2 is ported; with varying or time-dependent C it is refused (A5)
+    with pytest.raises(NotImplementedError, match="A5"):
+        tfe.make_fast_solver(tload(dict(varc, R="2")), "theta",
                              precond="mg", solver="2term",
                              dtype=torch.float64, device=CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfe.make_fast_solver(tload(_driven_case(R="2")), "theta",
+    with pytest.raises(NotImplementedError, match="A5"):
+        tfe.make_fast_solver(tload(dict(tdep, R="2")), "theta",
                              dtype=torch.float64, device=CPU)
 
 
@@ -223,20 +223,20 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 
 @pytest.mark.parametrize("flag,item", [
     (["--engine", "parity"], "A10"),
-    # the solver flags are ported: refused only with what is not (P2,
-    # varying or time-dependent C)
-    (["--precond", "chebyshev", "R=2"], "A9"),
-    (["--precond", "mg", "R=2"], "A9"),
+    # the solver flags and R = 2 are ported: refused only with what is
+    # not (varying or time-dependent C)
+    (["--precond", "chebyshev", "R=2", "C=x"], "A5"),
+    (["--precond", "mg", "R=2", "C=t"], "A5"),
     (["--precond", "auto", "C=x"], "A5"),
     (["--solver", "2term", "C=t"], "A5"),
-    (["--solver", "cheby", "R=2"], "A9"),
+    (["--solver", "cheby", "R=2", "C=x"], "A5"),
     (["--shard", "rows"], "A11"),
     (["--distributed"], "A11"),
     (["--unstructured-sharding", "cells"], "A11"),
     (["--checkpoint-every", "2"], "A1"),
     (["--resume"], "A1"),
     (["--profile-dir", "trace"], "A13"),
-    (["R=2"], "A9"),
+    (["R=2", "C=t"], "A5"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     from tpuwave_torch.cli import theta
@@ -273,7 +273,9 @@ def test_cli_cuda_without_card_exits_1(tmp_path, capsys):
 def test_import_tpuwave_torch_leaves_jax_out():
     code = ("import sys, tpuwave_torch, tpuwave_torch.cli.newmark, "
             "tpuwave_torch.cli.theta, tpuwave_torch.models.convert, "
-            "tpuwave_torch.ops.kernels; "
+            "tpuwave_torch.ops.kernels, tpuwave_torch.ops.kernels_p2, "
+            "tpuwave_torch.models.fast_engine_p2, "
+            "tpuwave_torch.models.fast_engine_p2_2term; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuwave')))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -246,6 +246,29 @@ def test_cheby_block_equals_generic_block():
     np.testing.assert_allclose(gr.numpy(), wr.numpy(), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("degree", [4, 8])
+def test_chebyshev_solve_stencil_block_equals_generic(degree):
+    """chebyshev_solve with stencil_chebyshev's B4 block takes the same
+    blocks, to the same solution, as with the generic block on the same
+    B3 apply and symbol bounds."""
+    from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
+                                                stencil_chebyshev)
+    kw = stencil_chebyshev(SYSTEM)
+    pinned = tk.pinned_mask((H, W), "cpu").numpy()
+    b, x0 = (np.where(pinned, 0.0, f) for f in _fields(14))
+    fused = chebyshev_solve(b=_t(b), x0=_t(x0), degree=degree,
+                            reduction=1e-8, **kw)
+    generic = chebyshev_solve(kw["apply_a"], _t(b), _t(x0),
+                              lam_min=kw["lam_min"], lam_max=kw["lam_max"],
+                              degree=degree, reduction=1e-8)
+    assert fused.converged and generic.converged
+    assert fused.iterations == generic.iterations > 0
+    np.testing.assert_allclose(fused.x.numpy(), generic.x.numpy(),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(float(fused.residual_norm),
+                               float(generic.residual_norm), rtol=1e-8)
+
+
 def test_cheby_tile_fits_and_refuses():
     # r and d slabs plus the x tile in the H100's 227 KB opt-in limit
     assert tk.cheby_tile(8, torch.float64, 232448) == 64

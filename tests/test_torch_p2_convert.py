@@ -1,0 +1,58 @@
+"""Carrying R = 2 states between tpuwave and the port
+(tpuwave_torch/models/convert.py), on the CPU in f64.
+
+A tpuwave state, carried across, steps to tpuwave's next state (per-step
+CG counts identical, states within 1e-10 relative): the 3-term
+``FastGridState`` from tpuwave's XLA route, whose canvases are the port's
+(ny+3, nx+3), and the 2-term ``P22TermState`` from its Pallas route
+(interpret mode), whose canvases ``convert.to_torch(..., canvas=...)``
+crops from (24, 128) to (24, 15). The way back zero-pads.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_p2_engine import (_close, driven_case,
+                                        shared_lambda)  # noqa: F401
+from tpuwave.models import fast_engine as jfe
+from tpuwave.utils.params import load_params as jload
+from tpuwave_torch.models import convert
+from tpuwave_torch.models import fast_engine as tfe
+from tpuwave_torch.utils.params import load_params as tload
+
+CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("solver,nel,pallas", [("3term", "8,6", False),
+                                               ("2term", "12,21", True)])
+def test_state_carried_across_steps_to_tpuwaves_next_state(
+        shared_lambda, solver, nel, pallas):
+    case = driven_case(Nel=nel, Dt="0.1", T="0.2")
+    kw = dict(use_pallas=True, pallas_block_rows=8,
+              pallas_interpret=True) if pallas else {}
+    js = jfe.make_fast_solver(jload(case), "newmark", solver=solver,
+                              precond="mg", **kw)
+    ts = tfe.make_fast_solver(tload(case), "newmark", solver=solver,
+                              precond="mg", dtype=torch.float64, device=CPU)
+    sj, _ = js.step(js.initial_state(), 0.1)
+    st = convert.to_torch(sj, CPU, torch.float64, canvas=ts._cshape)
+    assert type(st).__name__ == type(sj).__name__
+    assert st.u.shape == (4, *ts._cshape)
+    if solver == "2term":
+        assert st.n == 1 and st.vb.shape == tuple(sj.vb.shape)
+    sj2, ij = js.step(sj, 0.2)
+    st2, it = ts.step(st, 0.2)
+    assert it["iterations_1"] == int(ij["iterations_1"])
+    for name in st2._fields:
+        got = getattr(st2, name)
+        if isinstance(got, torch.Tensor) and got.dim() == 3:
+            _close(ts.to_flat(got).numpy(), js.to_flat(getattr(sj2, name)))
+    back = convert.to_numpy(st2)
+    hc, wc = sj2.u.shape[1:]
+    padded = convert.to_torch(back, CPU, torch.float64, type(st2).__name__,
+                              canvas=(hc, wc))
+    h, w = ts._cshape
+    np.testing.assert_array_equal(padded.u.numpy()[:, :h, :w], back["u"])
+    assert not padded.u.numpy()[:, h:].any()
+    assert not padded.u.numpy()[:, :, w:].any()

@@ -1,20 +1,24 @@
 """tpuwave_torch — the PyTorch / CUDA port of tpuwave.
 
-Same problem class as tpuwave (the 2D scalar wave equation with P1
-elements on a structured triangulated rectangle), same module layout and
-public names, on PyTorch tensors, with the hot stencil passes as CUDA C++
-kernels for Hopper (``ops/kernels.py``, ``csrc/*.cu``).
+Same problem class as tpuwave (the 2D scalar wave equation with P1 and
+P2 elements on a structured triangulated rectangle), same module layout
+and public names, on PyTorch tensors, with the hot stencil passes as CUDA
+C++ kernels for Hopper (``ops/kernels.py``, ``ops/kernels_p2.py``,
+``csrc/*.cu``).
 
-The port covers the structured-P1 wave step and its implicit solvers:
+The port covers the structured wave step and its implicit solvers at
+R = 1 and R = 2 (constant wave speed):
 
 - ``utils``   expressions, parameter files, CSV/VTU output, naming
-- ``core``    structured mesh, P1 shape functions, quadrature
-- ``ops``     element classes, constant 3x3 stencils, the CUDA kernels
+- ``core``    structured mesh, P1/P2 shape functions, quadrature
+- ``ops``     element classes, constant 3x3 stencils, the P2 plane
+              block-stencils, the CUDA kernels
 - ``solve``   preconditioned CG (ReductionControl semantics), Chebyshev
-              iteration and preconditioning, geometric multigrid
+              iteration and preconditioning, geometric and (p+h)
+              multigrid
 - ``models``  FastWaveSolver (explicit leapfrog), the fast Newmark/theta
-              engines (3-term and 2-term), O(grid) diagnostics and the
-              run driver
+              engines (3-term and 2-term; P1 grids and P2 canvases),
+              O(grid) diagnostics and the run driver
 - ``cli``     ``python -m tpuwave_torch.cli.newmark|theta <preset>``
 
 The package imports neither ``jax`` nor ``tpuwave``.

@@ -139,10 +139,6 @@ def run_main(family: str, argv=None) -> int:
         print("Hint: check that the file exists and matches the documented "
               "JSON schema (see parameters/*.json).", file=sys.stderr)
         return 1
-    if params.r == 2:
-        print("R = 2 (P2 elements) is not ported yet (ROADMAP A9)",
-              file=sys.stderr)
-        return 1
     if params.mesh_file is not None:
         print("imported meshes (Mesh File Name) are not ported yet "
               "(ROADMAP A10)", file=sys.stderr)

@@ -1,17 +1,24 @@
 """Carry solver state across from tpuwave and back.
 
 tpuwave's state types are NamedTuples of arrays (``FastState``,
-``LeapfrogState``, ``FastGridState``, ``Fast2TermState``). ``to_torch``
-turns one (or any NamedTuple / sequence of array-likes, e.g. its fields as
-numpy arrays) into the port's counterpart with tensors on a given device
-and dtype; ``to_numpy`` goes back to numpy. The 2-term step counter ``n``
-is a device scalar in tpuwave and a Python int in the port. Nothing here
-imports jax: anything with ``__array__`` converts.
+``LeapfrogState``, ``FastGridState``, ``Fast2TermState``,
+``P22TermState``). ``to_torch`` turns one (or any NamedTuple / sequence of
+array-likes, e.g. its fields as numpy arrays) into the port's counterpart
+with tensors on a given device and dtype; ``to_numpy`` goes back to numpy.
+The 2-term step counter ``n`` is a device scalar in tpuwave and a Python
+int in the port. Nothing here imports jax: anything with ``__array__``
+converts.
+
+At R = 2 the states hold (4, Hc, Wc) canvas stacks. tpuwave pads the rows
+and columns of its Pallas route's canvases (block-row and lane multiples);
+the port's canvas is the true (ny+3, nx+3). Pass ``canvas=(Hc, Wc)`` (the
+port engine's ``_cshape``) and every canvas field is cropped or
+zero-padded to it: the padding lies outside every plane's support.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,31 +39,48 @@ def _target(name: str):
     if name == "Fast2TermState":
         from tpuwave_torch.models.fast_engine_2term import Fast2TermState
         return Fast2TermState
+    if name == "P22TermState":
+        from tpuwave_torch.models.fast_engine_p2_2term import P22TermState
+        return P22TermState
     return {"FastState": FastState, "LeapfrogState": LeapfrogState}.get(name)
 
 
-def _field(name, v, device, dtype):
+def _field(name, v, device, dtype, canvas):
     if v is None:
         return None
     if name in _INT_FIELDS:
         return int(np.asarray(v))
-    return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    a = np.asarray(v)
+    if canvas is not None and a.ndim == 3 and a.shape[0] == 4:
+        out = np.zeros((4, *canvas), dtype=a.dtype)
+        h, w = min(a.shape[1], canvas[0]), min(a.shape[2], canvas[1])
+        out[:, :h, :w] = a[:, :h, :w]
+        a = out
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
-def to_torch(state, device, dtype: torch.dtype, kind: Optional[str] = None):
-    """tpuwave state (or its fields) -> the port's state type.
+def to_torch(state, device, dtype: torch.dtype, kind: Optional[str] = None,
+             canvas: Optional[Tuple[int, int]] = None):
+    """tpuwave state (or its fields, or a ``to_numpy`` dict) -> the port's
+    state type.
 
     ``kind`` names the target type ('FastState', 'LeapfrogState',
-    'FastGridState', 'Fast2TermState'); by default the source's own type
-    name. Fields that are None stay None.
+    'FastGridState', 'Fast2TermState', 'P22TermState'); by default the
+    source's own type name. Fields that are None stay None. ``canvas``:
+    the (Hc, Wc) every (4, H, W) canvas field is cropped or zero-padded to
+    (R = 2 states).
     """
     kind = kind or type(state).__name__
     cls = _target(kind)
     if cls is None:
         raise TypeError(f"no tpuwave_torch counterpart for {kind!r}")
-    fields = (state._asdict() if hasattr(state, "_asdict")
-              else dict(zip(cls._fields, state)))
-    return cls(**{k: _field(k, v, device, dtype)
+    if hasattr(state, "_asdict"):
+        fields = state._asdict()
+    elif isinstance(state, dict):
+        fields = state
+    else:
+        fields = dict(zip(cls._fields, state))
+    return cls(**{k: _field(k, v, device, dtype, canvas)
                   for k, v in fields.items() if k in cls._fields})
 
 

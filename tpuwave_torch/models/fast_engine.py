@@ -23,9 +23,10 @@ uses its fused kernels only for f32 on an accelerator, because Mosaic has
 no f64; the CUDA kernels take both, so every run on the card goes through
 them.
 
-Coverage of this slice: structured P1 rectangles, constant wave speed.
-Spatially varying or time-dependent C (ROADMAP A5), P2 (A9) and the
-parity engine (A10) raise NotImplementedError.
+Coverage: structured rectangles, constant wave speed. R = 2 problems
+route to the P2 canvas engines (models/fast_engine_p2.py,
+models/fast_engine_p2_2term.py). Spatially varying or time-dependent C
+(ROADMAP A5) and the parity engine (A10) raise NotImplementedError.
 
 State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
 the steppers reshape to the (ny+1, nx+1) vertex grid internally (free: the
@@ -45,18 +46,20 @@ from tpuwave_torch.ops import kernels
 from tpuwave_torch.solve.cg import pcg
 from tpuwave_torch.solve.chebyshev import chebyshev_apply
 from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
+                                            stencil_chebyshev,
                                             stencil_symbol_bounds)
 from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
                                            auto_precond, gmg_for_system)
 from tpuwave_torch.utils.params import Params
 
 __all__ = ["FastGridState", "FastThetaSolver", "FastNewmarkSolver",
-           "fast_engine_ineligible_reason", "make_fast_solver",
-           "resolve_engine"]
+           "StepLoopMixin", "fast_engine_ineligible_reason",
+           "make_fast_solver", "resolve_engine"]
 
 
 class FastGridState(NamedTuple):
-    u: torch.Tensor   # flat (n_dofs,)
+    #: flat (n_dofs,) at R = 1; (4, ny+3, nx+3) canvases at R = 2
+    u: torch.Tensor
     v: torch.Tensor
     a: torch.Tensor   # consistent acceleration (Newmark); zeros for theta
     #: K(t^n) payload of `Time Dependent C` runs (tpuwave); always None
@@ -98,11 +101,32 @@ def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
     parity CG contract, default), ``2term`` (the displacement recurrence,
     models/fast_engine_2term.py) or ``cheby`` (restarted Chebyshev
     iteration). ``engine_kwargs`` take ``dtype`` and ``device`` (default
-    "cuda", which raises where there is no card)."""
+    "cuda", which raises where there is no card). R = 2 problems route to
+    the P2 plane-canvas engines, which also take ``cheby_solver_degree``,
+    ``mg_pre_degree`` and ``mg_smooth_range``."""
     p = problem
     if p.r == 2:
-        raise NotImplementedError("R = 2 (P2) is not ported yet "
-                                  "(ROADMAP A9)")
+        if solver == "2term":
+            from tpuwave_torch.models.fast_engine_p2_2term import (
+                FastP22TermNewmarkSolver, FastP22TermThetaSolver)
+            cls2 = {"theta": FastP22TermThetaSolver,
+                    "newmark": FastP22TermNewmarkSolver}.get(family)
+        else:
+            from tpuwave_torch.models.fast_engine_p2 import (
+                FastP2NewmarkSolver, FastP2ThetaSolver)
+            cls2 = {"theta": FastP2ThetaSolver,
+                    "newmark": FastP2NewmarkSolver}.get(family)
+        if cls2 is None:
+            raise ValueError(f"unknown solver family {family!r}")
+        allowed = {"device", "dtype", "cheby_solver_degree",
+                   "mg_pre_degree", "mg_smooth_range"}
+        if set(engine_kwargs) - allowed:
+            raise TypeError("P2 fast engine does not accept "
+                            f"{sorted(set(engine_kwargs) - allowed)}")
+        if solver != "2term":
+            engine_kwargs["solver"] = solver
+        return cls2(problem, precond=precond, cheby_degree=cheby_degree,
+                    **engine_kwargs)
     if solver == "2term":
         from tpuwave_torch.models.fast_engine_2term import (
             Fast2TermNewmarkSolver, Fast2TermThetaSolver)
@@ -135,7 +159,34 @@ def resolve_engine(params, family: str, engine: str, **solver_kwargs):
     return make_fast_solver(params, family, **solver_kwargs), None
 
 
-class _FastEngineBase:
+class StepLoopMixin:
+    """The engines' time loops over ``self.step`` (R = 1 and R = 2)."""
+
+    def run_steps(self, state, times):
+        """Advance ``len(times)`` steps; returns (final_state, per-step
+        info as host numpy arrays, one transfer per call)."""
+        return self.run_steps_diag(state, times, None)
+
+    def run_steps_diag(self, state, times, diag_fn):
+        """``run_steps`` with ``diag_fn(new_state, t) -> dict of 0-d
+        tensors`` evaluated after every step and stacked."""
+        its1, its2, rows = [], [], []
+        for t in times:
+            state, info = self.step(state, float(t))
+            its1.append(info["iterations_1"])
+            its2.append(info["iterations_2"])
+            row = {"norm_u": info["norm_u"], "norm_v": info["norm_v"]}
+            if diag_fn is not None:
+                row.update(diag_fn(state, float(t)))
+            rows.append(row)
+        out = {"iterations_1": np.asarray(its1, dtype=np.int64),
+               "iterations_2": np.asarray(its2, dtype=np.int64)}
+        for key in (rows[0] if rows else {}):
+            out[key] = torch.stack([r[key] for r in rows]).cpu().numpy()
+        return state, out
+
+
+class _FastEngineBase(StepLoopMixin):
     """Shared plumbing: operators, boundary/forcing data, elimination."""
 
     def __init__(self, problem, *, dtype: torch.dtype = torch.float64,
@@ -150,8 +201,8 @@ class _FastEngineBase:
                              "(3term | cheby; 2term is the displacement-"
                              "form classes in models/fast_engine_2term.py)")
         if problem.r != 1:
-            raise NotImplementedError("R = 2 (P2) is not ported yet "
-                                      "(ROADMAP A9)")
+            raise ValueError("the P1 engine needs R = 1 (R = 2: "
+                             "models/fast_engine_p2.py)")
         p = problem
         c_const = p.c.constant_value
         if p.time_dependent_c and p.c.time_dependent:
@@ -318,34 +369,10 @@ class _FastEngineBase:
         through B3. The loop reads ||r||^2 back once per block and stops
         by the ReductionControl contract of the CG paths."""
         return chebyshev_solve(
-            op.stencil, rhs_c, x0, degree=self._cheby_solver_degree,
+            b=rhs_c, x0=x0, **stencil_chebyshev(op.stencil),
+            degree=self._cheby_solver_degree,
             abs_tol=self._abs_tol(rhs_c, x0, op),
             reduction=self.fs.cg_reduction, max_iter=self._max_iter)
-
-    # -- time loops ----------------------------------------------------
-    def run_steps(self, state, times):
-        """Advance ``len(times)`` steps; returns (final_state, per-step
-        info as host numpy arrays, one transfer per call)."""
-        return self.run_steps_diag(state, times, None)
-
-    def run_steps_diag(self, state, times, diag_fn):
-        """``run_steps`` with ``diag_fn(new_state, t) -> dict of 0-d
-        tensors`` evaluated after every step and stacked."""
-        its1, its2, rows = [], [], []
-        for t in times:
-            state, info = self.step(state, float(t))
-            its1.append(info["iterations_1"])
-            its2.append(info["iterations_2"])
-            row = {"norm_u": info["norm_u"], "norm_v": info["norm_v"]}
-            if diag_fn is not None:
-                row.update(diag_fn(state, float(t)))
-            rows.append(row)
-        out = {"iterations_1": np.asarray(its1, dtype=np.int64),
-               "iterations_2": np.asarray(its2, dtype=np.int64)}
-        for key in (rows[0] if rows else {}):
-            out[key] = torch.stack([r[key] for r in rows]).cpu().numpy()
-        return state, out
-
 
 class FastThetaSolver(_FastEngineBase):
     """theta-method on the grid planes — parity algebra of tpuwave's

@@ -60,7 +60,8 @@ import torch
 from tpuwave_torch.models.fast_engine import _FastEngineBase
 from tpuwave_torch.ops import kernels
 from tpuwave_torch.solve.cg import pcg, vdot
-from tpuwave_torch.solve.cheby_iter import chebyshev_solve
+from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
+                                            stencil_chebyshev)
 from tpuwave_torch.solve.multigrid import KernelGmgPreconditioner
 
 __all__ = ["Fast2TermState", "Fast2TermThetaSolver",
@@ -176,7 +177,8 @@ class _Fast2TermBase(_FastEngineBase):
                   reduction=self.fs.cg_reduction, max_iter=self._max_iter,
                   r0=r0, norm0_sq=rn2)
         if self._fused_ok and self.precond == "chebyshev":
-            return chebyshev_solve(sys_op.stencil, r0, torch.zeros_like(r0),
+            return chebyshev_solve(b=r0, x0=torch.zeros_like(r0),
+                                   **stencil_chebyshev(sys_op.stencil),
                                    degree=self._cheby_solver_degree, **kw)
         return pcg(self._constrained_apply(sys_op), r0, torch.zeros_like(r0),
                    precond_inv_diag=self._sys_precond(sys_op), **kw)

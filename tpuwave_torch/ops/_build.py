@@ -23,7 +23,8 @@ __all__ = ["COMPILE_FLAGS", "LINK_FLAGS", "build_library", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "stencil_kernels.cu", _CSRC / "solver_kernels.cu")
+_SOURCES = (_CSRC / "stencil_kernels.cu", _CSRC / "solver_kernels.cu",
+            _CSRC / "p2_kernels.cu")
 _HEADERS = (_CSRC / "grid_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 
@@ -35,6 +36,7 @@ LINK_FLAGS = (*_ARCH, "-shared")
 _VP, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_double)
 _DP = ctypes.POINTER(ctypes.c_double)
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: C signature of every entry point of the library
 _SIGNATURES = {
@@ -48,6 +50,10 @@ _SIGNATURES = {
     "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
                          _D, _D, _I, _VP),
     "tw_recurrence_r0_block": (_I,),
+    "tw_p2_apply": (_I, _VP, _VP, _I, _I, _I, _I, _IP, _IP, _IP, _IP, _DP,
+                    _I, _DP, _I, _VP),
+    "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _IP,
+                     _IP, _IP, _IP, _DP, _I, _DP, _D, _DP, _DP, _I, _I, _VP),
 }
 
 

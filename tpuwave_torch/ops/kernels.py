@@ -14,7 +14,8 @@ or its column is <= 0 or >= W - 1; ``n_rows`` is the grid's own height
 unless a row block of a taller grid is stepped (``row_offset``).
 
 ``LAUNCHES`` counts kernel launches per wrapper (only real CUDA launches,
-never the plain path), so a run can show it went through the kernels.
+never the plain path), so a run can show it went through the kernels; it
+also counts the P2 kernels of ``ops/kernels_p2.py`` (B11-B13).
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
 
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"constrained_stencil_apply": 0, "leapfrog_step": 0,
-            "leapfrog_multistep": 0, "cheby_block": 0, "recurrence_r0": 0}
+            "leapfrog_multistep": 0, "cheby_block": 0, "recurrence_r0": 0,
+            "p2_constrained_apply": 0, "p2_presmooth": 0,
+            "p2_postsmooth": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _TILES = (64, 32, 16)

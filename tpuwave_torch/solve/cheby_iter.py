@@ -9,7 +9,10 @@ needs no dot product and runs as one pass of kernel B4
 checks, which keeps every block identical.
 
 :func:`chebyshev_solve` is a Python loop over blocks with one host read of
-``||r||^2`` per block; its stopping rule is tpuwave's ReductionControl
+``||r||^2`` per block, for any operator with known spectrum bounds (the P2
+engine's block-symbol bounds; :func:`stencil_chebyshev` gives the P1
+stencil's B3 apply, symbol bounds and B4 block); its stopping rule is
+tpuwave's ReductionControl
 contract, ``||r|| <= max(abs_tol, reduction * ||r0||)``, evaluated as
 ``||r||^2`` against the squared tolerance.
 """
@@ -27,7 +30,8 @@ from tpuwave_torch.ops import kernels
 from tpuwave_torch.solve.cg import CgResult, vdot
 
 __all__ = ["stencil_symbol_bounds", "chebyshev_coefficients",
-           "block_contraction", "chebyshev_block", "chebyshev_solve"]
+           "block_contraction", "chebyshev_block", "chebyshev_solve",
+           "stencil_chebyshev"]
 
 
 def stencil_symbol_bounds(stencil, n: int = 512,
@@ -117,13 +121,18 @@ def chebyshev_block(apply_a: Callable, x, r, theta: float, coeffs):
     return x, r
 
 
-def chebyshev_solve(stencil, b, x0, *, degree: int = 8, abs_tol=1e-12,
+def chebyshev_solve(apply_a: Callable, b, x0, *, lam_min: float,
+                    lam_max: float, degree: int = 8, abs_tol=1e-12,
                     reduction: float = 1e-6, max_iter: int = 10000,
-                    r0=None, norm0_sq=None) -> CgResult:
-    """Solve the constrained system of the constant ``stencil`` (interior
-    rows S(x masked on pinned rows), pinned rows s[1][1] * x) by restarted
-    Chebyshev iteration with the analytic symbol bounds: r0 through
-    kernel B3, every block of ``degree`` iterations one pass of kernel B4.
+                    r0=None, norm0_sq=None, block=None) -> CgResult:
+    """Solve ``apply_a`` x = b, an SPD operator with spectrum in [lam_min,
+    lam_max], by restarted Chebyshev iteration (tpuwave's
+    ``chebyshev_solve``): one host read of ||r||^2 per block of ``degree``
+    iterations. ``block(x, r, theta, coeffs) -> (x, r, ||r||^2)`` runs a
+    block, by default ``chebyshev_block`` and a dot product;
+    :func:`stencil_chebyshev` gives the constant-stencil arguments (r0
+    through kernel B3, every block one pass of kernel B4; the P2 engine
+    passes its B11 apply and block-symbol bounds).
 
     Same stopping contract and result type as solve/cg.py::pcg;
     ``iterations`` counts ``degree`` per block. ``b`` and ``x0`` follow
@@ -131,10 +140,13 @@ def chebyshev_solve(stencil, b, x0, *, degree: int = 8, abs_tol=1e-12,
     diagonal rows), so the residual is zero on pinned rows and the
     iterates keep x0 there. ``r0`` / ``norm0_sq`` as in pcg.
     """
-    lo, hi = stencil_symbol_bounds(stencil)
-    theta, coeffs = chebyshev_coefficients(lo, hi, degree)
+    theta, coeffs = chebyshev_coefficients(lam_min, lam_max, degree)
+    if block is None:
+        def block(x, r, th, cf):
+            x, r = chebyshev_block(apply_a, x, r, th, cf)
+            return x, r, vdot(r, r)
     if r0 is None:
-        r0 = b - kernels.constrained_stencil_apply(x0, stencil, stencil[1][1])
+        r0 = b - apply_a(x0)
     rr = vdot(r0, r0) if norm0_sq is None else norm0_sq
     tol = torch.clamp(reduction * torch.sqrt(rr).to(b.dtype),
                       min=torch.as_tensor(abs_tol, dtype=b.dtype,
@@ -143,8 +155,23 @@ def chebyshev_solve(stencil, b, x0, *, degree: int = 8, abs_tol=1e-12,
     x, r, k = x0, r0, 0
     # one host read of ||r||^2 per block
     while k < max_iter and float(rr) > tol_sq:
-        x, r, rr = kernels.cheby_block(x, r, stencil, theta, coeffs)
+        x, r, rr = block(x, r, theta, coeffs)
         k += degree
     rnorm = torch.sqrt(rr).to(b.dtype)
     return CgResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=float(rr) <= tol_sq)
+
+
+def stencil_chebyshev(stencil) -> dict:
+    """:func:`chebyshev_solve`'s operator arguments for the constrained
+    system of the constant ``stencil`` (interior rows S(x masked on pinned
+    rows), pinned rows s[1][1] * x): its apply (kernel B3 on the card),
+    the analytic symbol bounds and, as the block, one pass of kernel B4."""
+    lo, hi = stencil_symbol_bounds(stencil)
+
+    def apply_a(x):
+        return kernels.constrained_stencil_apply(x, stencil, stencil[1][1])
+
+    def block(x, r, theta, coeffs):
+        return kernels.cheby_block(x, r, stencil, theta, coeffs)
+    return dict(apply_a=apply_a, lam_min=lo, lam_max=hi, block=block)

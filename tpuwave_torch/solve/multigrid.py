@@ -1,8 +1,8 @@
-"""Geometric multigrid for the P1 grid-stencil systems (``--precond mg``).
+"""Geometric multigrid for the grid-stencil systems (``--precond mg``).
 
-Counterpart of the P1 half of tpuwave's solve/multigrid.py. At time steps
-beyond the CFL limit the implicit system ``M + c K`` becomes stiffness-
-dominated (condition ~ (dt/h)^2) and single-level solvers need O(dt/h)
+Counterpart of tpuwave's solve/multigrid.py (the parity engine's
+``gmg_flat_preconditioner`` aside). At time steps beyond the CFL limit
+the implicit system ``M + c K`` becomes stiffness-dominated (condition ~ (dt/h)^2) and single-level solvers need O(dt/h)
 iterations; a V-cycle keeps the count flat. On the structured
 triangulated rectangle the spaces are nested: the P1 space on the Nel/2
 mesh is a subspace of the fine one, the inclusion P is P1 interpolation
@@ -22,6 +22,14 @@ on the card, any grid shape). :class:`KernelGmgPreconditioner` also runs
 the fine level's smoothing as kernel B4 blocks; the Chebyshev recurrences
 of the coarse levels and the transfers are torch ops, as tpuwave computes
 them in XLA outside its Pallas kernels.
+
+P2 (the second half): a p-level on top of the P1 h-hierarchy. P1 on the
+same mesh is a subspace of P2 and the inclusion is nodal (an edge
+midpoint takes the average of its endpoints), so the Galerkin coarse
+operator of the P2 system is the P1 system on the same mesh: the fine
+level of ``gmg_for_system``. :class:`P2CanvasGmgPreconditioner` smooths on
+the (4, Hc, Wc) canvases of the P2 engine, each smoothing block one pass
+of kernel B12 / B13.
 """
 
 from __future__ import annotations
@@ -33,15 +41,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpuwave_torch.ops import kernels
+from tpuwave_torch.ops import kernels, kernels_p2
 from tpuwave_torch.ops.stencil import apply_stencil
+from tpuwave_torch.ops.stencil_p2 import (P2PlaneStencil, canvas_shape,
+                                          canvases_to_planes, flat_to_planes,
+                                          planes_to_canvases, planes_to_flat)
 from tpuwave_torch.solve.cheby_iter import (chebyshev_block,
                                             chebyshev_coefficients,
                                             stencil_symbol_bounds)
 
 __all__ = ["prolong_p1", "restrict_p1", "MgLevel", "build_gmg_levels",
            "GmgPreconditioner", "KernelGmgPreconditioner", "gmg_for_system",
-           "auto_precond", "AUTO_MG_THRESHOLD"]
+           "auto_precond", "AUTO_MG_THRESHOLD", "prolong_p1_to_p2",
+           "restrict_p2_to_p1", "P2GmgPreconditioner",
+           "P2CanvasGmgPreconditioner", "p2_gmg_for_system"]
 
 #: ``precond='auto'`` switches to the V-cycle once the dimensionless
 #: stiffness ratio q = stiff_coef * c^2 / (hx * hy) of the system
@@ -293,3 +306,185 @@ def auto_precond(params, mesh, stiff_coef: float) -> str:
     c = float(p.c.constant_value)
     q = float(stiff_coef) * c * c / (mesh.hx * mesh.hy)
     return "mg" if q >= AUTO_MG_THRESHOLD else "jacobi"
+
+
+# ----------------------------------------------------------------------
+# P2: p-multigrid (P2 -> P1 on the same mesh, then the h-hierarchy)
+# ----------------------------------------------------------------------
+def prolong_p1_to_p2(c: torch.Tensor) -> dict:
+    """(ny+1, nx+1) P1 vertex grid -> P2 plane dict (V, H, W, D): nodal
+    P1-in-P2 interpolation (edge midpoints average their endpoints; the
+    D plane sits on the (+1,+1) triangulation diagonal)."""
+    return {"V": c,
+            "H": 0.5 * (c[:, :-1] + c[:, 1:]),
+            "W": 0.5 * (c[:-1, :] + c[1:, :]),
+            "D": 0.5 * (c[:-1, :-1] + c[1:, 1:])}
+
+
+def restrict_p2_to_p1(planes: dict) -> torch.Tensor:
+    """P2 plane dict -> (ny+1, nx+1) P1 grid, the exact transpose of
+    ``prolong_p1_to_p2`` (out-of-range edge neighbours read as zero —
+    they only affect boundary rows, which every caller masks)."""
+    v, h, w, d = planes["V"], planes["H"], planes["W"], planes["D"]
+    hterm = F.pad(h, (1, 0)) + F.pad(h, (0, 1))
+    wterm = F.pad(w, (0, 0, 1, 0)) + F.pad(w, (0, 0, 0, 1))
+    dterm = F.pad(d, (1, 0, 1, 0)) + F.pad(d, (0, 1, 0, 1))
+    return v + 0.5 * (hterm + wterm + dterm)
+
+
+def _smooth_block_jacobi(apply_c: Callable, inv_d, x, r, theta: float,
+                         coeffs):
+    """Chebyshev smoothing block on the Jacobi-scaled operator D^{-1}A
+    (the P2 planes have different diagonals): the fixed polynomial
+    q(D^{-1}A) D^{-1}, symmetric positive, so the cycle stays a valid CG
+    preconditioner. ``theta``/``coeffs`` target the D^{-1}A spectrum."""
+    d = (1.0 / theta) * (inv_d * r)
+    x = x + d
+    r = r - apply_c(d)
+    for c1, c2 in coeffs:
+        d = c1 * d + c2 * (inv_d * r)
+        x = x + d
+        r = r - apply_c(d)
+    return x, r
+
+
+def _p2_interior_flat(nx: int, ny: int, device) -> torch.Tensor:
+    """Flat P2 non-Dirichlet mask (plane order V, H, W, D)."""
+    mask = kernels_p2.p2_canvas_interior(nx, ny, canvas_shape(nx, ny),
+                                         device)
+    return planes_to_flat(canvases_to_planes(mask, nx, ny))
+
+
+class P2GmgPreconditioner:
+    """One (p+h)-multigrid V-cycle on the flat P2 DoF vector: Jacobi-
+    Chebyshev smoothing on the P2 plane-stencil system, coarse correction
+    by the full P1 h-hierarchy. SPD, valid for pcg. The P2 engine takes
+    its ``system``, ``sm_theta``, ``sm_coeffs`` and ``p1_cycle`` and runs
+    the canvas form (:class:`P2CanvasGmgPreconditioner`)."""
+
+    def __init__(self, system, interior, diag, sm_theta: float,
+                 sm_coeffs: Tuple, p1_cycle: GmgPreconditioner,
+                 nx: int, ny: int):
+        self.system = system            # P2PlaneStencil (flat call surface)
+        self.interior = interior
+        self.diag = diag
+        self.sm_theta = float(sm_theta)
+        self.sm_coeffs = tuple(sm_coeffs)
+        self.p1_cycle = p1_cycle
+        self.nx, self.ny = int(nx), int(ny)
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        interior, diag = self.interior, self.diag
+        inv_diag = 1.0 / diag
+
+        def apply_c(x):
+            xi = torch.where(interior, x, 0.0)
+            return torch.where(interior, self.system(xi), diag * x)
+
+        x, r = _smooth_block_jacobi(apply_c, inv_diag, torch.zeros_like(b),
+                                    b, self.sm_theta, self.sm_coeffs)
+        planes = flat_to_planes(torch.where(interior, r, 0.0),
+                                self.nx, self.ny)
+        grid_int = ~kernels.pinned_mask((self.ny + 1, self.nx + 1),
+                                        b.device)
+        bc = torch.where(grid_int, restrict_p2_to_p1(planes), 0.0)
+        ec = torch.where(grid_int, self.p1_cycle(bc), 0.0)
+        corr = torch.where(interior, planes_to_flat(prolong_p1_to_p2(ec)),
+                           0.0)
+        x = x + corr
+        r = r - apply_c(corr)
+        x, _ = _smooth_block_jacobi(apply_c, inv_diag, x, r,
+                                    self.sm_theta, self.sm_coeffs)
+        return x
+
+
+class P2CanvasGmgPreconditioner:
+    """(p+h)-MG V-cycle on the (4, Hc, Wc) canvas layout of the P2 engine.
+
+    Same algebra as :class:`P2GmgPreconditioner` on the constrained
+    canvas operator of ``system`` (a ``P2PlaneStencil``): the
+    pre-smoothing block is one pass of kernel B12 (b -> (x, r)), the
+    coarse-correction residual update and the post-smoothing block one
+    pass of B13 (their plain versions on CPU tensors); the p <-> h
+    transfers go canvas -> planes -> P1 grid. A fixed SPD polynomial,
+    valid as a pcg preconditioner.
+    """
+
+    def __init__(self, system, sm_theta: float, sm_coeffs: Tuple, p1_cycle,
+                 cshape: Tuple[int, int]):
+        self.nx, self.ny = system.nx, system.ny
+        self.terms = system.terms
+        self.inv_diags = tuple(1.0 / float(system.plane_diag[q])
+                               for q in "VHWD")
+        self.sm_theta = float(sm_theta)
+        self.sm_coeffs = tuple((float(a), float(c)) for a, c in sm_coeffs)
+        self.p1_cycle = p1_cycle
+        self.cshape = tuple(cshape)
+        self._grid_int = ~kernels.pinned_mask((self.ny + 1, self.nx + 1),
+                                              system.device)
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        """b: (4, Hc, Wc) canvas residual, zero on pinned and pad entries
+        (the canvas-CG invariant). Returns the canvas z = V(b)."""
+        smooth = (self.terms, self.inv_diags, self.sm_theta, self.sm_coeffs,
+                  self.nx, self.ny)
+        # B12's outputs are supported on the interior
+        x, r = kernels_p2.p2_presmooth(b, *smooth)
+        planes = canvases_to_planes(r, self.nx, self.ny)
+        bc = torch.where(self._grid_int, restrict_p2_to_p1(planes), 0.0)
+        ec = torch.where(self._grid_int, self.p1_cycle(bc), 0.0)
+        corr = planes_to_canvases(prolong_p1_to_p2(ec), self.cshape)
+        return kernels_p2.p2_postsmooth(x, r, corr, *smooth)
+
+
+def p2_gmg_for_system(nel: Tuple[int, int], geometry, c: float,
+                      stiff_coef: float, *, dtype=torch.float64,
+                      device="cuda", pre_degree: int = 2,
+                      smooth_range: float = 8.0, min_coarse: int = 8,
+                      coarse_tol: float = 1e-2,
+                      lambda_max: float | None = None) -> P2GmgPreconditioner:
+    """(p+h)-MG preconditioner for the P2 system ``M + stiff_coef * K``
+    on the structured (nel, geometry) mesh, tensors of ``dtype`` on
+    ``device`` (default "cuda", which raises where there is no card).
+
+    The P2-level smoother needs lam_max of D^{-1}A; there is no scalar
+    symbol, so it is estimated once by power iteration
+    (solve/chebyshev.py::estimate_lambda_max, whose start vector differs
+    from tpuwave's) unless passed in.
+    """
+    from tpuwave_torch.config import resolve_device
+    from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
+    from tpuwave_torch.core.quadrature import gauss_simplex
+    from tpuwave_torch.ops.assembly import (element_mass_class,
+                                            element_stiffness_class)
+    from tpuwave_torch.solve import chebyshev
+
+    device = resolve_device(device)
+    nx, ny = int(nel[0]), int(nel[1])
+    space = FeSpace(StructuredTriMesh((nx, ny), geometry), 2)
+    quad = gauss_simplex(3)
+    mass = P2PlaneStencil(space, element_mass_class(space, quad), dtype,
+                          device)
+    stiff = P2PlaneStencil(space,
+                           element_stiffness_class(space, quad, c * c),
+                           dtype, device)
+    system = mass.axpy(stiff_coef, stiff)
+    interior = _p2_interior_flat(nx, ny, device)
+    diag = system.diagonal()
+    inv_diag = 1.0 / diag
+
+    def apply_c(x):
+        xi = torch.where(interior, x, 0.0)
+        return torch.where(interior, system(xi), diag * x)
+
+    if lambda_max is None:
+        lambda_max = chebyshev.estimate_lambda_max(apply_c, inv_diag,
+                                                   space.n_dofs)
+    th, cf = chebyshev_coefficients(lambda_max / smooth_range,
+                                    lambda_max, pre_degree)
+    p1_cycle = gmg_for_system((nx, ny), geometry, c, stiff_coef,
+                              pre_degree=pre_degree,
+                              smooth_range=smooth_range,
+                              min_coarse=min_coarse, coarse_tol=coarse_tol)
+    return P2GmgPreconditioner(system, interior, diag, th, tuple(cf),
+                               p1_cycle, nx, ny)
