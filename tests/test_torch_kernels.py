@@ -380,3 +380,72 @@ def test_cuda_leapfrog_multistep(cuda_device, dtype, k, offset):
     for g, w in zip(got, want):
         scale = float(w.abs().max())
         assert float((g - w).abs().max()) <= _bound(dtype, scale, k)
+
+
+# B7-B10 on an odd-sized grid, with non-zero values on the pinned nodes
+ODD = (37, 53)
+
+
+def _odd_fields(dev, dtype, seed, n):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.uniform(-1.0, 1.0, ODD), dtype=dtype,
+                         device=dev) for _ in range(n)]
+
+
+def _held(got, want, dtype, again):
+    """Grids within _bound of the output scale, the three squared norms
+    within 1e-12 / 1e-5 relative; a rerun is bitwise equal."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.dim():
+            assert float((g - w).abs().max()) <= _bound(
+                dtype, float(w.abs().max()))
+        else:
+            rel = 1e-12 if dtype == torch.float64 else 1e-5
+            assert abs(float(g) - float(w)) <= rel * float(w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_newmark_rhs_r0(cuda_device, dtype):
+    u, v, a = _odd_fields(cuda_device, dtype, 31, 3)
+    args = (u, v, a, STIFF, SYSTEM, 0.02, 1e-4)
+    before = tk.LAUNCHES["newmark_rhs_r0"]
+    got = tk.newmark_rhs_r0(*args)
+    assert tk.LAUNCHES["newmark_rhs_r0"] == before + 1
+    _held(got, tk.newmark_rhs_r0_reference(*args), dtype,
+          tk.newmark_rhs_r0(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_newmark_update(cuda_device, dtype):
+    args = (*_odd_fields(cuda_device, dtype, 32, 4), 1e-4, 0.008, 0.012)
+    before = tk.LAUNCHES["newmark_update"]
+    got = tk.newmark_update(*args)
+    assert tk.LAUNCHES["newmark_update"] == before + 1
+    _held(got, tk.newmark_update_reference(*args), dtype,
+          tk.newmark_update(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_theta_r0u(cuda_device, dtype):
+    u, v = _odd_fields(cuda_device, dtype, 33, 2)
+    args = (u, v, MASS, STIFF, -1e-4, -2e-4, 0.02)
+    before = tk.LAUNCHES["theta_r0u"]
+    got = tk.theta_r0u(*args)
+    assert tk.LAUNCHES["theta_r0u"] == before + 1
+    _held(got, tk.theta_r0u_reference(*args), dtype, tk.theta_r0u(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_theta_r0v(cuda_device, dtype):
+    u, e, v = _odd_fields(cuda_device, dtype, 34, 3)
+    args = (u, e, v, MASS, STIFF, -0.01, -0.01)
+    before = tk.LAUNCHES["theta_r0v"]
+    got = tk.theta_r0v(*args)
+    assert tk.LAUNCHES["theta_r0v"] == before + 1
+    _held(got, tk.theta_r0v_reference(*args), dtype, tk.theta_r0v(*args))

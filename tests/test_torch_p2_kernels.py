@@ -41,9 +41,9 @@ def _stencils():
                     2)
     quad = gauss_simplex(3)
     mass = P2PlaneStencil(space, element_mass_class(space, quad),
-                          torch.float64)
+                          torch.float64, "cpu")
     stiff = P2PlaneStencil(space, element_stiffness_class(space, quad, 1.0),
-                           torch.float64)
+                           torch.float64, "cpu")
     # the Newmark system M + beta dt^2 K at a large dt (q ~ 4)
     return {"mass": mass, "stiff": stiff,
             "system": mass.axpy(0.25 * 0.1 ** 2, stiff)}

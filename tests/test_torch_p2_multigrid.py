@@ -55,13 +55,13 @@ def _pair(which, coef=0.0):
     jm = js2.P2PlaneStencil(jsp, jasm.element_mass_class(jsp, jq),
                             jnp.float64)
     tm = ts2.P2PlaneStencil(tsp, tasm.element_mass_class(tsp, tq),
-                            torch.float64)
+                            torch.float64, CPU)
     if which == "mass":
         return jm, tm
     jk = js2.P2PlaneStencil(jsp, jasm.element_stiffness_class(jsp, jq, 2.0),
                             jnp.float64)
     tk = ts2.P2PlaneStencil(tsp, tasm.element_stiffness_class(tsp, tq, 2.0),
-                            torch.float64)
+                            torch.float64, CPU)
     if which == "stiff":
         return jk, tk
     return jm.axpy(coef, jk), tm.axpy(coef, tk)

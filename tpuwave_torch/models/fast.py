@@ -2,19 +2,31 @@
 
 The operator is a constant 7-point stencil on the vertex grid
 (ops/stencil.py); the explicit Newmark path uses a row-sum lumped mass (no
-linear solve at all). The time loops are Python loops over steps; the hot
+linear solve at all), the implicit schemes (Newmark beta > 0, theta) solve
+their constrained systems by preconditioned CG (solve/cg.py) or restarted
+Chebyshev blocks. The time loops are Python loops over steps; the hot
 passes are the hand-written CUDA kernels of ops/kernels.py:
 
 * :meth:`FastWaveSolver.run_leapfrog_kernel`    one launch of B1 per step
 * :meth:`FastWaveSolver.run_leapfrog_multistep` one launch of B2 per
   ``steps_per_call`` steps (temporal blocking)
+* :meth:`FastWaveSolver.run_implicit_kernel`    every CG matvec through B3
+* :meth:`FastWaveSolver.run_implicit_mg_kernel` MG-PCG steps: setup B7 (B9,
+  B10 for theta), matvec B3, V-cycle fine level B4 + B3, update B8
+* :meth:`FastWaveSolver.run_implicit_cheby`     the same setups and update
+  around restarted Chebyshev blocks (B4) instead of CG
+* :meth:`FastWaveSolver.run_implicit_mg_2term`  displacement-form steps:
+  setup B5, matvec B3, V-cycle B4 + B3
 
-Scope of this slice: P1 elements, constant wave speed, homogeneous
-Dirichlet data, zero forcing on the explicit path — the reference's
-scalability configuration (scripts/scalability_sweep.py:85-120:
-standing-mode, IO off). The product engines (models/fast_engine.py) add
-driven g(t), forcing and the implicit schemes on top of the same
-operators.
+:meth:`FastWaveSolver.run_scan` and :meth:`FastWaveSolver.run_implicit_mg`
+are the same schemes in plain torch ops (the V-cycle's level operators
+are B3 on the card).
+
+Scope: P1 elements, constant wave speed, homogeneous Dirichlet data, zero
+forcing — the reference's scalability configuration
+(scripts/scalability_sweep.py:85-120: standing-mode, IO off). The product
+engines (models/fast_engine.py) add driven g(t) and forcing on top of the
+same operators.
 """
 
 from __future__ import annotations
@@ -34,6 +46,11 @@ from tpuwave_torch.ops.stencil import (P1_CLASS_CORNERS, GridStencilOperator,
                                        apply_stencil_diff, boundary_mask_grid,
                                        class_matrices_to_stencil,
                                        lumped_mass_grid)
+from tpuwave_torch.solve.cg import pcg, vdot
+from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
+                                            stencil_symbol_bounds)
+from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
+                                           gmg_for_system)
 
 __all__ = ["FastWaveSolver", "FastState", "LeapfrogState"]
 
@@ -61,7 +78,7 @@ class LeapfrogState(NamedTuple):
 
 
 class FastWaveSolver:
-    """Grid-stencil wave solver (explicit lumped Newmark / leapfrog).
+    """Grid-stencil wave solver (explicit lumped Newmark + implicit CG).
 
     Parameters
     ----------
@@ -113,8 +130,13 @@ class FastWaveSolver:
         else:
             self.system = self.mass.axpy((self.theta * self.dt) ** 2,
                                          self.stiff)
+        self._inv_diag = 1.0 / self.system.stencil[1][1]
         self._n_dofs = self.shape[0] * self.shape[1]
         self._load_cache = None
+        #: linear-solver iterations of the last ``run_*`` call, one entry
+        #: per step: an int (Newmark: the a-solve; 2-term: the u-solve) or
+        #: a (u-solve, v-solve) pair (theta)
+        self.last_iterations = []
 
     # ------------------------------------------------------------------
     def grid_coords(self):
@@ -146,6 +168,14 @@ class FastWaveSolver:
                          -self._stiff_diff(u0) * self.inv_lumped)
         return FastState(u=u0, v=v0, a=a0.to(self.dtype))
 
+    def initial_state_consistent(self, u0_fn, v0_fn=None) -> FastState:
+        """Consistent-mass a0: solve M a0 = -K u0 by CG to the parity
+        tolerances (reference WaveNewmark.cpp:298-390; homogeneous data so
+        a0|boundary = 0) — use for digit-parity runs of the implicit
+        schemes instead of the lumped a0 of initial_state."""
+        st = self.initial_state(u0_fn, v0_fn)
+        return FastState(u=st.u, v=st.v, a=self._consistent_accel(st.u))
+
     # ------------------------------------------------------------------
     def _explicit_step(self, state: FastState) -> FastState:
         """Lumped-mass central difference (Newmark beta=0, gamma=1/2):
@@ -173,13 +203,92 @@ class FastWaveSolver:
         return eta * (lam_max * torch.linalg.vector_norm(x0)
                       + torch.linalg.vector_norm(rhs))
 
-    def step(self, state: FastState) -> FastState:
+    @property
+    def _max_iter(self) -> int:
+        return 10000 if self.dtype == torch.float64 else 2000
+
+    def _constrained(self, op, kernel: bool = False):
+        """The constrained operator of the implicit solves: interior rows
+        op(w masked to 0 on pinned nodes), pinned rows diag * w. In torch
+        ops, or with ``kernel`` through kernel B3."""
+        st, diag = op.stencil, op.stencil[1][1]
+        if kernel:
+            def apply_c(w):
+                return kernels.constrained_stencil_apply(w, st, diag)
+        else:
+            def apply_c(w):
+                return torch.where(
+                    self.interior, op(torch.where(self.interior, w, 0.0)),
+                    diag * w)
+        return apply_c
+
+    def _implicit_newmark_step(self, state: FastState, precond=None,
+                               kernel: bool = False):
+        """One Newmark (beta > 0) step; returns (state, CG iterations)."""
+        dt, beta, gamma = self.dt, self.beta, self.gamma
+        u, v, a = state
+        z = u + dt * v + (dt * dt * (0.5 - beta)) * a
+        rhs = torch.where(self.interior, -self.stiff(z), 0.0)
+
+        x0 = torch.where(self.interior, a, 0.0)
+        res = pcg(self._constrained(self.system, kernel), rhs, x0,
+                  precond_inv_diag=(self._inv_diag if precond is None
+                                    else precond),
+                  abs_tol=self._solve_abs_tol(rhs, x0, self.system),
+                  max_iter=self._max_iter, reduction=self.cg_reduction)
+        a_new = res.x.to(self.dtype)
+        u_new = z + (beta * dt * dt) * a_new
+        v_new = v + dt * ((1.0 - gamma) * a + gamma * a_new)
+        return FastState(u=u_new, v=v_new, a=a_new), res.iterations
+
+    def _theta_step(self, state: FastState, precond=None,
+                    kernel: bool = False):
+        """Stencil theta-method (homogeneous BCs, no forcing): two CG
+        solves per step like the reference WaveTheta, on grid stencils.
+        ``precond`` overrides the u-system preconditioner (the v-system is
+        the bare mass: mesh-independent conditioning, Jacobi suffices).
+        Both solves warm-start from the old values, as the fused setups
+        (kernels B9, B10) do. Returns (state, (u-solve, v-solve)
+        iterations)."""
+        dt, th = self.dt, self.theta
+        u, v, a = state
+        mu, ku, mv = self.mass(u), self.stiff(u), self.mass(v)
+
+        rhs_u = torch.where(
+            self.interior,
+            mu - (dt * dt * th * (1.0 - th)) * ku + dt * mv, 0.0)
+        x0_u = torch.where(self.interior, u, 0.0)
+        res_u = pcg(self._constrained(self.system, kernel), rhs_u, x0_u,
+                    precond_inv_diag=(self._inv_diag if precond is None
+                                      else precond),
+                    abs_tol=self._solve_abs_tol(rhs_u, x0_u, self.system),
+                    max_iter=self._max_iter, reduction=self.cg_reduction)
+        u_new = res_u.x.to(self.dtype)
+
+        rhs_v = torch.where(
+            self.interior,
+            mv - (dt * (1.0 - th)) * ku - (dt * th) * self.stiff(u_new),
+            0.0)
+        x0_v = torch.where(self.interior, v, 0.0)
+        res_v = pcg(self._constrained(self.mass, kernel), rhs_v, x0_v,
+                    precond_inv_diag=1.0 / self.mass.stencil[1][1],
+                    abs_tol=self._solve_abs_tol(rhs_v, x0_v, self.mass),
+                    max_iter=self._max_iter, reduction=self.cg_reduction)
+        v_new = res_v.x.to(self.dtype)
+        return (FastState(u=u_new, v=v_new, a=a),
+                (res_u.iterations, res_v.iterations))
+
+    def _step_counted(self, state: FastState, precond=None,
+                      kernel: bool = False):
+        """(next state, solver iterations) of one step of the scheme."""
+        if self.scheme == "theta":
+            return self._theta_step(state, precond, kernel)
         if self.lumped:
-            return self._explicit_step(state)
-        raise NotImplementedError(
-            "implicit FastWaveSolver.step (run_implicit_* paths) is not "
-            "ported yet (ROADMAP A8); the implicit product schemes run in "
-            "models/fast_engine.py")
+            return self._explicit_step(state), 0
+        return self._implicit_newmark_step(state, precond, kernel)
+
+    def step(self, state: FastState) -> FastState:
+        return self._step_counted(state)[0]
 
     # ------------------------------------------------------------------
     # leapfrog (two-array) explicit path — same trajectory as the lumped
@@ -312,6 +421,420 @@ class FastWaveSolver:
             u, up = kernels.leapfrog_multistep(u, up, stencil, coef,
                                                steps_per_call)
         return LeapfrogState(u=u, u_prev=up)
+
+    # ------------------------------------------------------------------
+    def _run(self, state, n_steps: int, step_counted):
+        """``n_steps`` of ``step_counted(state) -> (state, iterations)``,
+        the iteration counts kept in ``last_iterations``."""
+        self.last_iterations = []
+        for _ in range(int(n_steps)):
+            state, its = step_counted(state)
+            self.last_iterations.append(its)
+        return state
+
+    def _require_implicit(self, name: str) -> None:
+        if self.scheme not in ("newmark", "theta"):
+            raise ValueError(f"{name} needs scheme newmark/theta")
+        if self.scheme == "newmark" and self.beta <= 1e-12:
+            raise ValueError(
+                f"{name} needs beta > 0 (explicit beta=0 is the "
+                "leapfrog/lumped path: run_leapfrog_* / run_scan)")
+
+    def run_scan(self, state: FastState, n_steps: int) -> FastState:
+        """The whole time loop of :meth:`step` (the fast-mode analogue of
+        the reference while-loop, WaveTheta.cpp:372-411, with IO off), in
+        torch ops."""
+        return self._run(state, n_steps, self._step_counted)
+
+    # ------------------------------------------------------------------
+    # implicit stepping with geometric-multigrid-preconditioned CG: the
+    # large-dt path. Single-level polynomial solvers need O(dt/h)
+    # iterations once (theta dt / h)^2 or (beta dt^2 / h^2) dominates; the
+    # V-cycle's contraction is h- and dt-independent (solve/multigrid.py),
+    # replacing the reference's ML-AMG (WaveTheta.cpp:276-286) with a
+    # geometric hierarchy.
+    # ------------------------------------------------------------------
+    def gmg_preconditioner(self, *, pre_degree: int = 1,
+                           smooth_range: float = 8.0,
+                           coarse_tol: float = 1e-2):
+        """V-cycle preconditioner for this solver's implicit system
+        (M + beta dt^2 K for Newmark, M + (theta dt)^2 K for theta), with
+        tpuwave's default smoother degree 1 (``gmg_for_system``'s own is 2);
+        CG's stopping rule keeps the solution accuracy, only the iteration
+        split changes."""
+        coef = (self.beta * self.dt * self.dt if self.scheme == "newmark"
+                else (self.theta * self.dt) ** 2)
+        return gmg_for_system(
+            (self.mesh.nx, self.mesh.ny), self.mesh.geometry, self.c, coef,
+            pre_degree=pre_degree, smooth_range=smooth_range,
+            coarse_tol=coarse_tol)
+
+    def _kernel_gmg(self, **mg):
+        """The V-cycle for the kernel paths: its fine level on B4 / B3
+        (:class:`KernelGmgPreconditioner`) when the hierarchy has >= 2
+        levels, else the one-level cycle of :meth:`gmg_preconditioner`
+        (nothing to fuse; its level operator is B3 all the same)."""
+        base = self.gmg_preconditioner(**mg)
+        if len(base.levels) < 2:
+            return base
+        return KernelGmgPreconditioner(base.levels, base.coarse_theta,
+                                       base.coarse_coeffs)
+
+    def run_implicit_mg(self, state: FastState, n_steps: int, *,
+                        pre_degree: int = 1, smooth_range: float = 8.0,
+                        coarse_tol: float = 1e-2) -> FastState:
+        """Newmark (beta>0) or theta stepping with MG-PCG linear solves
+        (same stopping contract as the other implicit paths), setup and
+        matvec in torch ops."""
+        self._require_implicit("run_implicit_mg")
+        precond = self.gmg_preconditioner(
+            pre_degree=pre_degree, smooth_range=smooth_range,
+            coarse_tol=coarse_tol)
+        return self._run(state, n_steps,
+                         lambda st: self._step_counted(st, precond))
+
+    def run_implicit_kernel(self, state: FastState,
+                            n_steps: int) -> FastState:
+        """Newmark (beta>0) or theta stepping where every CG matvec is
+        kernel B3 (tpuwave: run_implicit_pallas), Jacobi-preconditioned;
+        the setup stays in torch ops."""
+        self._require_implicit("run_implicit_kernel")
+        return self._run(
+            state, n_steps,
+            lambda st: self._step_counted(st, kernel=True))
+
+    def _abs_tol_of(self, op, bn2, xn2, eta):
+        """The backward-error floor eta (lam_max ||x0|| + ||b||) from the
+        squared norms a setup kernel reduced (see _solve_abs_tol)."""
+        lam_max = stencil_symbol_bounds(op.stencil)[1]
+        return eta * (lam_max * torch.sqrt(xn2) + torch.sqrt(bn2))
+
+    def setup_coefficients(self) -> dict:
+        """Scalar arguments of the setup / update kernels B7-B10 for this
+        scheme and time step, keyed by kernel (rhs_r0, update, r0u, r0v)
+        in the wrappers' argument order."""
+        dt, beta, gamma, th = self.dt, self.beta, self.gamma, self.theta
+        return dict(
+            rhs_r0=dict(c_zv=dt, c_za=dt * dt * (0.5 - beta)),
+            update=dict(c_ua=beta * dt * dt, c_va=dt * (1.0 - gamma),
+                        c_van=dt * gamma),
+            r0u=dict(c_comb=-dt * dt * th * (1.0 - th), c_r0k=-dt * dt * th,
+                     c_mv=dt),
+            r0v=dict(c_ku=-dt * (1.0 - th), c_kun=-dt * th))
+
+    def _fused_steps(self, solve_sys, solve_mass):
+        """One step of the fused implicit paths around two linear solvers.
+
+        ``solve_*(r0, rn2, bn2, xn2) -> (e, iterations)`` solves the
+        system / mass equation A e = r0 from e = 0, given the squared norms
+        of r0, rhs and x0 for its stopping rule. Newmark: B7 -> solve ->
+        B8. Theta: B9 -> solve -> B10 -> mass solve; v' = masked(v) + e_v
+        stays a torch op."""
+        cf = self.setup_coefficients()
+        m_st, k_st = self.mass.stencil, self.stiff.stencil
+        a_st = self.system.stencil
+
+        def newmark(st):
+            u, v, a = st
+            r0, z, rn2, bn2, xn2 = kernels.newmark_rhs_r0(
+                u, v, a, k_st, a_st, **cf["rhs_r0"])
+            e, its = solve_sys(r0, rn2, bn2, xn2)
+            u_new, v_new, a_new = kernels.newmark_update(
+                z, v, a, e.to(self.dtype), **cf["update"])
+            return FastState(u=u_new, v=v_new, a=a_new), its
+
+        def theta(st):
+            u, v, a = st
+            r0u, rn2, bn2, xn2 = kernels.theta_r0u(u, v, m_st, k_st,
+                                                   **cf["r0u"])
+            e_u, its_u = solve_sys(r0u, rn2, bn2, xn2)
+            u_new, r0v, rn2v, bn2v, xn2v = kernels.theta_r0v(
+                u, e_u.to(self.dtype), v, m_st, k_st, **cf["r0v"])
+            e_v, its_v = solve_mass(r0v, rn2v, bn2v, xn2v)
+            v_new = torch.where(self.interior, v, 0.0) + e_v
+            return (FastState(u=u_new, v=v_new.to(self.dtype), a=a),
+                    (its_u, its_v))
+
+        return newmark if self.scheme == "newmark" else theta
+
+    def run_implicit_mg_kernel(self, state: FastState, n_steps: int, *,
+                               pre_degree: int = 1, smooth_range: float = 8.0,
+                               coarse_tol: float = 1e-2) -> FastState:
+        """MG-PCG stepping with the solve setup (r0 + stopping-rule norms:
+        kernel B7, or B9 / B10), every CG matvec (B3), the V-cycle's fine
+        level (B4 + B3) and the Newmark state update (B8) on the
+        hand-written kernels — the production form of
+        :meth:`run_implicit_mg` (tpuwave: run_implicit_mg_pallas). The
+        state stays at its true shape, on any grid size. With a one-level
+        hierarchy the V-cycle is the plain one-level cycle (nothing to
+        fuse); B7-B10 and B3 run all the same. The theta v-solve is
+        Jacobi-CG on the bare mass."""
+        self._require_implicit("run_implicit_mg_kernel")
+        precond = self._kernel_gmg(pre_degree=pre_degree,
+                                   smooth_range=smooth_range,
+                                   coarse_tol=coarse_tol)
+        eta = (None if self.dtype == torch.float64
+               else 8 * float(torch.finfo(self.dtype).eps))
+
+        def solver(op, prec):
+            apply_c = self._constrained(op, kernel=True)
+
+            def solve(r0, rn2, bn2, xn2):
+                res = pcg(apply_c, r0, torch.zeros_like(r0), r0=r0,
+                          norm0_sq=rn2, precond_inv_diag=prec,
+                          abs_tol=(1e-12 if eta is None else
+                                   self._abs_tol_of(op, bn2, xn2, eta)),
+                          max_iter=self._max_iter,
+                          reduction=self.cg_reduction)
+                return res.x, res.iterations
+            return solve
+
+        step = self._fused_steps(
+            solver(self.system, precond),
+            solver(self.mass, 1.0 / self.mass.stencil[1][1]))
+        return self._run(state, n_steps, step)
+
+    def run_implicit_cheby(self, state: FastState, n_steps: int,
+                           degree: int = 8,
+                           degree_v: int | None = None) -> FastState:
+        """Newmark (beta>0) or theta stepping where each linear system is
+        solved by restarted Chebyshev iteration with analytic stencil-symbol
+        eigenvalue bounds, ``degree`` iterations per pass of kernel B4,
+        around the fused setups and update (B7-B10). One host read of
+        ||r||^2 per block.
+
+        Stopping rule (tpuwave's, unchanged): ||r||^2 <= max(floor^2,
+        1e-12 ||r0||^2) with floor = eta (lam_max ||x0|| + ||rhs||), eta =
+        8 eps in f32 and 1e-12 in f64 — a fixed 1e-6 reduction that does
+        not read ``cg_reduction``; the iteration count advances by the
+        block degree.
+
+        ``degree_v`` sets a separate block degree for the theta v-solve
+        (default 10), whose operator is the bare mass matrix: its condition
+        number is mesh-independent, so the iterations needed are fixed
+        regardless of mesh, while the best degree for the
+        stiffness-dominated u-system varies with theta dt / h."""
+        self._require_implicit("run_implicit_cheby")
+        eta = (1e-12 if self.dtype == torch.float64
+               else 8 * float(torch.finfo(self.dtype).eps))
+        # tpuwave's relative factor: 1e-12 rounded to f32
+        rel2 = float(np.float32(1e-12))
+        max_iter = self._max_iter
+
+        def solver(op, deg):
+            st = op.stencil
+            lo, hi = stencil_symbol_bounds(st)
+            theta_c, coeffs = chebyshev_coefficients(lo, hi, deg)
+            coeffs = tuple(coeffs)
+
+            def solve(r0, rn2, bn2, xn2):
+                floor = self._abs_tol_of(op, bn2, xn2, eta)
+                tol2 = torch.maximum(floor * floor, rel2 * rn2)
+                rr, tol2 = torch.stack([rn2, tol2]).tolist()
+                x, r, k = torch.zeros_like(r0), r0, 0
+                while rr > tol2 and k < max_iter:
+                    x, r, rn2 = kernels.cheby_block(x, r, st, theta_c,
+                                                    coeffs)
+                    rr = float(rn2)
+                    k += deg
+                return x, k
+            return solve
+
+        step = self._fused_steps(
+            solver(self.system, int(degree)),
+            solver(self.mass, 10 if degree_v is None else int(degree_v)))
+        return self._run(state, n_steps, step)
+
+    # ------------------------------------------------------------------
+    # displacement-form implicit stepping (two-array state): the
+    # implicit twin of the leapfrog path. Eliminating the auxiliary
+    # variables (v, a for Newmark using M a^n = -K u^n, exact along the
+    # discrete trajectory; v for the theta family from its two update
+    # equations) gives 3-term displacement recurrences
+    #
+    #   Newmark: (M + b dt^2 K) u^{n+1} = M (2u^n - u^{n-1})
+    #                             - dt^2 (g + 1/2 - 2b) K u^n
+    #                             - dt^2 (1/2 - g + b)  K u^{n-1}
+    #   theta:   (M + t^2 dt^2 K) u^{n+1} = M (2u^n - u^{n-1})
+    #                             - dt^2 K [2t(1-t) u^n + (1-t)^2 u^{n-1}]
+    #
+    # (b = beta, g = gamma, t = theta). The free extrapolated warm start
+    # x0 = 2u^n - u^{n-1} leaves the O(dt^2)-small residual
+    #
+    #   Newmark: r0 = -dt^2 K [ (g + 1/2) u^n + (1/2 - g) u^{n-1} ]
+    #   theta:   r0 = -dt^2 K [ 2t u^n + (1 - 2t) u^{n-1} ]
+    #
+    # so each step costs ONE fused stencil pass for r0 (kernel B5) plus a
+    # near-converged MG-PCG solve — no mass/velocity solve, two-array
+    # state. In f32 the implicit velocity (u^n - u^{n-1})/dt amplifies
+    # per-step rounding noise by ~1/(omega dt); where noise-floor accuracy
+    # matters use the 3-array paths or f64 (where this path is
+    # digit-clean).
+    # ------------------------------------------------------------------
+    def implicit_2term_init(self, state: FastState, *, pre_degree: int = 1,
+                            smooth_range: float = 8.0,
+                            coarse_tol: float = 1e-2) -> LeapfrogState:
+        """(u^1, u^0) from one implicit step taken in CORRECTION u-form.
+
+        The first step is solved for u^1 directly (algebraically
+        identical to the 3-array step):
+          theta:   A u^1 = M u^0 - dt^2 t(1-t) K u^0 + dt M v^0,
+                   x0 = u^0,  r0 = dt M v^0 - t dt^2 K u^0
+          Newmark: A u^1 = M z,  z = u^0 + dt v^0 + dt^2(1/2-b) a^0,
+                   x0 = z,   r0 = -b dt^2 K z
+        with K applied in difference form: composing u^1 = z + b dt^2 a^1
+        from the 3-array step would inject the acceleration's amplified
+        f32 noise into the (u^1, u^0) pair. For Newmark, start from
+        ``initial_state_consistent`` for exact agreement with the 3-array
+        trajectory (the recurrence derivation uses M a^0 = -K u^0)."""
+        precond = self.gmg_preconditioner(
+            pre_degree=pre_degree, smooth_range=smooth_range,
+            coarse_tol=coarse_tol)
+        dt = self.dt
+        u, v, a = state
+        if self.scheme == "theta":
+            th = self.theta
+            x0 = torch.where(self.interior, u, 0.0)
+            r0 = torch.where(self.interior,
+                             dt * self.mass(v)
+                             - (th * dt * dt) * self._stiff_diff(u), 0.0)
+            s_init = th * dt * dt
+        else:
+            beta = self.beta
+            z = u + dt * v + (dt * dt * (0.5 - beta)) * a
+            x0 = torch.where(self.interior, z, 0.0)
+            r0 = torch.where(self.interior,
+                             (-beta * dt * dt) * self._stiff_diff(z), 0.0)
+            s_init = beta * dt * dt
+        if self.dtype == torch.float64:
+            abs_tol = 1e-12
+        else:
+            eps = float(torch.finfo(self.dtype).eps)
+            s_abs = s_init * sum(abs(cc) for row in self.stiff.stencil
+                                 for cc in row)
+            abs_tol = torch.minimum(
+                eps * s_abs * torch.linalg.vector_norm(x0),
+                0.5 * torch.linalg.vector_norm(r0))
+        res = pcg(self._constrained(self.system), r0, torch.zeros_like(r0),
+                  r0=r0, precond_inv_diag=precond, abs_tol=abs_tol,
+                  max_iter=self._max_iter, reduction=self.cg_reduction)
+        self.last_iterations = [res.iterations]
+        return LeapfrogState(u=(x0 + res.x).to(self.dtype), u_prev=state.u)
+
+    def _consistent_accel(self, u):
+        """a = -M^{-1} K u by Jacobi-CG to the fast-path tolerances (K in
+        difference form: the rhs must not be cancellation-noise-bound)."""
+        rhs = torch.where(self.interior, -self._stiff_diff(u), 0.0)
+        x0 = torch.zeros_like(rhs)
+        res = pcg(self._constrained(self.mass), rhs, x0,
+                  precond_inv_diag=1.0 / self.mass.stencil[1][1],
+                  abs_tol=self._solve_abs_tol(rhs, x0, self.mass),
+                  max_iter=self._max_iter, reduction=self.cg_reduction)
+        return res.x.to(self.dtype)
+
+    def implicit_2term_finish(self, state: LeapfrogState) -> FastState:
+        """Exact (u, u_prev) -> (u, v, a) conversion (one-time mass
+        solves, no approximation on top of the CG tolerances).
+
+        Newmark:  v^N = (u^N - u^{N-1})/dt
+                        + dt [ (1/2 + b - g) a^{N-1} + (g - b) a^N ]
+                  with consistent M a = -K u at both times.
+        theta:    v^N = (u^N - u^{N-1})/dt
+                        - dt (1-t) M^{-1} K [ t u^N + (1-t) u^{N-1} ]
+                  (exactly (u^N - u^{N-1})/dt for BE, t=1); a is not a
+                  theta state variable and is returned as the consistent
+                  acceleration of u^N for convenience."""
+        dt = self.dt
+        if self.scheme == "theta":
+            th = self.theta
+            a = self._consistent_accel(state.u)
+            if th == 1.0:
+                corr = 0.0
+            else:
+                combo = (th * state.u + (1.0 - th) * state.u_prev
+                         if th != 0.0 else state.u_prev)
+                # M^{-1} K combo = -consistent_accel(combo)
+                corr = dt * (1.0 - th) * self._consistent_accel(combo)
+            v = (state.u - state.u_prev) / dt + corr
+        else:
+            beta, gamma = self.beta, self.gamma
+            a_prev = self._consistent_accel(state.u_prev)
+            a = self._consistent_accel(state.u)
+            v = ((state.u - state.u_prev) / dt
+                 + dt * ((0.5 + beta - gamma) * a_prev
+                         + (gamma - beta) * a))
+        v = torch.where(self.interior, v, 0.0).to(self.dtype)
+        return FastState(u=state.u, v=v, a=a)
+
+    def run_implicit_mg_2term(self, state: LeapfrogState, n_steps: int, *,
+                              pre_degree: int = 1, smooth_range: float = 8.0,
+                              coarse_tol: float = 1e-2,
+                              kernel: bool = True) -> LeapfrogState:
+        """Displacement-form implicit stepping for both scheme families
+        (see block comment above). ``kernel=True`` runs the r0 setup as
+        kernel B5, every CG matvec as B3 and the V-cycle's fine level on
+        B4 + B3 (the plain one-level cycle when the hierarchy has a single
+        level); ``kernel=False`` is the same step in torch ops."""
+        self._require_implicit("run_implicit_mg_2term")
+        if self.scheme == "newmark":
+            c_u, c_up = self.gamma + 0.5, 0.5 - self.gamma
+        else:
+            c_u, c_up = 2.0 * self.theta, 1.0 - 2.0 * self.theta
+        dt = self.dt
+        mg = dict(pre_degree=pre_degree, smooth_range=smooth_range,
+                  coarse_tol=coarse_tol)
+        eta = (None if self.dtype == torch.float64
+               else float(torch.finfo(self.dtype).eps))
+        # noise-anchored stopping for the correction solve: r0 is the
+        # dt^2-scaled stencil pass -dt^2 K(combo), whose own f32
+        # computation noise is ~ eps * dt^2 * sum|K coeffs| * |u|
+        # elementwise. Stop at that floor when the signal is strong, and
+        # ALWAYS demand at least a 2x reduction (min with 0.5 ||r0||): a
+        # lam_max-based backward-error floor can exceed ||r0|| here, and
+        # 0-iteration steps degenerate the recurrence to pure
+        # extrapolation.
+        s_abs = (abs(c_u) + abs(c_up)) * dt * dt * sum(
+            abs(cc) for row in self.stiff.stencil for cc in row)
+
+        apply_sys = self._constrained(self.system, kernel)
+        if kernel:
+            precond = self._kernel_gmg(**mg)
+            # -dt^2 folded into the K stencil, evaluated in zero-row-sum
+            # difference form (r0 must not be bound by the direct form's
+            # f32 cancellation noise)
+            kneg = tuple(tuple(-dt * dt * cc for cc in row)
+                         for row in self.stiff.stencil)
+
+            def setup(cu, cup):
+                return kernels.recurrence_r0(cu, cup, kneg, c_u, c_up)
+        else:
+            precond = self.gmg_preconditioner(**mg)
+            interior = self.interior
+
+            def setup(cu, cup):
+                combo = (cu if (c_u == 1.0 and c_up == 0.0)
+                         else c_u * cu + c_up * cup)
+                r0 = torch.where(interior,
+                                 (-dt * dt) * self._stiff_diff(combo), 0.0)
+                x0 = torch.where(interior, 2.0 * cu - cup, 0.0)
+                return r0, x0, vdot(r0, r0), vdot(x0, x0)
+
+        def step(c):
+            cu, cup = c
+            r0, x0, rn2, xn2 = setup(cu, cup)
+            abs_tol = (1e-12 if eta is None
+                       else torch.minimum(eta * s_abs * torch.sqrt(xn2),
+                                          0.5 * torch.sqrt(rn2)))
+            res = pcg(apply_sys, r0, torch.zeros_like(r0), r0=r0,
+                      norm0_sq=rn2, precond_inv_diag=precond,
+                      abs_tol=abs_tol, max_iter=self._max_iter,
+                      reduction=self.cg_reduction)
+            return (LeapfrogState(u=(x0 + res.x).to(self.dtype), u_prev=cu),
+                    res.iterations)
+
+        return self._run(LeapfrogState(state.u.contiguous(),
+                                       state.u_prev.contiguous()),
+                         n_steps, step)
 
     @property
     def n_dofs(self) -> int:

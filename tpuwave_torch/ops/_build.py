@@ -24,7 +24,7 @@ __all__ = ["COMPILE_FLAGS", "LINK_FLAGS", "build_library", "load_library"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "stencil_kernels.cu", _CSRC / "solver_kernels.cu",
-            _CSRC / "p2_kernels.cu")
+            _CSRC / "fast_kernels.cu", _CSRC / "p2_kernels.cu")
 _HEADERS = (_CSRC / "grid_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 
@@ -50,6 +50,15 @@ _SIGNATURES = {
     "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
                          _D, _D, _I, _VP),
     "tw_recurrence_r0_block": (_I,),
+    "tw_newmark_rhs_r0": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I,
+                          _DP, _DP, _D, _D, _VP),
+    "tw_newmark_update": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D,
+                          _D, _D, _VP),
+    "tw_theta_r0u": (_I, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP, _DP, _D,
+                     _D, _D, _VP),
+    "tw_theta_r0v": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
+                     _DP, _D, _D, _VP),
+    "tw_fast_blocks": (_I, _I),
     "tw_p2_apply": (_I, _VP, _VP, _I, _I, _I, _I, _IP, _IP, _IP, _IP, _DP,
                     _I, _DP, _I, _VP),
     "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _IP,

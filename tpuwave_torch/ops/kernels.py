@@ -2,9 +2,9 @@
 
 Counterpart of tpuwave/ops/pallas_kernels.py for the structured-P1 wave
 step and its implicit solvers. Each public function is a wrapper: on a
-CUDA tensor it launches its kernel from ``csrc/stencil_kernels.cu`` (B1-B3)
-or ``csrc/solver_kernels.cu`` (B4, B5), built by ``ops/_build.py``, or
-raises; on a CPU tensor it runs the ``*_reference`` plain version, which
+CUDA tensor it launches its kernel from ``csrc/stencil_kernels.cu`` (B1-B3),
+``csrc/solver_kernels.cu`` (B4, B5) or ``csrc/fast_kernels.cu`` (B7-B10),
+built by ``ops/_build.py``, or raises; on a CPU tensor it runs the ``*_reference`` plain version, which
 the kernel is held against. Every tensor is the grid at its TRUE shape
 (ny+1, nx+1): no padding, no block-size rule. Squared norms come back as
 0-d tensors of the grid's dtype on its device, reduced without atomics.
@@ -32,11 +32,16 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
            "leapfrog_multistep", "leapfrog_multistep_reference",
            "multistep_tile", "cheby_block", "cheby_block_reference",
            "cheby_tile", "MAX_CHEBY_DEGREE", "recurrence_r0",
-           "recurrence_r0_reference"]
+           "recurrence_r0_reference", "newmark_rhs_r0",
+           "newmark_rhs_r0_reference", "newmark_update",
+           "newmark_update_reference", "theta_r0u", "theta_r0u_reference",
+           "theta_r0v", "theta_r0v_reference"]
 
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"constrained_stencil_apply": 0, "leapfrog_step": 0,
             "leapfrog_multistep": 0, "cheby_block": 0, "recurrence_r0": 0,
+            "newmark_rhs_r0": 0, "newmark_update": 0, "theta_r0u": 0,
+            "theta_r0v": 0,
             "p2_constrained_apply": 0, "p2_presmooth": 0,
             "p2_postsmooth": 0}
 
@@ -363,3 +368,169 @@ def recurrence_r0(u: torch.Tensor, u_prev: torch.Tensor, k_stencil,
     _raise_on(rc, "recurrence_r0")
     LAUNCHES["recurrence_r0"] += 1
     return r0, x0, norms[0], norms[1]
+
+
+# -- B7-B10: the fused setups and update of the implicit FastWaveSolver steps
+def _masked(pinned, x):
+    return torch.where(pinned, 0.0, x)
+
+
+def _three_norms(lib, ref: torch.Tensor):
+    """(partials, norms) buffers of the three-norm setup kernels."""
+    n_blocks = lib.tw_fast_blocks(*ref.shape)
+    partials = torch.empty(3 * n_blocks, dtype=ref.dtype, device=ref.device)
+    norms = torch.empty(3, dtype=ref.dtype, device=ref.device)
+    return partials, norms
+
+
+def newmark_rhs_r0_reference(u, v, a, k_stencil, a_stencil, c_zv: float,
+                             c_za: float):
+    """z = masked(u + c_zv v + c_za a); rhs = masked(-K z); x0 = masked(a);
+    r0 = rhs - masked(A x0). Returns (r0, z, ||r0||^2, ||rhs||^2,
+    ||x0||^2)."""
+    pinned = pinned_mask(u.shape, u.device)
+    z = _masked(pinned, u + c_zv * v + c_za * a)
+    x0 = _masked(pinned, a)
+    rhs = _masked(pinned, -apply_stencil(z, k_stencil))
+    r0 = rhs - _masked(pinned, apply_stencil(x0, a_stencil))
+    return r0, z, _dot(r0), _dot(rhs), _dot(x0)
+
+
+def newmark_rhs_r0(u: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
+                   k_stencil, a_stencil, c_zv: float, c_za: float):
+    """The setup of one implicit Newmark a-solve in one kernel pass
+    (replaces ``newmark_rhs_r0_pallas``): the caller solves A e = r0 from
+    e = 0 and sets a' = masked(a) + e. ``k_stencil`` is the stiffness,
+    ``a_stencil`` the system M + beta dt^2 K, ``c_zv`` = dt, ``c_za`` =
+    dt^2 (1/2 - beta). Returns ``(r0, z, rr0, bb, xx0)``, the squared
+    norms of r0, rhs and x0 = masked(a) as 0-d tensors; z comes back with
+    pinned nodes set to 0."""
+    _check("newmark_rhs_r0", u, v, a)
+    if u.device.type == "cpu":
+        return newmark_rhs_r0_reference(u, v, a, k_stencil, a_stencil, c_zv,
+                                        c_za)
+    lib = _lib()
+    h, w = u.shape
+    r0, z = torch.empty_like(u), torch.empty_like(u)
+    partials, norms = _three_norms(lib, u)
+    with torch.cuda.device(u.device):
+        rc = lib.tw_newmark_rhs_r0(
+            _DTYPES[u.dtype], _ptr(u), _ptr(v), _ptr(a), _ptr(r0), _ptr(z),
+            _ptr(partials), partials.numel(), _ptr(norms), h, w,
+            _stencil_arg(k_stencil), _stencil_arg(a_stencil), float(c_zv),
+            float(c_za), _stream(u))
+    _raise_on(rc, "newmark_rhs_r0")
+    LAUNCHES["newmark_rhs_r0"] += 1
+    return r0, z, norms[0], norms[1], norms[2]
+
+
+def newmark_update_reference(z, v, a, e, c_ua: float, c_va: float,
+                             c_van: float):
+    """a' = masked(a) + e; u' = z + c_ua a'; v' = v + c_va a + c_van a'
+    (the raw a in v'). Returns (u', v', a')."""
+    a_new = _masked(pinned_mask(a.shape, a.device), a) + e
+    return z + c_ua * a_new, v + c_va * a + c_van * a_new, a_new
+
+
+def newmark_update(z: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
+                   e: torch.Tensor, c_ua: float, c_va: float, c_van: float):
+    """The Newmark state update in one elementwise kernel pass (replaces
+    ``newmark_update_pallas``): ``c_ua`` = beta dt^2, ``c_va`` =
+    dt (1 - gamma), ``c_van`` = dt gamma. Returns ``(u', v', a')``."""
+    _check("newmark_update", z, v, a, e)
+    if z.device.type == "cpu":
+        return newmark_update_reference(z, v, a, e, c_ua, c_va, c_van)
+    h, w = z.shape
+    out_u, out_v, out_a = (torch.empty_like(z) for _ in range(3))
+    with torch.cuda.device(z.device):
+        rc = _lib().tw_newmark_update(
+            _DTYPES[z.dtype], _ptr(z), _ptr(v), _ptr(a), _ptr(e),
+            _ptr(out_u), _ptr(out_v), _ptr(out_a), h, w, float(c_ua),
+            float(c_va), float(c_van), _stream(z))
+    _raise_on(rc, "newmark_update")
+    LAUNCHES["newmark_update"] += 1
+    return out_u, out_v, out_a
+
+
+def theta_r0u_reference(u, v, m_stencil, k_stencil, c_comb: float,
+                        c_r0k: float, c_mv: float):
+    """On masked u, v: r0 = masked(c_r0k K u + c_mv M v); rhs =
+    masked(M u + c_comb K u + c_mv M v), reduced only. Returns
+    (r0, ||r0||^2, ||rhs||^2, ||masked u||^2)."""
+    pinned = pinned_mask(u.shape, u.device)
+    um, vm = _masked(pinned, u), _masked(pinned, v)
+    ku, mu = apply_stencil(um, k_stencil), apply_stencil(um, m_stencil)
+    mv = apply_stencil(vm, m_stencil)
+    r0 = _masked(pinned, c_r0k * ku + c_mv * mv)
+    rhs = _masked(pinned, mu + c_comb * ku + c_mv * mv)
+    return r0, _dot(r0), _dot(rhs), _dot(um)
+
+
+def theta_r0u(u: torch.Tensor, v: torch.Tensor, m_stencil, k_stencil,
+              c_comb: float, c_r0k: float, c_mv: float):
+    """The setup of one theta u-solve in one kernel pass (replaces
+    ``theta_r0u_pallas``): with the warm start x0 = masked(u) the M u
+    terms of rhs - A x0 cancel, so r0 = masked(c_r0k K u + c_mv M v) with
+    ``c_r0k`` = -dt^2 theta, ``c_mv`` = dt; ``c_comb`` = -dt^2 theta
+    (1 - theta) enters only ||rhs||^2. The caller solves A e = r0 from
+    e = 0. Returns ``(r0, rr0, bb, xx0)``."""
+    _check("theta_r0u", u, v)
+    if u.device.type == "cpu":
+        return theta_r0u_reference(u, v, m_stencil, k_stencil, c_comb, c_r0k,
+                                   c_mv)
+    lib = _lib()
+    h, w = u.shape
+    r0 = torch.empty_like(u)
+    partials, norms = _three_norms(lib, u)
+    with torch.cuda.device(u.device):
+        rc = lib.tw_theta_r0u(
+            _DTYPES[u.dtype], _ptr(u), _ptr(v), _ptr(r0), _ptr(partials),
+            partials.numel(), _ptr(norms), h, w, _stencil_arg(m_stencil),
+            _stencil_arg(k_stencil), float(c_comb), float(c_r0k),
+            float(c_mv), _stream(u))
+    _raise_on(rc, "theta_r0u")
+    LAUNCHES["theta_r0u"] += 1
+    return r0, norms[0], norms[1], norms[2]
+
+
+def theta_r0v_reference(u, e, v, m_stencil, k_stencil, c_ku: float,
+                        c_kun: float):
+    """u' = masked(u) + masked(e); r0 = masked(c_ku K u + c_kun K u');
+    rhs = masked(M v + c_ku K u + c_kun K u'), reduced only. Returns
+    (u', r0, ||r0||^2, ||rhs||^2, ||masked v||^2)."""
+    pinned = pinned_mask(u.shape, u.device)
+    um, vm = _masked(pinned, u), _masked(pinned, v)
+    un = um + _masked(pinned, e)
+    ku, kun = apply_stencil(um, k_stencil), apply_stencil(un, k_stencil)
+    mv = apply_stencil(vm, m_stencil)
+    r0 = _masked(pinned, c_ku * ku + c_kun * kun)
+    rhs = _masked(pinned, mv + c_ku * ku + c_kun * kun)
+    return un, r0, _dot(r0), _dot(rhs), _dot(vm)
+
+
+def theta_r0v(u: torch.Tensor, e: torch.Tensor, v: torch.Tensor, m_stencil,
+              k_stencil, c_ku: float, c_kun: float):
+    """The theta u update and the setup of the v-solve in one kernel pass
+    (replaces ``theta_r0v_pallas``): u' = masked(u) + masked(e) with e the
+    u-solve's correction; with the warm start x0 = masked(v) the M v terms
+    cancel, so r0 = masked(c_ku K u + c_kun K u'), ``c_ku`` =
+    -dt (1 - theta), ``c_kun`` = -dt theta. The caller solves M e_v = r0
+    from e_v = 0 and sets v' = masked(v) + e_v. Returns
+    ``(u', r0, rr0, bb, xx0)``."""
+    _check("theta_r0v", u, e, v)
+    if u.device.type == "cpu":
+        return theta_r0v_reference(u, e, v, m_stencil, k_stencil, c_ku,
+                                   c_kun)
+    lib = _lib()
+    h, w = u.shape
+    un, r0 = torch.empty_like(u), torch.empty_like(u)
+    partials, norms = _three_norms(lib, u)
+    with torch.cuda.device(u.device):
+        rc = lib.tw_theta_r0v(
+            _DTYPES[u.dtype], _ptr(u), _ptr(e), _ptr(v), _ptr(un), _ptr(r0),
+            _ptr(partials), partials.numel(), _ptr(norms), h, w,
+            _stencil_arg(m_stencil), _stencil_arg(k_stencil), float(c_ku),
+            float(c_kun), _stream(u))
+    _raise_on(rc, "theta_r0v")
+    LAUNCHES["theta_r0v"] += 1
+    return un, r0, norms[0], norms[1], norms[2]

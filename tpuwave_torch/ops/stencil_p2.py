@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from tpuwave_torch.config import resolve_device
 from tpuwave_torch.core.mesh import FeSpace
 
 __all__ = ["P2PlaneStencil", "p2_plane_shapes", "flat_to_planes",
@@ -146,16 +147,17 @@ def apply_terms(xc: torch.Tensor, terms) -> torch.Tensor:
 
 class P2PlaneStencil:
     """Constant block-stencil P2 operator on flat DoF vectors and on
-    (4, Hc, Wc) canvas stacks, with tensors of ``dtype`` on ``device``."""
+    (4, Hc, Wc) canvas stacks, with tensors of ``dtype`` on ``device``
+    (default "cuda", which raises where there is no card)."""
 
     def __init__(self, space: FeSpace, a_class: np.ndarray, dtype,
-                 device="cpu"):
+                 device="cuda"):
         if space.degree != 2:
             raise ValueError("P2PlaneStencil requires a P2 space")
         self.nx, self.ny = space.mesh.nx, space.mesh.ny
         self.shapes = p2_plane_shapes(self.nx, self.ny)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.coeffs = _build_coefficients(np.asarray(a_class))
         self.terms = coeffs_to_static(self.coeffs)
         self.n_dofs = space.n_dofs
