@@ -19,7 +19,10 @@ the DoF count of phase 8) and an f32 run at 4096^2 (67 M DoF). Path D:
 FastWaveSolver's implicit family (run_scan, run_implicit_mg,
 run_implicit_kernel, run_implicit_mg_kernel, run_implicit_cheby and the
 2-term chain) at scripts/bench_implicit_mg.py's size, 4096^2 elements
-(16.8 M DoF), f32, dt 1e-3, 20 steps. Phases:
+(16.8 M DoF), f32, dt 1e-3, 20 steps. Path E: the differentiable FWI
+propagator (FwiProblem's kernel engine with the time-reversal adjoint:
+simulate, misfit_and_grad and invert) at scripts/bench_fwi_adjoint.py's
+configuration, 1024^2 elements, f32. Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
@@ -68,6 +71,16 @@ run_implicit_kernel, run_implicit_mg_kernel, run_implicit_cheby and the
  15. run_implicit_mg_kernel at 1024^2, f64, dt 4e-3, 20 steps,
      cg_reduction 1e-12: ||u|| and the relative L2 error against the
      analytic solution equal tpuwave's run_implicit_mg values
+ 16. FwiProblem at (48, 40) elements, dt 2e-3, 96 steps, f64, hard walls
+     and sponge ring, nearest and interpolated receivers: the kernel
+     engine on cuda against the CPU's plain run (traces and misfit rtol
+     1e-12, c2 and wavelet gradients rtol 1e-9)
+ 17. FwiProblem at 1024^2 elements, dt 2e-4, 2000 steps, f32, hard
+     walls and sponge ring: simulate and misfit_and_grad on the kernel
+     engine (B14-B17) and on the stencil engine (torch ops), the kernel
+     engine's gradient against the f64 stencil engine's, 3 Adam
+     iterations of invert, peak device memory; a 256^2 f64 run against
+     tpuwave's misfit and gradient norm
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. Any failed check raises and
@@ -158,6 +171,45 @@ TPUWAVE_FAST_1024 = {
     "theta-0.5": (479.99991137986063, 3.3181115383041807e-06),
 }
 
+#: scripts/bench_fwi_adjoint.py's acquisition: the source and six receivers
+FWI_SOURCE = (0.25, 0.5)
+FWI_RECEIVERS = [(x, y) for x in (0.15, 0.5, 0.85) for y in (0.15, 0.85)]
+#: phase 17's size, time step and step count: bench_fwi_adjoint.py's
+#: 1024^2 elements and dt 2e-4 with its second step count (its first, 500
+#: steps, ends at t = 0.1, before the wavefront reaches the nearest
+#: receiver 0.36 from the source: the traces would be Ricker tails of
+#: ~1e-38, which f32 flushes to zero, and the gradients would compare
+#: nothing)
+FWI_NEL, FWI_DT, FWI_STEPS = 1024, 2e-4, 2000
+#: phase 17's start model: c2 = 0.9 everywhere. Within t = 0.4 no wave
+#: scattered by the disk can reach a receiver (the shortest such path is
+#: 0.6 long), so at c2 = 1 the residual would be rounding; at 0.9 the
+#: direct arrivals (t = 0.39 at c = 0.95) differ from the observed ones
+FWI_C2_INIT = 0.9
+#: phase 3's FWI kernel cases: (elements per side, dt, dtype, timed kernel
+#: calls, timed plain calls); the first is phase 17's shape
+FWI_KERNEL_CASES = ((1024, 2e-4, "float32", 30, 3),
+                    (512, 4e-4, "float64", 30, 3))
+#: tpuwave's (misfit, ||dmisfit/dc2||_2) of phase 17's 256^2 check: FwiProblem
+#: at 256^2 elements, dt 2.5e-3, 200 steps, f64, engine "stencil", adjoint
+#: "reversal", bench_fwi_adjoint.py's acquisition and disk model, observed
+#: traces simulated at the disk model, misfit at c2 = 0.9 everywhere,
+#: computed on the CPU with the JAX package:
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64(); import jax, jax.numpy as jnp, numpy as np;
+#:     from tpuwave.models.inverse import FwiProblem;
+#:     recs = [(x, y) for x in (0.15, 0.5, 0.85) for y in (0.15, 0.85)];
+#:     p = FwiProblem((256, 256), ((0., 0.), (1., 1.)), 2.5e-3, 200,
+#:       source=(0.25, 0.5), receivers=recs, engine='stencil',
+#:       adjoint='reversal');
+#:     cent = p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1);
+#:     c2t = jnp.asarray(np.where(np.sum((cent - [0.6, 0.5]) ** 2, 1)
+#:       < 0.18 ** 2, 0.65, 1.0));
+#:     v, g = jax.value_and_grad(p.misfit)(jnp.full(p.n_cells, 0.9),
+#:       p.simulate(c2t));
+#:     print(repr(float(v)), repr(float(jnp.linalg.norm(g))))"
+TPUWAVE_FWI_256 = (0.02762155692337092, 0.00580166159438514)
+
 SOURCES = {
     "constrained_stencil_apply": "tpuwave_torch/csrc/stencil_kernels.cu",
     "leapfrog_step": "tpuwave_torch/csrc/stencil_kernels.cu",
@@ -171,6 +223,10 @@ SOURCES = {
     "p2_constrained_apply": "tpuwave_torch/csrc/p2_kernels.cu",
     "p2_presmooth": "tpuwave_torch/csrc/p2_kernels.cu",
     "p2_postsmooth": "tpuwave_torch/csrc/p2_kernels.cu",
+    "varcoef_leapfrog_step": "tpuwave_torch/csrc/varcoef_kernels.cu",
+    "varcoef_leapfrog_multistep": "tpuwave_torch/csrc/varcoef_kernels.cu",
+    "varcoef_adjoint_step": "tpuwave_torch/csrc/varcoef_kernels.cu",
+    "varcoef_adjoint_multistep": "tpuwave_torch/csrc/varcoef_kernels.cu",
 }
 REPLACES = {
     "constrained_stencil_apply": "tpuwave/ops/pallas_kernels.py:1081",
@@ -185,6 +241,10 @@ REPLACES = {
     "p2_constrained_apply": "tpuwave/ops/pallas_p2.py:170",
     "p2_presmooth": "tpuwave/ops/pallas_p2.py:394",
     "p2_postsmooth": "tpuwave/ops/pallas_p2.py:429",
+    "varcoef_leapfrog_step": "tpuwave/ops/pallas_varcoef.py:124",
+    "varcoef_leapfrog_multistep": "tpuwave/ops/pallas_varcoef.py:365",
+    "varcoef_adjoint_step": "tpuwave/ops/pallas_varcoef.py:523",
+    "varcoef_adjoint_multistep": "tpuwave/ops/pallas_varcoef.py:712",
 }
 #: the kernels of each main path
 PATH_A = ("leapfrog_step", "leapfrog_multistep", "constrained_stencil_apply")
@@ -193,6 +253,8 @@ PATH_C = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
           "cheby_block", "constrained_stencil_apply")
 PATH_D = ("newmark_rhs_r0", "newmark_update", "theta_r0u", "theta_r0v",
           "constrained_stencil_apply", "cheby_block", "recurrence_r0")
+PATH_E = ("varcoef_leapfrog_step", "varcoef_leapfrog_multistep",
+          "varcoef_adjoint_step", "varcoef_adjoint_multistep")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -1377,6 +1439,336 @@ def phase_p2_profile(torch, kn, work: Path):
             f"{e.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (FWI), phases 16 and 17: path E, the FWI propagator
+# ---------------------------------------------------------------------------
+def _fwi_disk(np, prob):
+    """bench_fwi_adjoint.py's true model: c2 0.65 on the cells whose
+    centroid lies in the disk of radius 0.18 at (0.6, 0.5), 1 elsewhere."""
+    cent = prob.mesh.vertex_coords[np.asarray(prob.mesh.cells)].mean(1)
+    inside = np.sum((cent - [0.6, 0.5]) ** 2, 1) < 0.18 ** 2
+    return np.where(inside, 0.65, 1.0)
+
+
+def _fwi_bound(torch, dtype, want, n_steps: int = 1) -> float:
+    """f64: 1e-12 x max(1, max|plain|). f32: f32_bound with a term scale
+    of 4 x max(1, max|plain|) (|2u| + |u_prev| + coef sum|planes| |u| with
+    coef sum|planes| = 8 (dt / h)^2 c2 < 0.4 here), over n_steps steps."""
+    peak = max(1.0, float(want.double().abs().max()))
+    if dtype == torch.float64:
+        return 1e-12 * peak
+    return f32_bound(4.0 * peak, n_steps)
+
+
+def phase_fwi_kernels(torch, dev, kn) -> dict:
+    """Phase 3, the FWI kernels B14-B17 at phase 17's shape (1025^2 f32,
+    k = 8) and at 513^2 f64, undamped and damped (sponge ring), on random
+    fields that are non-zero on the pinned nodes, the planes of
+    bench_fwi_adjoint.py's disk model, a source one row above and one
+    column left of a tile's interior, and receivers on and across tile
+    edges (interpolated: three points each)."""
+    import numpy as np
+    from tpuwave_torch.models.inverse import FwiProblem
+    from tpuwave_torch.ops import kernels_varcoef as kv
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    max_smem = kn._max_smem(kn._lib(), "phase 3", dev)
+    k = 8
+    say(f"phase 3 (FWI): B14-B17 against their plain versions, k = {k} "
+        "fused steps (bounds: see _fwi_bound; a rerun bitwise equal); "
+        "bytes: every input grid read once, every output grid written "
+        "once; operations counted per node and step: B14 17 (19 damped), "
+        "B15 17 (19), B16 49, B17 49 (53); the card allows "
+        f"{max_smem} B of shared memory per block")
+    rows, main = {}, None
+    for nel, dt, dtype_name, n_k, n_p in FWI_KERNEL_CASES:
+        dtype = getattr(torch, dtype_name)
+        recs = [(0.25, 0.5), (0.5, 0.25), (64.5 / nel, 31.5 / nel),
+                *FWI_RECEIVERS]
+        prob = FwiProblem((nel, nel), UNIT_SQUARE, dt, k, source=FWI_SOURCE,
+                          receivers=recs, interp_receivers=True,
+                          sponge_width=0.1, boundary_save="ring",
+                          dtype=dtype, device=dev)
+        planes = prob._stacked_planes(torch.tensor(
+            _fwi_disk(np, prob), dtype=dtype, device=dev))
+        coef = prob.dt ** 2 / prob._det_j
+        dnum, dden, _ = prob._kernel_damp
+        ring, rec = prob._ring, prob._receivers
+        shape = prob._grid
+        item = planes.element_size()
+        grid_b = shape[0] * shape[1] * item
+        n_node = shape[0] * shape[1]
+        name = f"{shape[0]}^2 {dtype_name}"
+        if main is None:
+            main = name
+
+        def src_near(tile, flip):
+            """A node one row above (or, ``flip``, below) and one column
+            left (right) of the interior of a tile."""
+            t = max(1, min(7, (shape[0] - 1) // tile - 1))
+            return (t * tile, t * tile - 1) if flip else (t * tile - 1,
+                                                          t * tile)
+
+        def rnd(*lead):
+            return (2 * torch.rand((*lead, *shape), generator=gen,
+                                   device=dev, dtype=torch.float64)
+                    - 1).to(dtype)
+
+        def vec(*s):
+            return (2 * torch.rand(s, generator=gen, device=dev,
+                                   dtype=torch.float64) - 1).to(dtype)
+
+        def measure(tag, fn, ref_fn, n_bytes, n_ops, n_steps, outs,
+                    timed=None):
+            """Check fn against ref_fn and time both (``timed`` = the
+            (kernel, plain) calls to time where fn copies an in-place
+            operand)."""
+            got, again, want = fn(), fn(), ref_fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: a rerun is not bitwise equal")
+            t_fn, t_ref = timed or (fn, ref_fn)
+            ms = cuda_ms(t_fn, n_k)
+            pms = cuda_ms(t_ref, n_p, warm=1)
+            r = row(0.0, ms, pms, n_bytes, n_ops, dtype)
+            errs = [check(f"{tag} {o}", g, w, _fwi_bound(torch, dtype, w,
+                                                         n_steps),
+                          timing(r) if i == len(got) - 1 else "")
+                    for i, (o, g, w) in enumerate(zip(outs, got, want))]
+            r["err"] = max(errs)
+            rows[tag] = r
+
+        # B14: the half start and single steps
+        u, up = rnd(), rnd()
+        for damped in (False, True):
+            damp = (dnum, dden) if damped else None
+            measure(f"B14 varcoef_step {name} "
+                    f"{'damped' if damped else 'undamped'}",
+                    lambda: (kv.varcoef_leapfrog_step(u, up, planes, coef,
+                                                      damp),),
+                    lambda: (kv.varcoef_leapfrog_step_reference(
+                        u, up, planes, coef, damp),),
+                    (10 + 2 * damped) * grid_b, (17 + 2 * damped) * n_node,
+                    1, ["u'"])
+        # B15: k fused steps
+        w = vec(k)
+        for damped in (False, True):
+            ms_planes = prob._planes9_forward(planes) if damped else planes
+            n_pl = ms_planes.shape[0]
+            tile = kv.multistep_tile(k, n_pl, dtype, max_smem)
+            src = src_near(tile, False)
+            rg = ring if damped else None
+            side = tile + 2 * (k + 1)
+            say(f"  B15 {name} {n_pl} planes: tile {tile}, slab {side}^2, "
+                f"{(2 + n_pl) * side * side * item} B of shared memory, "
+                f"source {src}")
+            ring_b = 2 * k * (shape[0] + shape[1]) * item if damped else 0
+            measure(f"B15 varcoef_multistep k={k} {name} "
+                    f"{'damped ring' if damped else 'undamped'}",
+                    lambda: kv.varcoef_leapfrog_multistep(
+                        u, up, ms_planes, w, src, coef, rec, rg),
+                    lambda: kv.varcoef_leapfrog_multistep_reference(
+                        u, up, ms_planes, w, src, coef, rec, rg),
+                    (4 + n_pl) * grid_b + ring_b,
+                    (17 + 2 * damped) * k * n_node, k,
+                    ["u", "u_prev", "traces", "ring_rows", "ring_cols"])
+        # B16: one backward step (wbar in place: each checked call gets a
+        # copy; the timed calls update one buffer again and again)
+        un, uc, lam, lp = rnd(), rnd(), rnd(), rnd()
+        wbar0 = rnd(7)
+        wt, wp = wbar0.clone(), wbar0.clone()
+        measure(f"B16 varcoef_adjoint_step {name}",
+                lambda: kv.varcoef_adjoint_step(
+                    un, uc, lam, lp, planes, wbar0.clone(), coef),
+                lambda: kv.varcoef_adjoint_step_reference(
+                    un, uc, lam, lp, planes, wbar0.clone(), coef),
+                28 * grid_b, 49 * n_node, 1,
+                ["u_prev", "lam", "lam_partial", "wbar"],
+                (lambda: kv.varcoef_adjoint_step(un, uc, lam, lp, planes,
+                                                 wt, coef),
+                 lambda: kv.varcoef_adjoint_step_reference(
+                     un, uc, lam, lp, planes, wp, coef)))
+        # B17: k fused backward steps
+        pts = (rec.rows, rec.cols)
+        inj = vec(k, rec.rows.numel())
+        for damped in (False, True):
+            ms_planes = prob._planes9_adjoint(planes) if damped else planes
+            n_pl = ms_planes.shape[0]
+            tile = kv.adjoint_tile(k, n_pl, dtype, max_smem)
+            src = src_near(tile, True)
+            side = tile + 2 * k
+            say(f"  B17 {name} {n_pl} planes: tile {tile}, slab {side}^2, "
+                f"{(5 + n_pl) * side * side * item} B of shared memory, "
+                f"source {src}")
+            ring_args, ring_b = (), 0
+            if damped:
+                ring_args = (ring, vec(k, 2, shape[1]), vec(k, shape[0], 2))
+                ring_b = 2 * k * (shape[0] + shape[1]) * item
+            measure(f"B17 varcoef_adjoint_multistep k={k} {name} "
+                    f"{'damped ring' if damped else 'undamped'}",
+                    lambda: kv.varcoef_adjoint_multistep(
+                        un, uc, lam, lp, ms_planes, wbar0.clone(), w, inj,
+                        src, coef, pts, *ring_args),
+                    lambda: kv.varcoef_adjoint_multistep_reference(
+                        un, uc, lam, lp, ms_planes, wbar0.clone(), w, inj,
+                        src, coef, pts, *ring_args),
+                    (22 + n_pl) * grid_b + ring_b,
+                    (49 + 4 * damped) * k * n_node, k,
+                    ["u_next", "u_cur", "lam", "lam_partial", "wbar",
+                     "wavbar"],
+                    (lambda: kv.varcoef_adjoint_multistep(
+                        un, uc, lam, lp, ms_planes, wt, w, inj, src, coef,
+                        pts, *ring_args),
+                     lambda: kv.varcoef_adjoint_multistep_reference(
+                         un, uc, lam, lp, ms_planes, wp, w, inj, src, coef,
+                         pts, *ring_args)))
+        del prob, planes, u, up, un, uc, lam, lp, wbar0, wt, wp
+    return {
+        "varcoef_leapfrog_step": rows[f"B14 varcoef_step {main} undamped"],
+        "varcoef_leapfrog_multistep": rows[
+            f"B15 varcoef_multistep k={k} {main} undamped"],
+        "varcoef_adjoint_step": rows[f"B16 varcoef_adjoint_step {main}"],
+        "varcoef_adjoint_multistep": rows[
+            f"B17 varcoef_adjoint_multistep k={k} {main} undamped"]}
+
+
+def _fwi_run(torch, prob, c2_true, c2_init):
+    """(traces at c2_true, misfit and c2 gradient at c2_init, wavelet
+    gradient), all on the host."""
+    obs = prob.simulate(c2_true)
+    v, g = prob.misfit_and_grad(c2_init, obs)
+    w = prob.wavelet.clone().requires_grad_(True)
+    with torch.enable_grad():
+        (wg,) = torch.autograd.grad(prob.misfit(c2_init, obs, wavelet=w), w)
+    return [x.detach().double().cpu() for x in (obs, v, g, wg)]
+
+
+def phase_fwi_agree(torch):
+    import numpy as np
+    from tpuwave_torch.models.inverse import FwiProblem
+
+    say("phase 16: FwiProblem, (48, 40) elements, dt 2e-3, 96 steps, f64 "
+        "(scripts/tpu_smoke.py's FWI problem): the kernel engine on cuda "
+        "(k = 8: B14-B17) against the same engine on the CPU (the plain "
+        "versions); traces and misfit within rtol 1e-12, c2 and wavelet "
+        "gradients within rtol 1e-9 (of each array's peak)")
+    ring = dict(sponge_width=0.15, boundary_save="ring")
+    for label, kw in (("walls, nearest", {}),
+                      ("walls, interpolated", dict(interp_receivers=True)),
+                      ("sponge ring, nearest", ring),
+                      ("sponge ring, interpolated",
+                       dict(interp_receivers=True, **ring))):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = FwiProblem((48, 40), UNIT_SQUARE, 2e-3, 96,
+                           source=(0.45, 0.55),
+                           receivers=[(0.4, 0.45), (0.55, 0.62)],
+                           dtype=torch.float64, device=dev, **kw)
+            rng = np.random.default_rng(0)
+            c2t = torch.tensor(1.0 + 0.3 * rng.random(p.n_cells),
+                               dtype=torch.float64, device=p.device)
+            runs[dev] = _fwi_run(torch, p, c2t, torch.ones_like(c2t))
+        rel = [float((a - b).abs().max() / max(b.abs().max(), 1e-300))
+               for a, b in zip(runs["cuda"], runs["cpu"])]
+        ok = rel[0] <= 1e-12 and rel[1] <= 1e-12 and max(rel[2:]) <= 1e-9
+        say(f"  {label:<26} rel diff: traces {rel[0]:.1e} misfit "
+            f"{rel[1]:.1e} grad c2 {rel[2]:.1e} grad wavelet {rel[3]:.1e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 16 {label}: cuda and cpu disagree")
+
+
+def phase_fwi_1024(torch, dev):
+    import numpy as np
+    from tpuwave_torch.models.inverse import FwiProblem
+
+    nel, dt, n = FWI_NEL, FWI_DT, FWI_STEPS
+    f32, f64 = torch.float32, torch.float64
+    say(f"phase 17: FwiProblem at scripts/bench_fwi_adjoint.py's "
+        f"configuration: {nel}^2 elements, dt {dt}, {n} steps, source "
+        f"{FWI_SOURCE}, six receivers, steps_per_call 8, observed traces "
+        f"of the 0.65 disk (f64 stencil engine), misfit at c2 = "
+        f"{FWI_C2_INIT}, f32, on {dev}; simulate and misfit_and_grad: best of 3 after a warm run "
+        f"(host clock around a synchronize); gate: the kernel engine's c2 "
+        f"gradient within 2x the stencil engine's rel L2 error against the "
+        f"f64 stencil engine's")
+
+    def prob(engine, dtype, **kw):
+        return FwiProblem((nel, nel), UNIT_SQUARE, dt, n, source=FWI_SOURCE,
+                          receivers=FWI_RECEIVERS, dtype=dtype, device=dev,
+                          engine=engine, steps_per_call=8, **kw)
+
+    for label, kw in (("hard walls", {}),
+                      ("sponge ring 0.1", dict(sponge_width=0.1,
+                                               boundary_save="ring"))):
+        ref = prob("stencil", f64, **kw)
+        c2_np = _fwi_disk(np, ref)
+        obs64 = ref.simulate(torch.tensor(c2_np, dtype=f64, device=dev))
+        t0 = time.perf_counter()
+        _, g64 = ref.misfit_and_grad(torch.full(
+            (ref.n_cells,), FWI_C2_INIT, dtype=f64, device=dev), obs64)
+        torch.cuda.synchronize()
+        say(f"  {label:<16} stencil  f64 misfit_and_grad "
+            f"{(time.perf_counter() - t0) * 1e3:9.1f} ms (one run)")
+        del ref
+        errs = {}
+        for engine in ("kernel", "stencil"):
+            p = prob(engine, f32, **kw)
+            c2t = torch.tensor(c2_np, dtype=f32, device=dev)
+            c2i = torch.full_like(c2t, FWI_C2_INIT)
+            obs = obs64.float()
+            t_sim, _ = _best_of(torch, lambda: p.simulate(c2t))
+            torch.cuda.reset_peak_memory_stats()
+            t_vg, (v, g) = _best_of(torch, lambda: p.misfit_and_grad(c2i,
+                                                                     obs))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            errs[engine] = _rel_l2(torch, g, g64)
+            extra = f", k {p._k}" if engine == "kernel" else ""
+            say(f"  {label:<16} {engine:<8} f32 simulate {t_sim * 1e3:9.1f} "
+                f"ms, misfit_and_grad {t_vg * 1e3:9.1f} ms, misfit "
+                f"{float(v):.6e}, grad rel L2 error {errs[engine]:.3e}, "
+                f"peak device memory {peak:.3f} GiB{extra}")
+            if engine == "kernel" and not kw:
+                res = p.invert(obs, c2i, n_iter=3, learning_rate=0.01,
+                               bounds=(0.4, 1.5))
+                # Adam moves every cell by ~lr per step, so a step may
+                # overshoot: the gate is the misfit after the last update
+                # below the start's
+                after = float(p.misfit(res.c2, obs))
+                falls = after < res.misfits[0]
+                say(f"  {label:<16} invert (Adam, lr 0.01, bounds (0.4, "
+                    f"1.5)): misfits {', '.join(f'{m:.6e}' for m in res.misfits)}"
+                    f", after the last update {after:.6e} "
+                    f"{'falls' if falls else 'does NOT fall'}")
+                if not falls:
+                    raise AssertionError("phase 17: invert's misfit does "
+                                         "not fall")
+            del p
+        ok = errs["kernel"] <= 2.0 * errs["stencil"]
+        say(f"  {label:<16} gate: kernel {errs['kernel']:.3e} <= 2 x stencil "
+            f"{errs['stencil']:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 17 {label}: the kernel engine's "
+                                 "f32 gradient fails the gate")
+        del obs64, g64
+
+    p = FwiProblem((256, 256), UNIT_SQUARE, 2.5e-3, 200, source=FWI_SOURCE,
+                   receivers=FWI_RECEIVERS, dtype=f64, device=dev)
+    c2t = torch.tensor(_fwi_disk(np, p), dtype=f64, device=dev)
+    v, g = p.misfit_and_grad(torch.full_like(c2t, 0.9), p.simulate(c2t))
+    got = (float(v), float(torch.linalg.vector_norm(g)))
+    rel = [abs(a - b) / b for a, b in zip(got, TPUWAVE_FWI_256)]
+    ok = max(rel) <= 1e-9
+    say(f"  256^2, 200 steps, f64, kernel engine (k {p._k}): misfit "
+        f"{got[0]!r} (tpuwave {TPUWAVE_FWI_256[0]!r}), ||grad|| {got[1]!r} "
+        f"(tpuwave {TPUWAVE_FWI_256[1]!r}), rel diff {max(rel):.1e} (bound "
+        f"1e-9) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 17: the 256^2 run differs from "
+                             "tpuwave's")
+
+
 def _run_path(kn, name, kernels, fn) -> dict:
     """Drive one main path with the launch counts at 0; every kernel of
     the path must have launched."""
@@ -1425,6 +1817,7 @@ def main() -> int:
     results = phase_kernels(torch, dev, kn)
     results.update(phase_fast_kernels(torch, dev, kn))
     results.update(phase_p2_kernels(torch, dev, kn))
+    results.update(phase_fwi_kernels(torch, dev, kn))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
@@ -1447,12 +1840,17 @@ def main() -> int:
             phase_fast_4096(torch)
             phase_fast_1024(torch)
 
+        def path_e():
+            phase_fwi_agree(torch)
+            phase_fwi_1024(torch, dev)
+
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
         phase_profile(torch, kn, work)
         launches_c = _run_path(kn, "C", PATH_C, path_c)
         phase_p2_profile(torch, kn, work)
         launches_d = _run_path(kn, "D", PATH_D, path_d)
+        launches_e = _run_path(kn, "E", PATH_E, path_e)
 
     kernels = []
     for name in SOURCES:
@@ -1461,11 +1859,13 @@ def main() -> int:
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
             launches=sum(ln.get(name, 0) for ln in (launches_a, launches_b,
-                                                    launches_c, launches_d)),
+                                                    launches_c, launches_d,
+                                                    launches_e)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d
-            # gives only the unmasked stencil term)
+            # gives only the unmasked constant stencil term; the FWI
+            # stencil's coefficients vary by node)
             library_ms=None))
     say(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,672 @@
+// Hand-written Hopper (sm_90a) kernels of the FWI propagator.
+//
+// Four kernels, each a port of one Pallas TPU kernel of
+// tpuwave/ops/pallas_varcoef.py, templated on float and double:
+//
+//   B14  varcoef_step               <- varcoef_leapfrog_step_pallas
+//   B15  varcoef_multistep          <- varcoef_leapfrog_multistep_pallas
+//   B16  varcoef_adjoint_step       <- varcoef_adjoint_step_pallas
+//   B17  varcoef_adjoint_multistep  <- varcoef_adjoint_multistep_pallas
+//
+// All act on a row-major (H, W) vertex grid at its true shape and on
+// (n, H, W) plane stacks. The stencil is the variable-coefficient 7-plane
+// one of ops/kernels_varcoef.py: (K u)[I] = sum_j planes[j][I] * u[I + d_j]
+// with d_j = (dx, dy) in OFFSETS order (0,0) (-1,0) (1,0) (0,-1) (-1,-1)
+// (0,1) (1,1), summed in that order. A node is PINNED when its row is <= 0
+// or >= H - 1 or its column is <= 0 or >= W - 1; pinned nodes come out 0
+// in every updated field, and nodes outside the array read as 0 (nothing
+// wraps).
+//
+// Plain C interface, bound from Python with ctypes (ops/kernels_varcoef.py).
+// Every entry point launches on the stream it is given, allocates nothing,
+// does not synchronise, and returns cudaGetLastError() (0 = success).
+// Nothing is reduced across threads, so reruns are bitwise equal.
+
+#include "grid_common.cuh"
+
+namespace {
+
+__device__ __forceinline__ int off_dx(int j) {
+  return (j == 1 || j == 4) ? -1 : ((j == 2 || j == 6) ? 1 : 0);
+}
+
+__device__ __forceinline__ int off_dy(int j) {
+  return (j == 3 || j == 4) ? -1 : ((j == 5 || j == 6) ? 1 : 0);
+}
+
+// ---------------------------------------------------------------------------
+// B14: one leapfrog step.
+//   undamped: u' = 2u - u_prev - coef * K u
+//   damped:   u' = (2u - dnum * u_prev - coef * K u) * dden
+//
+// Bound on this card: memory. It reads 9 arrays (11 damped) and writes 1 for
+// ~17 operations per node. One thread per node, 32x8 blocks: a warp reads 32
+// consecutive addresses of every plane, and the neighbours of u come from
+// L1/L2 after their first touch.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void varcoef_step_kernel(const T* __restrict__ u,
+                                    const T* __restrict__ up,
+                                    const T* __restrict__ planes,
+                                    const T* __restrict__ dnum,
+                                    const T* __restrict__ dden,
+                                    T* __restrict__ out, int H, int W,
+                                    T coef) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= H || c >= W) return;
+  const long long i = (long long)r * W + c;
+  if (is_pinned(r, c, H, W)) {
+    out[i] = T(0);
+    return;
+  }
+  const long long n = (long long)H * W;
+  const T uc = __ldg(u + i);
+  T ku = __ldg(planes + i) * uc;
+#pragma unroll
+  for (int j = 1; j < 7; ++j) {
+    ku += __ldg(planes + j * n + i) *
+          __ldg(u + i + (long long)off_dy(j) * W + off_dx(j));
+  }
+  if (dnum == nullptr) {
+    out[i] = (T(2) * uc - __ldg(up + i)) - coef * ku;
+  } else {
+    out[i] = ((T(2) * uc - __ldg(dnum + i) * __ldg(up + i)) - coef * ku) *
+             __ldg(dden + i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B16: one backward step of the time-reversal adjoint (hard walls).
+//   blam     = mask0(lam_next)
+//   lam_cur  = mask0(lam_partial + 2 blam - coef * K blam)
+//   u_prev   = mask0(2 u_cur - u_next - coef * K u_cur)
+//   lpart'   = -blam
+//   wbar[j] -= coef * blam * u_cur[I + d_j]      (in place)
+//
+// Bound on this card: memory. It reads 18 arrays and writes 10 for ~49
+// operations per node. One thread per node, as B14; each node's seven wbar
+// values belong to its own thread, so the in-place update needs no atomics.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void varcoef_adjoint_step_kernel(
+    const T* __restrict__ un, const T* __restrict__ uc,
+    const T* __restrict__ lamn, const T* __restrict__ lpart,
+    const T* __restrict__ planes, T* __restrict__ wbar,
+    T* __restrict__ out_up, T* __restrict__ out_lc, T* __restrict__ out_lp,
+    int H, int W, T coef) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= H || c >= W) return;
+  const long long i = (long long)r * W + c;
+  if (is_pinned(r, c, H, W)) {
+    // blam = 0 here: wbar keeps its value
+    out_up[i] = T(0);
+    out_lc[i] = T(0);
+    out_lp[i] = -T(0);
+    return;
+  }
+  const long long n = (long long)H * W;
+  const T blam = __ldg(lamn + i);
+  const T ucv = __ldg(uc + i);
+  T ush[7];
+  ush[0] = ucv;
+  T kb = __ldg(planes + i) * blam;
+  T ku = __ldg(planes + i) * ucv;
+#pragma unroll
+  for (int j = 1; j < 7; ++j) {
+    const int dy = off_dy(j), dx = off_dx(j);
+    const long long t = i + (long long)dy * W + dx;
+    const T p = __ldg(planes + j * n + i);
+    const T bn = is_pinned(r + dy, c + dx, H, W) ? T(0) : __ldg(lamn + t);
+    ush[j] = __ldg(uc + t);
+    kb += p * bn;
+    ku += p * ush[j];
+  }
+  out_lc[i] = (__ldg(lpart + i) + T(2) * blam) - coef * kb;
+  out_up[i] = (T(2) * ucv - __ldg(un + i)) - coef * ku;
+  out_lp[i] = -blam;
+  const T mu = coef * blam;
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    wbar[j * n + i] = wbar[j * n + i] - mu * ush[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B15: n_steps forward steps in one pass (temporal blocking).
+//
+// Each block owns a tile x tile square of nodes. It stages u, u_prev and
+// the NP planes over the tile plus a halo of n_steps + 1 nodes on all
+// four sides in dynamic shared memory (zeros outside the array) and runs the
+// steps there, one barrier each. Step s updates the slab nodes at distance
+// >= s from the slab edge in place (u_next overwrites u_prev's slot; it
+// reads only its own u_prev), so after n_steps the tile and one ring around
+// it are exact: the ring lets the block that owns a receiver's first point
+// read the other points of its triangle. After every step:
+//   - the source node gets wchunk[s] * coef (times dden = p2 / 2 at the
+//     source when damped) after the mask, in every block whose slab holds
+//     it, so no halo goes stale;
+//   - each receiver's sample is written by the block that owns its first
+//     point, summed over its points in point order;
+//   - with a ring, rows rA / rB and cols cA / cB of the tile are saved.
+// Damped (9 planes): [0:7] dden-folded stencil, [7] p2 = 2 dden,
+// [8] pm = dden dnum; u' = p2 u - pm u_prev - coef K' u.
+//
+// Bound on this card: device memory (9, damped 11, reads and 2 writes per
+// node per pass) once the staging loads are in flight together: each
+// thread issues all 2 + NP loads of a slab node before its first store,
+// and 512-thread blocks keep more of them in flight. Each step then reads
+// ~16 values of shared memory per slab node, over a slab 1.6x the tile.
+// ---------------------------------------------------------------------------
+constexpr int kSlabThreadsY = 16;  // slab kernels: 32 x 16 threads
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(32 * kSlabThreadsY)
+varcoef_multistep_kernel(
+    const T* __restrict__ u, const T* __restrict__ up,
+    const T* __restrict__ planes, const T* __restrict__ wchunk,
+    int n_steps, int src_r, int src_c, const int* __restrict__ rec_r,
+    const int* __restrict__ rec_c, const T* __restrict__ rec_w, int n_rec,
+    int per, int ra, int rb, int ca, int cb, T* __restrict__ out_u,
+    T* __restrict__ out_up, T* __restrict__ traces,
+    T* __restrict__ ring_rows, T* __restrict__ ring_cols, int H, int W,
+    T coef, int tile) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int halo = n_steps + 1;
+  const int S = tile + 2 * halo;  // slab side
+  const int S2 = S * S;
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* prv = cur + S2;
+  T* pl = prv + S2;
+  const int ir0 = blockIdx.y * tile, ic0 = blockIdx.x * tile;  // tile origin
+  const int r0 = ir0 - halo, c0 = ic0 - halo;  // array row/col of slab (0,0)
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx = blockDim.x, by = blockDim.y;
+  const int tid = ty * bx + tx, nth = bx * by;
+  const long long n = (long long)H * W;
+  constexpr bool damped = NP == 9;
+
+  for (int sr = ty; sr < S; sr += by) {
+    const int r = r0 + sr;
+    const bool row_in = r >= 0 && r < H;
+    for (int sc = tx; sc < S; sc += bx) {
+      const int c = c0 + sc;
+      const bool in = row_in && c >= 0 && c < W;
+      const long long g = in ? (long long)r * W + c : 0;
+      const int s = sr * S + sc;
+      T v[2 + NP];
+      v[0] = in ? __ldg(u + g) : T(0);
+      v[1] = in ? __ldg(up + g) : T(0);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        v[2 + p] = in ? __ldg(planes + p * n + g) : T(0);
+      }
+      cur[s] = v[0];
+      prv[s] = v[1];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) pl[p * S2 + s] = v[2 + p];
+    }
+  }
+  const T ssel =
+      damped ? coef * (T(0.5) * __ldg(planes + 7 * n + (long long)src_r * W +
+                                      src_c))
+             : coef;
+  __syncthreads();
+
+  for (int step = 1; step <= n_steps; ++step) {
+    const T w_s = __ldg(wchunk + step - 1);
+    const int hi = S - step;
+    for (int sr = step + ty; sr < hi; sr += by) {
+      const int gr = r0 + sr;
+      for (int sc = step + tx; sc < hi; sc += bx) {
+        const int gc = c0 + sc;
+        const int s = sr * S + sc;
+        T v = T(0);
+        if (!is_pinned(gr, gc, H, W)) {
+          T ku = pl[s] * cur[s];
+#pragma unroll
+          for (int j = 1; j < 7; ++j) {
+            ku += pl[j * S2 + s] * cur[s + off_dy(j) * S + off_dx(j)];
+          }
+          v = damped ? (pl[7 * S2 + s] * cur[s] - pl[8 * S2 + s] * prv[s]) -
+                           coef * ku
+                     : (T(2) * cur[s] - prv[s]) - coef * ku;
+        }
+        if (gr == src_r && gc == src_c) v += w_s * ssel;
+        prv[s] = v;
+      }
+    }
+    __syncthreads();
+    T* t = cur;
+    cur = prv;
+    prv = t;
+    // cur is read below and written again only after the next barrier
+    for (int q = tid; q < n_rec; q += nth) {
+      const int p0 = q * per;
+      const int ar = __ldg(rec_r + p0), ac = __ldg(rec_c + p0);
+      if (ar < ir0 || ar >= ir0 + tile || ac < ic0 || ac >= ic0 + tile) {
+        continue;
+      }
+      T acc = __ldg(rec_w + p0) * cur[(ar - r0) * S + (ac - c0)];
+      for (int j = 1; j < per; ++j) {
+        acc += __ldg(rec_w + p0 + j) *
+               cur[(__ldg(rec_r + p0 + j) - r0) * S + (__ldg(rec_c + p0 + j) - c0)];
+      }
+      traces[(long long)(step - 1) * n_rec + q] = acc;
+    }
+    if (ring_rows != nullptr) {
+      for (int q = tid; q < tile; q += nth) {
+        const int gc = ic0 + q, gr = ir0 + q;
+        if (gc < W) {
+          if (ra >= ir0 && ra < ir0 + tile) {
+            ring_rows[((long long)(step - 1) * 2) * W + gc] =
+                cur[(ra - r0) * S + (gc - c0)];
+          }
+          if (rb >= ir0 && rb < ir0 + tile) {
+            ring_rows[((long long)(step - 1) * 2 + 1) * W + gc] =
+                cur[(rb - r0) * S + (gc - c0)];
+          }
+        }
+        if (gr < H) {
+          if (ca >= ic0 && ca < ic0 + tile) {
+            ring_cols[((long long)(step - 1) * H + gr) * 2] =
+                cur[(gr - r0) * S + (ca - c0)];
+          }
+          if (cb >= ic0 && cb < ic0 + tile) {
+            ring_cols[((long long)(step - 1) * H + gr) * 2 + 1] =
+                cur[(gr - r0) * S + (cb - c0)];
+          }
+        }
+      }
+    }
+  }
+
+  for (int sr = halo + ty; sr < halo + tile; sr += by) {
+    const int r = r0 + sr;
+    if (r >= H) continue;
+    for (int sc = halo + tx; sc < halo + tile; sc += bx) {
+      const int c = c0 + sc;
+      if (c >= W) continue;
+      const long long g = (long long)r * W + c;
+      out_u[g] = cur[sr * S + sc];
+      out_up[g] = prv[sr * S + sc];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B17: n_steps backward steps in one pass, in time-descending order.
+//
+// Step s, with (A, B) = (u_next, u_cur):
+//   wavbar[s] = coef * lam[src]          (before the update; written by the
+//                                         block that owns src, halo copies
+//                                         do not write it)
+//   blam      = mask0(lam)                (damped: mask0(dden * lam))
+//   lam'      = mask0(lpart + 2 blam - coef K blam) + inj[s] at the points
+//   u_prev    = mask0(2 B - A - coef K B) + coef * wchunk[s] at src
+//   ring:       u_prev = 0 strictly outside [rA..rB] x [cA..cB], then cols
+//               cA, cB and rows rA, rB restored from the saves (halo rows
+//               too)
+//   wbar[j]  -= coef * blam * B[I + d_j]  (the tile's nodes only)
+//   (A, B, lam, lpart) <- (B, u_prev, lam', -blam)   (damped: -dnum blam)
+// Damped: 9 planes, [0:7] plain stencil, [7] dden, [8] dnum.
+//
+// Each block stages A, B, lam, lpart, a fifth slab for the new lpart and
+// the planes over the tile plus an n_steps halo (zeros outside the array)
+// in dynamic shared memory; the tile's seven wbar accumulators live in
+// registers, kAdjNodes nodes per thread (tile <= 32). Step s updates the
+// nodes at distance >= s + 1 from the slab edge; u_prev goes into A's slot
+// and lam' into lpart's (each read only at its own node). After a barrier
+// each thread adds its tile nodes' correlations (lam and B are not written
+// during a step) while one thread injects the receiver cotangents in point
+// order (deterministic where points share a node); a second barrier ends
+// the step.
+//
+// Bound on this card: device memory (18, damped 20, reads and 11 writes
+// per node per pass) once the staging loads are in flight together, as in
+// B15; then shared memory: two stencils per node and step over a slab up
+// to 2.25x the tile.
+// ---------------------------------------------------------------------------
+constexpr int kAdjNodes = 2;  // B17's tile nodes per thread: tile <= 32
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(32 * kSlabThreadsY)
+varcoef_adjoint_multistep_kernel(
+    const T* __restrict__ un, const T* __restrict__ uc,
+    const T* __restrict__ lam, const T* __restrict__ lpart,
+    const T* __restrict__ planes, T* __restrict__ wbar,
+    const T* __restrict__ wchunk, const T* __restrict__ inj, int n_steps,
+    int src_r, int src_c, const int* __restrict__ pt_r,
+    const int* __restrict__ pt_c, int n_pts, int ra, int rb, int ca, int cb,
+    const T* __restrict__ ring_rows, const T* __restrict__ ring_cols,
+    T* __restrict__ out_un, T* __restrict__ out_uc, T* __restrict__ out_lam,
+    T* __restrict__ out_lp, T* __restrict__ wavbar, int H, int W, T coef,
+    int tile) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int halo = n_steps;
+  const int S = tile + 2 * halo;
+  const int S2 = S * S;
+  const int T2 = tile * tile;
+  T* A = reinterpret_cast<T*>(smem_raw);
+  T* B = A + S2;
+  T* L = B + S2;
+  T* P = L + S2;
+  T* Q = P + S2;
+  T* pl = Q + S2;
+  const int ir0 = blockIdx.y * tile, ic0 = blockIdx.x * tile;
+  const int r0 = ir0 - halo, c0 = ic0 - halo;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx = blockDim.x, by = blockDim.y;
+  const int tid = ty * bx + tx, nth = bx * by;
+  const long long n = (long long)H * W;
+  constexpr bool damped = NP == 9;
+
+  for (int sr = ty; sr < S; sr += by) {
+    const int r = r0 + sr;
+    const bool row_in = r >= 0 && r < H;
+    for (int sc = tx; sc < S; sc += bx) {
+      const int c = c0 + sc;
+      const bool in = row_in && c >= 0 && c < W;
+      const long long g = in ? (long long)r * W + c : 0;
+      const int s = sr * S + sc;
+      T v[4 + NP];
+      v[0] = in ? __ldg(un + g) : T(0);
+      v[1] = in ? __ldg(uc + g) : T(0);
+      v[2] = in ? __ldg(lam + g) : T(0);
+      v[3] = in ? __ldg(lpart + g) : T(0);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        v[4 + p] = in ? __ldg(planes + p * n + g) : T(0);
+      }
+      A[s] = v[0];
+      B[s] = v[1];
+      L[s] = v[2];
+      P[s] = v[3];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) pl[p * S2 + s] = v[4 + p];
+    }
+  }
+  T wacc[kAdjNodes][7];
+#pragma unroll
+  for (int i = 0; i < kAdjNodes; ++i) {
+    const int q = tid + i * nth;
+    const int r = ir0 + q / tile, c = ic0 + q % tile;
+    const bool in = q < T2 && r < H && c < W;
+    const long long g = in ? (long long)r * W + c : 0;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) wacc[i][j] = in ? wbar[j * n + g] : T(0);
+  }
+  const bool owner = src_r >= ir0 && src_r < ir0 + tile && src_c >= ic0 &&
+                     src_c < ic0 + tile;
+  __syncthreads();
+
+  for (int step = 0; step < n_steps; ++step) {
+    if (owner && tid == 0) {
+      wavbar[step] = coef * L[(src_r - r0) * S + (src_c - c0)];
+    }
+    const T w_s = __ldg(wchunk + step);
+    const int lo = step + 1, hi = S - step - 1;
+    for (int sr = lo + ty; sr < hi; sr += by) {
+      const int gr = r0 + sr;
+      for (int sc = lo + tx; sc < hi; sc += bx) {
+        const int gc = c0 + sc;
+        const int s = sr * S + sc;
+        const bool pin = is_pinned(gr, gc, H, W);
+        T bl = T(0), lnew = T(0), upv = T(0);
+        if (!pin) {
+          bl = damped ? pl[7 * S2 + s] * L[s] : L[s];
+          T kb = pl[s] * bl;
+          T kB = pl[s] * B[s];
+#pragma unroll
+          for (int j = 1; j < 7; ++j) {
+            const int dy = off_dy(j), dx = off_dx(j);
+            const int t = s + dy * S + dx;
+            const T p = pl[j * S2 + s];
+            const T bn = is_pinned(gr + dy, gc + dx, H, W)
+                             ? T(0)
+                             : (damped ? pl[7 * S2 + t] * L[t] : L[t]);
+            kb += p * bn;
+            kB += p * B[t];
+          }
+          lnew = (P[s] + T(2) * bl) - coef * kb;
+          upv = (T(2) * B[s] - A[s]) - coef * kB;
+        }
+        if (gr == src_r && gc == src_c) upv += w_s * coef;
+        if (ring_rows != nullptr) {
+          if (gr < ra || gr > rb || gc < ca || gc > cb) upv = T(0);
+          if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
+            if (gc == ca) upv = __ldg(ring_cols + ((long long)step * H + gr) * 2);
+            if (gc == cb) {
+              upv = __ldg(ring_cols + ((long long)step * H + gr) * 2 + 1);
+            }
+            if (gr == ra) upv = __ldg(ring_rows + ((long long)step * 2) * W + gc);
+            if (gr == rb) {
+              upv = __ldg(ring_rows + ((long long)step * 2 + 1) * W + gc);
+            }
+          }
+        }
+        A[s] = upv;
+        P[s] = lnew;
+        Q[s] = damped ? -(pl[8 * S2 + s] * bl) : -bl;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kAdjNodes; ++i) {
+      const int q = tid + i * nth;
+      const int gr = ir0 + q / tile, gc = ic0 + q % tile;
+      if (q < T2 && gr < H && gc < W && !is_pinned(gr, gc, H, W)) {
+        const int s = (q / tile + halo) * S + (q % tile + halo);
+        const T mu = coef * (damped ? pl[7 * S2 + s] * L[s] : L[s]);
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+          wacc[i][j] = wacc[i][j] - mu * B[s + off_dy(j) * S + off_dx(j)];
+        }
+      }
+    }
+    if (tid == 0) {
+      for (int p = 0; p < n_pts; ++p) {
+        const int sr = __ldg(pt_r + p) - r0, sc = __ldg(pt_c + p) - c0;
+        if (sr >= 0 && sr < S && sc >= 0 && sc < S) {
+          P[sr * S + sc] += __ldg(inj + (long long)step * n_pts + p);
+        }
+      }
+    }
+    __syncthreads();
+    T* t = A;
+    A = B;
+    B = t;
+    t = L;
+    L = P;
+    P = Q;
+    Q = t;
+  }
+
+  for (int sr = halo + ty; sr < halo + tile; sr += by) {
+    const int r = r0 + sr;
+    if (r >= H) continue;
+    for (int sc = halo + tx; sc < halo + tile; sc += bx) {
+      const int c = c0 + sc;
+      if (c >= W) continue;
+      const long long g = (long long)r * W + c;
+      const int s = sr * S + sc;
+      out_un[g] = A[s];
+      out_uc[g] = B[s];
+      out_lam[g] = L[s];
+      out_lp[g] = P[s];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kAdjNodes; ++i) {
+    const int q = tid + i * nth;
+    const int r = ir0 + q / tile, c = ic0 + q % tile;
+    if (q < T2 && r < H && c < W) {
+#pragma unroll
+      for (int j = 0; j < 7; ++j) wbar[j * n + (long long)r * W + c] = wacc[i][j];
+    }
+  }
+}
+
+template <typename K>
+int opt_in_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int NP>
+int launch_multistep(const void* u, const void* up, const void* planes,
+                     const void* wchunk, int n_steps, int src_r,
+                     int src_c, const void* rec_r, const void* rec_c,
+                     const void* rec_w, int n_rec, int per, int ra, int rb,
+                     int ca, int cb, void* out_u, void* out_up, void* traces,
+                     void* ring_rows, void* ring_cols, int H, int W,
+                     double coef, int tile, cudaStream_t stream) {
+  const size_t side = (size_t)tile + 2 * ((size_t)n_steps + 1);
+  const size_t smem = (2 + (size_t)NP) * side * side * sizeof(T);
+  const int e = opt_in_smem(varcoef_multistep_kernel<T, NP>, smem);
+  if (e != 0) return e;
+  const dim3 block(32, kSlabThreadsY);
+  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
+  varcoef_multistep_kernel<T, NP><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(up),
+      static_cast<const T*>(planes), static_cast<const T*>(wchunk),
+      n_steps, src_r, src_c, static_cast<const int*>(rec_r),
+      static_cast<const int*>(rec_c), static_cast<const T*>(rec_w), n_rec,
+      per, ra, rb, ca, cb, static_cast<T*>(out_u), static_cast<T*>(out_up),
+      static_cast<T*>(traces), static_cast<T*>(ring_rows),
+      static_cast<T*>(ring_cols), H, W, (T)coef, tile);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NP>
+int launch_adjoint_multistep(
+    const void* un, const void* uc, const void* lam, const void* lpart,
+    const void* planes, void* wbar, const void* wchunk,
+    const void* inj, int n_steps, int src_r, int src_c, const void* pt_r,
+    const void* pt_c, int n_pts, int ra, int rb, int ca, int cb,
+    const void* ring_rows, const void* ring_cols, void* out_un, void* out_uc,
+    void* out_lam, void* out_lp, void* wavbar, int H, int W, double coef,
+    int tile, cudaStream_t stream) {
+  const size_t side = (size_t)tile + 2 * (size_t)n_steps;
+  const size_t smem = (5 + (size_t)NP) * side * side * sizeof(T);
+  const dim3 block(32, kSlabThreadsY);
+  if (tile * tile > kAdjNodes * (int)(block.x * block.y)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int e = opt_in_smem(varcoef_adjoint_multistep_kernel<T, NP>, smem);
+  if (e != 0) return e;
+  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
+  varcoef_adjoint_multistep_kernel<T, NP><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(un), static_cast<const T*>(uc),
+      static_cast<const T*>(lam), static_cast<const T*>(lpart),
+      static_cast<const T*>(planes), static_cast<T*>(wbar),
+      static_cast<const T*>(wchunk), static_cast<const T*>(inj), n_steps,
+      src_r, src_c, static_cast<const int*>(pt_r),
+      static_cast<const int*>(pt_c), n_pts, ra, rb, ca, cb,
+      static_cast<const T*>(ring_rows), static_cast<const T*>(ring_cols),
+      static_cast<T*>(out_un), static_cast<T*>(out_uc),
+      static_cast<T*>(out_lam), static_cast<T*>(out_lp),
+      static_cast<T*>(wavbar), H, W, (T)coef, tile);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = float64. Pointers are device pointers; point
+// indices are int32. dnum / dden null: the undamped step. ring_rows /
+// ring_cols null: no ring (ra .. cb are then ignored).
+
+int tw_varcoef_step(int dtype, const void* u, const void* up,
+                    const void* planes, const void* dnum, const void* dden,
+                    void* out, int H, int W, double coef, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid = point_grid(H, W, block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    varcoef_step_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(u), static_cast<const float*>(up),
+        static_cast<const float*>(planes), static_cast<const float*>(dnum),
+        static_cast<const float*>(dden), static_cast<float*>(out), H, W,
+        (float)coef);
+  } else {
+    varcoef_step_kernel<double><<<grid, block, 0, st>>>(
+        static_cast<const double*>(u), static_cast<const double*>(up),
+        static_cast<const double*>(planes), static_cast<const double*>(dnum),
+        static_cast<const double*>(dden), static_cast<double*>(out), H, W,
+        coef);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tw_varcoef_multistep(int dtype, const void* u, const void* up,
+                         const void* planes, int n_planes, const void* wchunk,
+                         int n_steps, int src_r, int src_c, const void* rec_r,
+                         const void* rec_c, const void* rec_w, int n_rec,
+                         int per, int ra, int rb, int ca, int cb, void* out_u,
+                         void* out_up, void* traces, void* ring_rows,
+                         void* ring_cols, int H, int W, double coef, int tile,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_planes != 7 && n_planes != 9) return (int)cudaErrorInvalidValue;
+  auto launch = n_planes == 7
+                    ? (dtype == 0 ? launch_multistep<float, 7>
+                                  : launch_multistep<double, 7>)
+                    : (dtype == 0 ? launch_multistep<float, 9>
+                                  : launch_multistep<double, 9>);
+  return launch(u, up, planes, wchunk, n_steps, src_r, src_c, rec_r, rec_c,
+                rec_w, n_rec, per, ra, rb, ca, cb, out_u, out_up, traces,
+                ring_rows, ring_cols, H, W, coef, tile, st);
+}
+
+int tw_varcoef_adjoint_step(int dtype, const void* un, const void* uc,
+                            const void* lamn, const void* lpart,
+                            const void* planes, void* wbar, void* out_up,
+                            void* out_lc, void* out_lp, int H, int W,
+                            double coef, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid = point_grid(H, W, block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    varcoef_adjoint_step_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(un), static_cast<const float*>(uc),
+        static_cast<const float*>(lamn), static_cast<const float*>(lpart),
+        static_cast<const float*>(planes), static_cast<float*>(wbar),
+        static_cast<float*>(out_up), static_cast<float*>(out_lc),
+        static_cast<float*>(out_lp), H, W, (float)coef);
+  } else {
+    varcoef_adjoint_step_kernel<double><<<grid, block, 0, st>>>(
+        static_cast<const double*>(un), static_cast<const double*>(uc),
+        static_cast<const double*>(lamn), static_cast<const double*>(lpart),
+        static_cast<const double*>(planes), static_cast<double*>(wbar),
+        static_cast<double*>(out_up), static_cast<double*>(out_lc),
+        static_cast<double*>(out_lp), H, W, coef);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tw_varcoef_adjoint_multistep(
+    int dtype, const void* un, const void* uc, const void* lam,
+    const void* lpart, const void* planes, int n_planes, void* wbar,
+    const void* wchunk, const void* inj, int n_steps, int src_r, int src_c,
+    const void* pt_r, const void* pt_c, int n_pts, int ra, int rb, int ca,
+    int cb, const void* ring_rows, const void* ring_cols, void* out_un,
+    void* out_uc, void* out_lam, void* out_lp, void* wavbar, int H, int W,
+    double coef, int tile, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_planes != 7 && n_planes != 9) return (int)cudaErrorInvalidValue;
+  auto launch = n_planes == 7
+                    ? (dtype == 0 ? launch_adjoint_multistep<float, 7>
+                                  : launch_adjoint_multistep<double, 7>)
+                    : (dtype == 0 ? launch_adjoint_multistep<float, 9>
+                                  : launch_adjoint_multistep<double, 9>);
+  return launch(un, uc, lam, lpart, planes, wbar, wchunk, inj, n_steps, src_r,
+                src_c, pt_r, pt_c, n_pts, ra, rb, ca, cb, ring_rows,
+                ring_cols, out_un, out_uc, out_lam, out_lp, wavbar, H, W,
+                coef, tile, st);
+}
+
+}  // extern "C"

@@ -14,6 +14,12 @@ and columns of its Pallas route's canvases (block-row and lane multiples);
 the port's canvas is the true (ny+3, nx+3). Pass ``canvas=(Hc, Wc)`` (the
 port engine's ``_cshape``) and every canvas field is cropped or
 zero-padded to it: the padding lies outside every plane's support.
+
+FWI data (``fwi_to_torch``): the per-cell c^2 and the wavelet are the same
+vectors in both packages (same cell order); tpuwave's Pallas route holds
+grids on a padded (H, W) layout, plane stacks as (n, H, W), ring rows as
+(..., 2, W) and ring columns as (..., H, 2) or (..., H, 128) lanes, all
+cropped here to the true (ny+1, nx+1) grid.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from tpuwave_torch.models.fast import FastState, LeapfrogState
 
-__all__ = ["to_torch", "to_numpy"]
+__all__ = ["to_torch", "to_numpy", "fwi_to_torch"]
 
 
 #: fields that are host ints in the port
@@ -89,3 +95,28 @@ def to_numpy(state) -> dict:
     they are)}."""
     return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
             else v for k, v in state._asdict().items()}
+
+
+#: the kinds of FWI data ``fwi_to_torch`` takes
+_FWI_KINDS = ("cells", "wavelet", "grid", "ring_rows", "ring_cols")
+
+
+def fwi_to_torch(a, grid: Tuple[int, int], device, dtype: torch.dtype,
+                 kind: str = "grid") -> torch.Tensor:
+    """tpuwave FWI data -> a tensor of the port's layout on ``grid`` =
+    (ny+1, nx+1): ``kind`` "cells" / "wavelet" pass through; "grid" crops
+    the last two axes of an (..., H, W) array to ``grid`` (a flat
+    (n_vertices,) field of the stencil engine passes through);
+    "ring_rows" crops (..., 2, W) to (..., 2, nx+1); "ring_cols" crops
+    (..., H, 2 | 128) to (..., ny+1, 2)."""
+    if kind not in _FWI_KINDS:
+        raise ValueError(f"unknown kind {kind!r} ({' | '.join(_FWI_KINDS)})")
+    a = np.asarray(a)
+    rows, cols = grid
+    if kind == "grid" and a.ndim >= 2:
+        a = a[..., :rows, :cols]
+    elif kind == "ring_rows":
+        a = a[..., :cols]
+    elif kind == "ring_cols":
+        a = a[..., :rows, :2]
+    return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)

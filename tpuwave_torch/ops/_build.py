@@ -24,7 +24,8 @@ __all__ = ["COMPILE_FLAGS", "LINK_FLAGS", "build_library", "load_library"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "stencil_kernels.cu", _CSRC / "solver_kernels.cu",
-            _CSRC / "fast_kernels.cu", _CSRC / "p2_kernels.cu")
+            _CSRC / "fast_kernels.cu", _CSRC / "p2_kernels.cu",
+            _CSRC / "varcoef_kernels.cu")
 _HEADERS = (_CSRC / "grid_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 
@@ -63,6 +64,16 @@ _SIGNATURES = {
                     _I, _DP, _I, _VP),
     "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _IP,
                      _IP, _IP, _IP, _DP, _I, _DP, _D, _DP, _DP, _I, _I, _VP),
+    "tw_varcoef_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP),
+    "tw_varcoef_multistep": (_I, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _VP, _VP,
+                             _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+                             _VP, _I, _I, _D, _I, _VP),
+    "tw_varcoef_adjoint_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                _VP, _I, _I, _D, _VP),
+    "tw_varcoef_adjoint_multistep": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+                                     _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I,
+                                     _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                                     _VP, _I, _I, _D, _I, _VP),
 }
 
 

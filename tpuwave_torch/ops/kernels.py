@@ -15,7 +15,8 @@ unless a row block of a taller grid is stepped (``row_offset``).
 
 ``LAUNCHES`` counts kernel launches per wrapper (only real CUDA launches,
 never the plain path), so a run can show it went through the kernels; it
-also counts the P2 kernels of ``ops/kernels_p2.py`` (B11-B13).
+also counts the P2 kernels of ``ops/kernels_p2.py`` (B11-B13) and the FWI
+kernels of ``ops/kernels_varcoef.py`` (B14-B17).
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ LAUNCHES = {"constrained_stencil_apply": 0, "leapfrog_step": 0,
             "newmark_rhs_r0": 0, "newmark_update": 0, "theta_r0u": 0,
             "theta_r0v": 0,
             "p2_constrained_apply": 0, "p2_presmooth": 0,
-            "p2_postsmooth": 0}
+            "p2_postsmooth": 0, "varcoef_leapfrog_step": 0,
+            "varcoef_leapfrog_multistep": 0, "varcoef_adjoint_step": 0,
+            "varcoef_adjoint_multistep": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _TILES = (64, 32, 16)
@@ -107,22 +110,25 @@ def _lib():
 
 
 def _max_smem(lib, name: str, device: torch.device) -> int:
-    max_smem = lib.tw_max_dynamic_smem(device.index)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    max_smem = lib.tw_max_dynamic_smem(index)
     if max_smem <= 0:
         raise RuntimeError(f"{name}: cannot read the card's shared-memory "
                            "limit")
     return max_smem
 
 
-def _largest_tile(name: str, slab_bytes, max_smem: int) -> int:
-    """Largest tile side in _TILES whose shared-memory slabs
+def _largest_tile(name: str, slab_bytes, max_smem: int,
+                  tiles=_TILES) -> int:
+    """Largest tile side in ``tiles`` whose shared-memory slabs
     (``slab_bytes(tile)`` bytes) fit ``max_smem``; raises when none
     does."""
-    for tile in _TILES:
+    for tile in tiles:
         if slab_bytes(tile) <= max_smem:
             return tile
     raise ValueError(
-        f"{name} needs {slab_bytes(_TILES[-1])} B of shared memory even at "
+        f"{name} needs {slab_bytes(tiles[-1])} B of shared memory even at "
         f"the smallest tile; the card allows {max_smem} B")
 
 

@@ -1,4 +1,4 @@
-"""Grid-stencil operators: the P1 structured-mesh fast path (constant c).
+"""Grid-stencil operators: the P1 structured-mesh fast path.
 
 On the structured triangulated rectangle, P1 DoFs ARE the vertex grid
 (ny+1, nx+1), and for constant wave speed both M and K reduce to CONSTANT
@@ -10,8 +10,12 @@ Boundary-row caveat: the shifted adds wrap cyclically (``torch.roll``
 semantics), so ONLY interior rows of the result are exact. Every solver use
 masks boundary rows anyway (Dirichlet elimination overrides them).
 
+The variable-coefficient planes (one coefficient grid per neighbour
+offset, linear in the per-element c^2) serve the FWI propagator
+(``models/inverse.py``).
+
 These are the plain PyTorch forms; the CUDA kernels of ``ops/kernels.py``
-are held against them.
+and ``ops/kernels_varcoef.py`` are held against them.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ __all__ = [
     "boundary_mask_grid",
     "GridStencilOperator",
     "P1_CLASS_CORNERS",
+    "assemble_varcoef_planes",
+    "apply_varcoef_planes",
 ]
 
 # local DoF -> (di, dj) grid offset from the cell anchor v00, per class
@@ -157,3 +163,50 @@ class GridStencilOperator:
              other: "GridStencilOperator") -> "GridStencilOperator":
         s = np.asarray(self.stencil) + coef * np.asarray(other.stencil)
         return GridStencilOperator(s, self.shape, self.dtype, self.device)
+
+
+# ---------------------------------------------------------------------------
+# variable-coefficient (per-element-scaled) stencil planes
+# ---------------------------------------------------------------------------
+
+def assemble_varcoef_planes(s: torch.Tensor, g_class_np, ny: int,
+                            nx: int) -> dict:
+    """Assembled variable-coefficient 9-point stencil on the vertex grid.
+
+    ``s``: (ny, nx, 2) per-element scales (det_j * sum_q w_q c^2, one per
+    triangle class); ``g_class_np``: (2, 3, 3) reference-gradient products
+    (q-independent for P1). Returns ``{(dx, dy): w_d}`` planes of shape
+    (ny+1, nx+1), on ``s``'s device and dtype, with
+    ``y[I] = sum_d w_d[I] * u[I + d]``. Linear (hence differentiable by
+    autograd) in ``s``; interior-exact, boundary rows must be masked by
+    the caller. The planes come out in tpuwave's insertion order, so
+    :func:`apply_varcoef_planes` sums in the same order.
+    """
+    planes = {}
+    for k in range(2):
+        sk = s[..., k]
+        for i in range(3):
+            oix, oiy = P1_CLASS_CORNERS[k][i]
+            for j in range(3):
+                g = float(g_class_np[k, i, j])
+                if g == 0.0:
+                    continue
+                ojx, ojy = P1_CLASS_CORNERS[k][j]
+                d = (ojx - oix, ojy - oiy)
+                if d not in planes:
+                    planes[d] = s.new_zeros((ny + 1, nx + 1))
+                # slice-add on a fresh tensor keeps autograd's graph
+                planes[d] = planes[d] + torch.nn.functional.pad(
+                    g * sk, (oix, 1 - oix, oiy, 1 - oiy))
+    return planes
+
+
+def apply_varcoef_planes(planes: dict, ug: torch.Tensor) -> torch.Tensor:
+    """y = sum_d w_d * roll(u, -d) on the (ny+1, nx+1) vertex grid (same
+    wrap-garbage-on-boundary caveat as :func:`apply_stencil`)."""
+    out = planes[(0, 0)] * ug
+    for (dx, dy), w in planes.items():
+        if (dx, dy) == (0, 0):
+            continue
+        out = out + w * torch.roll(ug, shifts=(-dy, -dx), dims=(0, 1))
+    return out
