@@ -22,7 +22,11 @@ run_implicit_kernel, run_implicit_mg_kernel, run_implicit_cheby and the
 (16.8 M DoF), f32, dt 1e-3, 20 steps. Path E: the differentiable FWI
 propagator (FwiProblem's kernel engine with the time-reversal adjoint:
 simulate, misfit_and_grad and invert) at scripts/bench_fwi_adjoint.py's
-configuration, 1024^2 elements, f32. Phases:
+configuration, 1024^2 elements, f32. Path F: the driven explicit leapfrog
+(run_leapfrog_driven, run_leapfrog_driven_kernel on B1,
+run_leapfrog_driven_multistep on B6) at scripts/bench_driven.py's
+configuration, 4096^2 elements, f32, and both CLIs with a spatially
+varying and with a time-dependent wave speed at R = 1. Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
@@ -81,6 +85,18 @@ configuration, 1024^2 elements, f32. Phases:
      engine's gradient against the f64 stencil engine's, 3 Adam
      iterations of invert, peak device memory; a 256^2 f64 run against
      tpuwave's misfit and gradient norm
+ 18. the driven leapfrog at scripts/bench_driven.py's defaults (4096^2
+     elements, f32, dt 8e-5, 64 steps, its strip drive g = sin(4 pi t) on
+     y = 0, x <= 1/3, and its forcing): run_leapfrog_driven (torch ops),
+     run_leapfrog_driven_kernel with and without forcing (B1) and
+     run_leapfrog_driven_multistep at k = 8, 16, 32 (B6): us/step,
+     DoF*steps/s, each kernel leg's end state within rel L2 1e-5 of the
+     torch-ops leg's; then 64 steps at 1024^2 f64 on B6 (k = 8): ||u||
+     equal to tpuwave's at rtol 1e-10
+ 19. both CLIs (newmark beta 1/4, theta 1/2) at 160^2 elements, 10 steps,
+     with a spatially varying C and with a time-dependent C, --precond
+     jacobi and mg, on --device cuda and on --device cpu: CSVs agree,
+     per-step CG counts are equal, the mg runs launch B4 and B3
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. Any failed check raises and
@@ -190,6 +206,26 @@ FWI_C2_INIT = 0.9
 #: calls, timed plain calls); the first is phase 17's shape
 FWI_KERNEL_CASES = ((1024, 2e-4, "float32", 30, 3),
                     (512, 4e-4, "float64", 30, 3))
+#: tpuwave's ||u||_2 at the end of phase 18's 1024^2 check: FastWaveSolver
+#: at 1024^2 elements on the unit square, dt 2e-4, f64, lumped leapfrog,
+#: initial_leapfrog_state of sin(pi x) sin(pi y) with bench_driven.py's
+#: strip drive g (u^1 at t = dt), then 64 driven steps to t = 2 dt ..
+#: 65 dt, computed on the CPU with the JAX package:
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64(); import jax.numpy as jnp, numpy as np;
+#:     from tpuwave.models.fast import FastWaveSolver;
+#:     g = lambda x, y, t: jnp.where((y <= 0.0) & (x <= 1.0 / 3.0),
+#:       jnp.sin(4.0 * jnp.pi * t), 0.0);
+#:     s = FastWaveSolver((1024, 1024), ((0., 0.), (1., 1.)), 2e-4,
+#:       beta=0.0, dtype=jnp.float64);
+#:     st = s.initial_leapfrog_state(lambda x, y: jnp.sin(jnp.pi * x)
+#:       * jnp.sin(jnp.pi * y), g_fn=g);
+#:     st = s.run_leapfrog_driven(st, 2e-4 * (2.0 + np.arange(64)), g);
+#:     print(repr(float(jnp.linalg.norm(st.u))))"
+TPUWAVE_DRIVEN_1024 = 511.1941755012166
+#: phase 18's configuration: scripts/bench_driven.py's defaults
+DRIVEN_NEL, DRIVEN_DT, DRIVEN_STEPS = 4096, 8e-5, 64
+
 #: tpuwave's (misfit, ||dmisfit/dc2||_2) of phase 17's 256^2 check: FwiProblem
 #: at 256^2 elements, dt 2.5e-3, 200 steps, f64, engine "stencil", adjoint
 #: "reversal", bench_fwi_adjoint.py's acquisition and disk model, observed
@@ -214,6 +250,7 @@ SOURCES = {
     "constrained_stencil_apply": "tpuwave_torch/csrc/stencil_kernels.cu",
     "leapfrog_step": "tpuwave_torch/csrc/stencil_kernels.cu",
     "leapfrog_multistep": "tpuwave_torch/csrc/stencil_kernels.cu",
+    "leapfrog_multistep_driven": "tpuwave_torch/csrc/stencil_kernels.cu",
     "cheby_block": "tpuwave_torch/csrc/solver_kernels.cu",
     "recurrence_r0": "tpuwave_torch/csrc/solver_kernels.cu",
     "newmark_rhs_r0": "tpuwave_torch/csrc/fast_kernels.cu",
@@ -232,6 +269,7 @@ REPLACES = {
     "constrained_stencil_apply": "tpuwave/ops/pallas_kernels.py:1081",
     "leapfrog_step": "tpuwave/ops/pallas_kernels.py:1230",
     "leapfrog_multistep": "tpuwave/ops/pallas_kernels.py:1136",
+    "leapfrog_multistep_driven": "tpuwave/ops/pallas_kernels.py:357",
     "cheby_block": "tpuwave/ops/pallas_kernels.py:1013",
     "recurrence_r0": "tpuwave/ops/pallas_kernels.py:605",
     "newmark_rhs_r0": "tpuwave/ops/pallas_kernels.py:486",
@@ -255,6 +293,8 @@ PATH_D = ("newmark_rhs_r0", "newmark_update", "theta_r0u", "theta_r0v",
           "constrained_stencil_apply", "cheby_block", "recurrence_r0")
 PATH_E = ("varcoef_leapfrog_step", "varcoef_leapfrog_multistep",
           "varcoef_adjoint_step", "varcoef_adjoint_multistep")
+PATH_F = ("leapfrog_step", "leapfrog_multistep_driven", "cheby_block",
+          "constrained_stencil_apply")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -386,7 +426,7 @@ def phase_kernels(torch, dev, kn) -> dict:
 
     say("phase 3: kernels against their plain PyTorch versions "
         "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
-        "operations counted per node: B1 21, B2 21 per step, B3 17 "
+        "operations counted per node: B1 21, B2 and B6 21 per step, B3 17 "
         "(23 diff), B4 22 per degree, B5 33; times: mean of calls each "
         "timed alone after an L2 flush")
     rows, results = {}, {}
@@ -458,6 +498,46 @@ def phase_kernels(torch, dev, kn) -> dict:
         rows[tag] = r
     results["leapfrog_multistep"] = rows[
         "B2 leapfrog_multistep k=32 4097^2 float32"]
+
+    # B6 leapfrog_multistep_driven: phase 18's shape and coefficient at
+    # k = 1, 8, 32, and its 1024^2 f64 check's at k = 8; random fields
+    # and random edge tables (every substep's g differs)
+    lf1024 = FastWaveSolver((1024, 1024), ((0.0, 0.0), (1.0, 1.0)), 2e-4,
+                            beta=0.0, dtype=torch.float64, device=dev)
+    for size, dtype, k, c, n_k, n_p in (
+            (4097, torch.float32, 1, coef, 20, 3),
+            (4097, torch.float32, 8, coef, 20, 3),
+            (4097, torch.float32, 32, coef, 10, 2),
+            (1025, torch.float64, 8,
+             lf1024.dt * lf1024.dt / lf1024.mesh.det_j, 30, 3)):
+        u, up = rnd((size, size), dtype), rnd((size, size), dtype)
+        gtb, glr = rnd((k, 2, size), dtype), rnd((k, size, 2), dtype)
+        args = (u, up, gtb, glr, stiff, c, k)
+        got = kn.leapfrog_multistep_driven(*args)
+        again = kn.leapfrog_multistep_driven(*args)
+        want = kn.leapfrog_multistep_driven_reference(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("B6: a rerun is not bitwise equal")
+        peak = max(1.0, float(want[0].abs().max()),
+                   float(want[1].abs().max()))
+        bound = (1e-12 * peak if dtype == torch.float64
+                 else f32_bound((3.0 + c * ssum(stiff)) * peak, k))
+        ms = cuda_ms(lambda: kn.leapfrog_multistep_driven(*args), n_k)
+        pms = cuda_ms(lambda: kn.leapfrog_multistep_driven_reference(*args),
+                      n_p, warm=1)
+        tag = f"B6 leapfrog_multistep_driven k={k} {size}^2 {str(dtype)[6:]}"
+        r = row(0.0, ms, pms,
+                (4 * u.numel() + gtb.numel() + glr.numel())
+                * u.element_size(), 21 * k * u.numel(), dtype)
+        e1 = check(tag + " u", got[0], want[0], bound)
+        e2 = check(tag + " u_prev", got[1], want[1], bound,
+                   f"({ms * 1e3 / k:.1f}us/step) " + timing(r))
+        r["err"] = max(e1, e2)
+        rows[tag] = r
+        del u, up, gtb, glr, args, got, again, want
+    results["leapfrog_multistep_driven"] = rows[
+        "B6 leapfrog_multistep_driven k=8 4097^2 float32"]
 
     # B4 cheby_block: the MG fine-level smoother (degree 2) and the
     # --solver cheby block (degree 8) on phase 8's system, f64; degree 8
@@ -1342,14 +1422,16 @@ def phase_p2_1024(torch, kn, work: Path):
     say(f"  CLI wall {wall:.2f} s (time loop {elapsed:.3f} s, "
         f"{elapsed / n_steps * 1e3:.2f} ms/step, "
         f"{4198401 * n_steps / elapsed:.4e} DoF*steps/s); CG iterations "
-        f"{its}, tpuwave {TPUWAVE_ITERS_P2_2TERM_1024} (a difference can "
-        f"come only from the smoother's lambda_max start vector)")
+        f"{its}, tpuwave {TPUWAVE_ITERS_P2_2TERM_1024} (the smoother's "
+        f"lambda_max starts from tpuwave's vector: equal counts expected)")
     want = TPUWAVE_REL_L2_P2_2TERM_1024
     rel = abs(rel_l2 - want) / want
+    ok = rel <= 1e-6 and its == TPUWAVE_ITERS_P2_2TERM_1024
     say(f"  final rel L2 {rel_l2:.10e}, tpuwave {want:.10e}, rel diff "
-        f"{rel:.2e} (bound 1e-6) {'ok' if rel <= 1e-6 else 'FAIL'}")
-    if rel > 1e-6:
-        raise AssertionError("final rel L2 differs from tpuwave's")
+        f"{rel:.2e} (bound 1e-6) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("final rel L2 or CG count differs from "
+                             "tpuwave's")
 
 
 def phase_p2_4096(torch, kn, work: Path):
@@ -1769,6 +1851,152 @@ def phase_fwi_1024(torch, dev):
                              "tpuwave's")
 
 
+# ---------------------------------------------------------------------------
+# phases 18 and 19: path F, the driven explicit leapfrog and varying C
+# ---------------------------------------------------------------------------
+def _strip_drive(torch):
+    """scripts/bench_driven.py's g (sin(4 pi t) on the y = 0, x <= 1/3
+    strip) and f, as torch callables (t: a 0-d or a (k, 1) tensor)."""
+    def g_fn(x, y, t):
+        return torch.where((y <= 0.0) & (x <= 1.0 / 3.0),
+                           torch.sin(4.0 * torch.pi * t), 0.0)
+
+    def f_fn(x, y, t):
+        return (torch.sin(2.0 * torch.pi * x) * torch.sin(torch.pi * y)
+                * torch.cos(3.0 * t))
+    return g_fn, f_fn
+
+
+def phase_driven_4096(torch, kn):
+    from tpuwave_torch.models.fast import FastWaveSolver
+
+    nel, dt, n = DRIVEN_NEL, DRIVEN_DT, DRIVEN_STEPS
+    say(f"phase 18: the driven leapfrog at scripts/bench_driven.py's "
+        f"defaults: {nel}^2 elements ({(nel + 1) ** 2:,} DoF), f32, dt {dt}, "
+        f"{n} steps from rest, its strip drive and forcing, on cuda: "
+        f"us/step and DoF*steps/s (best of 3 after a warm run, host clock "
+        f"around a synchronize); gate: each kernel leg's end state within "
+        f"rel L2 1e-5 of its torch-ops leg's")
+    fs = FastWaveSolver((nel, nel), UNIT_SQUARE, dt, beta=0.0,
+                        dtype=torch.float32, device="cuda")
+    g_fn, f_fn = _strip_drive(torch)
+
+    def rest(xs, ys):
+        return torch.zeros_like(xs)
+
+    lf = fs.initial_leapfrog_state(rest, g_fn=g_fn)
+    lf_f = fs.initial_leapfrog_state(rest, f_fn=f_fn, g_fn=g_fn)
+    # the stamps stepped TO after u^1 (at t = dt)
+    times = dt * (2.0 + torch.arange(n, dtype=torch.float64))
+    legs = [("torch ops (run_leapfrog_driven)", None,
+             lambda: fs.run_leapfrog_driven(lf, times, g_fn)),
+            ("B1 (run_leapfrog_driven_kernel)", "torch ops",
+             lambda: fs.run_leapfrog_driven_kernel(lf, times, g_fn)),
+            ("torch ops + forcing", None,
+             lambda: fs.run_leapfrog_driven(lf_f, times, g_fn, f_fn)),
+            ("B1 + forcing", "torch ops + forcing",
+             lambda: fs.run_leapfrog_driven_kernel(lf_f, times, g_fn, f_fn))]
+    legs += [(f"B6 k={k} (run_leapfrog_driven_multistep)", "torch ops",
+              lambda k=k: fs.run_leapfrog_driven_multistep(
+                  lf, times, g_fn, steps_per_call=k)) for k in (8, 16, 32)]
+    ends = {}
+    for name, ref, fn in legs:
+        before = dict(kn.LAUNCHES)
+        best, out = _best_of(torch, fn)
+        runs = {k: (kn.LAUNCHES[k] - before[k]) // 4
+                for k in ("leapfrog_step", "leapfrog_multistep_driven")}
+        key = name.split(" (")[0]
+        ends[key] = out
+        line = (f"  {name:<41} {best * 1e6 / n:9.1f} us/step  "
+                f"{fs.n_dofs * n / best:.4e} DoF*steps/s  launches per run "
+                f"B1 {runs['leapfrog_step']} B6 "
+                f"{runs['leapfrog_multistep_driven']}")
+        if ref is None:
+            say(line)
+            continue
+        d = max(_rel_l2(torch, out.u, ends[ref].u),
+                _rel_l2(torch, out.u_prev, ends[ref].u_prev))
+        ok = d <= 1e-5
+        say(f"{line}  rel diff {d:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 18 {name}: differs from {ref}")
+    del fs, lf, lf_f, ends
+
+
+def phase_driven_1024(torch):
+    import numpy as np
+    from tpuwave_torch.models.fast import FastWaveSolver
+
+    n, dt = 64, 2e-4
+    say(f"phase 18 (f64): run_leapfrog_driven_multistep (B6, k = 8), 1024^2 "
+        f"elements, f64, dt {dt}, sin(pi x) sin(pi y) and the strip drive, "
+        f"{n} steps, on cuda, against tpuwave's run_leapfrog_driven (its "
+        f"CPU run): ||u|| within rtol 1e-10")
+    g_fn, _ = _strip_drive(torch)
+    fs = FastWaveSolver((1024, 1024), UNIT_SQUARE, dt, beta=0.0,
+                        dtype=torch.float64, device="cuda")
+    st = fs.initial_leapfrog_state(_standing(torch), g_fn=g_fn)
+    t0 = time.perf_counter()
+    out = fs.run_leapfrog_driven_multistep(
+        st, dt * (2.0 + np.arange(n)), g_fn, steps_per_call=8)
+    norm = float(torch.linalg.vector_norm(out.u))
+    wall = time.perf_counter() - t0
+    rel = abs(norm - TPUWAVE_DRIVEN_1024) / TPUWAVE_DRIVEN_1024
+    ok = rel <= 1e-10
+    say(f"  {wall / n * 1e6:.1f} us/step (one run, host clock); ||u|| "
+        f"{norm!r} (tpuwave {TPUWAVE_DRIVEN_1024!r}), rel diff {rel:.1e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 18: the 1024^2 f64 run differs from "
+                             "tpuwave's")
+
+
+#: phase 19's wave speeds: tests/test_fast_engine.py:187's varying C and
+#: tests/test_tdep_c.py's time-dependent MMS (c^2 = 1 + 0.5 sin 2t)
+VARYING_C = {"C": {"Function expression": "1.0 + 0.5*x + 0.25*y*y",
+                   "Variable names": "x, y, t"}}
+TDEP_C = {"Time Dependent C": "true",
+          "C": {"Function expression": "sqrt(1 + 0.5*sin(2*t))",
+                "Variable names": "x, y, t"},
+          "F": {"Function expression":
+                "(2*pi^2*(1 + 0.5*sin(2*t)) - 1)*cos(t)*sin(pi*x)*sin(pi*y)",
+                "Variable names": "x, y, t"},
+          "Solution": {"Function expression": "cos(t)*sin(pi*x)*sin(pi*y)",
+                       "Variable names": "x, y, t"}}
+
+
+def phase_cli_varcoef(torch, kn, work: Path):
+    say(f"phase 19: both CLIs with a varying and with a time-dependent C, "
+        f"R = 1, standing mode, 160^2 elements, dt 4e-2, {FAMILY_STEPS} "
+        f"steps, f64, Log Every 1: --device cuda against --device cpu (CSVs "
+        f"within rtol 1e-9, per-step CG counts equal; the mg runs launch B4 "
+        f"and B3)")
+    for cname, cover in (("varying C", VARYING_C), ("time-dep. C", TDEP_C)):
+        for family, over in (("newmark", {"Beta": "0.25"}),
+                             ("theta", {"Theta": "0.5"})):
+            for precond in ("jacobi", "mg"):
+                case = _case(work, Nel="160", Dt="4e-2",
+                             T=str(FAMILY_STEPS * 4e-2),
+                             **{"Log Every": "1"}, **over, **cover)
+                flags = ("--precond", precond)
+                tag = f"{cname} {family} --precond {precond}"
+                out = work / "varcoef" / tag.replace(" ", "_")
+                before = dict(kn.LAUNCHES)
+                w_cuda, _ = _cli(family, case, out / "cuda", "cuda",
+                                 flags=flags)
+                n = {k: kn.LAUNCHES[k] - before[k]
+                     for k in ("cheby_block", "constrained_stencil_apply")}
+                w_cpu, _ = _cli(family, case, out / "cpu", "cpu",
+                                flags=flags)
+                rows = _compare_csvs(out / "cuda" / "res",
+                                     out / "cpu" / "res", its_tol=0)
+                say(f"  {tag:<40} cuda {w_cuda:6.2f} s  cpu {w_cpu:6.2f} s"
+                    f"  {rows} CSV rows agree  launches {n}")
+                if precond == "mg" and min(n.values()) <= 0:
+                    raise AssertionError(f"{tag}: the cuda run launched no "
+                                         f"B4 or no B3")
+
+
 def _run_path(kn, name, kernels, fn) -> dict:
     """Drive one main path with the launch counts at 0; every kernel of
     the path must have launched."""
@@ -1844,6 +2072,11 @@ def main() -> int:
             phase_fwi_agree(torch)
             phase_fwi_1024(torch, dev)
 
+        def path_f():
+            phase_driven_4096(torch, kn)
+            phase_driven_1024(torch)
+            phase_cli_varcoef(torch, kn, work)
+
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
         phase_profile(torch, kn, work)
@@ -1851,6 +2084,7 @@ def main() -> int:
         phase_p2_profile(torch, kn, work)
         launches_d = _run_path(kn, "D", PATH_D, path_d)
         launches_e = _run_path(kn, "E", PATH_E, path_e)
+        launches_f = _run_path(kn, "F", PATH_F, path_f)
 
     kernels = []
     for name in SOURCES:
@@ -1858,9 +2092,9 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=sum(ln.get(name, 0) for ln in (launches_a, launches_b,
-                                                    launches_c, launches_d,
-                                                    launches_e)),
+            launches=sum(ln.get(name, 0) for ln in (
+                launches_a, launches_b, launches_c, launches_d, launches_e,
+                launches_f)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

@@ -117,15 +117,18 @@ def test_engine_diagnostics_equal_tpuwave():
 def test_engine_refuses_unported_configurations():
     varc = _driven_case(C={"Function expression": "1 + 0.5*x",
                            "Variable names": "x, y, t"})
-    with pytest.raises(NotImplementedError, match="A5"):
-        tfe.make_fast_solver(tload(varc), "newmark", dtype=torch.float64,
-                             device=CPU)
     tdep = _driven_case(**{"Time Dependent C": "true",
                            "C": {"Function expression": "1 + 0.1*t",
                                  "Variable names": "x, y, t"}})
-    with pytest.raises(NotImplementedError, match="A5"):
-        tfe.make_fast_solver(tload(tdep), "theta", dtype=torch.float64,
-                             device=CPU)
+    # at R = 1 varying and time-dependent C are ported; refused, as in
+    # tpuwave, are --solver cheby with a varying C and --solver 2term with
+    # a time-dependent one
+    with pytest.raises(ValueError, match="constant wave speed"):
+        tfe.make_fast_solver(tload(varc), "newmark", solver="cheby",
+                             dtype=torch.float64, device=CPU)
+    with pytest.raises(ValueError, match="time-static wave speed"):
+        tfe.make_fast_solver(tload(tdep), "theta", solver="2term",
+                             dtype=torch.float64, device=CPU)
     # R = 2 is ported; with varying or time-dependent C it is refused (A5)
     with pytest.raises(NotImplementedError, match="A5"):
         tfe.make_fast_solver(tload(dict(varc, R="2")), "theta",
@@ -223,12 +226,13 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 
 @pytest.mark.parametrize("flag,item", [
     (["--engine", "parity"], "A10"),
-    # the solver flags and R = 2 are ported: refused only with what is
-    # not (varying or time-dependent C)
+    # the solver flags, R = 2 and varying / time-dependent C at R = 1 are
+    # ported: refused only with what is not (varying or time-dependent C
+    # at R = 2)
     (["--precond", "chebyshev", "R=2", "C=x"], "A5"),
     (["--precond", "mg", "R=2", "C=t"], "A5"),
-    (["--precond", "auto", "C=x"], "A5"),
-    (["--solver", "2term", "C=t"], "A5"),
+    (["--precond", "auto", "R=2", "C=x"], "A5"),
+    (["--solver", "2term", "R=2", "C=t"], "A5"),
     (["--solver", "cheby", "R=2", "C=x"], "A5"),
     (["--shard", "rows"], "A11"),
     (["--distributed"], "A11"),

@@ -382,6 +382,72 @@ def test_cuda_leapfrog_multistep(cuda_device, dtype, k, offset):
         assert float((g - w).abs().max()) <= _bound(dtype, scale, k)
 
 
+# B6 on a grid of several tiles whose sides are not multiples of the tile
+# (64 in f32, 32 in f64 at k = 32): the last row and column of tiles are 3
+# and 5 wide, so for k >= 5 the boundary row H - 1 and column W - 1 lie in
+# the halos of the tiles before them, which must inject g there too
+DRIVEN = (131, 133)
+
+
+def _driven_tables(dev, dtype, k):
+    rng = np.random.default_rng(20 + k)
+    h, w = DRIVEN
+    u, up = (torch.tensor(rng.uniform(-1.0, 1.0, DRIVEN), dtype=dtype,
+                          device=dev) for _ in range(2))
+    gtb = torch.tensor(rng.uniform(-2.0, 2.0, (k, 2, w)), dtype=dtype,
+                       device=dev)
+    glr = torch.tensor(rng.uniform(-2.0, 2.0, (k, h, 2)), dtype=dtype,
+                       device=dev)
+    return u, up, gtb, glr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_cuda_leapfrog_multistep_driven(cuda_device, dtype, k):
+    u, up, gtb, glr = _driven_tables(cuda_device, dtype, k)
+    before = tk.LAUNCHES["leapfrog_multistep_driven"]
+    got = tk.leapfrog_multistep_driven(u, up, gtb, glr, STIFF, 0.3, k)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["leapfrog_multistep_driven"] == before + 1
+    want = tk.leapfrog_multistep_driven_reference(u, up, gtb, glr, STIFF,
+                                                  0.3, k)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= _bound(dtype, scale, k)
+    # the driven nodes carry the last substep's data exactly
+    assert torch.equal(got[0][-1], gtb[-1, 1])
+    assert torch.equal(got[0][1:-1, -1], glr[-1, 1:-1, 1])
+    again = tk.leapfrog_multistep_driven(u, up, gtb, glr, STIFF, 0.3, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_leapfrog_multistep_driven_halo_injection(cuda_device, dtype):
+    """Data only on the last row and column, which sit in the previous
+    tiles' halos: a tile that skipped the injection there would leave
+    its interior wrong after a few substeps."""
+    k = 8
+    u, up, gtb, glr = _driven_tables(cuda_device, dtype, k)
+    u.zero_()
+    up.zero_()
+    gtb[:, 0] = 0.0
+    glr[:, :, 0] = 0.0
+    got = tk.leapfrog_multistep_driven(u, up, gtb, glr, STIFF, 0.3, k)
+    torch.cuda.synchronize()
+    want = tk.leapfrog_multistep_driven_reference(u, up, gtb, glr, STIFF,
+                                                  0.3, k)
+    tile = tk.multistep_tile(k, dtype, tk._max_smem(tk._lib(), "test",
+                                                    cuda_device))
+    h, w = DRIVEN
+    band = want[0][(h // tile) * tile - k:(h // tile) * tile]
+    assert float(band.abs().max()) > 0.0      # the data reached the halo
+    for g, w_ in zip(got, want):
+        assert float((g - w_).abs().max()) <= _bound(
+            dtype, float(w_.abs().max()), k)
+
+
 # B7-B10 on an odd-sized grid, with non-zero values on the pinned nodes
 ODD = (37, 53)
 

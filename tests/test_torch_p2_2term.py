@@ -6,15 +6,14 @@ The driven and forced problem of test_torch_p2_engine.py (Nel 16, dt 0.4,
 3 steps: the u-form first step and two recurrence steps with the driven
 boundary lift and, for Newmark, the derived-BC strips), both packages
 with the same arguments; per-step CG counts identical, states and the
-reconstructed velocity within 1e-10 relative. tpuwave's lambda_max is
-handed to the port (see test_torch_p2_engine.py).
+reconstructed velocity within 1e-10 relative. Each package sizes its
+P2 smoother by its own power iteration (the same start vector).
 """
 
 import pytest
 import torch
 
-from tests.test_torch_p2_engine import (_close, _run_both, driven_case,
-                                        shared_lambda)  # noqa: F401
+from tests.test_torch_p2_engine import _close, _run_both, driven_case
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models import fast_engine as tfe
@@ -25,7 +24,7 @@ CPU = torch.device("cpu")
 
 @pytest.mark.parametrize("precond", ["mg", "chebyshev"])
 @pytest.mark.parametrize("family", ["newmark", "theta"])
-def test_2term_engine_matches_tpuwave(shared_lambda, family, precond):
+def test_2term_engine_matches_tpuwave(family, precond):
     case = driven_case()
     js = jfe.make_fast_solver(jload(case), family, precond=precond,
                               solver="2term")

@@ -5,8 +5,8 @@ parameter files at Nel 8 (in-process ``main``): exit code 0, the same
 run folder and file set as ``tpuwave.cli``, energy.csv, error.csv and
 probe.csv within rtol 1e-9 (the convergence.csv wall-clock column
 aside), iterations.csv identical, the same console step lines. With
-``--precond mg`` tpuwave's lambda_max is handed to the port (see
-test_torch_p2_engine.py). Varying or time-dependent C at R = 2 still exits
+``--precond mg`` each package sizes its P2 smoother by its own power
+iteration (the same start vector). Varying or time-dependent C at R = 2 still exits
 1 with one line naming ROADMAP A5. The ``--solver 2term`` case is in
 test_torch_p2_cli_2term.py (tpuwave's compile of it takes ~45 s).
 """
@@ -17,8 +17,6 @@ import json
 from pathlib import Path
 
 import pytest
-
-from tests.test_torch_p2_engine import shared_lambda  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -58,8 +56,8 @@ def _csv_close(a, b, skip_cols=()):
      {"Log Every": "3"}),
     ("theta", "standing-mode-wsol", ("--precond", "chebyshev"), {}),
 ])
-def test_cli_r2_reproduces_tpuwave(tmp_path, capsys, shared_lambda, family,
-                                   preset, flags, over):
+def test_cli_r2_reproduces_tpuwave(tmp_path, capsys, family, preset, flags,
+                                   over):
     check_cli_against_tpuwave(tmp_path, capsys, family, preset, flags, over)
 
 

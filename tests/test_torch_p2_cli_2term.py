@@ -5,10 +5,9 @@ point), with the checks of test_torch_p2_cli.py.
 """
 
 from tests.test_torch_p2_cli import check_cli_against_tpuwave
-from tests.test_torch_p2_engine import shared_lambda  # noqa: F401
 
 
-def test_cli_r2_2term_reproduces_tpuwave(tmp_path, capsys, shared_lambda):
+def test_cli_r2_2term_reproduces_tpuwave(tmp_path, capsys):
     check_cli_against_tpuwave(tmp_path, capsys, "newmark",
                               "oscillating-boundary",
                               ("--solver", "2term", "--precond", "mg"), {})

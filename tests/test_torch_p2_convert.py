@@ -13,8 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_p2_engine import (_close, driven_case,
-                                        shared_lambda)  # noqa: F401
+from tests.test_torch_p2_engine import _close, driven_case
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models import convert
@@ -27,7 +26,7 @@ CPU = torch.device("cpu")
 @pytest.mark.parametrize("solver,nel,pallas", [("3term", "8,6", False),
                                                ("2term", "12,21", True)])
 def test_state_carried_across_steps_to_tpuwaves_next_state(
-        shared_lambda, solver, nel, pallas):
+        solver, nel, pallas):
     case = driven_case(Nel=nel, Dt="0.1", T="0.2")
     kw = dict(use_pallas=True, pallas_block_rows=8,
               pallas_interpret=True) if pallas else {}

@@ -9,11 +9,11 @@ the same arguments. Per-step CG counts must be identical, and u, v (and a)
 agree within 1e-10 relative: the CG stopping rule is 1e-6 relative, and
 the two sides differ in summation order only (~1e-16 per operation).
 
-``lambda_max`` of the P2 smoother: tpuwave draws its power-iteration start
-vector with jax.random, which torch cannot reproduce, so the mg cases hand
-tpuwave's estimate to the port (a monkeypatch of the two packages'
-``estimate_lambda_max``); test_torch_p2_multigrid.py holds the port's own
-estimate within 2% of tpuwave's.
+``lambda_max`` of the P2 smoother: both packages run their own power
+iteration from the same start vector (the port reproduces tpuwave's
+jax.random draw, tpuwave_torch/utils/prng.py), so the mg cases are held
+digit for digit with no patch; test_torch_p2_multigrid.py holds the two
+estimates to rtol 1e-10.
 
 test_torch_p2_pallas.py holds the same engines against tpuwave's Pallas
 route, test_torch_p2_solvers.py the ``--solver cheby|2term`` engines.
@@ -55,23 +55,6 @@ def driven_case(**over):
     return case
 
 
-@pytest.fixture
-def shared_lambda(monkeypatch):
-    """tpuwave's power-iteration estimate, handed to the port."""
-    import tpuwave.solve.chebyshev as jch
-    import tpuwave_torch.solve.chebyshev as tch
-    seen = []
-    orig = jch.estimate_lambda_max
-
-    def record(*args, **kw):
-        seen.append(orig(*args, **kw))
-        return seen[-1]
-    monkeypatch.setattr(jch, "estimate_lambda_max", record)
-    monkeypatch.setattr(tch, "estimate_lambda_max",
-                        lambda *args, **kw: seen[-1])
-    return seen
-
-
 def _close(got, want, rtol=1e-10):
     want = np.asarray(want)
     np.testing.assert_allclose(np.asarray(got), want, rtol=rtol,
@@ -100,8 +83,7 @@ def _run_both(js, ts, case, n_steps):
 
 @pytest.mark.parametrize("precond", ["jacobi", "chebyshev", "mg", "auto"])
 @pytest.mark.parametrize("family", ["newmark", "theta"])
-def test_engine_matches_tpuwave_step_for_step(shared_lambda, family,
-                                              precond):
+def test_engine_matches_tpuwave_step_for_step(family, precond):
     case = driven_case()
     js = jfe.make_fast_solver(jload(case), family, precond=precond)
     ts = tfe.make_fast_solver(tload(case), family, precond=precond,

@@ -11,8 +11,7 @@ identical, states within 1e-10 relative (summation order only).
 import pytest
 import torch
 
-from tests.test_torch_p2_engine import (_close, _run_both, driven_case,
-                                        shared_lambda)  # noqa: F401
+from tests.test_torch_p2_engine import _close, _run_both, driven_case
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models import fast_engine as tfe
@@ -31,8 +30,7 @@ def _case():
     ("theta", "3term", "jacobi"),
     ("newmark", "2term", "mg"),
 ])
-def test_engine_matches_tpuwave_pallas_route(shared_lambda, family, solver,
-                                             precond):
+def test_engine_matches_tpuwave_pallas_route(family, solver, precond):
     check_pallas_route(family, solver, precond)
 
 

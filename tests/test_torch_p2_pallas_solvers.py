@@ -8,8 +8,7 @@ identical, states within 1e-10 relative).
 
 import pytest
 
-from tests.test_torch_p2_pallas import (check_pallas_route,  # noqa: F401
-                                        shared_lambda)
+from tests.test_torch_p2_pallas import check_pallas_route
 
 
 @pytest.mark.parametrize("family,solver,precond", [
@@ -18,6 +17,5 @@ from tests.test_torch_p2_pallas import (check_pallas_route,  # noqa: F401
     ("theta", "3term", "auto"),
     ("theta", "2term", "chebyshev"),
 ])
-def test_solvers_match_tpuwave_pallas_route(shared_lambda, family, solver,
-                                            precond):
+def test_solvers_match_tpuwave_pallas_route(family, solver, precond):
     check_pallas_route(family, solver, precond)

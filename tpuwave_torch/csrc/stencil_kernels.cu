@@ -1,14 +1,17 @@
 // Hand-written Hopper (sm_90a) kernels for the structured-P1 wave step.
 //
-// Three kernels, each a port of one Pallas TPU kernel of
+// Four kernels, each a port of one Pallas TPU kernel of
 // tpuwave/ops/pallas_kernels.py, templated on float and double:
 //
 //   B1  leapfrog_step          <- leapfrog_step_pallas (_kernel)
 //   B2  leapfrog_multistep     <- leapfrog_multistep_pallas (_multistep_kernel)
 //   B3  constrained_apply      <- constrained_stencil_apply_pallas
 //                                 (_constrained_apply_kernel)
+//   B6  leapfrog_multistep_driven
+//                              <- leapfrog_multistep_driven_pallas
+//                                 (_multistep_driven_kernel)
 //
-// All three act on a row-major (H, W) vertex grid at its true shape: no
+// All four act on a row-major (H, W) vertex grid at its true shape: no
 // padding, no layout rule. The 3x3 stencil is a run-time argument
 // (s[1 + dj][1 + di] couples node (r, c) to node (r + dj, c + di)), so a new
 // dt or mesh needs no rebuild. A node is PINNED when its global row is
@@ -233,6 +236,160 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B6: n_steps DRIVEN leapfrog steps in one pass (temporal blocking with
+// per-substep Dirichlet data).
+//
+// B2's tile and shrinking slab, with one change: where B2 writes 0 on a
+// pinned node, B6 writes that substep's boundary value for the node's
+// GLOBAL row or column,
+//
+//   row H - 1: gtb[s, 1, c]     row 0:     gtb[s, 0, c]
+//   col W - 1: glr[s, r, 1]     col 0:     glr[s, r, 0]
+//
+// tested in that order (the rows win at the corners, as in tpuwave's
+// overlay order left, right, bottom, top); nodes outside the array are 0.
+// Because the value depends only on global coordinates, every tile whose
+// slab holds a boundary row or column, its halo copies of a neighbour's
+// boundary included, injects the same value at every substep: tiles stay
+// independent, and no atomics are used (reruns are bitwise equal).
+//
+// gtb is (n_steps, 2, W) and glr (n_steps, H, 2), row-major in the state's
+// dtype: 2 values per boundary node per substep, read straight from global
+// memory with __ldg (tiny, L2-resident; not staged in shared memory).
+//
+// Bound on this card: as B2, shared-memory traffic and the halo's
+// redundant work; device memory sees 2 reads + 2 writes per n_steps steps
+// (16 B per node per pass in f32) plus the edge tables. The boundary
+// tests are taken per slab row: a row outside the array or on row 0 or
+// H - 1 takes its values from the table (or 0) without a stencil, and in
+// every other row one unsigned compare per node separates the interior
+// from the two boundary columns, so the stencil loop is as lean as B2's.
+// (A first version tested all six cases per node: 48 registers and 1.6x
+// B2's time at k = 8.)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void leapfrog_multistep_driven_kernel(
+    const T* __restrict__ u, const T* __restrict__ up,
+    const T* __restrict__ gtb, const T* __restrict__ glr,
+    T* __restrict__ out_u, T* __restrict__ out_up, int H, int W, Stencil9 st,
+    T coef, int n_steps, int tile) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = tile + 2 * n_steps;  // slab side
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* prv = cur + (size_t)S * S;
+  const int r0 = blockIdx.y * tile - n_steps;  // array row of slab row 0
+  const int c0 = blockIdx.x * tile - n_steps;  // array col of slab col 0
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx = blockDim.x, by = blockDim.y;
+
+  for (int sr = ty; sr < S; sr += by) {
+    const int r = r0 + sr;
+    const bool row_in = r >= 0 && r < H;
+    for (int sc = tx; sc < S; sc += bx) {
+      const int c = c0 + sc;
+      const bool in = row_in && c >= 0 && c < W;
+      const size_t g = (size_t)r * W + c;
+      cur[sr * S + sc] = in ? __ldg(u + g) : T(0);
+      prv[sr * S + sc] = in ? __ldg(up + g) : T(0);
+    }
+  }
+  __syncthreads();
+
+  T s[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) s[k] = T(st.c[k]);
+
+  for (int step = 1; step <= n_steps; ++step) {
+    const int hi = S - step;
+    const T* g_bot = gtb + (size_t)(step - 1) * 2 * W;  // gtb[s, 0, :]
+    const T* g_top = g_bot + W;                          // gtb[s, 1, :]
+    const T* g_lr = glr + (size_t)(step - 1) * H * 2;    // glr[s, :, :]
+    for (int sr = step + ty; sr < hi; sr += by) {
+      const int r = r0 + sr;
+      T* out = prv + sr * S;
+      if (r <= 0 || r >= H - 1) {
+        // outside the array (0) or a boundary row (its table; the rows
+        // win at the corners, row H - 1 over row 0)
+        const T* g_row = r == H - 1 ? g_top : (r == 0 ? g_bot : nullptr);
+        for (int sc = step + tx; sc < hi; sc += bx) {
+          const int c = c0 + sc;
+          out[sc] = (g_row != nullptr && c >= 0 && c < W) ? __ldg(g_row + c)
+                                                          : T(0);
+        }
+        continue;
+      }
+      const T* rm = cur + (sr - 1) * S;
+      const T* rc = cur + sr * S;
+      const T* rp = cur + (sr + 1) * S;
+      for (int sc = step + tx; sc < hi; sc += bx) {
+        const int c = c0 + sc;
+        T v;
+        if ((unsigned)(c - 1) < (unsigned)(W - 2)) {  // 0 < c < W - 1
+          T ku = s[4] * rc[sc];
+          ku += s[0] * rm[sc - 1];
+          ku += s[1] * rm[sc];
+          ku += s[2] * rm[sc + 1];
+          ku += s[3] * rc[sc - 1];
+          ku += s[5] * rc[sc + 1];
+          ku += s[6] * rp[sc - 1];
+          ku += s[7] * rp[sc];
+          ku += s[8] * rp[sc + 1];
+          v = (T(2) * rc[sc] - out[sc]) - coef * ku;
+        } else if (c == W - 1) {
+          v = __ldg(g_lr + (size_t)r * 2 + 1);
+        } else if (c == 0) {
+          v = __ldg(g_lr + (size_t)r * 2);
+        } else {
+          v = T(0);
+        }
+        out[sc] = v;
+      }
+    }
+    __syncthreads();
+    T* t = cur;
+    cur = prv;
+    prv = t;
+  }
+
+  // cur holds u after n_steps, prv holds it after n_steps - 1
+  for (int sr = n_steps + ty; sr < n_steps + tile; sr += by) {
+    const int r = r0 + sr;
+    if (r < 0 || r >= H) continue;
+    for (int sc = n_steps + tx; sc < n_steps + tile; sc += bx) {
+      const int c = c0 + sc;
+      if (c < 0 || c >= W) continue;
+      const size_t g = (size_t)r * W + c;
+      out_u[g] = cur[sr * S + sc];
+      out_up[g] = prv[sr * S + sc];
+    }
+  }
+}
+
+template <typename T>
+int launch_multistep_driven(const void* u, const void* up, const void* gtb,
+                            const void* glr, void* out_u, void* out_up, int H,
+                            int W, const double* s, double coef, int n_steps,
+                            int tile, cudaStream_t stream) {
+  const size_t side = (size_t)tile + 2 * (size_t)n_steps;
+  const size_t smem = 2 * side * side * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        leapfrog_multistep_driven_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 block(32, 16);
+  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
+  leapfrog_multistep_driven_kernel<T><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(up),
+      static_cast<const T*>(gtb), static_cast<const T*>(glr),
+      static_cast<T*>(out_u), static_cast<T*>(out_up), H, W, load_stencil(s),
+      (T)coef, n_steps, tile);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -288,6 +445,22 @@ int tw_leapfrog_multistep(int dtype, const void* u, const void* up,
   }
   return launch_multistep<double>(u, up, out_u, out_up, H, W, s, coef,
                                   n_steps, tile, row_offset, n_rows, st);
+}
+
+// gtb: (n_steps, 2, W) bottom / top edge values per substep; glr:
+// (n_steps, H, 2) left / right edge values per substep.
+int tw_leapfrog_multistep_driven(int dtype, const void* u, const void* up,
+                                 const void* gtb, const void* glr,
+                                 void* out_u, void* out_up, int H, int W,
+                                 const double* s, double coef, int n_steps,
+                                 int tile, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_multistep_driven<float>(u, up, gtb, glr, out_u, out_up, H,
+                                          W, s, coef, n_steps, tile, st);
+  }
+  return launch_multistep_driven<double>(u, up, gtb, glr, out_u, out_up, H, W,
+                                         s, coef, n_steps, tile, st);
 }
 
 // Largest dynamic shared memory a block may opt in to on ``device``

@@ -10,6 +10,10 @@ passes are the hand-written CUDA kernels of ops/kernels.py:
 * :meth:`FastWaveSolver.run_leapfrog_kernel`    one launch of B1 per step
 * :meth:`FastWaveSolver.run_leapfrog_multistep` one launch of B2 per
   ``steps_per_call`` steps (temporal blocking)
+* :meth:`FastWaveSolver.run_leapfrog_driven_kernel` one launch of B1 per
+  driven step, then an O(perimeter) overlay of g (optional forcing pass)
+* :meth:`FastWaveSolver.run_leapfrog_driven_multistep` one launch of B6
+  per ``steps_per_call`` driven steps (g injected inside the kernel)
 * :meth:`FastWaveSolver.run_implicit_kernel`    every CG matvec through B3
 * :meth:`FastWaveSolver.run_implicit_mg_kernel` MG-PCG steps: setup B7 (B9,
   B10 for theta), matvec B3, V-cycle fine level B4 + B3, update B8
@@ -22,11 +26,15 @@ passes are the hand-written CUDA kernels of ops/kernels.py:
 are the same schemes in plain torch ops (the V-cycle's level operators
 are B3 on the card).
 
-Scope: P1 elements, constant wave speed, homogeneous Dirichlet data, zero
-forcing — the reference's scalability configuration
-(scripts/scalability_sweep.py:85-120: standing-mode, IO off). The product
-engines (models/fast_engine.py) add driven g(t) and forcing on top of the
-same operators.
+:meth:`FastWaveSolver.run_leapfrog_driven` and
+:meth:`FastWaveSolver.run_leapfrog_tdep` (time-dependent wave speed, the
+varcoef planes of ops/stencil.py rebuilt every step) are torch ops.
+
+Scope: P1 elements; the implicit paths take a constant wave speed,
+homogeneous Dirichlet data and zero forcing — the reference's scalability
+configuration (scripts/scalability_sweep.py:85-120: standing-mode, IO
+off). The product engines (models/fast_engine.py) add driven g(t),
+forcing and varying / time-dependent c on top of the same operators.
 """
 
 from __future__ import annotations
@@ -43,7 +51,10 @@ from tpuwave_torch.ops import kernels
 from tpuwave_torch.ops.assembly import (element_mass_class,
                                         element_stiffness_class)
 from tpuwave_torch.ops.stencil import (P1_CLASS_CORNERS, GridStencilOperator,
-                                       apply_stencil_diff, boundary_mask_grid,
+                                       apply_stencil_diff,
+                                       apply_varcoef_planes,
+                                       assemble_varcoef_planes,
+                                       boundary_mask_grid,
                                        class_matrices_to_stencil,
                                        lumped_mass_grid)
 from tpuwave_torch.solve.cg import pcg, vdot
@@ -133,6 +144,7 @@ class FastWaveSolver:
         self._inv_diag = 1.0 / self.system.stencil[1][1]
         self._n_dofs = self.shape[0] * self.shape[1]
         self._load_cache = None
+        self._tdep_cache = None
         #: linear-solver iterations of the last ``run_*`` call, one entry
         #: per step: an int (Newmark: the a-solve; 2-term: the u-solve) or
         #: a (u-solve, v-solve) pair (theta)
@@ -301,7 +313,8 @@ class FastWaveSolver:
 
         Optional ``f_fn`` makes the start forcing-aware (consistent load in
         a^0 and the half-step, reference WaveNewmark.cpp:298-343); optional
-        ``g_fn`` pins u^1 boundary data at t = dt.
+        ``g_fn`` pins u^1 boundary data at t = dt. Both get t as a 0-d
+        tensor of the state's dtype.
         """
         if f_fn is None and g_fn is None:
             st = self.initial_state(u0_fn, v0_fn)
@@ -312,15 +325,16 @@ class FastWaveSolver:
         u0 = self._as_grid(u0_fn(xs, ys))
         v0 = (torch.zeros(self.shape, dtype=self.dtype, device=self.device)
               if v0_fn is None else self._as_grid(v0_fn(xs, ys)))
+        t0, t1 = self._times((0.0, dt))
         rhs = -self._stiff_diff(u0)
         if f_fn is not None:
-            rhs = rhs + self.grid_load(f_fn, 0.0)
+            rhs = rhs + self.grid_load(f_fn, t0)
         a0 = torch.where(self.boundary, 0.0, rhs * self.inv_lumped)
         u1 = u0 + dt * v0 + (0.5 * dt * dt) * a0
         if g_fn is None:
             u1 = torch.where(self.boundary, 0.0, u1)
         else:
-            u1 = torch.where(self.boundary, self._as_grid(g_fn(xs, ys, dt)),
+            u1 = torch.where(self.boundary, self._as_grid(g_fn(xs, ys, t1)),
                              u1)
         return LeapfrogState(u=u1.to(self.dtype), u_prev=u0)
 
@@ -339,6 +353,129 @@ class FastWaveSolver:
         for _ in range(int(n_steps)):
             state = self.leapfrog_step(state)
         return state
+
+    # ------------------------------------------------------------------
+    # driven (time-dependent Dirichlet) leapfrog: u|boundary = g(x, y, t)
+    # pinned at every step. ``g_fn`` / ``f_fn`` are callables
+    # (x, y, t) -> tensor (or a number) on torch tensors, such as
+    # utils/expr.py::Expression.evaluate; ``t`` comes as a 0-d tensor of
+    # the state's dtype on its device.
+    # ------------------------------------------------------------------
+    def _times(self, times) -> torch.Tensor:
+        return torch.as_tensor(times, dtype=self.dtype,
+                               device=self.device).reshape(-1)
+
+    def leapfrog_step_driven(self, state: LeapfrogState, t, g_fn,
+                             f_fn=None) -> LeapfrogState:
+        """One leapfrog step with u|dOmega = g_fn(x, y, t) at the NEW time.
+
+        Interior recurrence identical to leapfrog_step; boundary nodes are
+        pinned to g. ``t`` is the time being stepped TO (t^{n+1}). Optional
+        ``f_fn`` adds the quadrature-consistent forcing load F(t^n) (the
+        semi-discrete recurrence reads M a^n = F^n - K u^n, so f acts at
+        the FROM time t - dt; :meth:`grid_load`)."""
+        dt2 = self.dt * self.dt
+        u, u_prev = state
+        accel = -self.stiff(u) * self.inv_lumped
+        if f_fn is not None:
+            accel = accel + self.grid_load(f_fn, t - self.dt) * self.inv_lumped
+        u_next = 2.0 * u - u_prev + dt2 * accel
+        xs, ys = self.grid_coords()
+        u_next = torch.where(self.boundary, self._as_grid(g_fn(xs, ys, t)),
+                             u_next).to(self.dtype)
+        return LeapfrogState(u=u_next, u_prev=u)
+
+    def run_leapfrog_driven(self, state: LeapfrogState, times, g_fn,
+                            f_fn=None) -> LeapfrogState:
+        """One :meth:`leapfrog_step_driven` per stamp of ``times`` (the
+        times being stepped TO, accumulated like the reference loop), in
+        torch ops."""
+        for t in self._times(times):
+            state = self.leapfrog_step_driven(state, t, g_fn, f_fn)
+        return state
+
+    def _edge_coords(self):
+        """((x, y) of the bottom row, top row, left column, right column),
+        each a pair of (1, n) tensors cut from :meth:`grid_coords`, so an
+        edge value equals the full-grid evaluation's bit for bit."""
+        xs, ys = self.grid_coords()
+        return ((xs[:1], ys[:1]), (xs[-1:], ys[-1:]),
+                (xs[:, 0][None], ys[:, 0][None]),
+                (xs[:, -1][None], ys[:, -1][None]))
+
+    def _edge_values(self, g_fn, t):
+        """g on the four edges at time(s) ``t``: a 0-d tensor gives four
+        (1, n) rows; a (k, 1) tensor gives four (k, n) tables."""
+        out = []
+        for x, y in self._edge_coords():
+            shape = (t.shape[0] if t.dim() else 1, x.shape[1])
+            out.append(torch.broadcast_to(torch.as_tensor(
+                g_fn(x, y, t), dtype=self.dtype, device=self.device), shape))
+        return out
+
+    def run_leapfrog_driven_kernel(self, state: LeapfrogState, times, g_fn,
+                                   f_fn=None) -> LeapfrogState:
+        """Driven leapfrog on kernel B1 (tpuwave: run_leapfrog_driven_pallas).
+
+        B1 computes the interior update and zeroes the pinned nodes; an
+        optional forcing pass adds dt^2 F(t - dt) / M_L on interior nodes;
+        the driven data at ``t`` are then overlaid on the four edges
+        (O(perimeter) slice writes) — the algebra of
+        :meth:`leapfrog_step_driven`. For temporal blocking use
+        :meth:`run_leapfrog_driven_multistep` (no forcing there)."""
+        stencil, coef = self._kernel_args()
+        dt2 = self.dt * self.dt
+        h, w = self.shape
+        u, up = state.u.contiguous(), state.u_prev.contiguous()
+        for t in self._times(times):
+            un = kernels.leapfrog_step(u, up, stencil, coef)
+            if f_fn is not None:
+                load = self.grid_load(f_fn, t - self.dt) * self.inv_lumped
+                un = torch.where(self.interior, un + dt2 * load, un)
+            g_bot, g_top, g_lft, g_rgt = self._edge_values(g_fn, t)
+            un[0, :] = g_bot[0]
+            un[h - 1, :] = g_top[0]
+            un[:, 0] = g_lft[0]
+            un[:, w - 1] = g_rgt[0]
+            u, up = un, u
+        return LeapfrogState(u=u, u_prev=up)
+
+    def run_leapfrog_driven_multistep(self, state: LeapfrogState, times,
+                                      g_fn, steps_per_call: int = 8
+                                      ) -> LeapfrogState:
+        """Driven leapfrog with temporal blocking: ``steps_per_call`` steps
+        per launch of kernel B6, which injects each substep's boundary
+        values inside the kernel by global coordinates (tpuwave:
+        run_leapfrog_driven_multistep).
+
+        ``times``: the stamps being stepped TO, a multiple of
+        ``steps_per_call`` long. No forcing on this path (a full f plane
+        per substep would defeat the blocking; use
+        :meth:`run_leapfrog_driven_kernel`). Each chunk's edge tables come
+        from FOUR calls of ``g_fn`` with t as a (k, 1) tensor against
+        (1, n) edge coordinates, so ``g_fn`` must broadcast in t (torch
+        callables and Expression.evaluate do)."""
+        k = int(steps_per_call)
+        times = self._times(times)
+        n = int(times.shape[0])
+        if k < 1 or n % k != 0:
+            raise ValueError("len(times) must be a multiple of "
+                             "steps_per_call")
+        stencil, coef = self._kernel_args()
+        u, up = state.u.contiguous(), state.u_prev.contiguous()
+        for c in range(n // k):
+            ts = times[c * k:(c + 1) * k].reshape(k, 1)
+            g_bot, g_top, g_lft, g_rgt = self._edge_values(g_fn, ts)
+            gtb = torch.stack([g_bot, g_top], dim=1)       # (k, 2, W)
+            glr = torch.stack([g_lft, g_rgt], dim=2)       # (k, H, 2)
+            u, up = kernels.leapfrog_multistep_driven(u, up, gtb, glr,
+                                                      stencil, coef, k)
+        return LeapfrogState(u=u, u_prev=up)
+
+    def leapfrog_velocity(self, state_next: LeapfrogState,
+                          state: LeapfrogState):
+        """v^n = (u^{n+1} - u^{n-1}) / (2 dt)."""
+        return (state_next.u - state.u_prev) / (2.0 * self.dt)
 
     # ------------------------------------------------------------------
     # consistent P1 load vector (forcing)
@@ -388,6 +525,98 @@ class FastWaveSolver:
                     out[oy:oy + ny, ox:ox + nx] += (
                         (det * float(w[q]) * float(vals[q, a])) * fv)
         return out
+
+    # ------------------------------------------------------------------
+    # time-dependent wave speed on the explicit path: the variable-
+    # coefficient 9-plane stencil (ops/stencil.py, shared with the FWI
+    # propagator) reassembled from c(x, y, t) at the assembly quadrature
+    # points every step, in torch ops (tpuwave has no kernel here)
+    # ------------------------------------------------------------------
+    def _tdep_data(self):
+        """(G class matrices (2, 3, 3), quadrature offsets in the unit
+        cell (2, Q, 2), weights (Q,), det J): host constants."""
+        if self._tdep_cache is None:
+            quad = gauss_simplex(2)
+            sh = self.space.shape_at(quad)
+            grads = np.asarray(self.space.physical_grads(sh))  # (2,Q,3,2)
+            g_class = np.einsum("cqia,cqja->cqij", grads, grads)[:, 0]
+            ref = np.asarray(quad.points)                   # (Q, 2)
+            frac = np.empty((2, len(ref), 2))
+            for k in range(2):
+                c0, c1, c2_ = (np.asarray(c, float)
+                               for c in P1_CLASS_CORNERS[k])
+                frac[k] = (c0[None]
+                           + ref[:, 0:1] * (c1 - c0)[None]
+                           + ref[:, 1:2] * (c2_ - c0)[None])
+            self._tdep_cache = (g_class, frac, np.asarray(quad.weights),
+                                float(self.mesh.det_j))
+        return self._tdep_cache
+
+    def _tdep_scales(self, c_fn, t):
+        """(ny, nx, 2) per-triangle scales det * sum_q w_q c^2(x_q, t):
+        the compact payload the varcoef planes are assembled from (the
+        time-dependent engines carry it across steps)."""
+        _, frac, w, det = self._tdep_data()
+        ny, nx = self.mesh.ny, self.mesh.nx
+        (x0, y0) = self.mesh.origin
+        hx, hy = self.mesh.hx, self.mesh.hy
+        ix = torch.arange(nx, dtype=self.dtype,
+                          device=self.device)[None, :].expand(ny, nx)
+        iy = torch.arange(ny, dtype=self.dtype,
+                          device=self.device)[:, None].expand(ny, nx)
+        out = []
+        for k in range(2):
+            acc = None
+            for q in range(frac.shape[1]):
+                fx, fy = float(frac[k, q, 0]), float(frac[k, q, 1])
+                c2 = torch.as_tensor(
+                    c_fn(x0 + (ix + fx) * hx, y0 + (iy + fy) * hy, t),
+                    dtype=self.dtype, device=self.device) ** 2
+                term = float(w[q]) * torch.broadcast_to(c2, (ny, nx))
+                acc = term if acc is None else acc + term
+            out.append(det * acc)
+        return torch.stack(out, dim=-1)
+
+    def _planes_from_scales(self, s):
+        return assemble_varcoef_planes(s, self._tdep_data()[0],
+                                       self.mesh.ny, self.mesh.nx)
+
+    def _tdep_planes(self, c_fn, t):
+        return self._planes_from_scales(self._tdep_scales(c_fn, t))
+
+    def leapfrog_step_tdep(self, state: LeapfrogState, t, c_fn, g_fn=None,
+                           f_fn=None) -> LeapfrogState:
+        """One explicit lumped-mass leapfrog step with c = c_fn(x, y, t).
+
+        Semi-discrete equation at t^n: M a^n = F^n - K(t^n) u^n, so the
+        stiffness is evaluated at the time being stepped FROM (``t`` =
+        t^n; the state lands at t^n + dt). Optional ``g_fn`` pins
+        time-dependent Dirichlet data at t^{n+1}; optional ``f_fn`` adds
+        the quadrature-consistent forcing load F(t^n)."""
+        dt2 = self.dt * self.dt
+        u, u_prev = state
+        ku = apply_varcoef_planes(self._tdep_planes(c_fn, t), u)
+        accel = -ku * self.inv_lumped
+        if f_fn is not None:
+            accel = accel + self.grid_load(f_fn, t) * self.inv_lumped
+        u_next = 2.0 * u - u_prev + dt2 * accel
+        if g_fn is None:
+            u_next = torch.where(self.boundary, 0.0, u_next)
+        else:
+            xs, ys = self.grid_coords()
+            u_next = torch.where(self.boundary,
+                                 self._as_grid(g_fn(xs, ys, t + self.dt)),
+                                 u_next)
+        return LeapfrogState(u=u_next.to(self.dtype), u_prev=u)
+
+    def run_leapfrog_tdep(self, state: LeapfrogState, times, c_fn,
+                          g_fn=None, f_fn=None) -> LeapfrogState:
+        """One :meth:`leapfrog_step_tdep` per FROM-time stamp of ``times``
+        (t^n values; each step lands at t^n + dt), the planes rebuilt
+        every step."""
+        for t in self._times(times):
+            state = self.leapfrog_step_tdep(state, t, c_fn, g_fn, f_fn)
+        return state
 
     # ------------------------------------------------------------------
     # the hand-written kernels (ops/kernels.py): B1 and B2

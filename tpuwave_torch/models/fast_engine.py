@@ -8,14 +8,14 @@ WaveTheta.cpp:251-339), the derived acceleration boundary formulas
 (WaveTheta.cpp:119-186), the consistent a0 solve (WaveNewmark.cpp:298-390)
 and the same ReductionControl stopping contract — on grid-plane operators.
 
-Every constrained solve runs preconditioned CG (solve/cg.py) whose matvec
-is ``ops.kernels.constrained_stencil_apply``: on a CUDA device that is the
-hand-written kernel B3, in f32 and f64 alike; on the CPU its plain
-version. This covers the Newmark a-system, the theta u-system and the
-theta v (mass) system. The preconditioner of the implicit system is
-``precond`` = jacobi | chebyshev | mg | auto (tpuwave's set): mg is the
-geometric V-cycle of solve/multigrid.py, whose fine level runs as kernel
-B4 blocks. ``solver="cheby"`` replaces CG by restarted Chebyshev
+Every constrained solve runs preconditioned CG (solve/cg.py). With a
+constant wave speed its matvec is ``ops.kernels.constrained_stencil_apply``:
+on a CUDA device that is the hand-written kernel B3, in f32 and f64 alike;
+on the CPU its plain version. This covers the Newmark a-system, the theta
+u-system and the theta v (mass) system. The preconditioner of the
+implicit system is ``precond`` = jacobi | chebyshev | mg | auto (tpuwave's
+set): mg is the geometric V-cycle of solve/multigrid.py, whose fine level
+runs as kernel B4 blocks. ``solver="cheby"`` replaces CG by restarted Chebyshev
 iteration, one kernel-B4 pass per block (``_solve_cheby``);
 ``solver="2term"`` is the displacement recurrence of
 models/fast_engine_2term.py (``make_fast_solver`` routes it). tpuwave
@@ -23,10 +23,24 @@ uses its fused kernels only for f32 on an accelerator, because Mosaic has
 no f64; the CUDA kernels take both, so every run on the card goes through
 them.
 
-Coverage: structured rectangles, constant wave speed. R = 2 problems
-route to the P2 canvas engines (models/fast_engine_p2.py,
-models/fast_engine_p2_2term.py). Spatially varying or time-dependent C
-(ROADMAP A5) and the parity engine (A10) raise NotImplementedError.
+Wave-speed coverage (tpuwave's, at R = 1):
+
+* constant c          -> constant 7-point stencils (ops/stencil.py)
+* spatially varying c -> static variable-coefficient 9-plane operator
+                         (assemble_varcoef_planes; per-class G scaled by
+                         det sum_q w_q c^2(x_q), built once)
+* `Time Dependent C`  -> the planes rebuilt from c(x, y, t) every step;
+                         the theta family carries K(t^n)'s scales across
+                         steps in ``FastGridState.k_payload``
+
+The varcoef and tdep matvecs are torch ops (tpuwave's fused kernels need a
+constant stencil too); the mass solves keep B3, and ``--precond mg``
+sizes a frozen constant-c V-cycle (rms c at t = 0, ``_frozen_c_ref``)
+whose fine level still runs on B4 / B3. ``--solver cheby`` needs a
+constant c. R = 2 problems route to the P2 canvas engines
+(models/fast_engine_p2.py, models/fast_engine_p2_2term.py), which take a
+constant c only (ROADMAP A5 (R=2)); the parity engine (A10) raises
+NotImplementedError.
 
 State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
 the steppers reshape to the (ny+1, nx+1) vertex grid internally (free: the
@@ -43,6 +57,7 @@ import torch
 from tpuwave_torch.config import resolve_device
 from tpuwave_torch.models.fast import FastWaveSolver
 from tpuwave_torch.ops import kernels
+from tpuwave_torch.ops.stencil import apply_varcoef_planes
 from tpuwave_torch.solve.cg import pcg
 from tpuwave_torch.solve.chebyshev import chebyshev_apply
 from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
@@ -62,19 +77,29 @@ class FastGridState(NamedTuple):
     u: torch.Tensor
     v: torch.Tensor
     a: torch.Tensor   # consistent acceleration (Newmark); zeros for theta
-    #: K(t^n) payload of `Time Dependent C` runs (tpuwave); always None
-    #: here until ROADMAP A5
+    #: K(t^n) varcoef scales (ny, nx, 2) carried across steps under `Time
+    #: Dependent C` (theta family only; None otherwise), as tpuwave's
     k_payload: Optional[torch.Tensor] = None
 
 
 class _Op(NamedTuple):
-    """Grid operator: apply(u), assembled (scalar) diagonal, an upper
-    eigenvalue bound (for the f32 backward-error stopping floor) and the
-    constant 3x3 stencil the kernel applies."""
+    """Grid operator: apply(u), assembled diagonal (a scalar, or a plane
+    for varcoef operators), an upper eigenvalue bound (for the f32
+    backward-error stopping floor and Chebyshev) and, for constant
+    operators, the 3x3 stencil the kernels apply (None for varcoef)."""
     apply: Callable
     diag: Any
     lam_hi: Any
     stencil: Any = None
+
+
+def _frozen_c_ref(disc) -> float:
+    """Reference constant for the frozen-coefficient mg hierarchy under a
+    varying or `Time Dependent C`: rms of c(x, y, 0) over the DoF support
+    points (a copy of tpuwave's models/theta.py::_frozen_c_ref)."""
+    xy = torch.as_tensor(np.asarray(disc.dof_coords, dtype=float))
+    cv = disc.params.c.evaluate(xy[:, 0], xy[:, 1], 0.0).numpy()
+    return float(np.sqrt(np.mean(cv ** 2)))
 
 
 def fast_engine_ineligible_reason(problem) -> Optional[str]:
@@ -206,18 +231,24 @@ class _FastEngineBase(StepLoopMixin):
         p = problem
         c_const = p.c.constant_value
         if p.time_dependent_c and p.c.time_dependent:
-            raise NotImplementedError(
-                "time-dependent C is not ported yet (ROADMAP A5)")
-        if c_const is None:
-            raise NotImplementedError(
-                "spatially varying C is not ported yet (ROADMAP A5)")
+            self._c_mode = "tdep"
+        elif c_const is None:
+            self._c_mode = "varcoef"
+        else:
+            self._c_mode = "const"
+        if solver == "cheby" and self._c_mode != "const":
+            raise ValueError(
+                "--solver cheby needs a constant wave speed (analytic "
+                "stencil-symbol bounds); use 3term/2term for varcoef or "
+                "time-dependent C")
 
         from tpuwave_torch.models.grid_diag import GridDiagnostics
         self.device = resolve_device(device)
         self.disc = GridDiagnostics(p, dtype=dtype, device=self.device)
         self.dt = p.dt
         self.fs = FastWaveSolver(
-            p.nel, p.geometry, p.dt, c=float(c_const),
+            p.nel, p.geometry, p.dt,
+            c=1.0 if c_const is None else float(c_const),
             scheme=self.method_name, beta=p.beta, gamma=p.gamma,
             theta=p.theta, lumped=False, dtype=dtype, device=self.device)
         fs = self.fs
@@ -228,6 +259,7 @@ class _FastEngineBase(StepLoopMixin):
         self._g = p.g
         self._dgdt = p.dgdt
         self._f = p.f if not p.f.is_zero else None
+        self._c_eval = p.c.evaluate
 
         #: system coefficient: M + coef * K
         self.coef = (p.beta * p.dt * p.dt if self.method_name == "newmark"
@@ -236,9 +268,16 @@ class _FastEngineBase(StepLoopMixin):
         self._mass_op = _Op(fs.mass, fs.mass.stencil[1][1],
                             stencil_symbol_bounds(fs.mass.stencil)[1],
                             fs.mass.stencil)
-        self._k_static = _Op(fs.stiff, fs.stiff.stencil[1][1],
-                             stencil_symbol_bounds(fs.stiff.stencil)[1],
-                             fs.stiff.stencil)
+        if self._c_mode == "const":
+            self._k_static = _Op(fs.stiff, fs.stiff.stencil[1][1],
+                                 stencil_symbol_bounds(fs.stiff.stencil)[1],
+                                 fs.stiff.stencil)
+        elif self._c_mode == "varcoef":
+            # static 9-plane operator, built once
+            self._k_static = self._k_from_scales(
+                fs._tdep_scales(self._c_eval, 0.0))
+        else:
+            self._k_static = None   # rebuilt per step from c(x, y, t)
         self._prec_mass = 1.0 / fs.mass.stencil[1][1]
 
         # preconditioner of the implicit system; the theta v-system is the
@@ -252,8 +291,13 @@ class _FastEngineBase(StepLoopMixin):
         self._solver = solver
         self._cheby_solver_degree = int(cheby_solver_degree)
         if precond == "mg":
+            # non-constant c freezes the hierarchy at the rms wave speed
+            # (a fixed SPD V-cycle stays a valid CG preconditioner for a
+            # varying SPD system)
+            c_ref = (_frozen_c_ref(self.disc) if c_const is None
+                     else float(c_const))
             gmg = gmg_for_system((fs.mesh.nx, fs.mesh.ny), fs.mesh.geometry,
-                                 float(c_const), self.coef)
+                                 c_ref, self.coef)
             if len(gmg.levels) >= 2:
                 self._prec_sys = KernelGmgPreconditioner(
                     gmg.levels, gmg.coarse_theta, gmg.coarse_coeffs)
@@ -268,6 +312,22 @@ class _FastEngineBase(StepLoopMixin):
             raise ValueError(f"Unknown preconditioner {precond!r}")
 
     # -- operators -------------------------------------------------------
+    def _k_from_planes(self, planes) -> _Op:
+        """Varcoef K operator from 9 coefficient planes (torch ops), with
+        the Gershgorin majorant sum_d max |w_d| as the eigenvalue bound."""
+        def apply(u, _p=planes):
+            return apply_varcoef_planes(_p, u)
+        lam_hi = sum(torch.max(torch.abs(w)) for w in planes.values())
+        return _Op(apply, planes[(0, 0)], lam_hi)
+
+    def _k_from_scales(self, s) -> _Op:
+        return self._k_from_planes(self.fs._planes_from_scales(s))
+
+    def _k_at(self, t) -> _Op:
+        if self._k_static is not None:
+            return self._k_static
+        return self._k_from_scales(self.fs._tdep_scales(self._c_eval, t))
+
     def _system_of(self, k_op: _Op) -> _Op:
         coef = self.coef
         if coef == 0.0:   # theta = 0 / beta = 0: the system is bare mass
@@ -276,8 +336,10 @@ class _FastEngineBase(StepLoopMixin):
 
         def apply(u):
             return m.apply(u) + coef * k_op.apply(u)
-        st = tuple(tuple(mc + coef * kc for mc, kc in zip(mr, kr))
-                   for mr, kr in zip(m.stencil, k_op.stencil))
+        st = None
+        if k_op.stencil is not None:
+            st = tuple(tuple(mc + coef * kc for mc, kc in zip(mr, kr))
+                       for mr, kr in zip(m.stencil, k_op.stencil))
         return _Op(apply, m.diag + coef * k_op.diag,
                    m.lam_hi + coef * k_op.lam_hi, st)
 
@@ -292,7 +354,9 @@ class _FastEngineBase(StepLoopMixin):
         if self.precond == "jacobi":
             return inv_diag
         apply_c = self._constrained_apply(sys_op)
-        lmax = sys_op.lam_hi / sys_op.diag
+        dmin = (torch.min(sys_op.diag) if isinstance(sys_op.diag, torch.Tensor)
+                else sys_op.diag)
+        lmax = sys_op.lam_hi / dmin
         deg = self.cheby_degree
 
         def prec(r):
@@ -317,8 +381,17 @@ class _FastEngineBase(StepLoopMixin):
 
     def _constrained_apply(self, op: _Op):
         """The CG matvec: interior S(interior-masked w), pinned diag * w —
-        kernel B3 on a CUDA tensor, its plain version on a CPU one."""
+        for a constant stencil kernel B3 on a CUDA tensor, its plain
+        version on a CPU one; torch ops for a varcoef operator."""
         st, diag = op.stencil, op.diag
+        if st is None:
+            interior = self.fs.interior
+
+            def apply_v(w):
+                return torch.where(
+                    interior, op.apply(torch.where(interior, w, 0.0)),
+                    diag * w)
+            return apply_v
 
         def apply_c(w):
             return kernels.constrained_stencil_apply(w, st, diag)
@@ -377,7 +450,8 @@ class _FastEngineBase(StepLoopMixin):
 class FastThetaSolver(_FastEngineBase):
     """theta-method on the grid planes — parity algebra of tpuwave's
     models/theta.py (reference WaveTheta.cpp:119-339), including
-    time-dependent Dirichlet g and theta-weighted forcing."""
+    time-dependent Dirichlet g, theta-weighted forcing, and variable /
+    time-dependent wave speed."""
 
     method_name = "theta"
 
@@ -389,7 +463,10 @@ class FastThetaSolver(_FastEngineBase):
         d = self.disc
         u0 = d.interpolate(d.params.u0).to(self.dtype).contiguous()
         v0 = d.interpolate(d.params.v0).to(self.dtype).contiguous()
-        return FastGridState(u=u0, v=v0, a=torch.zeros_like(u0))
+        pay = (self.fs._tdep_scales(self._c_eval, 0.0)
+               if self._c_mode == "tdep" else None)
+        return FastGridState(u=u0, v=v0, a=torch.zeros_like(u0),
+                             k_payload=pay)
 
     def step(self, state: FastGridState, t: float):
         fs = self.fs
@@ -397,7 +474,17 @@ class FastThetaSolver(_FastEngineBase):
         u = state.u.reshape(fs.shape)
         v = state.v.reshape(fs.shape)
 
-        k_n = k_np1 = self._k_static
+        pay_np1 = None
+        if self._c_mode == "tdep":
+            # K^n from the carried payload (built as K^{n+1} last step);
+            # K^{n+1} rebuilt from c(x, y, t): one build per step
+            k_n = (self._k_from_scales(state.k_payload)
+                   if state.k_payload is not None
+                   else self._k_at(t - dt))
+            pay_np1 = fs._tdep_scales(self._c_eval, t)
+            k_np1 = self._k_from_scales(pay_np1)
+        else:
+            k_n = k_np1 = self._k_at(t)
         sys_op = self._system_of(k_np1)
         prec_sys = self._sys_precond(sys_op)
 
@@ -428,7 +515,7 @@ class FastThetaSolver(_FastEngineBase):
         v_new = res_v.x.to(self.dtype)
 
         new_state = FastGridState(u=u_new.reshape(-1), v=v_new.reshape(-1),
-                                  a=state.a)
+                                  a=state.a, k_payload=pay_np1)
         info = {
             "iterations_1": res_u.iterations,
             "iterations_2": res_v.iterations,
@@ -442,7 +529,8 @@ class FastNewmarkSolver(_FastEngineBase):
     """Newmark-beta on the grid planes — parity algebra of tpuwave's
     models/newmark.py (reference WaveNewmark.cpp:116-390): consistent-mass
     a-solve (also at beta = 0), derived acceleration boundary formulas,
-    consistent a0, per-step forcing."""
+    consistent a0, per-step forcing, variable / time-dependent wave
+    speed."""
 
     method_name = "newmark"
 
@@ -468,7 +556,7 @@ class FastNewmarkSolver(_FastEngineBase):
         u0 = d.interpolate(d.params.u0).to(self.dtype).contiguous()
         v0 = d.interpolate(d.params.v0).to(self.dtype).contiguous()
         u0g = u0.reshape(fs.shape)
-        rhs = -self._k_static.apply(u0g)
+        rhs = -self._k_at(0.0).apply(u0g)
         if self._f is not None:
             rhs = rhs + fs.grid_load(self._f.evaluate, 0.0)
         g_p = self._plane(self._g, dt)
@@ -489,7 +577,7 @@ class FastNewmarkSolver(_FastEngineBase):
         a = state.a.reshape(fs.shape)
 
         # the elastic force acts at t^{n+1}
-        k_np1 = self._k_static
+        k_np1 = self._k_at(t)
         sys_op = self._system_of(k_np1)
         prec_sys = self._sys_precond(sys_op)
 

@@ -47,8 +47,10 @@ The per-step console ||v|| is the backward difference ||(u^{n+1} - u^n)/dt||
 (the divergence check's proxy); CSV rows at log points use the exact
 reconstruction.
 
-Scope: constant wave speed (time-dependent C is rejected, as in tpuwave:
-the elimination assumes K static) and beta > 0 for Newmark.
+Scope: constant or spatially varying wave speed (the varcoef K is the
+static 9-plane operator of models/fast_engine.py, in torch ops, and the
+step takes the unfused algebra; time-dependent C is rejected, as in
+tpuwave: the elimination assumes K static) and beta > 0 for Newmark.
 """
 
 from __future__ import annotations
@@ -120,19 +122,24 @@ class _Fast2TermBase(_FastEngineBase):
         # noise-anchored f32 stopping scale: r0's own computation noise is
         # ~ eps * s_abs * |u| elementwise
         k = self._k_static
-        k_mag = sum(abs(c) for row in k.stencil for c in row)
+        if k.stencil is not None:
+            k_mag = sum(abs(c) for row in k.stencil for c in row)
+        else:
+            k_mag = k.lam_hi   # Gershgorin-class majorant (varcoef)
         self._s_abs = (abs(self._c_u) + abs(self._c_up)) \
             * self.dt * self.dt * k_mag
         self._sys_op_static = self._system_of(k)
         # one B5 pass + ring lift per step: tpuwave's _fused_ok without
         # its f32-on-an-accelerator gate (a one-level mg hierarchy turns
         # its fused path off, fast_engine.py:374-382)
-        self._fused_ok = self._f is None and not (
+        # (and, as there, a constant stencil: B5 applies one)
+        self._fused_ok = k.stencil is not None and self._f is None and not (
             self.precond == "mg"
             and not isinstance(self._prec_sys, KernelGmgPreconditioner))
-        dt = self.dt
-        self._kneg = tuple(tuple(-dt * dt * cc for cc in row)
-                           for row in k.stencil)
+        if self._fused_ok:
+            dt = self.dt
+            self._kneg = tuple(tuple(-dt * dt * cc for cc in row)
+                               for row in k.stencil)
 
     # -- forcing -------------------------------------------------------
     def _f_combo(self, t):
@@ -150,9 +157,12 @@ class _Fast2TermBase(_FastEngineBase):
         return out
 
     def _k_diff(self, x):
-        """K x in the zero-row-sum difference form (quieter in f32);
-        interior rows are exact for any boundary values."""
-        return self.fs._stiff_diff(x)
+        """K x in the zero-row-sum difference form (quieter in f32) for the
+        constant stencil, the assembled varcoef planes otherwise; interior
+        rows are exact for any boundary values."""
+        if self._k_static.stencil is not None:
+            return self.fs._stiff_diff(x)
+        return self._k_static.apply(x)
 
     # -- correction solve ----------------------------------------------
     def _corr_abs_tol(self, rn2, x0_norm):

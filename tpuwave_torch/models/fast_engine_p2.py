@@ -23,7 +23,8 @@ CUDA kernels take both, so every run on the card goes through them.
 Flat vectors appear only at the diagnostics / IO boundary (log cadence),
 through :class:`_CanvasDiag` around :class:`P2GridDiagnostics`.
 Spatially varying or time-dependent C (tpuwave's P2VarcoefStencil) is
-ROADMAP A5 and raises NotImplementedError.
+ROADMAP A5 (R=2): :func:`p2_c_refusal` names it, the CLI prints it before
+the run, and the engine raises NotImplementedError with it.
 """
 
 from __future__ import annotations
@@ -49,7 +50,18 @@ from tpuwave_torch.ops.stencil_p2 import (_P2_POSITIONS, _PLANES,
                                           p2_plane_shapes, planes_to_flat)
 from tpuwave_torch.solve.cg import pcg
 
-__all__ = ["FastP2ThetaSolver", "FastP2NewmarkSolver"]
+__all__ = ["FastP2ThetaSolver", "FastP2NewmarkSolver", "p2_c_refusal"]
+
+
+def p2_c_refusal(params):
+    """The one-line refusal of a wave speed the P2 engines do not take
+    (time-dependent or spatially varying C), or None."""
+    if params.time_dependent_c and params.c.time_dependent:
+        return "time-dependent C at R = 2 is not ported yet (ROADMAP A5 (R=2))"
+    if params.c.constant_value is None:
+        return ("spatially varying C at R = 2 is not ported yet "
+                "(ROADMAP A5 (R=2))")
+    return None
 
 
 class _P2Op(NamedTuple):
@@ -122,13 +134,10 @@ class _FastP2EngineBase(StepLoopMixin):
         p = problem
         if p.r != 2:
             raise ValueError("FastP2*Solver needs R = 2")
-        if p.time_dependent_c and p.c.time_dependent:
-            raise NotImplementedError(
-                "time-dependent C is not ported yet (ROADMAP A5)")
+        refusal = p2_c_refusal(p)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
         c_const = p.c.constant_value
-        if c_const is None:
-            raise NotImplementedError(
-                "spatially varying C is not ported yet (ROADMAP A5)")
         if solver not in ("3term", "cheby"):
             raise ValueError(f"unknown solver {solver!r} for this engine "
                              "(3term | cheby; 2term is the displacement-"

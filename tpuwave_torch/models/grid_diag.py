@@ -10,8 +10,10 @@ discretisation.
 Semantics match tpuwave's GridDiagnostics to summation-order roundoff
 (identical element matrices and quadrature rules; reference
 WaveEquationBase.cpp:148-222 energy/probe, :367-423 errors with the r+2
-rule and the 1e-14 relative guard). Constant wave speed only in this
-slice; spatially varying c is ROADMAP A5.
+rule and the 1e-14 relative guard). A spatially varying c enters the
+energy through per-cell scales det sum_q w_q c^2(x_q, 0) of the gradient
+class matrices G (the reference freezes c at t = 0 for the energy
+operator).
 """
 
 from __future__ import annotations
@@ -59,14 +61,20 @@ class GridDiagnostics:
         self.n_dofs = ny1 * nx1
 
         c_const = params.c.constant_value
-        if c_const is None:
-            raise NotImplementedError(
-                "spatially varying C is not ported yet (ROADMAP A5)")
         space = FeSpace(self.mesh, 1)
         quad = gauss_simplex(2)
         self._m_class = np.asarray(element_mass_class(space, quad))
-        self._k_class = np.asarray(
-            element_stiffness_class(space, quad, c_const ** 2))
+        if c_const is not None:
+            self._k_class = np.asarray(
+                element_stiffness_class(space, quad, c_const ** 2))
+            self._k_scales = None
+        else:
+            # varcoef: G gradient-product class matrices (q-independent
+            # for P1) + per-cell scales det sum_q w_q c^2(x_q, 0)
+            grads = np.asarray(space.physical_grads(space.shape_at(quad)))
+            self._k_class = np.einsum("cqia,cqja->cqij", grads,
+                                      grads)[:, 0]              # (2, 3, 3)
+            self._k_scales = self._scales_at(0.0)               # (2, ny, nx)
 
         # probe: containing cell + P1 basis at the domain centre
         # (reference VectorTools::point_value, WaveEquationBase.cpp:170-222)
@@ -97,6 +105,12 @@ class GridDiagnostics:
         ys = y0 + self.mesh.hy * self._iota(ny1, nx1, 0)
         return xs, ys
 
+    @property
+    def dof_coords(self):
+        """Host (n_dofs, 2) support-point coordinates (the frozen-
+        coefficient mg setup reads them)."""
+        return self.mesh.vertex_coords
+
     # -- interpolation / IO views ---------------------------------------
     def interpolate(self, expr, t=0.0):
         if expr.is_zero:
@@ -117,8 +131,9 @@ class GridDiagnostics:
         return [wg[oy:oy + ny, ox:ox + nx]
                 for (ox, oy) in P1_CLASS_CORNERS[k]]
 
-    def _quad_form(self, wg, a_class):
-        """sum_cells w_e^T A_e w_e with per-class constant A."""
+    def _quad_form(self, wg, a_class, scales=None):
+        """sum_cells w_e^T A_e w_e with per-class constant A (optionally
+        per-cell scaled: the varcoef stiffness)."""
         total = None
         for k in range(2):
             win = self._windows(wg, k)
@@ -130,6 +145,8 @@ class GridDiagnostics:
                         continue
                     term = a * (win[i] * win[j])
                     acc = term if acc is None else acc + term
+            if scales is not None:
+                acc = scales[k] * acc
             s = torch.sum(acc)
             total = s if total is None else total + s
         return total
@@ -140,11 +157,40 @@ class GridDiagnostics:
         ug = u.to(self.dtype).reshape(self.shape)
         vg = v.to(self.dtype).reshape(self.shape)
         return 0.5 * (self._quad_form(vg, self._m_class)
-                      + self._quad_form(ug, self._k_class))
+                      + self._quad_form(ug, self._k_class, self._k_scales))
 
     # -- probe ----------------------------------------------------------
     def probe(self, u):
         return torch.dot(u[self._probe_dofs], self._probe_vals)
+
+    # -- varcoef scales ---------------------------------------------------
+    def _scales_at(self, t):
+        """(2, ny, nx) det * sum_q w_q c^2(x_kq, t) planes."""
+        quad = gauss_simplex(2)
+        ref = np.asarray(quad.points)
+        w = np.asarray(quad.weights)
+        det = float(self.mesh.det_j)
+        ny, nx = self.mesh.ny, self.mesh.nx
+        (x0, y0) = self.mesh.origin
+        hx, hy = self.mesh.hx, self.mesh.hy
+        ix = self._iota(ny, nx, 1)
+        iy = self._iota(ny, nx, 0)
+        out = []
+        for k in range(2):
+            c0, c1, c2_ = (np.asarray(c, float) for c in P1_CLASS_CORNERS[k])
+            acc = None
+            for q in range(len(w)):
+                fx = float(c0[0] + ref[q, 0] * (c1[0] - c0[0])
+                           + ref[q, 1] * (c2_[0] - c0[0]))
+                fy = float(c0[1] + ref[q, 0] * (c1[1] - c0[1])
+                           + ref[q, 1] * (c2_[1] - c0[1]))
+                c2v = self.params.c.evaluate(
+                    x0 + (ix + fx) * hx, y0 + (iy + fy) * hy,
+                    t).to(self.dtype) ** 2
+                term = float(w[q]) * torch.broadcast_to(c2v, (ny, nx))
+                acc = term if acc is None else acc + term
+            out.append(det * acc)
+        return torch.stack(out)
 
     # -- errors (r+2 rule, 1e-14 guard; WaveEquationBase.cpp:367-423) ---
     def _err_data(self):

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "tw_leapfrog_step": (_I, _VP, _VP, _VP, _I, _I, _DP, _D, _VP),
     "tw_leapfrog_multistep": (_I, _VP, _VP, _VP, _VP, _I, _I, _DP, _D, _I,
                               _I, _LL, _LL, _VP),
+    "tw_leapfrog_multistep_driven": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                                     _I, _DP, _D, _I, _I, _VP),
     "tw_max_dynamic_smem": (_I,),
     "tw_cheby_block": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
                        _D, _DP, _DP, _I, _I, _VP),

@@ -2,8 +2,8 @@
 
 Counterpart of tpuwave/ops/pallas_kernels.py for the structured-P1 wave
 step and its implicit solvers. Each public function is a wrapper: on a
-CUDA tensor it launches its kernel from ``csrc/stencil_kernels.cu`` (B1-B3),
-``csrc/solver_kernels.cu`` (B4, B5) or ``csrc/fast_kernels.cu`` (B7-B10),
+CUDA tensor it launches its kernel from ``csrc/stencil_kernels.cu`` (B1-B3,
+B6), ``csrc/solver_kernels.cu`` (B4, B5) or ``csrc/fast_kernels.cu`` (B7-B10),
 built by ``ops/_build.py``, or raises; on a CPU tensor it runs the ``*_reference`` plain version, which
 the kernel is held against. Every tensor is the grid at its TRUE shape
 (ny+1, nx+1): no padding, no block-size rule. Squared norms come back as
@@ -31,7 +31,9 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
            "constrained_stencil_apply", "constrained_stencil_apply_reference",
            "leapfrog_step", "leapfrog_step_reference",
            "leapfrog_multistep", "leapfrog_multistep_reference",
-           "multistep_tile", "cheby_block", "cheby_block_reference",
+           "leapfrog_multistep_driven",
+           "leapfrog_multistep_driven_reference", "multistep_tile",
+           "cheby_block", "cheby_block_reference",
            "cheby_tile", "MAX_CHEBY_DEGREE", "recurrence_r0",
            "recurrence_r0_reference", "newmark_rhs_r0",
            "newmark_rhs_r0_reference", "newmark_update",
@@ -40,7 +42,8 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
 
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"constrained_stencil_apply": 0, "leapfrog_step": 0,
-            "leapfrog_multistep": 0, "cheby_block": 0, "recurrence_r0": 0,
+            "leapfrog_multistep": 0, "leapfrog_multistep_driven": 0,
+            "cheby_block": 0, "recurrence_r0": 0,
             "newmark_rhs_r0": 0, "newmark_update": 0, "theta_r0u": 0,
             "theta_r0v": 0,
             "p2_constrained_apply": 0, "p2_presmooth": 0,
@@ -267,6 +270,73 @@ def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
             int(h if n_rows is None else n_rows), _stream(u))
     _raise_on(rc, "leapfrog_multistep")
     LAUNCHES["leapfrog_multistep"] += 1
+    return out_u, out_up
+
+
+# -- B6: n_steps driven leapfrog steps in one pass ---------------------------
+def leapfrog_multistep_driven_reference(u, u_prev, gtb, glr, stencil,
+                                        coef, n_steps: int):
+    """``n_steps`` leapfrog steps on the full grid; after substep s the
+    Dirichlet nodes take that substep's data, overlaid in tpuwave's order
+    (left ``glr[s, :, 0]``, right ``glr[s, :, 1]``, bottom ``gtb[s, 0]``,
+    top ``gtb[s, 1]``: the rows win at the corners). Returns (u, u_prev)
+    after the last step."""
+    h, w = u.shape
+    cur, prev = u, u_prev
+    for s in range(int(n_steps)):
+        nxt = 2.0 * cur - prev - coef * apply_stencil(cur, stencil)
+        nxt[:, 0] = glr[s, :, 0]
+        nxt[:, w - 1] = glr[s, :, 1]
+        nxt[0, :] = gtb[s, 0]
+        nxt[h - 1, :] = gtb[s, 1]
+        prev, cur = cur, nxt
+    return cur, prev
+
+
+def _check_edges(name: str, u: torch.Tensor, gtb: torch.Tensor,
+                 glr: torch.Tensor, n_steps: int) -> None:
+    h, w = u.shape
+    for t, want in ((gtb, (n_steps, 2, w)), (glr, (n_steps, h, 2))):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected tensors, got {type(t)}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: edge table of shape {tuple(t.shape)}, "
+                             f"expected {want}")
+        if (t.device, t.dtype) != (u.device, u.dtype):
+            raise ValueError(f"{name}: edge tables differ from the state in "
+                             "device or dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: edge table is not contiguous")
+
+
+def leapfrog_multistep_driven(u: torch.Tensor, u_prev: torch.Tensor,
+                              gtb: torch.Tensor, glr: torch.Tensor, stencil,
+                              coef: float, n_steps: int):
+    """``n_steps`` fused driven leapfrog steps in one kernel pass (replaces
+    ``leapfrog_multistep_driven_pallas``). ``gtb`` (n_steps, 2, W) holds
+    each substep's bottom and top rows, ``glr`` (n_steps, H, 2) its left
+    and right columns, in the state's dtype. Returns (u, u_prev)."""
+    _check("leapfrog_multistep_driven", u, u_prev)
+    k = int(n_steps)
+    if k < 1:
+        raise ValueError("n_steps must be >= 1")
+    _check_edges("leapfrog_multistep_driven", u, gtb, glr, k)
+    if u.device.type == "cpu":
+        return leapfrog_multistep_driven_reference(u, u_prev, gtb, glr,
+                                                   stencil, coef, k)
+    lib = _lib()
+    tile = multistep_tile(k, u.dtype, _max_smem(
+        lib, "leapfrog_multistep_driven", u.device))
+    h, w = u.shape
+    out_u = torch.empty_like(u)
+    out_up = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        rc = lib.tw_leapfrog_multistep_driven(
+            _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(gtb), _ptr(glr),
+            _ptr(out_u), _ptr(out_up), h, w, _stencil_arg(stencil),
+            float(coef), k, tile, _stream(u))
+    _raise_on(rc, "leapfrog_multistep_driven")
+    LAUNCHES["leapfrog_multistep_driven"] += 1
     return out_u, out_up
 
 

@@ -16,6 +16,8 @@ from typing import Callable
 
 import torch
 
+from tpuwave_torch.utils.prng import threefry_normal
+
 __all__ = ["chebyshev_apply", "estimate_lambda_max"]
 
 
@@ -50,16 +52,12 @@ def estimate_lambda_max(apply_a: Callable, inv_diag, n: int, *,
     slightly inflated for safety like deal.II's 1.2 factor).
 
     ``inv_diag`` is a tensor of the operator's dtype and device. The start
-    vector is n standard normals from ``torch.Generator().manual_seed(seed)``,
-    drawn on the CPU in float64, then cast and moved to ``inv_diag``'s
-    device, so a run on the card and one on the CPU start from the same
-    vector. tpuwave draws it with ``jax.random.normal(PRNGKey(seed))``,
-    which torch cannot reproduce: the two estimates agree to the power
-    iteration's accuracy (a few percent), not bit for bit.
+    vector is tpuwave's, ``jax.random.normal(PRNGKey(seed), (n,), dtype)``,
+    reproduced by :func:`tpuwave_torch.utils.prng.threefry_normal` on
+    ``inv_diag``'s device, so runs on the card, on the CPU and tpuwave's
+    start from the same vector (to erfinv's last bits).
     """
-    gen = torch.Generator().manual_seed(seed)
-    v = torch.randn(n, generator=gen, dtype=torch.float64)
-    v = v.to(dtype=inv_diag.dtype, device=inv_diag.device)
+    v = threefry_normal(seed, n, inv_diag.dtype, inv_diag.device)
     v = v / torch.linalg.vector_norm(v)
     for _ in range(iters):
         w = inv_diag * apply_a(v)

@@ -449,8 +449,8 @@ def p2_gmg_for_system(nel: Tuple[int, int], geometry, c: float,
 
     The P2-level smoother needs lam_max of D^{-1}A; there is no scalar
     symbol, so it is estimated once by power iteration
-    (solve/chebyshev.py::estimate_lambda_max, whose start vector differs
-    from tpuwave's) unless passed in.
+    (solve/chebyshev.py::estimate_lambda_max, from tpuwave's start
+    vector) unless passed in.
     """
     from tpuwave_torch.config import resolve_device
     from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh

@@ -393,16 +393,20 @@ class Expression:
         """Evaluate at points (x, y) and scalar/tensor time t.
 
         ``x`` and ``y`` are tensors on the grid's device. Broadcasts the
-        result against ``x`` (so pure-t or constant expressions still
-        return per-point tensors) and casts to x's dtype.
+        result against the broadcast shape of x, y and t (so pure-t or
+        constant expressions still return per-point tensors, and a (k, 1)
+        t against (1, n) points gives k rows of n values) and casts to x's
+        dtype.
         """
         ctx = _Ctx(x.dtype, x.device)
         env = dict(self.constants)
         env.update(x=x, y=y)
+        shape = torch.broadcast_shapes(x.shape, y.shape)
         if "t" in self.variable_names:
             env["t"] = _t(0.0 if t is None else t, ctx)
+            shape = torch.broadcast_shapes(shape, env["t"].shape)
         out = _num_t(_eval(self.ast, env, ctx), ctx)
-        return torch.broadcast_to(out.to(x.dtype), x.shape)
+        return torch.broadcast_to(out.to(x.dtype), shape)
 
     def __repr__(self):
         return f"Expression({self.expression!r}, vars={self.variable_names})"
