@@ -6,6 +6,10 @@ CUDA toolkit's nvcc:
 
     python3 chip_smoke.py
 
+(``--only kernels,fwi_kernels`` runs phases 1, 2 and the named phase
+functions alone; with ``--kernels-from DIR`` they time the kernels of
+another checkout, e.g. an unpacked earlier commit.)
+
 It builds the port's hand-written kernels from tpuwave_torch/csrc, checks
 each against its plain PyTorch version, then drives the port's main
 paths through the entry points a user calls. Path A: the explicit leapfrog
@@ -30,10 +34,12 @@ varying and with a time-dependent wave speed at R = 1. Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
-     time and nvcc's register report
+     time and ptxas's registers, shared memory and spills per kernel
   3. each kernel against its plain version at the main paths' shapes, with
      its time, its bound (the least time the card could take: bytes over
-     3.35 TB/s or operations over the dtype's peak) and the share reached
+     3.35 TB/s or operations over the dtype's peak) and the share reached;
+     the launch-and-event floor (an empty kernel), against which the small
+     grids' rows read
   4. the leapfrog: 320 steps through kernel B1 and through kernel B2
      (k = 32), each against the plain loop; DoF*steps/s
   5. both CLIs (newmark beta 1/4, theta 1/2), 50 steps on --device cuda and
@@ -83,8 +89,10 @@ varying and with a time-dependent wave speed at R = 1. Phases:
      walls and sponge ring: simulate and misfit_and_grad on the kernel
      engine (B14-B17) and on the stencil engine (torch ops), the kernel
      engine's gradient against the f64 stencil engine's, 3 Adam
-     iterations of invert, peak device memory; a 256^2 f64 run against
-     tpuwave's misfit and gradient norm
+     iterations of invert, peak device memory, one torch.profiler trace of
+     misfit_and_grad (device-busy share, each FWI kernel's share of the
+     device time); a 256^2 f64 run against tpuwave's misfit and gradient
+     norm
  18. the driven leapfrog at scripts/bench_driven.py's defaults (4096^2
      elements, f32, dt 8e-5, 64 steps, its strip drive g = sin(4 pi t) on
      y = 0, x <= 1/3, and its forcing): run_leapfrog_driven (torch ops),
@@ -111,7 +119,9 @@ import contextlib
 import csv
 import io
 import json
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -314,6 +324,30 @@ def say(*args):
     print(*args, flush=True)
 
 
+def ptxas_report(log: str) -> list:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: its
+    (demangled, where c++filt is found) name, registers, shared memory and
+    spills."""
+    names, lines, spill = [], [], ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            names.append(m.group(1))
+            spill = ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and len(names) > len(lines):
+            lines.append(f"{ln.split(':', 1)[1].strip()}; {spill}")
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "")
+                     .removeprefix("void ").split("(")[0]
+                     for n in out.stdout.splitlines()]
+    return [f"{n}: {ln}" for n, ln in zip(names, lines)]
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -326,10 +360,12 @@ def nvidia_smi_line() -> str:
 # timing and comparison helpers
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, n: int, warm: int = 2) -> float:
-    """Mean device time of ``fn`` over ``n`` calls (ms), each timed alone
+    """Median device time of ``fn`` over ``n`` calls (ms), each timed alone
     by CUDA events after L2_FLUSH_BYTES were written: every call reads its
     inputs from device memory, as the bound assumes, whatever the call
-    before it left in the L2."""
+    before it left in the L2. The median, not the mean: a call whose
+    launch the host delays is timed with the delay, and a few such calls
+    move the mean of a small kernel by more than its own time."""
     import torch
     for _ in range(warm):
         fn()
@@ -344,7 +380,7 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
         b.record()
         events.append((a, b))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events) / n
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def f32_bound(scale: float, n_steps: int = 1) -> float:
@@ -427,20 +463,51 @@ def phase_kernels(torch, dev, kn) -> dict:
     say("phase 3: kernels against their plain PyTorch versions "
         "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
         "operations counted per node: B1 21, B2 and B6 21 per step, B3 17 "
-        "(23 diff), B4 22 per degree, B5 33; times: mean of calls each "
-        "timed alone after an L2 flush")
+        "(23 diff), B4 22 per degree, B5 33; times: median of calls each "
+        "timed alone after an L2 flush; B3 and B6: a rerun bitwise equal")
     rows, results = {}, {}
 
-    # B3 constrained_stencil_apply
-    for shape, dtype, n_k, n_p in (((641, 641), torch.float64, 200, 50),
-                                   ((4097, 4097), torch.float32, 50, 10)):
+    # the launch-and-event floor: an empty kernel through the same ctypes
+    # path, timed like every row (absent from a library built before it)
+    noop = getattr(kn._lib(), "tw_noop", None)
+    if noop is None:
+        say("  launch-and-event floor: this library has no empty kernel")
+    else:
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def empty():
+            if noop(stream) != 0:
+                raise AssertionError("the empty kernel did not launch")
+        say(f"  launch-and-event floor (empty kernel, 1 block of 32 "
+            f"threads): {cuda_ms(empty, 1000) * 1e3:.1f}us")
+
+    # B3 constrained_stencil_apply: the CLI cells' 641^2 f64, phase 8's
+    # 2049^2 f64, phase 19's and the V-cycle's coarse levels' 161^2 f64,
+    # and 4097^2 f32; both forms, on the Newmark system of each size (the
+    # difference form on its stiffness); a rerun bitwise equal
+    small = FastWaveSolver((160, 160), ((0.0, 0.0), (1.0, 1.0)), 4e-3,
+                           beta=0.25, lumped=False, dtype=torch.float64,
+                           device=dev)
+    for shape, dtype, n_k, n_p, sys_s, stiff_s in (
+            ((161, 161), torch.float64, 1000, 50, small.system.stencil,
+             small.stiff.stencil),
+            ((641, 641), torch.float64, 1000, 50, sys_st, stiff_640),
+            ((2049, 2049), torch.float64, 50, 10, big.system.stencil,
+             big.stiff.stencil),
+            ((4097, 4097), torch.float32, 50, 10, sys_st, stiff_640)):
         x = rnd(shape, dtype)
         n = x.numel() * x.element_size()
         for diff in (False, True):
-            st = stiff_640 if diff else sys_st
+            st = stiff_s if diff else sys_s
             diag = st[1][1]
             got = kn.constrained_stencil_apply(x, st, diag, diff=diff)
+            again = kn.constrained_stencil_apply(x, st, diag, diff=diff)
             want = kn.constrained_stencil_apply_reference(x, st, diag, diff)
+            torch.cuda.synchronize()
+            tag = (f"B3 constrained_apply {shape[0]}^2 "
+                   f"{str(dtype)[6:]} diff={diff}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: a rerun is not bitwise equal")
             scale = ssum(st) * float(x.abs().max()) * (2 if diff else 1)
             bound = (1e-12 * float(want.abs().max())
                      if dtype == torch.float64 else f32_bound(scale))
@@ -448,8 +515,6 @@ def phase_kernels(torch, dev, kn) -> dict:
                 x, st, diag, diff=diff), n_k)
             pms = cuda_ms(lambda: kn.constrained_stencil_apply_reference(
                 x, st, diag, diff), n_p)
-            tag = (f"B3 constrained_apply {shape[0]}^2 "
-                   f"{str(dtype)[6:]} diff={diff}")
             r = row(0.0, ms, pms, 2 * n, (23 if diff else 17) * x.numel(),
                     dtype)
             r["err"] = check(tag, got, want, bound, timing(r))
@@ -1681,7 +1746,6 @@ def phase_fwi_kernels(torch, dev, kn) -> dict:
             src = src_near(tile, True)
             side = tile + 2 * k
             say(f"  B17 {name} {n_pl} planes: tile {tile}, slab {side}^2, "
-                f"{(5 + n_pl) * side * side * item} B of shared memory, "
                 f"source {src}")
             ring_args, ring_b = (), 0
             if damped:
@@ -1761,6 +1825,41 @@ def phase_fwi_agree(torch):
             raise AssertionError(f"phase 16 {label}: cuda and cpu disagree")
 
 
+def _profile_fwi(torch, fn):
+    """One torch.profiler trace of ``fn`` (a misfit_and_grad): the
+    device-busy share of its wall and each FWI kernel's share of the
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_t = _device_time(prof)
+    if dev_t is None:
+        say("  profile of misfit_and_grad: the profiler saw no device time "
+            "(not measured)")
+        return
+    events = _device_events(prof)
+    say(f"  profile of one misfit_and_grad (hard walls, kernel engine): "
+        f"wall {wall * 1e3:.1f} ms under the profiler, {dev_t[0]} device "
+        f"events, device busy {dev_t[1]:.1f} ms = "
+        f"{dev_t[1] / 1e3 / wall:.3f} of the wall")
+    for tag, part in (("B17", "varcoef_adjoint_multistep_kernel"),
+                      ("B15", "varcoef_multistep_kernel"),
+                      ("B16", "varcoef_adjoint_step_kernel"),
+                      ("B14", "varcoef_step_kernel")):
+        hit = [e for e in events if part in e.key]
+        us = sum(e.self_device_time_total for e in hit)
+        say(f"    {tag}: {us / 1e3:8.2f} ms in {sum(e.count for e in hit)} "
+            f"launches = {us / 1e3 / dev_t[1]:.3f} of device time")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        say(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x "
+            f"{e.key[:70]}")
+
+
 def phase_fwi_1024(torch, dev):
     import numpy as np
     from tpuwave_torch.models.inverse import FwiProblem
@@ -1812,6 +1911,7 @@ def phase_fwi_1024(torch, dev):
                 f"{float(v):.6e}, grad rel L2 error {errs[engine]:.3e}, "
                 f"peak device memory {peak:.3f} GiB{extra}")
             if engine == "kernel" and not kw:
+                _profile_fwi(torch, lambda: p.misfit_and_grad(c2i, obs))
                 res = p.invert(obs, c2i, n_iter=3, learning_rate=0.01,
                                bounds=(0.4, 1.5))
                 # Adam moves every cell by ~lr per step, so a step may
@@ -2012,7 +2112,34 @@ def _run_path(kn, name, kernels, fn) -> dict:
     return launches
 
 
+def _run_only(torch, dev, kn, names: str) -> int:
+    """Run the named phase functions (``phase_<name>``) alone, in order."""
+    import inspect
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        avail = dict(torch=torch, dev=dev, kn=kn, work=Path(tmp))
+        for name in names.split(","):
+            fn = globals()[f"phase_{name.strip()}"]
+            fn(**{k: avail[k] for k in inspect.signature(fn).parameters})
+    say(f"done ({time.perf_counter() - T_START:.0f} s)")
+    return 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", metavar="NAMES",
+                    help="comma-separated phase functions without their "
+                    "phase_ prefix (e.g. kernels,fwi_kernels,fwi_1024): "
+                    "run phases 1 and 2 and these, then stop; no kernels "
+                    "line and no result line")
+    ap.add_argument("--kernels-from", metavar="DIR", type=Path,
+                    help="import tpuwave_torch (and build its kernels) from "
+                    "this checkout instead of the script's own, e.g. an "
+                    "unpacked earlier commit, to time its kernels with this "
+                    "script's phases (with --only)")
+    args = ap.parse_args()
+    if args.kernels_from is not None and not args.only:
+        ap.error("--kernels-from needs --only")
     import torch
 
     # phase 1
@@ -2029,7 +2156,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str((args.kernels_from or ROOT).resolve()))
     from tpuwave_torch.ops import _build
     from tpuwave_torch.ops import kernels as kn
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
@@ -2038,9 +2165,12 @@ def main() -> int:
     _build.load_library()
     say(f"phase 2: built {lib_path.name} in {time.perf_counter() - t0:.2f} s"
         f" (nvcc {nvcc_s:.2f} s)")
-    for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            say(f"  {ln.strip()}")
+    for ln in ptxas_report(log):
+        say(f"  {ln}")
+
+    say(f"  tpuwave_torch from {Path(_build.__file__).parents[2]}")
+    if args.only:
+        return _run_only(torch, dev, kn, args.only)
 
     results = phase_kernels(torch, dev, kn)
     results.update(phase_fast_kernels(torch, dev, kn))

@@ -391,6 +391,18 @@ def test_cuda_varcoef_adjoint_step(cuda_device, dtype):
         _close_card(g, wt, dtype)
 
 
+@pytest.mark.parametrize("dtype, k, tile", [
+    (torch.float32, 1, 46), (torch.float32, 8, 32), (torch.float32, 20, 8),
+    (torch.float64, 1, 30), (torch.float64, 8, 16), (torch.float64, 12, 8)])
+def test_adjoint_tile_is_the_slab_less_its_halo(dtype, k, tile):
+    for n_planes in (7, 9):
+        assert kv.adjoint_tile(k, n_planes, dtype, 232448) == tile
+    with pytest.raises(ValueError, match="tile"):
+        kv.adjoint_tile(k + 1 if tile == 8 else 40, 7, dtype, 232448)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.adjoint_tile(k, 7, dtype, 1024)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k, damped", [(1, False), (3, False), (8, False),
@@ -403,11 +415,15 @@ def test_cuda_varcoef_adjoint_multistep(cuda_device, dtype, k, damped):
     ms = prob._planes9_adjoint(planes) if damped else planes
     tile = kv.adjoint_tile(k, ms.shape[0], dtype,
                            tk._max_smem(tk._lib(), "t", cuda_device))
-    src = (tile, tile - 1)
+    src = (tile, tile - 1)      # first row / last column of two tiles
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    pts = (torch.tensor([tile, tile, tile - 1, 40], **i32),
-           torch.tensor([3, 3, 2 * tile, tile], **i32))
-    (inj,) = _on(cuda_device, dtype, rng, (k, 4), 1)
+    # receivers: twice on a tile's first row, on a tile corner, on a tile's
+    # first column, and on pinned nodes (row 0 and the last corner: lam'
+    # keeps the cotangent there, the next step's blam masks it)
+    pts = (torch.tensor([tile, tile, tile - 1, 40, 0, rows - 1], **i32),
+           torch.tensor([3, 3, min(2 * tile, cols - 1), tile, 5, cols - 1],
+                        **i32))
+    (inj,) = _on(cuda_device, dtype, rng, (k, 6), 1)
     (w,) = _on(cuda_device, dtype, rng, (k,), 1)
     ring, rs = None, (None, None)
     if damped:

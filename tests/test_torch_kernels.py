@@ -306,12 +306,21 @@ def _bound(dtype, scale, n=1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("diff", [False, True])
-def test_cuda_constrained_apply(cuda_device, dtype, diff):
-    (x,) = _on(cuda_device, *_fields(6, 1), dtype=dtype)
+@pytest.mark.parametrize("shape", [(3, 3), (H, W), (130, 197), (17, 1000),
+                                   (300, 257), (1457, 1459)])
+def test_cuda_constrained_apply(cuda_device, dtype, diff, shape):
+    # one block, and several with ragged last blocks in both directions, on
+    # each of the kernel's three paths: the direct one (under 2^16 nodes),
+    # 64 x 8 tiles (300 x 257) and 64 x 32 tiles (over 2^21 nodes)
+    (x,) = _on(cuda_device, np.random.default_rng(6).uniform(-1.0, 1.0,
+                                                              shape),
+               dtype=dtype)
     before = tk.LAUNCHES["constrained_stencil_apply"]
     got = tk.constrained_stencil_apply(x, RAND, 1.7, diff=diff)
+    again = tk.constrained_stencil_apply(x, RAND, 1.7, diff=diff)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["constrained_stencil_apply"] == before + 1
+    assert tk.LAUNCHES["constrained_stencil_apply"] == before + 2
+    assert torch.equal(got, again)
     want = tk.constrained_stencil_apply_reference(x, RAND, 1.7, diff)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= _bound(dtype, scale)

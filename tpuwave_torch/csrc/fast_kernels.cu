@@ -53,70 +53,11 @@ constexpr int kRows = kTileY / kThreadsY;          // output rows per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kStage = (kSlab + kThreads - 1) / kThreads;  // loads per thread
 
-template <typename T>
-struct StencilT {
-  T c[9];
-  __device__ explicit StencilT(const Stencil9& s) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) c[k] = T(s.c[k]);
-  }
-};
-
-// Array offset of the node behind slab index i of the block whose slab
-// starts at array (r0, c0), or kNoNode when i lies outside the slab or the
-// node is pinned or outside the array (its staged value is 0).
-constexpr size_t kNoNode = ~(size_t)0;
-
-__device__ __forceinline__ size_t slab_node(int i, int r0, int c0, int H,
+// slab_node (grid_common.cuh) at this file's tile
+__device__ __forceinline__ size_t tile_node(int i, int r0, int c0, int H,
                                             int W) {
-  const int sr = i / kSlabX;
-  const int gr = r0 + sr, gc = c0 + (i - sr * kSlabX);
-  return (i < kSlab && !is_pinned(gr, gc, H, W)) ? (size_t)gr * W + gc
-                                               : kNoNode;
+  return slab_node<kSlabX, kSlab>(i, r0, c0, H, W);
 }
-
-// Three neighbouring values of a slab row, centred on slab index i.
-template <typename T>
-struct Row3 {
-  T v[3];
-  __device__ __forceinline__ void load(const T* __restrict__ s, int i) {
-    v[0] = s[i - 1];
-    v[1] = s[i];
-    v[2] = s[i + 1];
-  }
-};
-
-// A thread's sliding 3x3 window over one slab: it walks down its column,
-// so each step loads one new row of three values and keeps the other two.
-template <typename T>
-struct Window {
-  Row3<T> up, mid, down;
-  __device__ __forceinline__ void start(const T* __restrict__ s, int i) {
-    up.load(s, i - kSlabX);
-    mid.load(s, i);
-  }
-  __device__ __forceinline__ void next_row(const T* __restrict__ s, int i) {
-    down.load(s, i + kSlabX);
-  }
-  __device__ __forceinline__ void advance() {
-    up = mid;
-    mid = down;
-  }
-  // The 3x3 stencil on the window: the centre first, then the neighbours
-  // row by row.
-  __device__ __forceinline__ T apply(const StencilT<T>& st) const {
-    T acc = st.c[4] * mid.v[1];
-    acc += st.c[0] * up.v[0];
-    acc += st.c[1] * up.v[1];
-    acc += st.c[2] * up.v[2];
-    acc += st.c[3] * mid.v[0];
-    acc += st.c[5] * mid.v[2];
-    acc += st.c[6] * down.v[0];
-    acc += st.c[7] * down.v[1];
-    acc += st.c[8] * down.v[2];
-    return acc;
-  }
-};
 
 // Reduce three values per thread over the block in a fixed order (warp
 // shuffles, then the warps' sums in warp order) and write the block's
@@ -169,7 +110,7 @@ newmark_rhs_r0_kernel(const T* __restrict__ u, const T* __restrict__ v,
   T ur[kStage], vr[kStage], ar[kStage];
 #pragma unroll
   for (int k = 0; k < kStage; ++k) {
-    const size_t g = slab_node(tid + k * kThreads, r0, c0, H, W);
+    const size_t g = tile_node(tid + k * kThreads, r0, c0, H, W);
     const bool in = g != kNoNode;
     ur[k] = in ? __ldg(u + g) : T(0);
     vr[k] = in ? __ldg(v + g) : T(0);
@@ -190,7 +131,7 @@ newmark_rhs_r0_kernel(const T* __restrict__ u, const T* __restrict__ v,
   if (gc < W) {
     int i = (threadIdx.y * kRows + 1) * kSlabX + threadIdx.x + 1;
     int gr = r0 + 1 + threadIdx.y * kRows;
-    Window<T> zw, xw;
+    Window<T, kSlabX> zw, xw;
     zw.start(zs, i);
     xw.start(xs, i);
 #pragma unroll
@@ -239,7 +180,7 @@ theta_r0u_kernel(const T* __restrict__ u, const T* __restrict__ v,
   T ur[kStage], vr[kStage];
 #pragma unroll
   for (int k = 0; k < kStage; ++k) {
-    const size_t g = slab_node(tid + k * kThreads, r0, c0, H, W);
+    const size_t g = tile_node(tid + k * kThreads, r0, c0, H, W);
     const bool in = g != kNoNode;
     ur[k] = in ? __ldg(u + g) : T(0);
     vr[k] = in ? __ldg(v + g) : T(0);
@@ -259,7 +200,7 @@ theta_r0u_kernel(const T* __restrict__ u, const T* __restrict__ v,
   if (gc < W) {
     int i = (threadIdx.y * kRows + 1) * kSlabX + threadIdx.x + 1;
     int gr = r0 + 1 + threadIdx.y * kRows;
-    Window<T> uw, vw;
+    Window<T, kSlabX> uw, vw;
     uw.start(us, i);
     vw.start(vs, i);
 #pragma unroll
@@ -313,7 +254,7 @@ theta_r0v_kernel(const T* __restrict__ u, const T* __restrict__ e,
   T ur[kStage], er[kStage], vr[kStage];
 #pragma unroll
   for (int k = 0; k < kStage; ++k) {
-    const size_t g = slab_node(tid + k * kThreads, r0, c0, H, W);
+    const size_t g = tile_node(tid + k * kThreads, r0, c0, H, W);
     const bool in = g != kNoNode;
     ur[k] = in ? __ldg(u + g) : T(0);
     er[k] = in ? __ldg(e + g) : T(0);
@@ -335,7 +276,7 @@ theta_r0v_kernel(const T* __restrict__ u, const T* __restrict__ e,
   if (gc < W) {
     int i = (threadIdx.y * kRows + 1) * kSlabX + threadIdx.x + 1;
     int gr = r0 + 1 + threadIdx.y * kRows;
-    Window<T> uw, nw, vw;
+    Window<T, kSlabX> uw, nw, vw;
     uw.start(us, i);
     nw.start(ns, i);
     vw.start(vs, i);

@@ -1,5 +1,6 @@
 // Helpers shared by the hand-written grid kernels (stencil_kernels.cu,
-// solver_kernels.cu): the run-time 3x3 stencil, the Dirichlet mask, and a
+// solver_kernels.cu, fast_kernels.cu, ...): the run-time 3x3 stencil, the
+// Dirichlet mask, staged slabs with a sliding register window, and a
 // deterministic reduction.
 //
 // A node is PINNED when its global row is <= 0 or >= n_rows - 1, or its
@@ -36,6 +37,90 @@ __device__ __forceinline__ bool is_pinned(long long gr, long long gc,
                                           long long n_rows, long long n_cols) {
   return gr <= 0 || gr >= n_rows - 1 || gc <= 0 || gc >= n_cols - 1;
 }
+
+// The 3x3 stencil in the kernel's dtype.
+template <typename T>
+struct StencilT {
+  T c[9];
+  __device__ explicit StencilT(const Stencil9& s) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) c[k] = T(s.c[k]);
+  }
+};
+
+// Staged slabs: a block stages a field over its tile plus a one-node halo,
+// an SX-wide slab of SN nodes in row-major order starting at array node
+// (r0, c0). slab_node gives the array offset of the node behind slab index
+// i, or kNoNode when i lies outside the slab or the node is pinned or
+// outside the array (its staged value is 0).
+constexpr size_t kNoNode = ~(size_t)0;
+
+template <int SX, int SN>
+__device__ __forceinline__ size_t slab_node(int i, int r0, int c0, int H,
+                                            int W) {
+  const int sr = i / SX;
+  const int gr = r0 + sr, gc = c0 + (i - sr * SX);
+  return (i < SN && !is_pinned(gr, gc, H, W)) ? (size_t)gr * W + gc : kNoNode;
+}
+
+// Three neighbouring values of a slab row, centred on slab index i.
+template <typename T>
+struct Row3 {
+  T v[3];
+  __device__ __forceinline__ void load(const T* __restrict__ s, int i) {
+    v[0] = s[i - 1];
+    v[1] = s[i];
+    v[2] = s[i + 1];
+  }
+};
+
+// A thread's sliding 3x3 window over an SX-wide slab: it walks down its
+// column, so each step loads one new row of three values and keeps the
+// other two.
+template <typename T, int SX>
+struct Window {
+  Row3<T> up, mid, down;
+  __device__ __forceinline__ void start(const T* __restrict__ s, int i) {
+    up.load(s, i - SX);
+    mid.load(s, i);
+  }
+  __device__ __forceinline__ void next_row(const T* __restrict__ s, int i) {
+    down.load(s, i + SX);
+  }
+  __device__ __forceinline__ void advance() {
+    up = mid;
+    mid = down;
+  }
+  // The 3x3 stencil on the window in the plain version's order
+  // (ops/stencil.py apply_stencil): the centre first, then the neighbours
+  // row by row.
+  __device__ __forceinline__ T apply(const StencilT<T>& st) const {
+    T acc = st.c[4] * mid.v[1];
+    acc += st.c[0] * up.v[0];
+    acc += st.c[1] * up.v[1];
+    acc += st.c[2] * up.v[2];
+    acc += st.c[3] * mid.v[0];
+    acc += st.c[5] * mid.v[2];
+    acc += st.c[6] * down.v[0];
+    acc += st.c[7] * down.v[1];
+    acc += st.c[8] * down.v[2];
+    return acc;
+  }
+  // The difference form sum_{d != 0} s_d (x[n + d] - x[n]), in the same
+  // order (apply_stencil_diff).
+  __device__ __forceinline__ T apply_diff(const StencilT<T>& st) const {
+    const T c = mid.v[1];
+    T acc = st.c[0] * (up.v[0] - c);
+    acc += st.c[1] * (up.v[1] - c);
+    acc += st.c[2] * (up.v[2] - c);
+    acc += st.c[3] * (mid.v[0] - c);
+    acc += st.c[5] * (mid.v[2] - c);
+    acc += st.c[6] * (down.v[0] - c);
+    acc += st.c[7] * (down.v[1] - c);
+    acc += st.c[8] * (down.v[2] - c);
+    return acc;
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {

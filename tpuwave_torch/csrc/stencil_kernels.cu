@@ -34,60 +34,178 @@ namespace {
 //   diff = 1:      sum_{d != 0} s_d * (xm[n + d] - xm[n])  (zero-row-sum form)
 //
 // Bound on this card: memory. It reads 1 array and writes 1 (8 B/point in
-// f32, 16 B in f64) for ~9 multiply-adds per point. One thread per output
-// point, 32x8 blocks, so a warp reads 32 consecutive addresses of a row and
-// the 3x3 neighbourhood of a block is served by L1/L2 after the first
-// touch: device memory sees close to one read and one write per point.
+// f32, 16 B in f64) for ~9 multiply-adds per point.
+//
+// Each block owns a 64 x (4 R) tile of outputs. It stages xm over the tile
+// plus a one-node halo in shared memory, so the mask is applied once per
+// node, at staging (a pinned node or one outside the array stages 0), and
+// the stencil needs no test per neighbour; a thread starts all its staging
+// loads before it stores the first. Each thread then walks down one column
+// of the tile for R outputs with a sliding 3x3 register window (three
+// shared-memory loads per output instead of nine). Pinned outputs lie only
+// on rows 0 and H - 1 and columns 0 and W - 1: only a block whose tile
+// touches a wall tests for them, once per output row and once per column,
+// and takes diag * x from the raw array. R = 8 on grids of at least
+// kB3LargeNodes nodes (less halo per output), R = 2 below (enough blocks
+// to fill the card at 641^2); tiny grids take the direct kernel below. (The
+// first version ran one thread per output with nine masked __ldg loads and
+// nine four-compare mask tests each: 17-38% of the bound.)
 // ---------------------------------------------------------------------------
+constexpr int kB3TileX = 64, kB3ThreadsY = 4;
+constexpr int kB3SlabX = kB3TileX + 2;
+constexpr int kB3Threads = kB3TileX * kB3ThreadsY;
+constexpr int kB3SmallRows = 2, kB3LargeRows = 8;
+constexpr long long kB3LargeNodes = 1LL << 21;
+
+template <typename T, int R, bool WALLS>
+__device__ __forceinline__ void constrained_apply_walk(
+    const T* __restrict__ xs, const T* __restrict__ x, T* __restrict__ out,
+    int H, int W, int r0, int c0, const StencilT<T>& st, T diag, int diff) {
+  const int gc = c0 + 1 + threadIdx.x;
+  const bool col_wall = gc == 0 || gc == W - 1;
+  int gr = r0 + 1 + threadIdx.y * R;
+  int i = (threadIdx.y * R + 1) * kB3SlabX + threadIdx.x + 1;
+  Window<T, kB3SlabX> w;
+  w.start(xs, i);
+#pragma unroll
+  for (int j = 0; j < R; ++j, ++gr, i += kB3SlabX) {
+    if (gr >= H) break;
+    w.next_row(xs, i);
+    const size_t g = (size_t)gr * W + gc;
+    if (WALLS && (col_wall || gr == 0 || gr == H - 1)) {
+      out[g] = diag * __ldg(x + g);
+    } else {
+      out[g] = diff ? w.apply_diff(st) : w.apply(st);
+    }
+    w.advance();
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kB3Threads)
+constrained_apply_kernel(const T* __restrict__ x, T* __restrict__ out, int H,
+                         int W, Stencil9 st9, T diag, int diff) {
+  constexpr int kTileY = kB3ThreadsY * R;
+  constexpr int kSlab = kB3SlabX * (kTileY + 2);
+  constexpr int kStage = (kSlab + kB3Threads - 1) / kB3Threads;
+  __shared__ T xs[kSlab];
+  const int r0 = blockIdx.y * kTileY - 1;  // array row of slab row 0
+  const int c0 = blockIdx.x * kB3TileX - 1;
+  const int tid = threadIdx.y * kB3TileX + threadIdx.x;
+  T v[kStage];
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const size_t g = slab_node<kB3SlabX, kSlab>(tid + k * kB3Threads, r0,
+                                                c0, H, W);
+    v[k] = g != kNoNode ? __ldg(x + g) : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int i = tid + k * kB3Threads;
+    if (i < kSlab) xs[i] = v[k];
+  }
+  __syncthreads();
+  if (c0 + 1 + (int)threadIdx.x >= W) return;
+  const StencilT<T> st(st9);
+  // the tile's rows r0 + 1 .. r0 + kTileY and columns c0 + 1 ..
+  // c0 + kB3TileX touch a wall
+  const bool walls = r0 < 0 || c0 < 0 || r0 + kTileY >= H - 1 ||
+                     c0 + kB3TileX >= W - 1;
+  if (walls) {
+    constrained_apply_walk<T, R, true>(xs, x, out, H, W, r0, c0, st, diag,
+                                       diff);
+  } else {
+    constrained_apply_walk<T, R, false>(xs, x, out, H, W, r0, c0, st, diag,
+                                        diff);
+  }
+}
+
+// Grids below kB3TinyNodes nodes (the V-cycle's coarse levels): one thread
+// per output in 32 x 8 blocks, no shared memory, nine __ldg loads. There
+// the kernel is a few DRAM round trips above the launch floor, and the
+// staged tiles' shared-memory hop and barrier cost more than they save.
+// The mask takes four compares per output (the centre row and column are
+// never walls), not one test per neighbour.
+constexpr long long kB3TinyNodes = 1LL << 16;
+
 template <typename T>
-__global__ void constrained_apply_kernel(const T* __restrict__ x,
-                                         T* __restrict__ out, int H, int W,
-                                         Stencil9 st, T diag, int diff) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+__global__ void __launch_bounds__(256)
+constrained_apply_direct_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                int H, int W, Stencil9 st9, T diag,
+                                int diff) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const int r = blockIdx.y * 8 + threadIdx.y;
   if (r >= H || c >= W) return;
   const size_t i = (size_t)r * W + c;
-  if (is_pinned(r, c, H, W)) {
+  if (r == 0 || r == H - 1 || c == 0 || c == W - 1) {
     out[i] = diag * __ldg(x + i);
     return;
   }
-  // every neighbour of an interior node lies inside the grid
-  T a[9];
-#pragma unroll
-  for (int dj = -1; dj <= 1; ++dj) {
-#pragma unroll
-    for (int di = -1; di <= 1; ++di) {
-      const bool p = is_pinned(r + dj, c + di, H, W);
-      a[(dj + 1) * 3 + (di + 1)] =
-          p ? T(0) : __ldg(x + (size_t)(r + dj) * W + (c + di));
-    }
-  }
-  T acc;
-  if (!diff) {
-    acc = T(st.c[4]) * a[4];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      if (k == 4) continue;
-      acc += T(st.c[k]) * a[k];
-    }
-  } else {
-    acc = T(0);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      if (k == 4) continue;
-      acc += T(st.c[k]) * (a[k] - a[4]);
-    }
-  }
-  out[i] = acc;
+  // which neighbouring rows and columns are not walls
+  const bool ru = r - 1 > 0, rd = r + 1 < H - 1;
+  const bool cl = c - 1 > 0, cr = c + 1 < W - 1;
+  const T* xu = x + i - W;
+  const T* xm = x + i;
+  const T* xd = x + i + W;
+  Window<T, 0> w;
+  w.up.v[0] = ru && cl ? __ldg(xu - 1) : T(0);
+  w.up.v[1] = ru ? __ldg(xu) : T(0);
+  w.up.v[2] = ru && cr ? __ldg(xu + 1) : T(0);
+  w.mid.v[0] = cl ? __ldg(xm - 1) : T(0);
+  w.mid.v[1] = __ldg(xm);
+  w.mid.v[2] = cr ? __ldg(xm + 1) : T(0);
+  w.down.v[0] = rd && cl ? __ldg(xd - 1) : T(0);
+  w.down.v[1] = rd ? __ldg(xd) : T(0);
+  w.down.v[2] = rd && cr ? __ldg(xd + 1) : T(0);
+  const StencilT<T> st(st9);
+  out[i] = diff ? w.apply_diff(st) : w.apply(st);
 }
+
+template <typename T, int R>
+int launch_constrained_apply(const void* x, void* out, int H, int W,
+                             const double* s, double diag, int diff,
+                             cudaStream_t stream) {
+  const dim3 block(kB3TileX, kB3ThreadsY);
+  const int tile_y = kB3ThreadsY * R;
+  const dim3 grid((W + kB3TileX - 1) / kB3TileX, (H + tile_y - 1) / tile_y);
+  constrained_apply_kernel<T, R><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), H, W, load_stencil(s),
+      (T)diag, diff);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_constrained_apply(const void* x, void* out, int H, int W,
+                             const double* s, double diag, int diff,
+                             cudaStream_t stream) {
+  const long long nodes = (long long)H * W;
+  if (nodes < kB3TinyNodes) {
+    const dim3 block(32, 8);
+    constrained_apply_direct_kernel<T><<<point_grid(H, W, block), block, 0,
+                                         stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), H, W,
+        load_stencil(s), (T)diag, diff);
+    return (int)cudaGetLastError();
+  }
+  if (nodes >= kB3LargeNodes) {
+    return launch_constrained_apply<T, kB3LargeRows>(x, out, H, W, s, diag,
+                                                     diff, stream);
+  }
+  return launch_constrained_apply<T, kB3SmallRows>(x, out, H, W, s, diag,
+                                                   diff, stream);
+}
+
+// An empty kernel: chip_smoke.py times it as the launch-and-event floor
+// against which the small grids' times are read.
+__global__ void noop_kernel() {}
 
 // ---------------------------------------------------------------------------
 // B1: one lumped leapfrog step, u' = 2u - u_prev - coef * S(u), pinned -> 0.
 //
 // Bound on this card: memory. It reads 2 arrays and writes 1 (12 B/point in
-// f32, 24 B in f64) for ~11 multiply-adds per point. Same one-thread-per-
-// point, 32x8-block design as B3: the 3x3 reads of u are coalesced along
-// rows and reused through L1/L2.
+// f32, 24 B in f64) for ~11 multiply-adds per point. One thread per point,
+// 32x8 blocks: the 3x3 reads of u are coalesced along rows and reused
+// through L1/L2.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void leapfrog_step_kernel(const T* __restrict__ u,
@@ -400,19 +518,11 @@ extern "C" {
 int tw_constrained_apply(int dtype, const void* x, void* out, int H, int W,
                          const double* s, double diag, int diff,
                          void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid = point_grid(H, W, block);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    constrained_apply_kernel<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), H, W,
-        load_stencil(s), (float)diag, diff);
-  } else {
-    constrained_apply_kernel<double><<<grid, block, 0, st>>>(
-        static_cast<const double*>(x), static_cast<double*>(out), H, W,
-        load_stencil(s), diag, diff);
+    return launch_constrained_apply<float>(x, out, H, W, s, diag, diff, st);
   }
-  return (int)cudaGetLastError();
+  return launch_constrained_apply<double>(x, out, H, W, s, diag, diff, st);
 }
 
 int tw_leapfrog_step(int dtype, const void* u, const void* up, void* out,
@@ -461,6 +571,11 @@ int tw_leapfrog_multistep_driven(int dtype, const void* u, const void* up,
   }
   return launch_multistep_driven<double>(u, up, gtb, glr, out_u, out_up, H, W,
                                          s, coef, n_steps, tile, st);
+}
+
+int tw_noop(void* stream) {
+  noop_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 // Largest dynamic shared memory a block may opt in to on ``device``

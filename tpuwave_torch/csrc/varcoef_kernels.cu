@@ -20,7 +20,9 @@
 // Plain C interface, bound from Python with ctypes (ops/kernels_varcoef.py).
 // Every entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = success).
-// Nothing is reduced across threads, so reruns are bitwise equal.
+// Nothing is reduced across threads (B17 marks its receiver nodes with
+// integer atomicOr, whose result does not depend on the order), so reruns
+// are bitwise equal.
 
 #include "grid_common.cuh"
 
@@ -312,26 +314,87 @@ varcoef_multistep_kernel(
 //   (A, B, lam, lpart) <- (B, u_prev, lam', -blam)   (damped: -dnum blam)
 // Damped: 9 planes, [0:7] plain stencil, [7] dden, [8] dnum.
 //
-// Each block stages A, B, lam, lpart, a fifth slab for the new lpart and
-// the planes over the tile plus an n_steps halo (zeros outside the array)
-// in dynamic shared memory; the tile's seven wbar accumulators live in
-// registers, kAdjNodes nodes per thread (tile <= 32). Step s updates the
-// nodes at distance >= s + 1 from the slab edge; u_prev goes into A's slot
-// and lam' into lpart's (each read only at its own node). After a barrier
-// each thread adds its tile nodes' correlations (lam and B are not written
-// during a step) while one thread injects the receiver cotangents in point
-// order (deterministic where points share a node); a second barrier ends
-// the step.
-//
 // Bound on this card: device memory (18, damped 20, reads and 11 writes
-// per node per pass) once the staging loads are in flight together, as in
-// B15; then shared memory: two stencils per node and step over a slab up
-// to 2.25x the tile.
+// per node per pass). What bounds it is less plain: a block (one per SM,
+// by its registers) stages, steps and stores in turn, and the steps are
+// the largest part (scripts/torch_b17_phases.py times each phase per
+// block).
+//
+// Each block covers a kSide x kSide slab: its tile (side kSide - 2 n_steps)
+// plus an n_steps halo. A thread owns kRows consecutive slab rows of one
+// column for all the steps, and keeps in registers what only its own nodes
+// read: the 7 (9) planes, lpart and, on tile nodes, the seven wbar
+// accumulators, all loaded once. Shared memory holds only what neighbours
+// read, double buffered (one barrier per step): u_cur, and blam already
+// masked (damped: times dden), formed by the node's owner when it writes
+// lam', so no neighbour is tested for the mask. u_next is u_cur of the step
+// before, so it is read from the buffer the step is about to overwrite, at
+// the thread's own node. A thread walks its rows with a sliding 3x3
+// register window per array (three new shared loads per array and row);
+// the correlations come from the same window. Every step updates all the
+// slab's nodes, with no test of which are still exact and no branch in the
+// row loop (the source is a select, the correlations of nodes off the
+// tile are computed and never stored), so the compiler can interleave a
+// thread's rows; the receiver cotangents are added after the loop, in
+// point order, on the few nodes that hold a point: lam' keeps them on a
+// pinned node, while the staged blam there is 0. The tile's outputs are
+// written from registers at the last step. (The first version staged all
+// five fields and the planes in 12 slabs, re-mapped threads onto the
+// shrinking slab every step, tested the mask of each neighbour, and
+// injected receivers on one thread between two barriers per step: 9-15%
+// of the bound.)
 // ---------------------------------------------------------------------------
-constexpr int kAdjNodes = 2;  // B17's tile nodes per thread: tile <= 32
+template <typename T>
+struct AdjointGeometry;
+// kSide x (kSide / kRows) threads; the registers a thread keeps grow with
+// kRows, the slab's redundant halo work shrinks with kSide (48 x 16 f32
+// threads take 80 registers, 32 x 16 f64 threads 128: one block per SM)
+template <>
+struct AdjointGeometry<float> {
+  static constexpr int kSide = 48, kRows = 3;
+  static constexpr int kThreads = kSide * kSide / kRows;
+};
+template <>
+struct AdjointGeometry<double> {
+  static constexpr int kSide = 32, kRows = 2;
+  static constexpr int kThreads = kSide * kSide / kRows;
+};
+
+// A shared buffer holds the slab with one spare row above and below and one
+// spare value at each end, so the neighbours of every slab node, the
+// outermost included, lie inside it: slab node s sits at kPad + s.
+template <typename T>
+struct AdjointBuffer {
+  static constexpr int kS = AdjointGeometry<T>::kSide;
+  static constexpr int kPad = kS + 1;
+  static constexpr int kSize = kS * kS + 2 * kPad;
+};
+
+// u_cur and the masked blam, double buffered, and one bit per slab node
+template <typename T>
+constexpr size_t adjoint_smem() {
+  constexpr int S2 = AdjointGeometry<T>::kSide * AdjointGeometry<T>::kSide;
+  return 4 * (size_t)AdjointBuffer<T>::kSize * sizeof(T) +
+         (size_t)((S2 + 31) / 32) * 4;
+}
+
+// The K stencil on a window, in OFFSETS order (0,0) (-1,0) (1,0) (0,-1)
+// (-1,-1) (0,1) (1,1) as (dx, dy).
+template <typename T, int SX>
+__device__ __forceinline__ T window_k(const T* __restrict__ p,
+                                      const Window<T, SX>& w) {
+  T acc = p[0] * w.mid.v[1];
+  acc += p[1] * w.mid.v[0];
+  acc += p[2] * w.mid.v[2];
+  acc += p[3] * w.up.v[1];
+  acc += p[4] * w.up.v[0];
+  acc += p[5] * w.down.v[1];
+  acc += p[6] * w.down.v[2];
+  return acc;
+}
 
 template <typename T, int NP>
-__global__ void __launch_bounds__(32 * kSlabThreadsY)
+__global__ void __launch_bounds__(AdjointGeometry<T>::kThreads)
 varcoef_adjoint_multistep_kernel(
     const T* __restrict__ un, const T* __restrict__ uc,
     const T* __restrict__ lam, const T* __restrict__ lpart,
@@ -343,167 +406,190 @@ varcoef_adjoint_multistep_kernel(
     T* __restrict__ out_un, T* __restrict__ out_uc, T* __restrict__ out_lam,
     T* __restrict__ out_lp, T* __restrict__ wavbar, int H, int W, T coef,
     int tile) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int halo = n_steps;
-  const int S = tile + 2 * halo;
-  const int S2 = S * S;
-  const int T2 = tile * tile;
-  T* A = reinterpret_cast<T*>(smem_raw);
-  T* B = A + S2;
-  T* L = B + S2;
-  T* P = L + S2;
-  T* Q = P + S2;
-  T* pl = Q + S2;
-  const int ir0 = blockIdx.y * tile, ic0 = blockIdx.x * tile;
-  const int r0 = ir0 - halo, c0 = ic0 - halo;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int bx = blockDim.x, by = blockDim.y;
-  const int tid = ty * bx + tx, nth = bx * by;
-  const long long n = (long long)H * W;
+  constexpr int S = AdjointGeometry<T>::kSide;
+  constexpr int R = AdjointGeometry<T>::kRows;
+  constexpr int S2 = S * S;
+  constexpr int nth = AdjointGeometry<T>::kThreads;
+  constexpr int SB = AdjointBuffer<T>::kSize;
   constexpr bool damped = NP == 9;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Bs = reinterpret_cast<T*>(smem_raw);   // u_cur, two buffers
+  T* Ls = Bs + 2 * SB;                      // masked blam, two buffers
+  unsigned* marks = reinterpret_cast<unsigned*>(Ls + 2 * SB);  // points
+  const int halo = n_steps;
+  const int ir0 = blockIdx.y * tile, ic0 = blockIdx.x * tile;
+  const int r0 = ir0 - halo, c0 = ic0 - halo;  // array row/col of slab (0,0)
+  const int sc = threadIdx.x, sr0 = threadIdx.y * R;
+  const int gc = c0 + sc;
+  const int tid = threadIdx.y * S + threadIdx.x;
+  const int base = AdjointBuffer<T>::kPad + sr0 * S + sc;  // first node
+  const long long n = (long long)H * W;
 
-  for (int sr = ty; sr < S; sr += by) {
-    const int r = r0 + sr;
-    const bool row_in = r >= 0 && r < H;
-    for (int sc = tx; sc < S; sc += bx) {
-      const int c = c0 + sc;
-      const bool in = row_in && c >= 0 && c < W;
-      const long long g = in ? (long long)r * W + c : 0;
-      const int s = sr * S + sc;
-      T v[4 + NP];
-      v[0] = in ? __ldg(un + g) : T(0);
-      v[1] = in ? __ldg(uc + g) : T(0);
-      v[2] = in ? __ldg(lam + g) : T(0);
-      v[3] = in ? __ldg(lpart + g) : T(0);
+  for (int q = tid; q < (S2 + 31) / 32; q += nth) marks[q] = 0u;
+  for (int q = tid; q < 4 * AdjointBuffer<T>::kPad; q += nth) {
+    // the spare values (read only by nodes whose result is never used)
+    const int b = q / AdjointBuffer<T>::kPad, j = q % AdjointBuffer<T>::kPad;
+    T* buf = Bs + b * SB;
+    buf[j] = T(0);
+    buf[SB - 1 - j] = T(0);
+  }
+
+  // staging: every load of the thread is started before the first use
+  const bool col_in = gc >= 0 && gc < W;
+  const bool col_tile = sc >= halo && sc < halo + tile;
+  T pl[R][NP], lp[R], wacc[R][7], a0[R], b0[R], l0[R];
+  unsigned pin_bits = 0, tile_bits = 0, src_bits = 0;
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        v[4 + p] = in ? __ldg(planes + p * n + g) : T(0);
-      }
-      A[s] = v[0];
-      B[s] = v[1];
-      L[s] = v[2];
-      P[s] = v[3];
+  for (int i = 0; i < R; ++i) {
+    const int sr = sr0 + i, gr = r0 + sr;
+    const bool in = col_in && gr >= 0 && gr < H;
+    const long long g = in ? (long long)gr * W + gc : 0;
+    const bool t = in && col_tile && sr >= halo && sr < halo + tile;
+    a0[i] = in ? __ldg(un + g) : T(0);
+    b0[i] = in ? __ldg(uc + g) : T(0);
+    l0[i] = in ? __ldg(lam + g) : T(0);
+    lp[i] = in ? __ldg(lpart + g) : T(0);
 #pragma unroll
-      for (int p = 0; p < NP; ++p) pl[p * S2 + s] = v[4 + p];
+    for (int p = 0; p < NP; ++p) pl[i][p] = in ? __ldg(planes + p * n + g) : T(0);
+#pragma unroll
+    for (int j = 0; j < 7; ++j) wacc[i][j] = t ? wbar[j * n + g] : T(0);
+    pin_bits |= (unsigned)is_pinned(gr, gc, H, W) << i;
+    tile_bits |= (unsigned)t << i;
+    src_bits |= (unsigned)(gr == src_r && gc == src_c) << i;
+  }
+  // the raw lam at src, for wavbar (its owner thread only)
+  T lam_src = T(0);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int q = base + i * S;
+    const bool pin = (pin_bits >> i) & 1u;
+    Bs[q] = b0[i];
+    Bs[SB + q] = a0[i];  // u_next: read at step 0 from the buffer it writes
+    Ls[q] = pin ? T(0) : (damped ? pl[i][7] * l0[i] : l0[i]);
+    if ((src_bits >> i) & 1u) lam_src = l0[i];
+  }
+  __syncthreads();  // marks cleared
+  for (int p = tid; p < n_pts; p += nth) {
+    const int sr = __ldg(pt_r + p) - r0, scc = __ldg(pt_c + p) - c0;
+    if (sr >= 0 && sr < S && scc >= 0 && scc < S) {
+      const int q = sr * S + scc;
+      atomicOr(marks + (q >> 5), 1u << (q & 31));
     }
   }
-  T wacc[kAdjNodes][7];
+  __syncthreads();  // slabs staged, points marked
+  unsigned pt_bits = 0;
 #pragma unroll
-  for (int i = 0; i < kAdjNodes; ++i) {
-    const int q = tid + i * nth;
-    const int r = ir0 + q / tile, c = ic0 + q % tile;
-    const bool in = q < T2 && r < H && c < W;
-    const long long g = in ? (long long)r * W + c : 0;
-#pragma unroll
-    for (int j = 0; j < 7; ++j) wacc[i][j] = in ? wbar[j * n + g] : T(0);
+  for (int i = 0; i < R; ++i) {
+    const int q = (sr0 + i) * S + sc;
+    pt_bits |= ((marks[q >> 5] >> (q & 31)) & 1u) << i;
   }
   const bool owner = src_r >= ir0 && src_r < ir0 + tile && src_c >= ic0 &&
                      src_c < ic0 + tile;
-  __syncthreads();
 
+  // Every step updates all the thread's nodes without a test: a node at
+  // distance d from the slab edge is exact after step s when d > s, and
+  // the nodes that are not only feed nodes that are not either, so their
+  // values are never used. The tile (d >= n_steps) is exact at the end.
   for (int step = 0; step < n_steps; ++step) {
-    if (owner && tid == 0) {
-      wavbar[step] = coef * L[(src_r - r0) * S + (src_c - c0)];
-    }
+    const int cur = (step & 1) * SB, nxt = SB - cur;
+    const T* __restrict__ Bc = Bs + cur;
+    const T* __restrict__ Lc = Ls + cur;
+    T* Bn = Bs + nxt;
+    T* Ln = Ls + nxt;
+    const bool last = step == n_steps - 1;
+    if (owner && src_bits != 0u) wavbar[step] = coef * lam_src;
     const T w_s = __ldg(wchunk + step);
-    const int lo = step + 1, hi = S - step - 1;
-    for (int sr = lo + ty; sr < hi; sr += by) {
-      const int gr = r0 + sr;
-      for (int sc = lo + tx; sc < hi; sc += bx) {
-        const int gc = c0 + sc;
-        const int s = sr * S + sc;
-        const bool pin = is_pinned(gr, gc, H, W);
-        T bl = T(0), lnew = T(0), upv = T(0);
-        if (!pin) {
-          bl = damped ? pl[7 * S2 + s] * L[s] : L[s];
-          T kb = pl[s] * bl;
-          T kB = pl[s] * B[s];
+    T lnw[R];
+    Window<T, S> bw, lw;
+    bw.start(Bc, base);
+    lw.start(Lc, base);
 #pragma unroll
-          for (int j = 1; j < 7; ++j) {
-            const int dy = off_dy(j), dx = off_dx(j);
-            const int t = s + dy * S + dx;
-            const T p = pl[j * S2 + s];
-            const T bn = is_pinned(gr + dy, gc + dx, H, W)
-                             ? T(0)
-                             : (damped ? pl[7 * S2 + t] * L[t] : L[t]);
-            kb += p * bn;
-            kB += p * B[t];
+    for (int i = 0; i < R; ++i) {
+      const int q = base + i * S;
+      bw.next_row(Bc, q);
+      lw.next_row(Lc, q);
+      const int gr = r0 + sr0 + i;
+      const bool pin = (pin_bits >> i) & 1u;
+      const T bl = lw.mid.v[1];
+      const T bc = bw.mid.v[1];
+      const T kb = window_k(pl[i], lw);
+      const T kB = window_k(pl[i], bw);
+      T lnew = pin ? T(0) : (lp[i] + T(2) * bl) - coef * kb;
+      T upv = pin ? T(0) : (T(2) * bc - Bn[q]) - coef * kB;
+      upv = ((src_bits >> i) & 1u) ? upv + w_s * coef : upv;
+      if (ring_rows != nullptr) {
+        if (gr < ra || gr > rb || gc < ca || gc > cb) upv = T(0);
+        if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
+          if (gc == ca) upv = __ldg(ring_cols + ((long long)step * H + gr) * 2);
+          if (gc == cb) {
+            upv = __ldg(ring_cols + ((long long)step * H + gr) * 2 + 1);
           }
-          lnew = (P[s] + T(2) * bl) - coef * kb;
-          upv = (T(2) * B[s] - A[s]) - coef * kB;
-        }
-        if (gr == src_r && gc == src_c) upv += w_s * coef;
-        if (ring_rows != nullptr) {
-          if (gr < ra || gr > rb || gc < ca || gc > cb) upv = T(0);
-          if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-            if (gc == ca) upv = __ldg(ring_cols + ((long long)step * H + gr) * 2);
-            if (gc == cb) {
-              upv = __ldg(ring_cols + ((long long)step * H + gr) * 2 + 1);
-            }
-            if (gr == ra) upv = __ldg(ring_rows + ((long long)step * 2) * W + gc);
-            if (gr == rb) {
-              upv = __ldg(ring_rows + ((long long)step * 2 + 1) * W + gc);
-            }
+          if (gr == ra) upv = __ldg(ring_rows + ((long long)step * 2) * W + gc);
+          if (gr == rb) {
+            upv = __ldg(ring_rows + ((long long)step * 2 + 1) * W + gc);
           }
         }
-        A[s] = upv;
-        P[s] = lnew;
-        Q[s] = damped ? -(pl[8 * S2 + s] * bl) : -bl;
+      }
+      lnw[i] = lnew;
+      lam_src = ((src_bits >> i) & 1u) ? lnew : lam_src;
+      {
+        // branch-free: a node off the tile accumulates what is never
+        // stored; a pinned tile node adds 0
+        const T mu = (((tile_bits >> i) & 1u) && !pin) ? coef * bl : T(0);
+        const T bsh[7] = {bc, bw.mid.v[0], bw.mid.v[2], bw.up.v[1],
+                          bw.up.v[0], bw.down.v[1], bw.down.v[2]};
+#pragma unroll
+        for (int j = 0; j < 7; ++j) wacc[i][j] = wacc[i][j] - mu * bsh[j];
+      }
+      const T lpn = damped ? -(pl[i][8] * bl) : -bl;
+      if (last) {
+        if ((tile_bits >> i) & 1u) {
+          const long long g = (long long)gr * W + gc;
+          out_un[g] = bc;
+          out_uc[g] = upv;
+          out_lam[g] = lnew;
+          out_lp[g] = lpn;
+        }
+      } else {
+        Bn[q] = upv;
+        Ln[q] = pin ? T(0) : (damped ? pl[i][7] * lnew : lnew);
+        lp[i] = lpn;
+      }
+      bw.advance();
+      lw.advance();
+    }
+    // the receiver cotangents, added after the mask in point order, on the
+    // (rare) nodes that hold a point
+    if (pt_bits != 0u) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!((pt_bits >> i) & 1u)) continue;
+        const int gr = r0 + sr0 + i, q = base + i * S;
+        T lnew = lnw[i];
+        for (int p = 0; p < n_pts; ++p) {
+          if (__ldg(pt_r + p) == gr && __ldg(pt_c + p) == gc) {
+            lnew += __ldg(inj + (long long)step * n_pts + p);
+          }
+        }
+        if ((src_bits >> i) & 1u) lam_src = lnew;
+        if (last) {
+          if ((tile_bits >> i) & 1u) out_lam[(long long)gr * W + gc] = lnew;
+        } else {
+          const bool pin = (pin_bits >> i) & 1u;
+          Ln[q] = pin ? T(0) : (damped ? pl[i][7] * lnew : lnew);
+        }
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kAdjNodes; ++i) {
-      const int q = tid + i * nth;
-      const int gr = ir0 + q / tile, gc = ic0 + q % tile;
-      if (q < T2 && gr < H && gc < W && !is_pinned(gr, gc, H, W)) {
-        const int s = (q / tile + halo) * S + (q % tile + halo);
-        const T mu = coef * (damped ? pl[7 * S2 + s] * L[s] : L[s]);
-#pragma unroll
-        for (int j = 0; j < 7; ++j) {
-          wacc[i][j] = wacc[i][j] - mu * B[s + off_dy(j) * S + off_dx(j)];
-        }
-      }
-    }
-    if (tid == 0) {
-      for (int p = 0; p < n_pts; ++p) {
-        const int sr = __ldg(pt_r + p) - r0, sc = __ldg(pt_c + p) - c0;
-        if (sr >= 0 && sr < S && sc >= 0 && sc < S) {
-          P[sr * S + sc] += __ldg(inj + (long long)step * n_pts + p);
-        }
-      }
-    }
-    __syncthreads();
-    T* t = A;
-    A = B;
-    B = t;
-    t = L;
-    L = P;
-    P = Q;
-    Q = t;
   }
 
-  for (int sr = halo + ty; sr < halo + tile; sr += by) {
-    const int r = r0 + sr;
-    if (r >= H) continue;
-    for (int sc = halo + tx; sc < halo + tile; sc += bx) {
-      const int c = c0 + sc;
-      if (c >= W) continue;
-      const long long g = (long long)r * W + c;
-      const int s = sr * S + sc;
-      out_un[g] = A[s];
-      out_uc[g] = B[s];
-      out_lam[g] = L[s];
-      out_lp[g] = P[s];
-    }
-  }
+  // the tile's accumulated wbar
 #pragma unroll
-  for (int i = 0; i < kAdjNodes; ++i) {
-    const int q = tid + i * nth;
-    const int r = ir0 + q / tile, c = ic0 + q % tile;
-    if (q < T2 && r < H && c < W) {
+  for (int i = 0; i < R; ++i) {
+    if ((tile_bits >> i) & 1u) {
+      const long long g = (long long)(r0 + sr0 + i) * W + gc;
 #pragma unroll
-      for (int j = 0; j < 7; ++j) wbar[j * n + (long long)r * W + c] = wacc[i][j];
+      for (int j = 0; j < 7; ++j) wbar[j * n + g] = wacc[i][j];
     }
   }
 }
@@ -549,14 +635,14 @@ int launch_adjoint_multistep(
     const void* ring_rows, const void* ring_cols, void* out_un, void* out_uc,
     void* out_lam, void* out_lp, void* wavbar, int H, int W, double coef,
     int tile, cudaStream_t stream) {
-  const size_t side = (size_t)tile + 2 * (size_t)n_steps;
-  const size_t smem = (5 + (size_t)NP) * side * side * sizeof(T);
-  const dim3 block(32, kSlabThreadsY);
-  if (tile * tile > kAdjNodes * (int)(block.x * block.y)) {
+  constexpr int S = AdjointGeometry<T>::kSide;
+  if (n_steps < 1 || tile < 1 || tile != S - 2 * n_steps) {
     return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = adjoint_smem<T>();
   const int e = opt_in_smem(varcoef_adjoint_multistep_kernel<T, NP>, smem);
   if (e != 0) return e;
+  const dim3 block(S, S / AdjointGeometry<T>::kRows);
   const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
   varcoef_adjoint_multistep_kernel<T, NP><<<grid, block, smem, stream>>>(
       static_cast<const T*>(un), static_cast<const T*>(uc),

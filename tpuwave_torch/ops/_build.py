@@ -48,6 +48,7 @@ _SIGNATURES = {
     "tw_leapfrog_multistep_driven": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                                      _I, _DP, _D, _I, _I, _VP),
     "tw_max_dynamic_smem": (_I,),
+    "tw_noop": (_VP,),
     "tw_cheby_block": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
                        _D, _DP, _DP, _I, _I, _VP),
     "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,

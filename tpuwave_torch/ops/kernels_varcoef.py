@@ -174,35 +174,51 @@ def multistep_tile(n_steps: int, n_planes: int, dtype: torch.dtype,
         max_smem)
 
 
-#: B17's tile sides: its gradient accumulators are registers, two tile
-#: nodes per thread of a 512-thread block (csrc/varcoef_kernels.cu
-#: kAdjNodes), so the tile is at most 32
-_ADJOINT_TILES = tuple(t for t in _TILES if t <= 32)
+#: B17's slab side per dtype (csrc/varcoef_kernels.cu AdjointGeometry): a
+#: block covers a side x side slab, its tile plus an n_steps halo on each
+#: side, and keeps the planes of its nodes in registers
+_ADJOINT_SIDE = {torch.float32: 48, torch.float64: 32}
+#: the smallest B17 tile that adjoint_tile and max_fused_steps allow (the
+#: kernel takes any tile >= 1; below 8 the halo's redundant work swamps it)
+_MIN_ADJOINT_TILE = 8
+
+
+def _adjoint_smem(dtype: torch.dtype) -> int:
+    """B17's shared memory: u_cur and the masked blam, double buffered,
+    over its slab (with a spare row above and below and a spare value at
+    each end), and one bit per slab node for the receiver points."""
+    side = _ADJOINT_SIDE[dtype]
+    buf = side * side + 2 * (side + 1)
+    return 4 * buf * _itemsize(dtype) + 4 * ((side * side + 31) // 32)
 
 
 def adjoint_tile(n_steps: int, n_planes: int, dtype: torch.dtype,
                  max_smem: int) -> int:
-    """Tile side of B17: five fields and ``n_planes`` planes over
-    (tile + 2 n_steps)^2 slabs must fit ``max_smem`` bytes."""
-    item = _itemsize(dtype)
-    return _largest_tile(
-        f"varcoef_adjoint_multistep: n_steps={n_steps} in {dtype}",
-        lambda t: (5 + n_planes) * (t + 2 * n_steps) ** 2 * item, max_smem,
-        _ADJOINT_TILES)
+    """Tile side of B17: its slab side less an ``n_steps`` halo on each
+    side (the planes, any ``n_planes``, live in registers), at least 8;
+    raises when k is too large or the slabs do not fit ``max_smem``."""
+    tile = _ADJOINT_SIDE[dtype] - 2 * int(n_steps)
+    if tile < _MIN_ADJOINT_TILE or _adjoint_smem(dtype) > max_smem:
+        raise ValueError(
+            f"varcoef_adjoint_multistep: n_steps={n_steps} in {dtype} leaves "
+            f"a tile of {tile} in its {_ADJOINT_SIDE[dtype]}-node slab "
+            f"(at least {_MIN_ADJOINT_TILE}) or needs "
+            f"{_adjoint_smem(dtype)} B of shared memory (the card allows "
+            f"{max_smem} B)")
+    return tile
 
 
 def max_fused_steps(n_steps: int, n_planes: int, dtype: torch.dtype,
                     device: torch.device) -> int:
-    """The largest k <= ``n_steps`` for which B15 and B17 both fit the
-    card's shared memory at the smallest tile."""
+    """The largest k <= ``n_steps`` that B15 (at the smallest tile) and
+    B17 (see adjoint_tile) both take on the card."""
     lib = _lib()
     max_smem = _max_smem(lib, "max_fused_steps", device)
     t = _TILES[-1]
     item = _itemsize(dtype)
     k = max(1, int(n_steps))
-    while k > 1 and max(
-            (2 + n_planes) * (t + 2 * (k + 1)) ** 2 * item,
-            (5 + n_planes) * (t + 2 * k) ** 2 * item) > max_smem:
+    while k > 1 and ((2 + n_planes) * (t + 2 * (k + 1)) ** 2 * item > max_smem
+                     or _ADJOINT_SIDE[dtype] - 2 * k < _MIN_ADJOINT_TILE):
         k -= 1
     return k
 
