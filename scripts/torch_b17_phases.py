@@ -2,14 +2,14 @@
 """Where the time of kernel B17 (varcoef_adjoint_multistep, the FWI adjoint's
 k fused backward steps) goes, block by block, on the card.
 
-Builds an instrumented copy of tpuwave_torch's kernels into
-tpuwave_torch/_build/b17_phases/ (git-ignored): the copy of
-csrc/varcoef_kernels.cu records the card's %globaltimer in every block of
-B17 at its start, after its slabs are staged, after its steps and at its
-end. It then runs B17 on chip_smoke.py's phase-17 shape (1025^2 f32, the
-disk model's planes) and on its 513^2 f64 shape, at k = 1 and k = 8, and
-prints the kernel's median time (chip_smoke.cuda_ms) and, over the blocks,
-the median time of each phase. Needs one CUDA card and nvcc:
+Builds tpuwave_torch's kernels with -DTW_B17_STAMPS (a library of its own
+in the git-ignored tpuwave_torch/_build/, keyed by the flags), with which
+every block of B17 records the card's %globaltimer at its start, after
+its slabs are staged, after its steps and at its end. It then runs B17 on
+chip_smoke.py's phase-17 shape (1025^2 f32, the disk model's planes) and
+on its 513^2 f64 shape, at k = 1 and k = 8, and prints the kernel's
+median time (chip_smoke.cuda_ms) and, over the blocks, the median time of
+each phase. Needs one CUDA card and nvcc:
 
     python3 scripts/torch_b17_phases.py
 """
@@ -17,63 +17,15 @@ the median time of each phase. Needs one CUDA card and nvcc:
 from __future__ import annotations
 
 import ctypes
-import shutil
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-WORK = ROOT / "tpuwave_torch" / "_build" / "b17_phases"
-
-_STAMPS = """
-__device__ unsigned long long g_b17_stamps[16384][4];
-__device__ __forceinline__ unsigned long long b17_timer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-extern "C" int tw_b17_stamps(void* host, int n) {
-  return (int)cudaMemcpyFromSymbol(host, g_b17_stamps, (size_t)n * 32);
-}
-"""
-
-
-def _instrument(src: str) -> str:
-    """The B17 kernel of ``src`` with a timer read at its four points."""
-    src = src.replace('#include "grid_common.cuh"\n',
-                      '#include "grid_common.cuh"\n' + _STAMPS, 1)
-    k = src.index("varcoef_adjoint_multistep_kernel(")
-    marks = (
-        ("  constexpr int S = AdjointGeometry<T>::kSide;", 0, "t0"),
-        ("  __syncthreads();  // slabs staged, points marked", 1, "t1"),
-        ("  // the tile's accumulated wbar", 0, "t2"),
-    )
-    for anchor, after, name in marks:
-        i = src.index(anchor, k)
-        if after:
-            i = src.index("\n", i) + 1
-        src = (src[:i] + f"  const unsigned long long {name} = b17_timer();\n"
-               + src[i:])
-    end = src.rindex("\n}\n", 0, src.index("template <typename K>\nint "
-                                           "opt_in_smem"))
-    return src[:end] + """
-  __syncthreads();
-  const int b = blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0 && b < 16384) {
-    g_b17_stamps[b][0] = t0;
-    g_b17_stamps[b][1] = t1;
-    g_b17_stamps[b][2] = t2;
-    g_b17_stamps[b][3] = b17_timer();
-  }""" + src[end:]
 
 
 def main() -> int:
     import numpy as np
-    shutil.rmtree(WORK, ignore_errors=True)
-    shutil.copytree(ROOT / "tpuwave_torch", WORK / "tpuwave_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    cu = WORK / "tpuwave_torch" / "csrc" / "varcoef_kernels.cu"
-    cu.write_text(_instrument(cu.read_text()))
-    sys.path[:0] = [str(WORK), str(ROOT)]
+    sys.path.insert(0, str(ROOT))
     import torch
     import chip_smoke as cs
     from tpuwave_torch.models.inverse import FwiProblem
@@ -82,7 +34,9 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
+    _build.COMPILE_FLAGS = (*_build.COMPILE_FLAGS, "-DTW_B17_STAMPS")
     lib = _build.load_library()
+    lib.tw_b17_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     print(cs.nvidia_smi_line())
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)

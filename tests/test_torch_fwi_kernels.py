@@ -403,17 +403,26 @@ def test_adjoint_tile_is_the_slab_less_its_halo(dtype, k, tile):
         kv.adjoint_tile(k, 7, dtype, 1024)
 
 
+@pytest.mark.parametrize("k", [1, 8, 9, 12, 20, 31])
+def test_adjoint_chunks_split_evenly(k):
+    chunks = kv.adjoint_chunks(k)
+    assert sum(chunks) == k
+    assert len(chunks) == -(-k // 8)
+    assert max(chunks) <= 8 and max(chunks) - min(chunks) <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k, damped", [(1, False), (3, False), (8, False),
-                                       (8, True)])
+                                       (8, True), (12, False), (20, True)])
 def test_cuda_varcoef_adjoint_multistep(cuda_device, dtype, k, damped):
     prob, coef, planes, rng = _card_setup(cuda_device, dtype, damped)
     rows, cols = prob._grid
     un, uc, lam, lp = _on(cuda_device, dtype, rng, prob._grid, 4)
     (wbar,) = _on(cuda_device, dtype, rng, (7,) + prob._grid, 1)
     ms = prob._planes9_adjoint(planes) if damped else planes
-    tile = kv.adjoint_tile(k, ms.shape[0], dtype,
+    # k > 8 runs in several launches: the points sit on the first one's tiles
+    tile = kv.adjoint_tile(kv.adjoint_chunks(k)[0], ms.shape[0], dtype,
                            tk._max_smem(tk._lib(), "t", cuda_device))
     src = (tile, tile - 1)      # first row / last column of two tiles
     i32 = dict(dtype=torch.int32, device=cuda_device)
@@ -432,9 +441,12 @@ def test_cuda_varcoef_adjoint_multistep(cuda_device, dtype, k, damped):
                    for s in ((k, 2, cols), (k, rows, 2)))
     args = (un, uc, lam, lp, ms)
     tail = (w, inj, src, coef, pts, ring, *rs)
+    before = tk.LAUNCHES["varcoef_adjoint_multistep"]
     got = kv.varcoef_adjoint_multistep(*args, wbar.clone(), *tail)
     again = kv.varcoef_adjoint_multistep(*args, wbar.clone(), *tail)
     torch.cuda.synchronize()
+    assert (tk.LAUNCHES["varcoef_adjoint_multistep"] - before
+            == 2 * len(kv.adjoint_chunks(k)))
     want = kv.varcoef_adjoint_multistep_reference(*args, wbar.clone(), *tail)
     for g, a, wt in zip(got, again, want):
         assert torch.equal(g, a)

@@ -321,31 +321,47 @@ varcoef_multistep_kernel(
 // block).
 //
 // Each block covers a kSide x kSide slab: its tile (side kSide - 2 n_steps)
-// plus an n_steps halo. A thread owns kRows consecutive slab rows of one
-// column for all the steps, and keeps in registers what only its own nodes
-// read: the 7 (9) planes, lpart and, on tile nodes, the seven wbar
-// accumulators, all loaded once. Shared memory holds only what neighbours
-// read, double buffered (one barrier per step): u_cur, and blam already
-// masked (damped: times dden), formed by the node's owner when it writes
-// lam', so no neighbour is tested for the mask. u_next is u_cur of the step
-// before, so it is read from the buffer the step is about to overwrite, at
-// the thread's own node. A thread walks its rows with a sliding 3x3
-// register window per array (three new shared loads per array and row);
-// the correlations come from the same window. Every step updates all the
-// slab's nodes, with no test of which are still exact and no branch in the
-// row loop (the source is a select, the correlations of nodes off the
-// tile are computed and never stored), so the compiler can interleave a
-// thread's rows; the receiver cotangents are added after the loop, in
-// point order, on the few nodes that hold a point: lam' keeps them on a
-// pinned node, while the staged blam there is 0. The tile's outputs are
-// written from registers at the last step. (The first version staged all
-// five fields and the planes in 12 slabs, re-mapped threads onto the
-// shrinking slab every step, tested the mask of each neighbour, and
-// injected receivers on one thread between two barriers per step: 9-15%
-// of the bound.)
+// plus an n_steps halo, so the halo's share grows with n_steps; the wrapper
+// (ops/kernels_varcoef.py adjoint_chunks) launches at most 8 steps at a
+// time. A thread owns kRows consecutive slab rows of one column for all the
+// steps, and keeps in registers what only its own nodes read: the 7 (9)
+// planes, lpart and, on tile nodes, the seven wbar accumulators, all loaded
+// once. Shared memory holds only what neighbours read, double buffered (one
+// barrier per step): u_cur, and blam already masked (damped: times dden),
+// formed by the node's owner when it writes lam', so no neighbour is tested
+// for the mask. u_next is u_cur of the step before, so it is read from the
+// buffer the step is about to overwrite, at the thread's own node. A thread
+// walks its rows with a sliding 3x3 register window per array (three new
+// shared loads per array and row); the correlations come from the same
+// window. Every step updates all the slab's nodes, with no test of which are
+// still exact and no branch in the row loop (the source is a select, the
+// correlations of nodes off the tile are computed and never stored), so the
+// compiler can interleave a thread's rows; the receiver cotangents are added
+// after the loop, in point order, on the few nodes that hold a point: lam'
+// keeps them on a pinned node, while the staged blam there is 0. The tile's
+// outputs are written from registers at the last step. (The first version
+// staged all five fields and the planes in 12 slabs, re-mapped threads onto
+// the shrinking slab every step, tested the mask of each neighbour, and
+// injected receivers on one thread between two barriers per step: 9-15% of
+// the bound.)
 // ---------------------------------------------------------------------------
 template <typename T>
 struct AdjointGeometry;
+
+#ifdef TW_B17_STAMPS
+// Built with -DTW_B17_STAMPS (scripts/torch_b17_phases.py), every block of
+// B17 records the card's %globaltimer at its start, after staging, after
+// its steps and at its end; tw_b17_stamps copies them to the host.
+__device__ unsigned long long g_b17_stamps[16384][4];
+__device__ __forceinline__ unsigned long long b17_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define TW_B17_STAMP(name) const unsigned long long name = b17_timer()
+#else
+#define TW_B17_STAMP(name)
+#endif
 // kSide x (kSide / kRows) threads; the registers a thread keeps grow with
 // kRows, the slab's redundant halo work shrinks with kSide (48 x 16 f32
 // threads take 80 registers, 32 x 16 f64 threads 128: one block per SM)
@@ -406,6 +422,7 @@ varcoef_adjoint_multistep_kernel(
     T* __restrict__ out_un, T* __restrict__ out_uc, T* __restrict__ out_lam,
     T* __restrict__ out_lp, T* __restrict__ wavbar, int H, int W, T coef,
     int tile) {
+  TW_B17_STAMP(t0);
   constexpr int S = AdjointGeometry<T>::kSide;
   constexpr int R = AdjointGeometry<T>::kRows;
   constexpr int S2 = S * S;
@@ -477,6 +494,7 @@ varcoef_adjoint_multistep_kernel(
     }
   }
   __syncthreads();  // slabs staged, points marked
+  TW_B17_STAMP(t1);
   unsigned pt_bits = 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -583,6 +601,7 @@ varcoef_adjoint_multistep_kernel(
     __syncthreads();
   }
 
+  TW_B17_STAMP(t2);
   // the tile's accumulated wbar
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -592,6 +611,16 @@ varcoef_adjoint_multistep_kernel(
       for (int j = 0; j < 7; ++j) wbar[j * n + g] = wacc[i][j];
     }
   }
+#ifdef TW_B17_STAMPS
+  __syncthreads();
+  const int b = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0 && b < 16384) {
+    g_b17_stamps[b][0] = t0;
+    g_b17_stamps[b][1] = t1;
+    g_b17_stamps[b][2] = t2;
+    g_b17_stamps[b][3] = b17_timer();
+  }
+#endif
 }
 
 template <typename K>
@@ -661,6 +690,12 @@ int launch_adjoint_multistep(
 }  // namespace
 
 extern "C" {
+
+#ifdef TW_B17_STAMPS
+int tw_b17_stamps(void* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_b17_stamps, (size_t)n * 32);
+}
+#endif
 
 // dtype: 0 = float32, 1 = float64. Pointers are device pointers; point
 // indices are int32. dnum / dden null: the undamped step. ring_rows /

@@ -192,8 +192,9 @@ class FwiProblem:
         ``sponge_interior_cell_mask``).
     steps_per_call : fused steps per kernel pass (B15 / B17), in both
         directions. Results do not depend on it. On the card it is capped
-        at the largest k whose slabs fit the shared memory; 1 runs one
-        step per launch (B14 / B16).
+        at the largest k whose B15 slabs fit the shared memory (B17 runs
+        a pass of k > 8 steps in several launches); 1 runs one step per
+        launch (B14 / B16).
 
     The port's defaults (engine "kernel", adjoint "reversal", device
     "cuda") differ from tpuwave's ("scatter" / "remat"): the scatter and
@@ -482,7 +483,7 @@ class FwiProblem:
     @functools.cached_property
     def _k(self) -> int:
         """Fused steps per kernel pass: ``steps_per_call``, capped on the
-        card by the kernels' shared memory."""
+        card by B15's shared memory."""
         k = self.steps_per_call
         if self.device.type == "cuda" and k > 1:
             k = kv.max_fused_steps(k, 9 if self._ring else 7, self.dtype,

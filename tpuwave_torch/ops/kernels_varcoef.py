@@ -46,7 +46,7 @@ __all__ = ["OFFSETS", "Receivers", "varcoef_stencil",
            "varcoef_adjoint_step", "varcoef_adjoint_step_reference",
            "varcoef_adjoint_multistep",
            "varcoef_adjoint_multistep_reference", "multistep_tile",
-           "adjoint_tile", "max_fused_steps"]
+           "adjoint_tile", "adjoint_chunks", "max_fused_steps"]
 
 #: (dx, dy) neighbour offsets; plane j multiplies u[r + dy_j, c + dx_j]
 #: (tpuwave's order, pallas_varcoef.py:55)
@@ -178,9 +178,13 @@ def multistep_tile(n_steps: int, n_planes: int, dtype: torch.dtype,
 #: block covers a side x side slab, its tile plus an n_steps halo on each
 #: side, and keeps the planes of its nodes in registers
 _ADJOINT_SIDE = {torch.float32: 48, torch.float64: 32}
-#: the smallest B17 tile that adjoint_tile and max_fused_steps allow (the
-#: kernel takes any tile >= 1; below 8 the halo's redundant work swamps it)
+#: the smallest B17 tile that adjoint_tile allows (the kernel takes any
+#: tile >= 1; below 8 the halo's redundant work swamps it)
 _MIN_ADJOINT_TILE = 8
+#: the most steps one B17 launch fuses: its slab is fixed, so each further
+#: step shrinks the tile and adds halo work; past 8 steps a launch costs
+#: more per step than another launch does (scripts/torch_fwi_steps.py)
+_ADJOINT_MAX_STEPS = 8
 
 
 def _adjoint_smem(dtype: torch.dtype) -> int:
@@ -208,17 +212,25 @@ def adjoint_tile(n_steps: int, n_planes: int, dtype: torch.dtype,
     return tile
 
 
+def adjoint_chunks(n_steps: int) -> tuple:
+    """The steps of each B17 launch for ``n_steps`` fused backward steps:
+    as few launches of at most _ADJOINT_MAX_STEPS as will do, as even as
+    they can be."""
+    k = int(n_steps)
+    n = -(-k // _ADJOINT_MAX_STEPS)
+    return tuple((k * (i + 1)) // n - (k * i) // n for i in range(n))
+
+
 def max_fused_steps(n_steps: int, n_planes: int, dtype: torch.dtype,
                     device: torch.device) -> int:
-    """The largest k <= ``n_steps`` that B15 (at the smallest tile) and
-    B17 (see adjoint_tile) both take on the card."""
+    """The largest k <= ``n_steps`` that B15 takes on the card at the
+    smallest tile (B17 takes any k, in adjoint_chunks(k) launches)."""
     lib = _lib()
     max_smem = _max_smem(lib, "max_fused_steps", device)
     t = _TILES[-1]
     item = _itemsize(dtype)
     k = max(1, int(n_steps))
-    while k > 1 and ((2 + n_planes) * (t + 2 * (k + 1)) ** 2 * item > max_smem
-                     or _ADJOINT_SIDE[dtype] - 2 * k < _MIN_ADJOINT_TILE):
+    while k > 1 and (2 + n_planes) * (t + 2 * (k + 1)) ** 2 * item > max_smem:
         k -= 1
     return k
 
@@ -449,8 +461,8 @@ def varcoef_adjoint_multistep(u_next: torch.Tensor, u_cur: torch.Tensor,
                               ring: Optional[Tuple[int, int, int, int]] = None,
                               ring_rows: Optional[torch.Tensor] = None,
                               ring_cols: Optional[torch.Tensor] = None):
-    """``len(wchunk)`` fused backward steps in one kernel pass (replaces
-    ``varcoef_adjoint_multistep_pallas``). ``inj``: (k, P) pre-weighted
+    """``len(wchunk)`` fused backward steps (replaces
+    ``varcoef_adjoint_multistep_pallas``), in adjoint_chunks(k) launches. ``inj``: (k, P) pre-weighted
     receiver cotangents at ``points`` = (rows, cols) (P,) int32;
     ``wchunk``, ``inj``, ``ring_rows`` (k, 2, W) and ``ring_cols``
     (k, H, 2) are in the kernel's time-descending step order. ``wbar`` is
@@ -479,21 +491,30 @@ def varcoef_adjoint_multistep(u_next: torch.Tensor, u_cur: torch.Tensor,
             u_next, u_cur, lam, lam_partial, planes, wbar, wchunk, inj,
             (sr, sc), coef, points, ring, ring_rows, ring_cols)
     lib = _lib()
-    tile = adjoint_tile(k, n_planes, u_next.dtype,
-                        _max_smem(lib, name, u_next.device))
+    max_smem = _max_smem(lib, name, u_next.device)
     h, w = u_next.shape
-    outs = [torch.empty_like(u_next) for _ in range(4)]
+    fields = (u_next, u_cur, lam, lam_partial)
     wavbar = torch.empty(k, dtype=u_next.dtype, device=u_next.device)
-    with torch.cuda.device(u_next.device):
-        rc = lib.tw_varcoef_adjoint_multistep(
-            _DTYPES[u_next.dtype], _ptr(u_next), _ptr(u_cur), _ptr(lam),
-            _ptr(lam_partial), _ptr(planes), n_planes, _ptr(wbar),
-            _ptr(wchunk), _ptr(inj), k, sr, sc, _ptr(rows), _ptr(cols),
-            rows.numel(), ra, rb, ca, cb,
-            None if ring is None else _ptr(ring_rows),
-            None if ring is None else _ptr(ring_cols),
-            *(_ptr(o) for o in outs), _ptr(wavbar), h, w, float(coef), tile,
-            _stream(u_next))
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    return (*outs, wbar, wavbar)
+    s0 = 0
+    for kc in adjoint_chunks(k):
+        # steps s0 .. s0 + kc - 1; wbar accumulates in place across launches
+        per_step = (wchunk, inj, wavbar, ring_rows, ring_cols)
+        if kc < k:
+            per_step = tuple(None if t is None else t[s0:s0 + kc]
+                             for t in per_step)
+        w_c, inj_c, wavbar_c, rows_c, cols_c = per_step
+        tile = adjoint_tile(kc, n_planes, u_next.dtype, max_smem)
+        outs = [torch.empty_like(u_next) for _ in range(4)]
+        with torch.cuda.device(u_next.device):
+            rc = lib.tw_varcoef_adjoint_multistep(
+                _DTYPES[u_next.dtype], *(_ptr(f) for f in fields),
+                _ptr(planes), n_planes, _ptr(wbar), _ptr(w_c), _ptr(inj_c),
+                kc, sr, sc, _ptr(rows), _ptr(cols), rows.numel(), ra, rb,
+                ca, cb, None if ring is None else _ptr(rows_c),
+                None if ring is None else _ptr(cols_c),
+                *(_ptr(o) for o in outs), _ptr(wavbar_c), h, w, float(coef),
+                tile, _stream(u_next))
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+        fields, s0 = outs, s0 + kc
+    return (*fields, wbar, wavbar)
