@@ -107,7 +107,9 @@ varying and with a time-dependent wave speed at R = 1. Phases:
      per-step CG counts are equal, the mg runs launch B4 and B3
 
 Counts of kernel launches are set to 0 before each path and read after
-it; every kernel of a path must have launched. Any failed check raises and
+it; every kernel of a path must have launched. After the paths, the
+launches of B4 and B15 are printed per shape (grid, dtype, degree or fused
+steps), summed over the paths. Any failed check raises and
 the exit code is non-zero. The line before the last is
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -431,9 +433,11 @@ def check(name: str, got, want, bound: float, extra: str = "") -> float:
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
-def phase_kernels(torch, dev, kn) -> dict:
+def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
     """Check and time each kernel; returns, per kernel, the numbers of its
-    main-path shape (max abs error, kernel and plain ms, bound)."""
+    main-path shape (max abs error, kernel and plain ms, bound).
+    ``foreign``: tpuwave_torch comes from another checkout
+    (--kernels-from), whose B4 wrapper may take no zero guess."""
     from tpuwave_torch.models.fast import FastWaveSolver
     from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
                                                 stencil_symbol_bounds)
@@ -464,7 +468,8 @@ def phase_kernels(torch, dev, kn) -> dict:
         "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
         "operations counted per node: B1 21, B2 and B6 21 per step, B3 17 "
         "(23 diff), B4 22 per degree, B5 33; times: median of calls each "
-        "timed alone after an L2 flush; B3 and B6: a rerun bitwise equal")
+        "timed alone after an L2 flush; B3, B4 and B6: a rerun bitwise "
+        "equal")
     rows, results = {}, {}
 
     # the launch-and-event floor: an empty kernel through the same ctypes
@@ -604,25 +609,47 @@ def phase_kernels(torch, dev, kn) -> dict:
     results["leapfrog_multistep_driven"] = rows[
         "B6 leapfrog_multistep_driven k=8 4097^2 float32"]
 
-    # B4 cheby_block: the MG fine-level smoother (degree 2) and the
-    # --solver cheby block (degree 8) on phase 8's system, f64; degree 8
-    # in f32 at bench.py's size
+    # B4 cheby_block: the MG fine-level smoother of phase 14 (degree 1,
+    # 4097^2 f32, its Newmark system; also from the V-cycle's zero guess,
+    # where the wrapper takes one), of the CLI (degree 2, phase 8's 2049^2
+    # and phases 5 and 7's 641^2, f64) and the --solver cheby block
+    # (degree 8, 2049^2 f64 and 4097^2 f32)
+    fast_sys = FastWaveSolver((4096, 4096), ((0.0, 0.0), (1.0, 1.0)), 1e-3,
+                              beta=0.25, lumped=False, dtype=torch.float32,
+                              device=dev).system.stencil
     sys_2048 = big.system.stencil
-    for size, dtype, degree, n_k in ((2049, torch.float64, 2, 20),
-                                     (2049, torch.float64, 8, 10),
-                                     (4097, torch.float32, 8, 10)):
-        lo, hi = stencil_symbol_bounds(sys_2048)
+    for size, dtype, degree, n_k, st, zero in (
+            (4097, torch.float32, 1, 20, fast_sys, False),
+            (4097, torch.float32, 1, 20, fast_sys, True),
+            (641, torch.float64, 2, 200, sys_st, False),
+            (2049, torch.float64, 2, 20, sys_2048, False),
+            (2049, torch.float64, 8, 10, sys_2048, False),
+            (4097, torch.float32, 8, 10, sys_2048, False)):
+        lo, hi = stencil_symbol_bounds(st)
         theta, coeffs = chebyshev_coefficients(lo, hi, degree)
         x, r = rnd((size, size), dtype), rnd((size, size), dtype)
-        got = kn.cheby_block(x, r, sys_2048, theta, coeffs)
-        want = kn.cheby_block_reference(x, r, sys_2048, theta, coeffs)
-        ms = cuda_ms(lambda: kn.cheby_block(x, r, sys_2048, theta, coeffs),
-                     n_k)
+        tag = (f"B4 cheby_block degree {degree} {size}^2 {str(dtype)[6:]}"
+               + (" zero guess" if zero else ""))
+        x0 = None if zero else x
+        if zero and foreign:
+            # an earlier checkout's wrapper (--kernels-from) may read x
+            try:
+                kn.cheby_block(x0, r, st, theta, coeffs)
+            except TypeError as e:
+                say(f"  {tag}: this checkout's wrapper takes no zero guess "
+                    f"({e})")
+                continue
+        got = kn.cheby_block(x0, r, st, theta, coeffs)
+        again = kn.cheby_block(x0, r, st, theta, coeffs)
+        want = kn.cheby_block_reference(x0, r, st, theta, coeffs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: a rerun is not bitwise equal")
+        ms = cuda_ms(lambda: kn.cheby_block(x0, r, st, theta, coeffs), n_k)
         pms = cuda_ms(lambda: kn.cheby_block_reference(
-            x, r, sys_2048, theta, coeffs), 3, warm=1)
-        tag = f"B4 cheby_block degree {degree} {size}^2 {str(dtype)[6:]}"
-        rw = row(0.0, ms, pms, 4 * x.numel() * x.element_size(),
-                 22 * degree * x.numel(), dtype)
+            x0, r, st, theta, coeffs), 3, warm=1)
+        rw = row(0.0, ms, pms, (3 if zero else 4) * x.numel()
+                 * x.element_size(), 22 * degree * x.numel(), dtype)
         errs = []
         for name, g, w in (("x", got[0], want[0]), ("r", got[1], want[1])):
             peak = float(w.abs().max())
@@ -630,7 +657,7 @@ def phase_kernels(torch, dev, kn) -> dict:
             # ssum / theta) * peak; the restarted block is a fixed
             # polynomial of degree `degree`
             bound = (1e-12 * peak if dtype == torch.float64 else
-                     f32_bound((1 + ssum(sys_2048) / theta) * peak, degree))
+                     f32_bound((1 + ssum(st) / theta) * peak, degree))
             errs.append(check(f"{tag} {name}", g, w, bound,
                               timing(rw) if name == "r" else ""))
         # the in-kernel reduction against a dot product of the kernel's r
@@ -640,6 +667,7 @@ def phase_kernels(torch, dev, kn) -> dict:
             [rr_dot], device=dev, dtype=torch.float64), rel * rr_dot)
         rw["err"] = max(errs)
         rows[tag] = rw
+        del x, r, got, again, want
     results["cheby_block"] = rows["B4 cheby_block degree 2 2049^2 float64"]
 
     # B5 recurrence_r0: phase 8's -dt^2 K stencil, Newmark gamma 1/2
@@ -1379,6 +1407,11 @@ def phase_profile(torch, kn, work: Path):
         f"{dev_t[0]} device events, device busy {dev_t[1]:.3f} ms; wall "
         f"{host_plain * 1e3:.3f} ms (mean of 10, host clock), "
         f"{host * 1e3:.3f} ms under the profiler")
+    for e in sorted(_device_events(prof),
+                    key=lambda e: -e.self_device_time_total)[:6]:
+        us = e.self_device_time_total
+        say(f"    {us / 1e3:7.3f} ms {e.count:5d}x = "
+            f"{us / 1e3 / dev_t[1]:.3f} of device time  {e.key[:60]}")
     case = _case(work, T=str(20 * 1e-2), Dt="1e-2", Beta="0.25",
                  **{"Enable Logging": "false"})
     with profile(activities=acts) as prof:
@@ -1703,12 +1736,11 @@ def phase_fwi_kernels(torch, dev, kn) -> dict:
         for damped in (False, True):
             ms_planes = prob._planes9_forward(planes) if damped else planes
             n_pl = ms_planes.shape[0]
-            tile = kv.multistep_tile(k, n_pl, dtype, max_smem)
+            tile = kv.multistep_tile(k, dtype)
             src = src_near(tile, False)
             rg = ring if damped else None
             side = tile + 2 * (k + 1)
             say(f"  B15 {name} {n_pl} planes: tile {tile}, slab {side}^2, "
-                f"{(2 + n_pl) * side * side * item} B of shared memory, "
                 f"source {src}")
             ring_b = 2 * k * (shape[0] + shape[1]) * item if damped else 0
             measure(f"B15 varcoef_multistep k={k} {name} "
@@ -2097,11 +2129,49 @@ def phase_cli_varcoef(torch, kn, work: Path):
                                          f"B4 or no B3")
 
 
+#: the main paths' launches of B4 and B15 per shape (see _count_shapes;
+#: counted only while _run_path drives a path)
+SHAPE_LAUNCHES = {}
+_COUNTING = {"on": False}
+
+
+def _count_shapes(kn):
+    """Wrap the B4 and B15 wrappers in the modules their callers reach them
+    through, so that each call's launches (the change of the wrapper's own
+    count in LAUNCHES) are added to SHAPE_LAUNCHES under the call's shape."""
+    from tpuwave_torch.ops import kernels_varcoef as kv
+
+    def wrap(mod, name, key):
+        orig = getattr(mod, name)
+
+        def counted(*args):
+            before = kn.LAUNCHES[name]
+            out = orig(*args)
+            if _COUNTING["on"]:
+                k = (name, key(*args))
+                SHAPE_LAUNCHES[k] = (SHAPE_LAUNCHES.get(k, 0)
+                                     + kn.LAUNCHES[name] - before)
+            return out
+        setattr(mod, name, counted)
+
+    def grid(t):
+        return f"{t.shape[0]}^2 {str(t.dtype)[6:]}" if t.shape[0] == \
+            t.shape[1] else f"{t.shape[0]}x{t.shape[1]} {str(t.dtype)[6:]}"
+    wrap(kn, "cheby_block", lambda x, r, st, th, cf:
+         f"{grid(r)} degree {1 + len(cf)}{' zero guess' if x is None else ''}")
+    wrap(kv, "varcoef_leapfrog_multistep", lambda u, up, pl, w, *rest:
+         f"{grid(u)} k={w.numel()} {pl.shape[0]} planes")
+
+
 def _run_path(kn, name, kernels, fn) -> dict:
     """Drive one main path with the launch counts at 0; every kernel of
     the path must have launched."""
     kn.reset_launches()
-    fn()
+    _COUNTING["on"] = True
+    try:
+        fn()
+    finally:
+        _COUNTING["on"] = False
     launches = {k: kn.LAUNCHES[k] for k in kernels}
     say(f"path {name} launches: {launches} "
         f"({time.perf_counter() - T_START:.0f} s since the start)")
@@ -2112,11 +2182,14 @@ def _run_path(kn, name, kernels, fn) -> dict:
     return launches
 
 
-def _run_only(torch, dev, kn, names: str) -> int:
-    """Run the named phase functions (``phase_<name>``) alone, in order."""
+def _run_only(torch, dev, kn, names: str, foreign: bool) -> int:
+    """Run the named phase functions (``phase_<name>``) alone, in order;
+    ``foreign``: tpuwave_torch comes from another checkout
+    (--kernels-from)."""
     import inspect
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        avail = dict(torch=torch, dev=dev, kn=kn, work=Path(tmp))
+        avail = dict(torch=torch, dev=dev, kn=kn, work=Path(tmp),
+                     foreign=foreign)
         for name in names.split(","):
             fn = globals()[f"phase_{name.strip()}"]
             fn(**{k: avail[k] for k in inspect.signature(fn).parameters})
@@ -2170,7 +2243,8 @@ def main() -> int:
 
     say(f"  tpuwave_torch from {Path(_build.__file__).parents[2]}")
     if args.only:
-        return _run_only(torch, dev, kn, args.only)
+        return _run_only(torch, dev, kn, args.only,
+                         args.kernels_from is not None)
 
     results = phase_kernels(torch, dev, kn)
     results.update(phase_fast_kernels(torch, dev, kn))
@@ -2207,6 +2281,7 @@ def main() -> int:
             phase_driven_1024(torch)
             phase_cli_varcoef(torch, kn, work)
 
+        _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
         phase_profile(torch, kn, work)
@@ -2216,6 +2291,9 @@ def main() -> int:
         launches_e = _run_path(kn, "E", PATH_E, path_e)
         launches_f = _run_path(kn, "F", PATH_F, path_f)
 
+    say("launches per shape, all paths:")
+    for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
+        say(f"  {name} {shape}: {n}")
     kernels = []
     for name in SOURCES:
         r = results[name]

@@ -4,13 +4,15 @@ steps_per_call, on one CUDA card, with the tpuwave_torch of a given
 checkout (default: this one), so that two checkouts can be compared on
 one card, run alternately.
 
-For each k: the fused depth FwiProblem uses (its cap), misfit_and_grad's
+For each k: the fused depth FwiProblem uses, misfit_and_grad's
 time (best of --repeats after a warm run, host clock around a
-synchronize), the B15 and B17 launches of one call, the misfit and the
+synchronize) and the device-busy time of one call (torch.profiler: the
+sum of its kernels' and copies' times, which the host's noise does not
+move), the B15 and B17 launches of one call, the misfit and the
 gradient's norm; at chip_smoke.py's phase-17 configuration (1024^2
 elements, f32, dt 2e-4, 2000 steps, hard walls, c2 = 0.9 against the
-disk model's traces) and at 512^2 f64 (dt 4e-4, 1000 steps). Then B17
-alone on random fields at the same shapes and each k
+disk model's traces) and at 512^2 f64 (dt 4e-4, 1000 steps). Then B15
+and B17 alone on random fields at the same shapes and each k
 (chip_smoke.cuda_ms: the median of calls each timed alone after an L2
 flush), or the error it raises. Needs nvcc and one card:
 
@@ -42,6 +44,7 @@ def main() -> int:
     import numpy as np
     import torch
     import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
     from tpuwave_torch.models.inverse import FwiProblem
     from tpuwave_torch.ops import kernels_varcoef as kv
     from tpuwave_torch.ops.kernels import LAUNCHES
@@ -74,8 +77,15 @@ def main() -> int:
                          "varcoef_adjoint_multistep"))
             best, (v, g) = cs._best_of(
                 torch, lambda: p.misfit_and_grad(c2i, obs), args.repeats)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                p.misfit_and_grad(c2i, obs)
+                torch.cuda.synchronize()
+            busy = cs._device_time(prof)
             print(f"{nel}^2 {dname} {n} steps, steps_per_call {k}: fused "
-                  f"depth {p._k}, misfit_and_grad {best * 1e3:.2f} ms, "
+                  f"depth {p._k}, misfit_and_grad {best * 1e3:.2f} ms "
+                  f"(device busy "
+                  f"{'not measured' if busy is None else f'{busy[1]:.2f} ms'}), "
                   f"{n15} B15 + {n17} B17 launches, misfit {float(v):.9e}, "
                   f"||grad|| {float(torch.linalg.vector_norm(g)):.9e}",
                   flush=True)
@@ -95,25 +105,30 @@ def main() -> int:
 
         un, uc, lam, lp = (rnd(*shape) for _ in range(4))
         wbar = rnd(7, *shape)
+        src = (shape[0] // 3, shape[1] // 3)
         for k in ks:
             w, inj = rnd(k), rnd(k, rec.rows.numel())
-
-            def call():
-                kv.varcoef_adjoint_multistep(
-                    un, uc, lam, lp, planes, wbar, w, inj,
-                    (shape[0] // 3, shape[1] // 3), coef,
-                    (rec.rows, rec.cols))
-            try:
-                before = LAUNCHES["varcoef_adjoint_multistep"]
-                call()
-                launches = LAUNCHES["varcoef_adjoint_multistep"] - before
-                ms = cs.cuda_ms(call, 20)
-            except ValueError as e:
-                print(f"  B17 {shape[0]}^2 {dname} k={k}: {e}", flush=True)
-                continue
-            print(f"  B17 {shape[0]}^2 {dname} k={k}: {ms * 1e3:.1f} us in "
-                  f"{launches} launch(es), {ms * 1e3 / k:.2f} us/step",
-                  flush=True)
+            calls = (
+                ("B15", "varcoef_leapfrog_multistep",
+                 lambda: kv.varcoef_leapfrog_multistep(un, uc, planes, w, src,
+                                                       coef, rec)),
+                ("B17", "varcoef_adjoint_multistep",
+                 lambda: kv.varcoef_adjoint_multistep(
+                     un, uc, lam, lp, planes, wbar, w, inj, src, coef,
+                     (rec.rows, rec.cols))))
+            for tag, name, call in calls:
+                try:
+                    before = LAUNCHES[name]
+                    call()
+                    launches = LAUNCHES[name] - before
+                    ms = cs.cuda_ms(call, 20)
+                except ValueError as e:
+                    print(f"  {tag} {shape[0]}^2 {dname} k={k}: {e}",
+                          flush=True)
+                    continue
+                print(f"  {tag} {shape[0]}^2 {dname} k={k}: "
+                      f"{ms * 1e3:.1f} us in {launches} launch(es), "
+                      f"{ms * 1e3 / k:.2f} us/step", flush=True)
         del p, planes, un, uc, lam, lp, wbar
     print(f"done ({time.perf_counter() - cs.T_START:.0f} s)", flush=True)
     return 0

@@ -348,11 +348,21 @@ def test_cuda_varcoef_step(cuda_device, dtype, damped):
                                                         damp), dtype)
 
 
+@pytest.mark.parametrize("dtype, k, tile", [
+    (torch.float32, 1, 56), (torch.float32, 4, 50), (torch.float32, 8, 42),
+    (torch.float64, 1, 44), (torch.float64, 4, 38), (torch.float64, 8, 30)])
+def test_multistep_tile_is_the_slab_less_its_halo(dtype, k, tile):
+    assert kv.multistep_tile(k, dtype) == tile
+    for bad in (0, kv.MAX_FUSED_STEPS + 1):
+        with pytest.raises(ValueError, match="one launch fuses"):
+            kv.multistep_tile(bad, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k, damped, interp", [
     (1, False, False), (3, False, True), (8, False, False),
-    (8, True, True)])
+    (8, True, True), (12, False, True), (20, True, False)])
 def test_cuda_varcoef_multistep(cuda_device, dtype, k, damped, interp):
     prob, coef, planes, rng = _card_setup(cuda_device, dtype, damped,
                                           interp)
@@ -361,19 +371,60 @@ def test_cuda_varcoef_multistep(cuda_device, dtype, k, damped, interp):
                      device=cuda_device)
     ms = prob._planes9_forward(planes) if damped else planes
     ring = prob._ring if damped else None
-    tile = kv.multistep_tile(k, ms.shape[0], dtype,
-                             tk._max_smem(tk._lib(), "t", cuda_device))
+    # k > 8 runs in several launches: the source sits on the first one's
+    # tiles
+    tile = kv.multistep_tile(kv.fused_chunks(k)[0], dtype)
     src = (tile - 1, tile)        # one row above / one column right of a tile
+    before = tk.LAUNCHES["varcoef_leapfrog_multistep"]
     got = kv.varcoef_leapfrog_multistep(u, up, ms, w, src, coef,
                                         prob._receivers, ring)
     again = kv.varcoef_leapfrog_multistep(u, up, ms, w, src, coef,
                                           prob._receivers, ring)
     torch.cuda.synchronize()
+    assert (tk.LAUNCHES["varcoef_leapfrog_multistep"] - before
+            == 2 * len(kv.fused_chunks(k)))
     want = kv.varcoef_leapfrog_multistep_reference(u, up, ms, w, src, coef,
                                                    prob._receivers, ring)
     for g, a, wt in zip(got, again, want):
         assert torch.equal(g, a)
         _close_card(g, wt, dtype, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("damped", [False, True])
+@pytest.mark.parametrize("where", ["corner", "pinned"])
+def test_cuda_varcoef_multistep_points(cuda_device, dtype, damped, where):
+    """The source on a tile corner or on the pinned row 0; receivers
+    (nearest-vertex and three-point) on tile corners, on row 0 and on the
+    last corner; 8 steps."""
+    k = 8
+    prob, coef, planes, rng = _card_setup(cuda_device, dtype, damped)
+    rows, cols = prob._grid
+    u, up = _on(cuda_device, dtype, rng, prob._grid, 2)
+    (w,) = _on(cuda_device, dtype, rng, (k,), 1)
+    ms = prob._planes9_forward(planes) if damped else planes
+    tile = kv.multistep_tile(k, dtype)
+    src = (tile, tile) if where == "corner" else (0, tile)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    for per, pr, pc in (
+            (1, [tile, tile - 1, 0, rows - 1], [tile, tile - 1, 5, cols - 1]),
+            (3, [tile, tile, tile - 1, 0, 1, 0],
+             [tile - 1, tile, tile - 1, 3, 3, 4])):
+        (wt,) = _on(cuda_device, dtype, rng, (len(pr),), 1)
+        rec = kv.Receivers(torch.tensor(pr, **i32), torch.tensor(pc, **i32),
+                           wt, per)
+        ring = prob._ring if damped else None
+        got = kv.varcoef_leapfrog_multistep(u, up, ms, w, src, coef, rec,
+                                            ring)
+        again = kv.varcoef_leapfrog_multistep(u, up, ms, w, src, coef, rec,
+                                              ring)
+        torch.cuda.synchronize()
+        want = kv.varcoef_leapfrog_multistep_reference(u, up, ms, w, src,
+                                                       coef, rec, ring)
+        for g, a, wnt in zip(got, again, want):
+            assert torch.equal(g, a)
+            _close_card(g, wnt, dtype, k)
 
 
 @pytest.mark.cuda
@@ -403,12 +454,16 @@ def test_adjoint_tile_is_the_slab_less_its_halo(dtype, k, tile):
         kv.adjoint_tile(k, 7, dtype, 1024)
 
 
-@pytest.mark.parametrize("k", [1, 8, 9, 12, 20, 31])
+@pytest.mark.parametrize("k", [1, 2, 7, 8, 9, 12, 16, 17, 20, 24, 31, 40,
+                               64])
 def test_adjoint_chunks_split_evenly(k):
-    chunks = kv.adjoint_chunks(k)
+    """fused_chunks, the split of a pass into B15 and B17 launches."""
+    chunks = kv.fused_chunks(k)
     assert sum(chunks) == k
     assert len(chunks) == -(-k // 8)
     assert max(chunks) <= 8 and max(chunks) - min(chunks) <= 1
+    # the smallest B15 tile of a pass is the one of its largest launch
+    assert kv.multistep_tile(max(chunks), torch.float64) >= 30
 
 
 @pytest.mark.cuda
@@ -422,7 +477,7 @@ def test_cuda_varcoef_adjoint_multistep(cuda_device, dtype, k, damped):
     (wbar,) = _on(cuda_device, dtype, rng, (7,) + prob._grid, 1)
     ms = prob._planes9_adjoint(planes) if damped else planes
     # k > 8 runs in several launches: the points sit on the first one's tiles
-    tile = kv.adjoint_tile(kv.adjoint_chunks(k)[0], ms.shape[0], dtype,
+    tile = kv.adjoint_tile(kv.fused_chunks(k)[0], ms.shape[0], dtype,
                            tk._max_smem(tk._lib(), "t", cuda_device))
     src = (tile, tile - 1)      # first row / last column of two tiles
     i32 = dict(dtype=torch.int32, device=cuda_device)
@@ -446,7 +501,7 @@ def test_cuda_varcoef_adjoint_multistep(cuda_device, dtype, k, damped):
     again = kv.varcoef_adjoint_multistep(*args, wbar.clone(), *tail)
     torch.cuda.synchronize()
     assert (tk.LAUNCHES["varcoef_adjoint_multistep"] - before
-            == 2 * len(kv.adjoint_chunks(k)))
+            == 2 * len(kv.fused_chunks(k)))
     want = kv.varcoef_adjoint_multistep_reference(*args, wbar.clone(), *tail)
     for g, a, wt in zip(got, again, want):
         assert torch.equal(g, a)

@@ -10,7 +10,8 @@
 // at its true shape, the 3x3 stencil and every coefficient as run-time
 // arguments, the Dirichlet mask in global coordinates (grid_common.cuh).
 // Each kernel also returns squared norms, reduced deterministically in the
-// tensor's dtype: one partial per block, then sum_partials_kernel.
+// tensor's dtype: one partial per block, then (B5) sum_partials_kernel or
+// (B4) the last block to finish sums the partials in the same launch.
 //
 // Plain C interface, bound from Python with ctypes (ops/kernels.py). Every
 // entry point launches on the stream it is given, allocates nothing (the
@@ -36,33 +37,217 @@ struct ChebyCoeffs {
 //   r <- masked(r);  d = r / theta;  x += d;  r = masked(r - S d)
 //   for j: d = c1_j d + c2_j r;  x += d;  r = masked(r - S d)
 //
-// and ||r||^2 of the result. Each block owns a tile x tile square of output
-// nodes. It loads r with a halo of `degree` nodes on every side into
-// dynamic shared memory (zero outside the array and on pinned nodes) and
-// runs the recurrence there: after step j, r is exact at distance >= j
-// from the slab edge and d at distance >= j - 1, so after `degree` steps
-// the centre tile is exact. Two __syncthreads() per step: r is updated in
-// place from d's neighbours, then d in place from its own node. x is
-// elementwise: only its centre tile is read, accumulated in shared memory
-// and written. The slab holds r and d, (tile + 2 degree)^2 each, plus the
-// tile of x; the wrapper picks the largest tile (64, 32, 16) that fits.
+// and ||r||^2 of the result, in the same launch. x may be null: a zero
+// initial guess, not read. After step j, r is exact at distance >= j from
+// the edge of a block's slab and d at distance >= j - 1, so a slab of the
+// tile plus a `degree` halo makes the tile exact.
 //
-// Bound on this card: memory in the limit, 2 arrays read and 2 written
-// (at 2049^2 f64: 134 MB, 40 us at 3.35 TB/s); the operations, ~24 per
-// node per degree (9 multiply-adds of the stencil, the d and x updates),
-// are 0.8 GFLOP at degree 8 there, 24 us at the 34 TFLOP/s f64 peak. The
-// simple design reads every stencil operand from shared memory (9 loads
-// per node and step) over a slab larger than the tile, so shared-memory
-// traffic and the two barriers per step bound it, not device memory.
+// Bound on this card: memory, 2 arrays read and 2 written (1 and 2 with a
+// zero guess; at 2049^2 f64: 134 MB, 40 us at 3.35 TB/s); the operations,
+// ~22 per node per degree, are 0.8 GFLOP at degree 8 there, 24 us at the
+// 34 TFLOP/s f64 peak.
+//
+// Only d is read at neighbours. A thread owns R consecutive slab rows of
+// one column of a 64-column slab and keeps r, its own d and x in registers
+// for all the steps; shared memory holds d alone, double buffered (one
+// barrier per step), read through a sliding 3-row register window (three
+// shared loads per node and step). Slabs of 64 x 64 nodes, or 64 x 32 in
+// f64 up to degree 2 (ChebyGeometry). Pinned nodes lie on the walls only: a block whose slab
+// touches no wall and no array edge runs the recurrence with no mask test,
+// the others mask r with a per-node pin bit set at staging (a pinned node
+// stages r = d = 0, so d stays 0 there). Degrees above kChebyRegMaxDegree
+// take cheby_block_smem_kernel below, whose slabs in shared memory hold any
+// degree. (The first version ran every degree on that kernel: r and d over
+// the slab in shared memory, nine shared loads per node and step, two
+// barriers per step, and a second launch to sum the norm's partials.)
+//
+// The norm: each block reduces its tile's r^2 in a fixed order into one
+// partial; the last block to finish (an integer ticket taken after a
+// __threadfence) sums the partials in block order and resets the ticket to
+// 0 for the next call. No float atomics: reruns are bitwise equal.
 // ---------------------------------------------------------------------------
+constexpr int kChebyX = 64;
+constexpr int kChebySmallDegree = 2, kChebyRegMaxDegree = 16;
+
+// Threads in y (TY) and rows per thread (R) of the register kernel, up to
+// degree kChebySmallDegree and above it: slabs of 64 x TY R nodes. Each is
+// the fastest of the shapes timed at the main paths' sizes (degree 1 at
+// 4097^2 f32, degree 2 at 2049^2 and 641^2 f64, degree 8 at 2049^2 f64 and
+// 4097^2 f32).
 template <typename T>
-__global__ void cheby_block_kernel(const T* __restrict__ x,
-                                   const T* __restrict__ r,
-                                   T* __restrict__ out_x,
-                                   T* __restrict__ out_r,
-                                   T* __restrict__ partials, int H, int W,
-                                   Stencil9 st, double inv_theta,
-                                   ChebyCoeffs cf, int n_coeffs, int tile) {
+struct ChebyGeometry;
+template <>
+struct ChebyGeometry<float> {
+  static constexpr int kSmallTY = 8, kSmallR = 8, kLargeTY = 8, kLargeR = 8;
+};
+template <>
+struct ChebyGeometry<double> {
+  static constexpr int kSmallTY = 8, kSmallR = 4, kLargeTY = 4, kLargeR = 16;
+};
+
+template <int TY, int R>
+constexpr size_t cheby_reg_smem_elems() {
+  return 2 * ((size_t)kChebyX * TY * R + 2 * (kChebyX + 1));
+}
+
+// One partial per block, then the last block's sum of them into *rr; valid
+// with every thread of the block calling it.
+template <typename T>
+__device__ void finish_norm(T part, T* __restrict__ partials,
+                            unsigned* __restrict__ ticket, T* __restrict__ rr) {
+  __shared__ bool last;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nth = blockDim.x * blockDim.y;
+  const unsigned nb = gridDim.x * gridDim.y;
+  part = block_sum(part);
+  if (tid == 0) {
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = part;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == nb - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  T v = T(0);
+  for (unsigned i = tid; i < nb; i += nth) v += __ldcg(partials + i);
+  v = block_sum(v);
+  if (tid == 0) {
+    *rr = v;
+    *ticket = 0u;
+  }
+}
+
+template <typename T, int TY, int R, bool WALLS>
+__device__ __forceinline__ void cheby_reg_walk(
+    const T* __restrict__ x, const T* __restrict__ r, T* __restrict__ out_x,
+    T* __restrict__ out_r, T* __restrict__ ds, int H, int W, int r0, int c0,
+    int deg, int tile_y, int tile_x, const Stencil9& st9, double inv_theta,
+    const ChebyCoeffs& cf, T* __restrict__ partials,
+    unsigned* __restrict__ ticket, T* __restrict__ rr) {
+  constexpr int SX = kChebyX;
+  constexpr int kPad = SX + 1;
+  constexpr int SB = SX * TY * R + 2 * kPad;
+  const int sc = threadIdx.x, sr0 = threadIdx.y * R;
+  const int gc = c0 + sc;
+  const int base = kPad + sr0 * SX + sc;
+  const bool col_tile = sc >= deg && sc < deg + tile_x && gc < W;
+  const T it = T(inv_theta);
+  T rv[R], dv[R], xv[R];
+  unsigned pin_bits = 0, tile_bits = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int sr = sr0 + i, gr = r0 + sr;
+    const bool pin = WALLS && is_pinned(gr, gc, H, W);
+    const bool t = col_tile && sr >= deg && sr < deg + tile_y &&
+                   (!WALLS || gr < H);
+    const bool in = !WALLS || (gr >= 0 && gr < H && gc >= 0 && gc < W);
+    const size_t g = in ? (size_t)gr * W + gc : 0;
+    rv[i] = pin ? T(0) : __ldg(r + g);
+    xv[i] = (x != nullptr && t) ? __ldg(x + g) : T(0);
+    pin_bits |= (unsigned)pin << i;
+    tile_bits |= (unsigned)t << i;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    dv[i] = it * rv[i];
+    xv[i] += dv[i];
+    ds[base + i * SX] = dv[i];
+  }
+  __syncthreads();
+  const StencilT<T> st(st9);
+  for (int j = 1; j <= deg; ++j) {
+    const T* __restrict__ cur = ds + ((j - 1) & 1) * SB;
+    T* nxt = ds + (j & 1) * SB;
+    const bool more = j < deg;
+    const T c1 = more ? T(cf.c1[j - 1]) : T(0);
+    const T c2 = more ? T(cf.c2[j - 1]) : T(0);
+    Window<T, SX> w;
+    w.start(cur, base);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int q = base + i * SX;
+      w.next_row(cur, q);
+      T v = rv[i] - w.apply(st);
+      if (WALLS) v = ((pin_bits >> i) & 1u) ? T(0) : v;
+      rv[i] = v;
+      if (more) {
+        dv[i] = c1 * dv[i] + c2 * v;
+        xv[i] += dv[i];
+        nxt[q] = dv[i];
+      }
+      w.advance();
+    }
+    if (more) __syncthreads();
+  }
+  T part = T(0);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if ((tile_bits >> i) & 1u) {
+      const size_t g = (size_t)(r0 + sr0 + i) * W + gc;
+      out_x[g] = xv[i];
+      out_r[g] = rv[i];
+      part += rv[i] * rv[i];
+    }
+  }
+  finish_norm(part, partials, ticket, rr);
+}
+
+template <typename T, int TY, int R>
+__global__ void __launch_bounds__(kChebyX * TY)
+cheby_block_reg_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                       T* __restrict__ out_x, T* __restrict__ out_r,
+                       T* __restrict__ partials, unsigned* __restrict__ ticket,
+                       T* __restrict__ rr, int H, int W, Stencil9 st,
+                       double inv_theta, ChebyCoeffs cf, int n_coeffs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ds = reinterpret_cast<T*>(smem_raw);
+  constexpr int SX = kChebyX, SY = TY * R;
+  constexpr int kPad = SX + 1;
+  constexpr int SB = SX * SY + 2 * kPad;
+  const int deg = 1 + n_coeffs;
+  const int tile_y = SY - 2 * deg, tile_x = SX - 2 * deg;
+  const int r0 = blockIdx.y * tile_y - deg;  // array row of slab row 0
+  const int c0 = blockIdx.x * tile_x - deg;  // array col of slab col 0
+  const int tid = threadIdx.y * SX + threadIdx.x;
+  for (int q = tid; q < 2 * kPad; q += SX * TY) {
+    // the spare values (read only by nodes whose result is never used)
+    T* b = ds + (q / kPad) * SB;
+    const int j = q % kPad;
+    b[j] = T(0);
+    b[SB - 1 - j] = T(0);
+  }
+  // the slab touches a wall, or reaches past the array
+  const bool walls = r0 <= 0 || c0 <= 0 || r0 + SY - 1 >= H - 1 ||
+                     c0 + SX - 1 >= W - 1;
+  if (walls) {
+    cheby_reg_walk<T, TY, R, true>(x, r, out_x, out_r, ds, H, W, r0, c0, deg,
+                               tile_y, tile_x, st, inv_theta, cf, partials,
+                               ticket, rr);
+  } else {
+    cheby_reg_walk<T, TY, R, false>(x, r, out_x, out_r, ds, H, W, r0, c0, deg,
+                                tile_y, tile_x, st, inv_theta, cf, partials,
+                                ticket, rr);
+  }
+}
+
+// Degrees above kChebyRegMaxDegree: each block loads r with a halo of
+// `degree` nodes into dynamic shared memory (zero outside the array and on
+// pinned nodes) and runs the recurrence there, two barriers per step: r is
+// updated in place from d's neighbours, then d in place from its own node.
+// x is elementwise: only its centre tile is read, accumulated in shared
+// memory and written. The slab holds r and d, (tile + 2 degree)^2 each,
+// plus the tile of x; the wrapper picks the largest tile (64, 32, 16) that
+// fits.
+template <typename T>
+__global__ void cheby_block_smem_kernel(const T* __restrict__ x,
+                                        const T* __restrict__ r,
+                                        T* __restrict__ out_x,
+                                        T* __restrict__ out_r,
+                                        T* __restrict__ partials,
+                                        unsigned* __restrict__ ticket,
+                                        T* __restrict__ rr, int H, int W,
+                                        Stencil9 st, double inv_theta,
+                                        ChebyCoeffs cf, int n_coeffs,
+                                        int tile) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int deg = 1 + n_coeffs;
   const int S = tile + 2 * deg;  // slab side
@@ -93,9 +278,10 @@ __global__ void cheby_block_kernel(const T* __restrict__ x,
     const int gr = blockIdx.y * tile + tr;
     for (int tc = tx; tc < tile; tc += bx) {
       const int gc = blockIdx.x * tile + tc;
+      const T d = ds[(tr + deg) * S + tc + deg];
       xs[tr * tile + tc] =
           (gr < H && gc < W)
-              ? __ldg(x + (size_t)gr * W + gc) + ds[(tr + deg) * S + tc + deg]
+              ? (x != nullptr ? __ldg(x + (size_t)gr * W + gc) + d : d)
               : T(0);
     }
   }
@@ -162,8 +348,7 @@ __global__ void cheby_block_kernel(const T* __restrict__ x,
       part += rv * rv;
     }
   }
-  part = block_sum(part);
-  if (tx == 0 && ty == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = part;
+  finish_norm(part, partials, ticket, rr);
 }
 
 // ---------------------------------------------------------------------------
@@ -235,41 +420,82 @@ __global__ void recurrence_r0_kernel(const T* __restrict__ u,
   }
 }
 
-template <typename T>
-int launch_cheby(const void* x, const void* r, void* out_x, void* out_r,
-                 void* partials, int n_partials, void* rr, int H, int W,
-                 const double* s, double inv_theta, const double* c1,
-                 const double* c2, int n_coeffs, int tile,
-                 cudaStream_t stream) {
-  if (n_coeffs < 0 || n_coeffs > kMaxCoeffs || tile <= 0) {
+template <typename K>
+int opt_in_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int TY, int R>
+int launch_cheby_reg(const T* x, const T* r, T* out_x, T* out_r, T* partials,
+                     int n_partials, unsigned* ticket, T* rr, int H, int W,
+                     const Stencil9& st, double inv_theta,
+                     const ChebyCoeffs& cf, int n_coeffs, int tile_rows,
+                     int tile_cols, cudaStream_t stream) {
+  const int deg = 1 + n_coeffs;
+  if (tile_rows != TY * R - 2 * deg || tile_cols != kChebyX - 2 * deg) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(32, 16);
-  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
-  const int n_blocks = (int)(grid.x * grid.y);
-  if (n_partials < n_blocks) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + tile_cols - 1) / tile_cols,
+                  (H + tile_rows - 1) / tile_rows);
+  if (n_partials < (int)(grid.x * grid.y)) return (int)cudaErrorInvalidValue;
+  const size_t smem = cheby_reg_smem_elems<TY, R>() * sizeof(T);
+  const int e = opt_in_smem(cheby_block_reg_kernel<T, TY, R>, smem);
+  if (e != 0) return e;
+  cheby_block_reg_kernel<T, TY, R><<<grid, dim3(kChebyX, TY), smem, stream>>>(
+      x, r, out_x, out_r, partials, ticket, rr, H, W, st, inv_theta, cf,
+      n_coeffs);
+  return (int)cudaGetLastError();
+}
+
+// tile_rows x tile_cols: the tile the wrapper chose (ops/kernels.py
+// cheby_tile); refused unless it is the one the degree's kernel takes
+template <typename T>
+int launch_cheby(const void* x, const void* r, void* out_x, void* out_r,
+                 void* partials, int n_partials, void* ticket, void* rr,
+                 int H, int W, const double* s, double inv_theta,
+                 const double* c1, const double* c2, int n_coeffs,
+                 int tile_rows, int tile_cols, cudaStream_t stream) {
+  if (n_coeffs < 0 || n_coeffs > kMaxCoeffs || tile_rows <= 0 ||
+      tile_cols <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   ChebyCoeffs cf;
   for (int k = 0; k < kMaxCoeffs; ++k) {
     cf.c1[k] = k < n_coeffs ? c1[k] : 0.0;
     cf.c2[k] = k < n_coeffs ? c2[k] : 0.0;
   }
-  const size_t side = (size_t)tile + 2 * (size_t)(1 + n_coeffs);
-  const size_t smem = (2 * side * side + (size_t)tile * tile) * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cheby_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(r);
+  T* ox = static_cast<T*>(out_x);
+  T* orr = static_cast<T*>(out_r);
+  T* pt = static_cast<T*>(partials);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  T* rrt = static_cast<T*>(rr);
+  const Stencil9 st = load_stencil(s);
+  const int deg = 1 + n_coeffs;
+  using G = ChebyGeometry<T>;
+  if (deg <= kChebySmallDegree) {
+    return launch_cheby_reg<T, G::kSmallTY, G::kSmallR>(
+        xt, rt, ox, orr, pt, n_partials, tk, rrt, H, W, st, inv_theta, cf,
+        n_coeffs, tile_rows, tile_cols, stream);
   }
-  cheby_block_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<T*>(out_x), static_cast<T*>(out_r),
-      static_cast<T*>(partials), H, W, load_stencil(s), inv_theta, cf,
-      n_coeffs, tile);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sum_partials_kernel<T><<<1, kSumThreads, 0, stream>>>(
-      static_cast<const T*>(partials), n_blocks, static_cast<T*>(rr));
+  if (deg <= kChebyRegMaxDegree) {
+    return launch_cheby_reg<T, G::kLargeTY, G::kLargeR>(
+        xt, rt, ox, orr, pt, n_partials, tk, rrt, H, W, st, inv_theta, cf,
+        n_coeffs, tile_rows, tile_cols, stream);
+  }
+  const int tile = tile_rows;
+  if (tile_cols != tile) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
+  if (n_partials < (int)(grid.x * grid.y)) return (int)cudaErrorInvalidValue;
+  const size_t side = (size_t)tile + 2 * (size_t)deg;
+  const size_t smem = (2 * side * side + (size_t)tile * tile) * sizeof(T);
+  const int e = opt_in_smem(cheby_block_smem_kernel<T>, smem);
+  if (e != 0) return e;
+  cheby_block_smem_kernel<T><<<grid, dim3(32, 16), smem, stream>>>(
+      xt, rt, ox, orr, pt, tk, rrt, H, W, st, inv_theta, cf, n_coeffs, tile);
   return (int)cudaGetLastError();
 }
 
@@ -303,20 +529,18 @@ extern "C" {
 // (9 host doubles, the row-major 3x3 stencil) and c1 / c2 (n_coeffs host
 // doubles each). `partials` holds n_partials values of the dtype; `rr`
 // receives ||r_new||^2 (one value), `norms` ||r0||^2 then ||x0||^2.
+// B4: x null = a zero initial guess; `ticket` is one unsigned int that is
+// 0 before the call and 0 again after it.
 
 int tw_cheby_block(int dtype, const void* x, const void* r, void* out_x,
-                   void* out_r, void* partials, int n_partials, void* rr,
-                   int H, int W, const double* s, double inv_theta,
+                   void* out_r, void* partials, int n_partials, void* ticket,
+                   void* rr, int H, int W, const double* s, double inv_theta,
                    const double* c1, const double* c2, int n_coeffs,
-                   int tile, void* stream) {
+                   int tile_rows, int tile_cols, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_cheby<float>(x, r, out_x, out_r, partials, n_partials, rr,
-                               H, W, s, inv_theta, c1, c2, n_coeffs, tile,
-                               st);
-  }
-  return launch_cheby<double>(x, r, out_x, out_r, partials, n_partials, rr,
-                              H, W, s, inv_theta, c1, c2, n_coeffs, tile, st);
+  auto launch = dtype == 0 ? launch_cheby<float> : launch_cheby<double>;
+  return launch(x, r, out_x, out_r, partials, n_partials, ticket, rr, H, W,
+                s, inv_theta, c1, c2, n_coeffs, tile_rows, tile_cols, st);
 }
 
 int tw_recurrence_r0(int dtype, const void* u, const void* up, void* out_r0,

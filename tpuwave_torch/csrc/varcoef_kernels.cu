@@ -135,17 +135,30 @@ __global__ void varcoef_adjoint_step_kernel(
   }
 }
 
+// The K stencil on a window, in OFFSETS order (0,0) (-1,0) (1,0) (0,-1)
+// (-1,-1) (0,1) (1,1) as (dx, dy).
+template <typename T, int SX>
+__device__ __forceinline__ T window_k(const T* __restrict__ p,
+                                      const Window<T, SX>& w) {
+  T acc = p[0] * w.mid.v[1];
+  acc += p[1] * w.mid.v[0];
+  acc += p[2] * w.mid.v[2];
+  acc += p[3] * w.up.v[1];
+  acc += p[4] * w.up.v[0];
+  acc += p[5] * w.down.v[1];
+  acc += p[6] * w.down.v[2];
+  return acc;
+}
+
 // ---------------------------------------------------------------------------
 // B15: n_steps forward steps in one pass (temporal blocking).
 //
-// Each block owns a tile x tile square of nodes. It stages u, u_prev and
-// the NP planes over the tile plus a halo of n_steps + 1 nodes on all
-// four sides in dynamic shared memory (zeros outside the array) and runs the
-// steps there, one barrier each. Step s updates the slab nodes at distance
-// >= s from the slab edge in place (u_next overwrites u_prev's slot; it
-// reads only its own u_prev), so after n_steps the tile and one ring around
-// it are exact: the ring lets the block that owns a receiver's first point
-// read the other points of its triangle. After every step:
+// Each block covers a kSide x kSide slab: its tile (side kSide - 2 (n_steps
+// + 1)) plus a halo of n_steps + 1 nodes, so that after n_steps steps the
+// tile and one ring around it are exact: the ring lets the block that owns
+// a receiver's first point read the other points of its triangle. A pass
+// of n_steps is split into launches of at most 8 steps
+// (ops/kernels_varcoef.py fused_chunks), so the halo's share stays bounded. After every step:
 //   - the source node gets wchunk[s] * coef (times dden = p2 / 2 at the
 //     source when damped) after the mask, in every block whose slab holds
 //     it, so no halo goes stale;
@@ -156,15 +169,44 @@ __global__ void varcoef_adjoint_step_kernel(
 // [8] pm = dden dnum; u' = p2 u - pm u_prev - coef K' u.
 //
 // Bound on this card: device memory (9, damped 11, reads and 2 writes per
-// node per pass) once the staging loads are in flight together: each
-// thread issues all 2 + NP loads of a slab node before its first store,
-// and 512-thread blocks keep more of them in flight. Each step then reads
-// ~16 values of shared memory per slab node, over a slab 1.6x the tile.
+// node per pass). A thread owns kRows consecutive slab rows of one column
+// for all the steps and keeps in registers what only its own nodes read:
+// the NP planes, u_prev, and its pin, source, tile and ring bits, all
+// computed or loaded once (every load of the thread is issued before the
+// first store). Shared memory holds only u_cur, which neighbours read,
+// double buffered (one barrier per step); a thread walks its rows with a
+// sliding 3x3 register window (three shared loads per node and step). Every
+// step updates all the slab's nodes with no test of which are still exact
+// (a node at distance d from the slab edge is exact after step s when
+// d >= s, and the others feed only nodes that are not exact either); the
+// mask and the source are selects. The tile's outputs and the ring saves
+// are written from registers. (The first version staged u, u_prev and
+// the planes in shared memory, re-mapped 32 x 16 threads onto the
+// shrinking slab every step with a pin test per node, and read ~16 values
+// of shared memory per node and step: 11-14% of the bound.)
 // ---------------------------------------------------------------------------
-constexpr int kSlabThreadsY = 16;  // slab kernels: 32 x 16 threads
+template <typename T, int NP>
+struct MultistepGeometry;
+// kSide x (kSide / kRows) threads, one block per SM; the registers a thread
+// keeps grow with kRows x NP. Each is the fastest of the shapes tried at
+// 1025^2 f32 and 513^2 f64, k = 8, undamped and damped (3 to 16 rows per
+// thread, 32- to 72-node slabs): a shape that makes ptxas spill loses more
+// than fewer warps per SM cost (chip_smoke.py prints each kernel's
+// registers and spills). ops/kernels_varcoef.py _MULTISTEP_SIDE repeats
+// kSide for the tests' tile placement; launch_multistep refuses another.
+template <int NP>
+struct MultistepGeometry<float, NP> {
+  static constexpr int kSide = 60, kRows = 6;
+};
+template <int NP>
+struct MultistepGeometry<double, NP> {
+  static constexpr int kSide = 48, kRows = 6;
+};
 
 template <typename T, int NP>
-__global__ void __launch_bounds__(32 * kSlabThreadsY)
+__global__ void __launch_bounds__(
+    MultistepGeometry<T, NP>::kSide *
+    (MultistepGeometry<T, NP>::kSide / MultistepGeometry<T, NP>::kRows))
 varcoef_multistep_kernel(
     const T* __restrict__ u, const T* __restrict__ up,
     const T* __restrict__ planes, const T* __restrict__ wchunk,
@@ -174,125 +216,116 @@ varcoef_multistep_kernel(
     T* __restrict__ out_up, T* __restrict__ traces,
     T* __restrict__ ring_rows, T* __restrict__ ring_cols, int H, int W,
     T coef, int tile) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int S = MultistepGeometry<T, NP>::kSide;
+  constexpr int R = MultistepGeometry<T, NP>::kRows;
+  constexpr int nth = S * (S / R);
+  // a buffer holds the slab with one spare row above and below and one
+  // spare value at each end: slab node s sits at kPad + s
+  constexpr int kPad = S + 1;
+  constexpr int SB = S * S + 2 * kPad;
+  constexpr bool damped = NP == 9;
+  static_assert(R <= 16, "ring_bits holds 4 bits for each of <= 16 rows");
+  __shared__ T buf[2 * SB];
   const int halo = n_steps + 1;
-  const int S = tile + 2 * halo;  // slab side
-  const int S2 = S * S;
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* prv = cur + S2;
-  T* pl = prv + S2;
   const int ir0 = blockIdx.y * tile, ic0 = blockIdx.x * tile;  // tile origin
   const int r0 = ir0 - halo, c0 = ic0 - halo;  // array row/col of slab (0,0)
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int bx = blockDim.x, by = blockDim.y;
-  const int tid = ty * bx + tx, nth = bx * by;
+  const int sc = threadIdx.x, sr0 = threadIdx.y * R;
+  const int gc = c0 + sc;
+  const int tid = threadIdx.y * S + threadIdx.x;
+  const int base = kPad + sr0 * S + sc;  // the thread's first node
   const long long n = (long long)H * W;
-  constexpr bool damped = NP == 9;
 
-  for (int sr = ty; sr < S; sr += by) {
-    const int r = r0 + sr;
-    const bool row_in = r >= 0 && r < H;
-    for (int sc = tx; sc < S; sc += bx) {
-      const int c = c0 + sc;
-      const bool in = row_in && c >= 0 && c < W;
-      const long long g = in ? (long long)r * W + c : 0;
-      const int s = sr * S + sc;
-      T v[2 + NP];
-      v[0] = in ? __ldg(u + g) : T(0);
-      v[1] = in ? __ldg(up + g) : T(0);
+  for (int q = tid; q < 2 * kPad; q += nth) {
+    // the spare values (read only by nodes whose result is never used)
+    T* b = buf + (q / kPad) * SB;
+    const int j = q % kPad;
+    b[j] = T(0);
+    b[SB - 1 - j] = T(0);
+  }
+
+  // staging: every load of the thread is started before the first use
+  const bool col_in = gc >= 0 && gc < W;
+  const bool col_tile = sc >= halo && sc < halo + tile && gc < W;
+  T pl[R][NP], prv[R], u0[R];
+  unsigned pin_bits = 0, tile_bits = 0, src_bits = 0;
+  unsigned long long ring_bits = 0;
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        v[2 + p] = in ? __ldg(planes + p * n + g) : T(0);
-      }
-      cur[s] = v[0];
-      prv[s] = v[1];
+  for (int i = 0; i < R; ++i) {
+    const int sr = sr0 + i, gr = r0 + sr;
+    const bool in = col_in && gr >= 0 && gr < H;
+    const long long g = in ? (long long)gr * W + gc : 0;
+    const bool t = col_tile && sr >= halo && sr < halo + tile && gr < H;
+    u0[i] = in ? __ldg(u + g) : T(0);
+    prv[i] = in ? __ldg(up + g) : T(0);
 #pragma unroll
-      for (int p = 0; p < NP; ++p) pl[p * S2 + s] = v[2 + p];
+    for (int p = 0; p < NP; ++p) pl[i][p] = in ? __ldg(planes + p * n + g) : T(0);
+    pin_bits |= (unsigned)is_pinned(gr, gc, H, W) << i;
+    tile_bits |= (unsigned)t << i;
+    src_bits |= (unsigned)(gr == src_r && gc == src_c) << i;
+    if (ring_rows != nullptr && t) {
+      const unsigned long long bits =
+          (unsigned)(gr == ra) | (unsigned)(gr == rb) << 1 |
+          (unsigned)(gc == ca) << 2 | (unsigned)(gc == cb) << 3;
+      ring_bits |= bits << (4 * i);
     }
   }
   const T ssel =
       damped ? coef * (T(0.5) * __ldg(planes + 7 * n + (long long)src_r * W +
                                       src_c))
              : coef;
+#pragma unroll
+  for (int i = 0; i < R; ++i) buf[base + i * S] = u0[i];
   __syncthreads();
 
-  for (int step = 1; step <= n_steps; ++step) {
-    const T w_s = __ldg(wchunk + step - 1);
-    const int hi = S - step;
-    for (int sr = step + ty; sr < hi; sr += by) {
-      const int gr = r0 + sr;
-      for (int sc = step + tx; sc < hi; sc += bx) {
-        const int gc = c0 + sc;
-        const int s = sr * S + sc;
-        T v = T(0);
-        if (!is_pinned(gr, gc, H, W)) {
-          T ku = pl[s] * cur[s];
+  for (int step = 0; step < n_steps; ++step) {
+    const T* __restrict__ cur = buf + (step & 1) * SB;
+    T* nxt = buf + (SB - (step & 1) * SB);
+    const T ws = __ldg(wchunk + step) * ssel;
+    const bool last = step == n_steps - 1;
+    Window<T, S> w;
+    w.start(cur, base);
 #pragma unroll
-          for (int j = 1; j < 7; ++j) {
-            ku += pl[j * S2 + s] * cur[s + off_dy(j) * S + off_dx(j)];
-          }
-          v = damped ? (pl[7 * S2 + s] * cur[s] - pl[8 * S2 + s] * prv[s]) -
-                           coef * ku
-                     : (T(2) * cur[s] - prv[s]) - coef * ku;
-        }
-        if (gr == src_r && gc == src_c) v += w_s * ssel;
-        prv[s] = v;
+    for (int i = 0; i < R; ++i) {
+      const int q = base + i * S;
+      w.next_row(cur, q);
+      const T c = w.mid.v[1];
+      const T ku = window_k(pl[i], w);
+      T v = damped ? (pl[i][7] * c - pl[i][8] * prv[i]) - coef * ku
+                   : (T(2) * c - prv[i]) - coef * ku;
+      v = ((pin_bits >> i) & 1u) ? T(0) : v;
+      v = ((src_bits >> i) & 1u) ? v + ws : v;
+      prv[i] = c;
+      nxt[q] = v;
+      const int gr = r0 + sr0 + i;
+      if (last && ((tile_bits >> i) & 1u)) {
+        const long long g = (long long)gr * W + gc;
+        out_u[g] = v;
+        out_up[g] = c;
       }
+      const unsigned rbits = (unsigned)(ring_bits >> (4 * i)) & 15u;
+      if (rbits != 0u) {
+        if (rbits & 1u) ring_rows[((long long)step * 2) * W + gc] = v;
+        if (rbits & 2u) ring_rows[((long long)step * 2 + 1) * W + gc] = v;
+        if (rbits & 4u) ring_cols[((long long)step * H + gr) * 2] = v;
+        if (rbits & 8u) ring_cols[((long long)step * H + gr) * 2 + 1] = v;
+      }
+      w.advance();
     }
     __syncthreads();
-    T* t = cur;
-    cur = prv;
-    prv = t;
-    // cur is read below and written again only after the next barrier
+    // nxt is read below and written again only after the next barrier
     for (int q = tid; q < n_rec; q += nth) {
       const int p0 = q * per;
       const int ar = __ldg(rec_r + p0), ac = __ldg(rec_c + p0);
       if (ar < ir0 || ar >= ir0 + tile || ac < ic0 || ac >= ic0 + tile) {
         continue;
       }
-      T acc = __ldg(rec_w + p0) * cur[(ar - r0) * S + (ac - c0)];
+      T acc = __ldg(rec_w + p0) * nxt[kPad + (ar - r0) * S + (ac - c0)];
       for (int j = 1; j < per; ++j) {
         acc += __ldg(rec_w + p0 + j) *
-               cur[(__ldg(rec_r + p0 + j) - r0) * S + (__ldg(rec_c + p0 + j) - c0)];
+               nxt[kPad + (__ldg(rec_r + p0 + j) - r0) * S +
+                   (__ldg(rec_c + p0 + j) - c0)];
       }
-      traces[(long long)(step - 1) * n_rec + q] = acc;
-    }
-    if (ring_rows != nullptr) {
-      for (int q = tid; q < tile; q += nth) {
-        const int gc = ic0 + q, gr = ir0 + q;
-        if (gc < W) {
-          if (ra >= ir0 && ra < ir0 + tile) {
-            ring_rows[((long long)(step - 1) * 2) * W + gc] =
-                cur[(ra - r0) * S + (gc - c0)];
-          }
-          if (rb >= ir0 && rb < ir0 + tile) {
-            ring_rows[((long long)(step - 1) * 2 + 1) * W + gc] =
-                cur[(rb - r0) * S + (gc - c0)];
-          }
-        }
-        if (gr < H) {
-          if (ca >= ic0 && ca < ic0 + tile) {
-            ring_cols[((long long)(step - 1) * H + gr) * 2] =
-                cur[(gr - r0) * S + (ca - c0)];
-          }
-          if (cb >= ic0 && cb < ic0 + tile) {
-            ring_cols[((long long)(step - 1) * H + gr) * 2 + 1] =
-                cur[(gr - r0) * S + (cb - c0)];
-          }
-        }
-      }
-    }
-  }
-
-  for (int sr = halo + ty; sr < halo + tile; sr += by) {
-    const int r = r0 + sr;
-    if (r >= H) continue;
-    for (int sc = halo + tx; sc < halo + tile; sc += bx) {
-      const int c = c0 + sc;
-      if (c >= W) continue;
-      const long long g = (long long)r * W + c;
-      out_u[g] = cur[sr * S + sc];
-      out_up[g] = prv[sr * S + sc];
+      traces[(long long)step * n_rec + q] = acc;
     }
   }
 }
@@ -322,7 +355,7 @@ varcoef_multistep_kernel(
 //
 // Each block covers a kSide x kSide slab: its tile (side kSide - 2 n_steps)
 // plus an n_steps halo, so the halo's share grows with n_steps; the wrapper
-// (ops/kernels_varcoef.py adjoint_chunks) launches at most 8 steps at a
+// (ops/kernels_varcoef.py fused_chunks) launches at most 8 steps at a
 // time. A thread owns kRows consecutive slab rows of one column for all the
 // steps, and keeps in registers what only its own nodes read: the 7 (9)
 // planes, lpart and, on tile nodes, the seven wbar accumulators, all loaded
@@ -392,21 +425,6 @@ constexpr size_t adjoint_smem() {
   constexpr int S2 = AdjointGeometry<T>::kSide * AdjointGeometry<T>::kSide;
   return 4 * (size_t)AdjointBuffer<T>::kSize * sizeof(T) +
          (size_t)((S2 + 31) / 32) * 4;
-}
-
-// The K stencil on a window, in OFFSETS order (0,0) (-1,0) (1,0) (0,-1)
-// (-1,-1) (0,1) (1,1) as (dx, dy).
-template <typename T, int SX>
-__device__ __forceinline__ T window_k(const T* __restrict__ p,
-                                      const Window<T, SX>& w) {
-  T acc = p[0] * w.mid.v[1];
-  acc += p[1] * w.mid.v[0];
-  acc += p[2] * w.mid.v[2];
-  acc += p[3] * w.up.v[1];
-  acc += p[4] * w.up.v[0];
-  acc += p[5] * w.down.v[1];
-  acc += p[6] * w.down.v[2];
-  return acc;
 }
 
 template <typename T, int NP>
@@ -630,29 +648,59 @@ int opt_in_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// n_steps steps as ceil(n_steps / max_steps) near-equal launches (the
+// wrapper's fused_chunks), each on its own tile (MultistepGeometry's slab
+// less its halo; `side` is the wrapper's copy of kSide, refused unless
+// equal). Launch i reads what launch i - 1 wrote and writes
+// the other pair of (out_u, out_up) and (scratch_u, scratch_up), so that the
+// last one writes the outputs; each writes its steps' rows of traces and
+// of the ring saves.
 template <typename T, int NP>
 int launch_multistep(const void* u, const void* up, const void* planes,
-                     const void* wchunk, int n_steps, int src_r,
-                     int src_c, const void* rec_r, const void* rec_c,
-                     const void* rec_w, int n_rec, int per, int ra, int rb,
-                     int ca, int cb, void* out_u, void* out_up, void* traces,
+                     const void* wchunk, int n_steps, int max_steps,
+                     int side, int src_r, int src_c, const void* rec_r,
+                     const void* rec_c, const void* rec_w, int n_rec, int per,
+                     int ra, int rb, int ca, int cb, void* out_u, void* out_up,
+                     void* scratch_u, void* scratch_up, void* traces,
                      void* ring_rows, void* ring_cols, int H, int W,
-                     double coef, int tile, cudaStream_t stream) {
-  const size_t side = (size_t)tile + 2 * ((size_t)n_steps + 1);
-  const size_t smem = (2 + (size_t)NP) * side * side * sizeof(T);
-  const int e = opt_in_smem(varcoef_multistep_kernel<T, NP>, smem);
-  if (e != 0) return e;
-  const dim3 block(32, kSlabThreadsY);
-  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
-  varcoef_multistep_kernel<T, NP><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(up),
-      static_cast<const T*>(planes), static_cast<const T*>(wchunk),
-      n_steps, src_r, src_c, static_cast<const int*>(rec_r),
-      static_cast<const int*>(rec_c), static_cast<const T*>(rec_w), n_rec,
-      per, ra, rb, ca, cb, static_cast<T*>(out_u), static_cast<T*>(out_up),
-      static_cast<T*>(traces), static_cast<T*>(ring_rows),
-      static_cast<T*>(ring_cols), H, W, (T)coef, tile);
-  return (int)cudaGetLastError();
+                     double coef, cudaStream_t stream) {
+  constexpr int S = MultistepGeometry<T, NP>::kSide;
+  if (side != S || n_steps < 1 || max_steps < 1 ||
+      S - 2 * (max_steps + 1) < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n = (n_steps + max_steps - 1) / max_steps;
+  if (n > 1 && (scratch_u == nullptr || scratch_up == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(S, S / MultistepGeometry<T, NP>::kRows);
+  const T* cu = static_cast<const T*>(u);
+  const T* cp = static_cast<const T*>(up);
+  T* rows = static_cast<T*>(ring_rows);
+  T* cols = static_cast<T*>(ring_cols);
+  for (int i = 0; i < n; ++i) {
+    const int s0 = (int)((long long)n_steps * i / n);
+    const int kc = (int)((long long)n_steps * (i + 1) / n) - s0;
+    const int tile = S - 2 * (kc + 1);
+    const bool to_out = (n - 1 - i) % 2 == 0;
+    T* ou = static_cast<T*>(to_out ? out_u : scratch_u);
+    T* oup = static_cast<T*>(to_out ? out_up : scratch_up);
+    const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
+    varcoef_multistep_kernel<T, NP><<<grid, block, 0, stream>>>(
+        cu, cp, static_cast<const T*>(planes),
+        static_cast<const T*>(wchunk) + s0, kc, src_r, src_c,
+        static_cast<const int*>(rec_r), static_cast<const int*>(rec_c),
+        static_cast<const T*>(rec_w), n_rec, per, ra, rb, ca, cb, ou, oup,
+        static_cast<T*>(traces) + (long long)s0 * n_rec,
+        rows == nullptr ? nullptr : rows + (long long)s0 * 2 * W,
+        cols == nullptr ? nullptr : cols + (long long)s0 * H * 2, H, W,
+        (T)coef, tile);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    cu = ou;
+    cp = oup;
+  }
+  return 0;
 }
 
 template <typename T, int NP>
@@ -723,14 +771,17 @@ int tw_varcoef_step(int dtype, const void* u, const void* up,
   return (int)cudaGetLastError();
 }
 
+// B15: scratch_u / scratch_up (null when n_steps <= max_steps) hold the
+// state between the launches of a split pass.
 int tw_varcoef_multistep(int dtype, const void* u, const void* up,
                          const void* planes, int n_planes, const void* wchunk,
-                         int n_steps, int src_r, int src_c, const void* rec_r,
-                         const void* rec_c, const void* rec_w, int n_rec,
-                         int per, int ra, int rb, int ca, int cb, void* out_u,
-                         void* out_up, void* traces, void* ring_rows,
-                         void* ring_cols, int H, int W, double coef, int tile,
-                         void* stream) {
+                         int n_steps, int max_steps, int side, int src_r,
+                         int src_c, const void* rec_r, const void* rec_c,
+                         const void* rec_w, int n_rec, int per, int ra,
+                         int rb, int ca, int cb, void* out_u, void* out_up,
+                         void* scratch_u, void* scratch_up, void* traces,
+                         void* ring_rows, void* ring_cols, int H, int W,
+                         double coef, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_planes != 7 && n_planes != 9) return (int)cudaErrorInvalidValue;
   auto launch = n_planes == 7
@@ -738,9 +789,10 @@ int tw_varcoef_multistep(int dtype, const void* u, const void* up,
                                   : launch_multistep<double, 7>)
                     : (dtype == 0 ? launch_multistep<float, 9>
                                   : launch_multistep<double, 9>);
-  return launch(u, up, planes, wchunk, n_steps, src_r, src_c, rec_r, rec_c,
-                rec_w, n_rec, per, ra, rb, ca, cb, out_u, out_up, traces,
-                ring_rows, ring_cols, H, W, coef, tile, st);
+  return launch(u, up, planes, wchunk, n_steps, max_steps, side, src_r,
+                src_c, rec_r, rec_c, rec_w, n_rec, per, ra, rb, ca, cb,
+                out_u, out_up, scratch_u, scratch_up, traces, ring_rows,
+                ring_cols, H, W, coef, st);
 }
 
 int tw_varcoef_adjoint_step(int dtype, const void* un, const void* uc,

@@ -191,9 +191,8 @@ class FwiProblem:
         only) or "ring" (the interface ring; gradients exact on
         ``sponge_interior_cell_mask``).
     steps_per_call : fused steps per kernel pass (B15 / B17), in both
-        directions. Results do not depend on it. On the card it is capped
-        at the largest k whose B15 slabs fit the shared memory (B17 runs
-        a pass of k > 8 steps in several launches); 1 runs one step per
+        directions. Results do not depend on it. B15 and B17 run a pass
+        of k > 8 steps as ceil(k / 8) launches; 1 runs one step per
         launch (B14 / B16).
 
     The port's defaults (engine "kernel", adjoint "reversal", device
@@ -480,15 +479,12 @@ class FwiProblem:
         return g
 
     # -- kernel engine (B14-B17) ------------------------------------------------
-    @functools.cached_property
+    @property
     def _k(self) -> int:
-        """Fused steps per kernel pass: ``steps_per_call``, capped on the
-        card by B15's shared memory."""
-        k = self.steps_per_call
-        if self.device.type == "cuda" and k > 1:
-            k = kv.max_fused_steps(k, 9 if self._ring else 7, self.dtype,
-                                   self.device)
-        return k
+        """Fused steps per kernel pass: ``steps_per_call`` (B15 and B17 run
+        a pass of k steps as kernels_varcoef.fused_chunks(k) launches of at
+        most 8)."""
+        return self.steps_per_call
 
     @property
     def _kernel_damp(self):

@@ -49,8 +49,8 @@ _SIGNATURES = {
                                      _I, _DP, _D, _I, _I, _VP),
     "tw_max_dynamic_smem": (_I,),
     "tw_noop": (_VP,),
-    "tw_cheby_block": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
-                       _D, _DP, _DP, _I, _I, _VP),
+    "tw_cheby_block": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I,
+                       _DP, _D, _DP, _DP, _I, _I, _I, _VP),
     "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
                          _D, _D, _I, _VP),
     "tw_recurrence_r0_block": (_I,),
@@ -68,9 +68,9 @@ _SIGNATURES = {
     "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _IP,
                      _IP, _IP, _IP, _DP, _I, _DP, _D, _DP, _DP, _I, _I, _VP),
     "tw_varcoef_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP),
-    "tw_varcoef_multistep": (_I, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _VP, _VP,
-                             _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
-                             _VP, _I, _I, _D, _I, _VP),
+    "tw_varcoef_multistep": (_I, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I,
+                             _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP,
+                             _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP),
     "tw_varcoef_adjoint_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                 _VP, _I, _I, _D, _VP),
     "tw_varcoef_adjoint_multistep": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP,

@@ -22,6 +22,7 @@ kernels of ``ops/kernels_varcoef.py`` (B14-B17).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -345,11 +346,12 @@ def cheby_block_reference(x, r, stencil, theta: float, coeffs):
     """One restarted Chebyshev block of degree 1 + len(coeffs) on the
     constrained system: r masked to 0 on pinned nodes, d = r / theta,
     x += d, r = masked(r - S d), then d = c1 d + c2 r, x += d,
-    r = masked(r - S d) per coefficient pair. Returns (x, r, ||r||^2)."""
-    pinned = pinned_mask(x.shape, x.device)
+    r = masked(r - S d) per coefficient pair; x None: a zero initial guess.
+    Returns (x, r, ||r||^2)."""
+    pinned = pinned_mask(r.shape, r.device)
     r = torch.where(pinned, 0.0, r)
     d = (1.0 / theta) * r
-    x = x + d
+    x = d if x is None else x + d
     r = torch.where(pinned, 0.0, r - apply_stencil(d, stencil))
     for c1, c2 in coeffs:
         d = c1 * d + c2 * r
@@ -358,49 +360,90 @@ def cheby_block_reference(x, r, stencil, theta: float, coeffs):
     return x, r, _dot(r)
 
 
-def cheby_tile(degree: int, dtype: torch.dtype, max_smem: int) -> int:
-    """Largest tile side whose r and d slabs, (tile + 2 degree)^2 each,
-    and x tile fit ``max_smem`` bytes of shared memory."""
+#: B4's register kernels (csrc/solver_kernels.cu ChebyGeometry): 64-column
+#: slabs of (rows up to degree _CHEBY_SMALL_DEGREE, rows up to
+#: _CHEBY_REG_MAX_DEGREE) per dtype; the tile is the slab less a ``degree``
+#: halo on each side. Higher degrees take the shared-memory kernel's square
+#: tiles.
+_CHEBY_SLAB_COLS = 64
+_CHEBY_SLAB_ROWS = {torch.float32: (64, 64), torch.float64: (32, 64)}
+_CHEBY_SMALL_DEGREE, _CHEBY_REG_MAX_DEGREE = 2, 16
+
+
+@functools.lru_cache(maxsize=None)
+def cheby_tile(degree: int, dtype: torch.dtype, max_smem: int) -> tuple:
+    """(rows, cols) of the tile of one B4 block: the register kernel's slab
+    less a ``degree`` halo on each side (its d slabs, double buffered,
+    must fit ``max_smem``), or above degree 16 the largest square tile
+    whose r and d slabs, (tile + 2 degree)^2 each, and x tile fit."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return _largest_tile(
+    if degree <= _CHEBY_REG_MAX_DEGREE:
+        rows = _CHEBY_SLAB_ROWS[dtype][degree > _CHEBY_SMALL_DEGREE]
+        cols = _CHEBY_SLAB_COLS
+        smem = 2 * (rows * cols + 2 * (cols + 1)) * itemsize
+        if smem > max_smem:
+            raise ValueError(f"cheby_block: degree {degree} in {dtype} needs "
+                             f"{smem} B of shared memory; the card allows "
+                             f"{max_smem} B")
+        return rows - 2 * degree, cols - 2 * degree
+    tile = _largest_tile(
         f"cheby_block: degree {degree} in {dtype}",
         lambda t: (2 * (t + 2 * degree) ** 2 + t * t) * itemsize, max_smem)
+    return tile, tile
 
 
-def cheby_block(x: torch.Tensor, r: torch.Tensor, stencil, theta: float,
-                coeffs):
-    """One restarted Chebyshev block in one kernel pass (replaces
-    ``cheby_block_pallas``). ``theta`` / ``coeffs`` come from
+#: per (device, stream): the one-int ticket of B4's last-block reduction,
+#: 0 between calls (the kernel's last block resets it)
+_TICKETS = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def cheby_block(x, r: torch.Tensor, stencil, theta: float, coeffs):
+    """One restarted Chebyshev block in one kernel launch (replaces
+    ``cheby_block_pallas``), ||r||^2 included. ``x`` None: a zero initial
+    guess, which the kernel does not read (the V-cycle's pre-smoothing).
+    ``theta`` / ``coeffs`` come from
     ``solve/cheby_iter.py::chebyshev_coefficients``. Returns
     ``(x_new, r_new, rr)``, rr = ||r_new||^2 as a 0-d tensor of the
     inputs' dtype on their device."""
-    _check("cheby_block", x, r)
+    _check("cheby_block", r, *(() if x is None else (x,)))
     coeffs = [(float(c1), float(c2)) for c1, c2 in coeffs]
     degree = 1 + len(coeffs)
     if degree > MAX_CHEBY_DEGREE:
         raise ValueError(f"cheby_block: degree {degree} exceeds "
                          f"{MAX_CHEBY_DEGREE}")
-    if x.device.type == "cpu":
+    if r.device.type == "cpu":
         return cheby_block_reference(x, r, stencil, theta, coeffs)
     lib = _lib()
-    tile = cheby_tile(degree, x.dtype,
-                      _max_smem(lib, "cheby_block", x.device))
-    h, w = x.shape
-    n_blocks = -(-h // tile) * -(-w // tile)
-    out_x, out_r = torch.empty_like(x), torch.empty_like(r)
-    partials = torch.empty(n_blocks, dtype=x.dtype, device=x.device)
-    rr = torch.empty((), dtype=x.dtype, device=x.device)
+    tile_r, tile_c = cheby_tile(degree, r.dtype,
+                                _max_smem(lib, "cheby_block", r.device))
+    h, w = r.shape
+    n_blocks = -(-h // tile_r) * -(-w // tile_c)
+    out_x, out_r = torch.empty_like(r), torch.empty_like(r)
+    # the blocks' partials, then ||r||^2
+    partials = torch.empty(n_blocks + 1, dtype=r.dtype, device=r.device)
     n = max(len(coeffs), 1)
     c1 = (ctypes.c_double * n)(*(c for c, _ in coeffs))
     c2 = (ctypes.c_double * n)(*(c for _, c in coeffs))
-    with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
         rc = lib.tw_cheby_block(
-            _DTYPES[x.dtype], _ptr(x), _ptr(r), _ptr(out_x), _ptr(out_r),
-            _ptr(partials), n_blocks, _ptr(rr), h, w, _stencil_arg(stencil),
-            1.0 / float(theta), c1, c2, len(coeffs), tile, _stream(x))
+            _DTYPES[r.dtype], None if x is None else _ptr(x), _ptr(r),
+            _ptr(out_x), _ptr(out_r), _ptr(partials), n_blocks,
+            _ptr(_ticket(r.device, stream)),
+            ctypes.c_void_p(partials.data_ptr()
+                            + n_blocks * partials.element_size()),
+            h, w, _stencil_arg(stencil), 1.0 / float(theta), c1, c2,
+            len(coeffs), tile_r, tile_c, ctypes.c_void_p(stream))
     _raise_on(rc, "cheby_block")
     LAUNCHES["cheby_block"] += 1
-    return out_x, out_r, rr
+    return out_x, out_r, partials[n_blocks]
 
 
 # -- B5: the fused 2-term step setup -------------------------------------------

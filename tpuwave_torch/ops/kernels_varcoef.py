@@ -35,9 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tpuwave_torch.ops.kernels import (LAUNCHES, _DTYPES, _TILES, _largest_tile,
-                                       _lib, _max_smem, _ptr, _raise_on,
-                                       _stream, pinned_mask)
+from tpuwave_torch.ops.kernels import (LAUNCHES, _DTYPES, _lib, _max_smem,
+                                       _ptr, _raise_on, _stream, pinned_mask)
 
 __all__ = ["OFFSETS", "Receivers", "varcoef_stencil",
            "varcoef_leapfrog_step", "varcoef_leapfrog_step_reference",
@@ -45,8 +44,8 @@ __all__ = ["OFFSETS", "Receivers", "varcoef_stencil",
            "varcoef_leapfrog_multistep_reference",
            "varcoef_adjoint_step", "varcoef_adjoint_step_reference",
            "varcoef_adjoint_multistep",
-           "varcoef_adjoint_multistep_reference", "multistep_tile",
-           "adjoint_tile", "adjoint_chunks", "max_fused_steps"]
+           "varcoef_adjoint_multistep_reference", "MAX_FUSED_STEPS",
+           "multistep_tile", "adjoint_tile", "fused_chunks"]
 
 #: (dx, dy) neighbour offsets; plane j multiplies u[r + dy_j, c + dx_j]
 #: (tpuwave's order, pallas_varcoef.py:55)
@@ -163,15 +162,34 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def multistep_tile(n_steps: int, n_planes: int, dtype: torch.dtype,
-                   max_smem: int) -> int:
-    """Tile side of B15: its two fields and ``n_planes`` planes over
-    (tile + 2 (n_steps + 1))^2 slabs must fit ``max_smem`` bytes."""
-    item = _itemsize(dtype)
-    return _largest_tile(
-        f"varcoef_leapfrog_multistep: n_steps={n_steps} in {dtype}",
-        lambda t: (2 + n_planes) * (t + 2 * (n_steps + 1)) ** 2 * item,
-        max_smem)
+#: the most steps one B15 or B17 launch fuses: each has a fixed slab, so
+#: each further step shrinks its tile and adds halo work; a pass of k
+#: steps is fused_chunks(k) launches (B15 splits it in C, B17 here)
+MAX_FUSED_STEPS = 8
+#: B15's slab side per dtype, as csrc/varcoef_kernels.cu
+#: MultistepGeometry has it (the launcher refuses another): a block
+#: covers a side x side slab, its tile plus an n_steps + 1 halo on each
+#: side, and keeps the planes and u_prev of its nodes in registers
+_MULTISTEP_SIDE = {torch.float32: 60, torch.float64: 48}
+
+
+def multistep_tile(n_steps: int, dtype: torch.dtype) -> int:
+    """Tile side of one B15 launch of ``n_steps`` <= MAX_FUSED_STEPS
+    steps: its slab side less an ``n_steps`` + 1 halo on each side."""
+    k = int(n_steps)
+    if not 1 <= k <= MAX_FUSED_STEPS:
+        raise ValueError(f"varcoef_leapfrog_multistep: one launch fuses 1 "
+                         f"to {MAX_FUSED_STEPS} steps, not {k}")
+    return _MULTISTEP_SIDE[dtype] - 2 * (k + 1)
+
+
+def fused_chunks(n_steps: int) -> tuple:
+    """The steps of each B15 or B17 launch for a pass of ``n_steps``
+    fused steps: as few launches of at most MAX_FUSED_STEPS as will do,
+    as even as they can be."""
+    k = int(n_steps)
+    n = -(-k // MAX_FUSED_STEPS)
+    return tuple((k * (i + 1)) // n - (k * i) // n for i in range(n))
 
 
 #: B17's slab side per dtype (csrc/varcoef_kernels.cu AdjointGeometry): a
@@ -181,10 +199,6 @@ _ADJOINT_SIDE = {torch.float32: 48, torch.float64: 32}
 #: the smallest B17 tile that adjoint_tile allows (the kernel takes any
 #: tile >= 1; below 8 the halo's redundant work swamps it)
 _MIN_ADJOINT_TILE = 8
-#: the most steps one B17 launch fuses: its slab is fixed, so each further
-#: step shrinks the tile and adds halo work; past 8 steps a launch costs
-#: more per step than another launch does (scripts/torch_fwi_steps.py)
-_ADJOINT_MAX_STEPS = 8
 
 
 def _adjoint_smem(dtype: torch.dtype) -> int:
@@ -210,29 +224,6 @@ def adjoint_tile(n_steps: int, n_planes: int, dtype: torch.dtype,
             f"{_adjoint_smem(dtype)} B of shared memory (the card allows "
             f"{max_smem} B)")
     return tile
-
-
-def adjoint_chunks(n_steps: int) -> tuple:
-    """The steps of each B17 launch for ``n_steps`` fused backward steps:
-    as few launches of at most _ADJOINT_MAX_STEPS as will do, as even as
-    they can be."""
-    k = int(n_steps)
-    n = -(-k // _ADJOINT_MAX_STEPS)
-    return tuple((k * (i + 1)) // n - (k * i) // n for i in range(n))
-
-
-def max_fused_steps(n_steps: int, n_planes: int, dtype: torch.dtype,
-                    device: torch.device) -> int:
-    """The largest k <= ``n_steps`` that B15 takes on the card at the
-    smallest tile (B17 takes any k, in adjoint_chunks(k) launches)."""
-    lib = _lib()
-    max_smem = _max_smem(lib, "max_fused_steps", device)
-    t = _TILES[-1]
-    item = _itemsize(dtype)
-    k = max(1, int(n_steps))
-    while k > 1 and (2 + n_planes) * (t + 2 * (k + 1)) ** 2 * item > max_smem:
-        k -= 1
-    return k
 
 
 # -- B14: one variable-coefficient leapfrog step -----------------------------
@@ -317,12 +308,12 @@ def varcoef_leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor,
                                src, coef: float, rec: Receivers,
                                ring: Optional[Tuple[int, int, int, int]]
                                = None):
-    """``len(wchunk)`` fused forward steps in one kernel pass (replaces
-    ``varcoef_leapfrog_multistep_pallas``): source injection at ``src`` =
-    (row, col) in the kernel, receiver samples written after every inner
-    step, and with ``ring`` the interface ring saved after every inner
-    step. Returns (u, u_prev, traces[, ring_rows, ring_cols]) as the
-    plain version does."""
+    """``len(wchunk)`` fused forward steps (replaces
+    ``varcoef_leapfrog_multistep_pallas``), as fused_chunks(k) launches
+    from one C call: source injection at ``src`` = (row, col) in the
+    kernel, receiver samples written after every inner step, and with
+    ``ring`` the interface ring saved after every inner step. Returns (u,
+    u_prev, traces[, ring_rows, ring_cols]) as the plain version does."""
     name = "varcoef_leapfrog_multistep"
     _check(name, u, u_prev, planes, other=(wchunk, rec.weights))
     n_planes = _n_planes(name, planes, (7, 9))
@@ -335,26 +326,28 @@ def varcoef_leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor,
     if u.device.type == "cpu":
         return varcoef_leapfrog_multistep_reference(
             u, u_prev, planes, wchunk, (sr, sc), coef, rec, ring)
-    lib = _lib()
-    tile = multistep_tile(k, n_planes, u.dtype, _max_smem(lib, name, u.device))
     h, w = u.shape
-    out_u, out_up = torch.empty_like(u), torch.empty_like(u)
     traces = torch.empty((k, rec.n_rec), dtype=u.dtype, device=u.device)
     ring_rows = ring_cols = None
     if ring is not None:
         ring_rows = torch.empty((k, 2, w), dtype=u.dtype, device=u.device)
         ring_cols = torch.empty((k, h, 2), dtype=u.dtype, device=u.device)
+    out_u, out_up = torch.empty_like(u), torch.empty_like(u)
+    # the state between the launches of a split pass
+    scratch = ((torch.empty_like(u), torch.empty_like(u))
+               if k > MAX_FUSED_STEPS else (None, None))
     with torch.cuda.device(u.device):
-        rc = lib.tw_varcoef_multistep(
+        rc = _lib().tw_varcoef_multistep(
             _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(planes), n_planes,
-            _ptr(wchunk), k, sr, sc, _ptr(rec.rows), _ptr(rec.cols),
-            _ptr(rec.weights), rec.n_rec, rec.per, ra, rb, ca, cb,
-            _ptr(out_u), _ptr(out_up), _ptr(traces),
+            _ptr(wchunk), k, MAX_FUSED_STEPS, _MULTISTEP_SIDE[u.dtype], sr,
+            sc, _ptr(rec.rows), _ptr(rec.cols), _ptr(rec.weights), rec.n_rec,
+            rec.per, ra, rb, ca, cb, _ptr(out_u), _ptr(out_up),
+            *(None if s is None else _ptr(s) for s in scratch), _ptr(traces),
             None if ring_rows is None else _ptr(ring_rows),
             None if ring_cols is None else _ptr(ring_cols), h, w,
-            float(coef), tile, _stream(u))
+            float(coef), _stream(u))
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += len(fused_chunks(k))
     out = (out_u, out_up, traces)
     return out if ring is None else out + (ring_rows, ring_cols)
 
@@ -462,10 +455,12 @@ def varcoef_adjoint_multistep(u_next: torch.Tensor, u_cur: torch.Tensor,
                               ring_rows: Optional[torch.Tensor] = None,
                               ring_cols: Optional[torch.Tensor] = None):
     """``len(wchunk)`` fused backward steps (replaces
-    ``varcoef_adjoint_multistep_pallas``), in adjoint_chunks(k) launches. ``inj``: (k, P) pre-weighted
-    receiver cotangents at ``points`` = (rows, cols) (P,) int32;
-    ``wchunk``, ``inj``, ``ring_rows`` (k, 2, W) and ``ring_cols``
-    (k, H, 2) are in the kernel's time-descending step order. ``wbar`` is
+    ``varcoef_adjoint_multistep_pallas``), in fused_chunks(k) launches
+    (looped here: a B17 launch takes longer than the host needs to issue
+    the next). ``inj``: (k, P) pre-weighted receiver cotangents at
+    ``points`` = (rows, cols) (P,) int32; ``wchunk``, ``inj``,
+    ``ring_rows`` (k, 2, W) and ``ring_cols`` (k, H, 2) are in the
+    kernel's time-descending step order. ``wbar`` is
     updated in place. Returns (u_next', u_cur', lam', lam_partial', wbar,
     wavbar (k,)) as the plain version does."""
     name = "varcoef_adjoint_multistep"
@@ -496,7 +491,7 @@ def varcoef_adjoint_multistep(u_next: torch.Tensor, u_cur: torch.Tensor,
     fields = (u_next, u_cur, lam, lam_partial)
     wavbar = torch.empty(k, dtype=u_next.dtype, device=u_next.device)
     s0 = 0
-    for kc in adjoint_chunks(k):
+    for kc in fused_chunks(k):
         # steps s0 .. s0 + kc - 1; wbar accumulates in place across launches
         per_step = (wchunk, inj, wavbar, ring_rows, ring_cols)
         if kc < k:

@@ -234,9 +234,9 @@ class GmgPreconditioner:
 class KernelGmgPreconditioner(GmgPreconditioner):
     """The V-cycle with its fine level on the hand-written kernels (the
     port of tpuwave's ``PallasGmgPreconditioner``): pre-smoothing from a
-    zero guess as one B4 block, the post-correction residual through B3,
-    post-smoothing as one B4 block. The fine level is ~3/4 of the cycle's
-    work in 2D. Works on the true grid; levels >= 1 keep the cycle of
+    zero guess as one B4 block (the guess not read), the post-correction
+    residual through B3, post-smoothing as one B4 block. The fine level is
+    ~3/4 of the cycle's work in 2D. Works on the true grid; levels >= 1 keep the cycle of
     :class:`GmgPreconditioner`. Same fixed SPD polynomial as the parent.
     """
 
@@ -253,7 +253,7 @@ class KernelGmgPreconditioner(GmgPreconditioner):
         invariant). Returns z = V(b)."""
         lev = self.levels[0]
         st, th, cf = lev.stencil, lev.sm_theta, lev.sm_coeffs
-        x, r, _ = kernels.cheby_block(torch.zeros_like(b), b, st, th, cf)
+        x, r, _ = kernels.cheby_block(None, b, st, th, cf)
         # the kernel left r zero on pinned rows: already interior-masked
         bc = torch.where(self._interior(1, b.device), restrict_p1(r), 0.0)
         ec = self._cycle(1, bc)
