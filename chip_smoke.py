@@ -108,8 +108,8 @@ varying and with a time-dependent wave speed at R = 1. Phases:
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
-launches of B4 and B15 are printed per shape (grid, dtype, degree or fused
-steps), summed over the paths. Any failed check raises and
+launches of B4, B11-B13 and B15 are printed per shape (grid, dtype, degree
+or fused steps), summed over the paths. Any failed check raises and
 the exit code is non-zero. The line before the last is
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1014,31 +1014,34 @@ def p2_system(nel: int, dt: float, beta: float, dtype, dev):
 
 
 def phase_p2_kernels(torch, dev, kn) -> dict:
-    """Phase 3, the P2 kernels B11-B13 at phase 11's shape (Nel 1024 f64)
-    and phase 11b's (Nel 4096 f32), on phase 11's system stencil."""
+    """Phase 3, the P2 kernels B11-B13 at phase 11's shape (Nel 1024 f64),
+    phase 11b's (Nel 4096 f32), on phase 11's system stencil, and phase
+    10's (Nel 160 f64, its system at dt 4e-2); B12 and B13 at smoothing
+    degree 4 (the engine's) and 2."""
     from tpuwave_torch.ops import kernels_p2 as kp
     from tpuwave_torch.solve.cheby_iter import chebyshev_coefficients
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
-    say("phase 3 (P2): B11-B13 on the Newmark system M + dt^2/4 K at dt "
-        "4e-3 (f64 bound: 1e-12 x max|plain|; f32: see f32_bound); "
-        "operations counted per canvas site: B11 92 (46 multiply-adds), "
-        "B12 116 per apply, B13 116 per apply + 8; smoothing degree 4 "
-        "on [lambda/8, lambda], lambda = 2.5687 (tpuwave's estimate at "
-        "Nel 1024)")
-    lam = 2.5687343127455877
-    theta, cf = chebyshev_coefficients(lam / 8.0, lam, 4)
-    sm = tuple((float(a), float(b)) for a, b in cf)
+    say("phase 3 (P2): B11-B13 on the Newmark system M + dt^2/4 K (f64 "
+        "bound: 1e-12 x max|plain|; f32: see f32_bound); operations "
+        "counted per canvas site: B11 92 (46 multiply-adds), B12 116 per "
+        "apply, B13 116 per apply + 8; smoothing on [lambda/8, lambda], "
+        "lambda = 2.5687 (tpuwave's estimate at Nel 1024) at Nel 1024 and "
+        "4096, the Gershgorin bound of D^-1 A at Nel 160")
     rows, results = {}, {}
-    for nel, dtype, n_k, n_p in ((1024, torch.float64, 50, 5),
-                                 (4096, torch.float32, 10, 2)):
-        st = p2_system(nel, 4e-3, 0.25, dtype, dev)
+    for nel, dt, dtype, degrees, lam, n_k, n_p in (
+            (1024, 4e-3, torch.float64, (4, 2), 2.5687343127455877, 50, 5),
+            (4096, 4e-3, torch.float32, (4, 2), 2.5687343127455877, 10, 2),
+            (160, 4e-2, torch.float64, (4,), None, 200, 20)):
+        st = p2_system(nel, dt, 0.25, dtype, dev)
         coeffs = st.terms
         diags = tuple(float(st.plane_diag[q]) for q in "VHWD")
         inv = tuple(1.0 / d for d in diags)
-        gersh = max(sum(abs(c) for ia, _, _, _, c in coeffs if ia == p)
-                    for p in range(4))
+        rows_abs = [sum(abs(c) for ia, _, _, _, c in coeffs if ia == p)
+                    for p in range(4)]
+        gersh = max(rows_abs)
+        lam = lam or max(a / d for a, d in zip(rows_abs, diags))
         cshape = (nel + 3, nel + 3)
         interior = kp.p2_canvas_interior(nel, nel, cshape, dev)
         ri = torch.arange(cshape[0], device=dev)[:, None]
@@ -1080,37 +1083,44 @@ def phase_p2_kernels(torch, dev, kn) -> dict:
         # B12 and B13
         b, r_in = rnd(interior), rnd(interior)
         x, corr = rnd(support), rnd(support)
-        sm_scale = (1.0 + gersh * max(inv) / theta)
-        for kname, fn, ref_fn, n_in, n_out, ops in (
-                ("B12 p2_presmooth", lambda: kp.p2_presmooth(
-                    b, coeffs, inv, theta, sm, nel, nel),
-                 lambda: kp.p2_presmooth_reference(
-                     b, coeffs, inv, theta, sm, nel, nel), 1, 2, 4 * 116),
-                ("B13 p2_postsmooth", lambda: kp.p2_postsmooth(
-                    x, r_in, corr, coeffs, inv, theta, sm, nel, nel),
-                 lambda: kp.p2_postsmooth_reference(
-                     x, r_in, corr, coeffs, inv, theta, sm, nel, nel), 3, 1,
-                 4 * 116 + 8)):
-            got, want = fn(), ref_fn()
-            if not isinstance(got, tuple):
-                got, want = (got,), (want,)
-            ms = cuda_ms(fn, n_k)
-            pms = cuda_ms(ref_fn, n_p, warm=1)
-            tag = f"{kname} {name}"
-            r = row(0.0, ms, pms, (n_in + n_out) * stack, ops * n_site,
-                    dtype)
-            errs = []
-            for i, (g, w) in enumerate(zip(got, want)):
-                peak = max(1.0, float(w.abs().max()))
-                errs.append(check(f"{tag} out{i}", g, w,
-                                  bound(w, sm_scale * peak, 5),
-                                  timing(r) if i == len(got) - 1 else ""))
-            r["err"] = max(errs)
-            rows[tag] = r
+        for degree in degrees:
+            theta, cf = chebyshev_coefficients(lam / 8.0, lam, degree)
+            sm = tuple((float(a), float(c)) for a, c in cf)
+            sm_scale = (1.0 + gersh * max(inv) / theta)
+            for kname, fn, ref_fn, n_in, n_out, ops in (
+                    ("B12 p2_presmooth", lambda: kp.p2_presmooth(
+                        b, coeffs, inv, theta, sm, nel, nel),
+                     lambda: kp.p2_presmooth_reference(
+                         b, coeffs, inv, theta, sm, nel, nel), 1, 2,
+                     degree * 116),
+                    ("B13 p2_postsmooth", lambda: kp.p2_postsmooth(
+                        x, r_in, corr, coeffs, inv, theta, sm, nel, nel),
+                     lambda: kp.p2_postsmooth_reference(
+                         x, r_in, corr, coeffs, inv, theta, sm, nel, nel),
+                     3, 1, degree * 116 + 8)):
+                got, want = fn(), ref_fn()
+                if not isinstance(got, tuple):
+                    got, want = (got,), (want,)
+                ms = cuda_ms(fn, n_k)
+                pms = cuda_ms(ref_fn, n_p, warm=1)
+                tag = f"{kname} {name} degree {degree}"
+                r = row(0.0, ms, pms, (n_in + n_out) * stack, ops * n_site,
+                        dtype)
+                errs = []
+                for i, (g, w) in enumerate(zip(got, want)):
+                    peak = max(1.0, float(w.abs().max()))
+                    errs.append(check(
+                        f"{tag} out{i}", g, w,
+                        bound(w, sm_scale * peak, degree + 1),
+                        timing(r) if i == len(got) - 1 else ""))
+                r["err"] = max(errs)
+                rows[tag] = r
     results["p2_constrained_apply"] = rows[
         "B11 p2_constrained_apply 1027^2 x 4 float64 mask_input=True"]
-    results["p2_presmooth"] = rows["B12 p2_presmooth 1027^2 x 4 float64"]
-    results["p2_postsmooth"] = rows["B13 p2_postsmooth 1027^2 x 4 float64"]
+    results["p2_presmooth"] = rows[
+        "B12 p2_presmooth 1027^2 x 4 float64 degree 4"]
+    results["p2_postsmooth"] = rows[
+        "B13 p2_postsmooth 1027^2 x 4 float64 degree 4"]
     return results
 
 
@@ -2129,24 +2139,26 @@ def phase_cli_varcoef(torch, kn, work: Path):
                                          f"B4 or no B3")
 
 
-#: the main paths' launches of B4 and B15 per shape (see _count_shapes;
-#: counted only while _run_path drives a path)
+#: the main paths' launches of B4, B11-B13 and B15 per shape (see
+#: _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
 _COUNTING = {"on": False}
 
 
 def _count_shapes(kn):
-    """Wrap the B4 and B15 wrappers in the modules their callers reach them
-    through, so that each call's launches (the change of the wrapper's own
-    count in LAUNCHES) are added to SHAPE_LAUNCHES under the call's shape."""
+    """Wrap the B4, B11-B13 and B15 wrappers in the modules their callers
+    reach them through, so that each call's launches (the change of the
+    wrapper's own count in LAUNCHES) are added to SHAPE_LAUNCHES under the
+    call's shape."""
+    from tpuwave_torch.ops import kernels_p2 as kp
     from tpuwave_torch.ops import kernels_varcoef as kv
 
     def wrap(mod, name, key):
         orig = getattr(mod, name)
 
-        def counted(*args):
+        def counted(*args, **kwargs):
             before = kn.LAUNCHES[name]
-            out = orig(*args)
+            out = orig(*args, **kwargs)
             if _COUNTING["on"]:
                 k = (name, key(*args))
                 SHAPE_LAUNCHES[k] = (SHAPE_LAUNCHES.get(k, 0)
@@ -2161,6 +2173,13 @@ def _count_shapes(kn):
          f"{grid(r)} degree {1 + len(cf)}{' zero guess' if x is None else ''}")
     wrap(kv, "varcoef_leapfrog_multistep", lambda u, up, pl, w, *rest:
          f"{grid(u)} k={w.numel()} {pl.shape[0]} planes")
+    # the P2 engines and solve/multigrid.py call B11-B13 through the
+    # kernels_p2 module
+    wrap(kp, "p2_constrained_apply", lambda xc, *rest: f"4 x {grid(xc[0])}")
+    wrap(kp, "p2_presmooth", lambda b, co, inv, th, sm, nx, ny:
+         f"4 x {grid(b[0])} degree {1 + len(sm)}")
+    wrap(kp, "p2_postsmooth", lambda x, r, c, co, inv, th, sm, nx, ny:
+         f"4 x {grid(x[0])} degree {1 + len(sm)}")
 
 
 def _run_path(kn, name, kernels, fn) -> dict:

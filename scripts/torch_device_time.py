@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Host wall and device-busy time of chip_smoke.py's phase-14 implicit
-steps and phase-17 FWI calls, with the tpuwave_torch of a given checkout
-(default: this one), so that two checkouts can be compared on one card,
-run alternately (parent, new, new, parent, each in a process of its own).
+"""Host wall and device-busy time of chip_smoke.py's P2 V-cycle, phase-14
+implicit steps and phase-17 FWI calls, with the tpuwave_torch of a given
+checkout (default: this one), so that two checkouts can be compared on one
+card, run alternately (parent, new, new, parent, each in a process of its
+own).
 
-Phase 14: FastWaveSolver.run_implicit_mg_kernel at 4096^2 elements, f32,
-dt 1e-3, 20 steps, for theta 1, theta 1/2 and Newmark beta 1/4. Phase 17:
-FwiProblem's kernel engine at 1024^2 elements, f32, 2000 steps,
-steps_per_call 8, hard walls and the sponge ring: simulate and
-misfit_and_grad. Each: the best and the median of --repeats runs after a
-warm run (host clock around a synchronize), then one run under
-torch.profiler: its
-device-busy time (the sum of its kernels' and copies' times, which the
-host's noise does not move), the idle share of that run's wall, and the
-device time and launches of the kernels named (B4 cheby_block, the sum of
-its norm's partials where a checkout has that launch, B15, B17) and of
+P2: one (p+h)-multigrid V-cycle of the R = 2 Newmark engine (beta 1/4, dt
+4e-3, mg_pre_degree 4) at phase 11b's 4 x 4099^2 canvases in f32 and at
+phase 11's 4 x 1027^2 in f64, on a random interior residual. Phase 14:
+FastWaveSolver.run_implicit_mg_kernel at 4096^2 elements, f32, dt 1e-3, 20
+steps, for theta 1, theta 1/2 and Newmark beta 1/4. Phase 17: FwiProblem's
+kernel engine at 1024^2 elements, f32, 2000 steps, steps_per_call 8, hard
+walls and the sponge ring: simulate and misfit_and_grad. Each: the best
+and the median of --repeats runs after a warm run (host clock around a
+synchronize), then one run under torch.profiler: its device-busy time (the
+sum of its kernels' and copies' times, which the host's noise does not
+move), the idle share of that run's wall, and the device time and launches
+of the kernels named (B4 cheby_block, the sum of its norm's partials where
+a checkout has that launch, B11, B12 and B13 together, B15, B17) and of
 the largest device events. Needs nvcc and one card:
 
     python3 scripts/torch_device_time.py [--tree DIR] [--repeats 5]
-        [--only newmark,sponge]
+        [--only P2,newmark,sponge]
 
 (--only: run the cases whose label holds one of these words.)
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,6 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 #: (tag, substring of the kernel's symbol)
 NAMED = (("B4", "cheby_block"), ("B4 norm", "sum_partials"),
+         ("B11", "p2_apply_kernel"), ("B12 + B13", "p2_smooth"),
          ("B15", "varcoef_multistep_kernel"),
          ("B17", "varcoef_adjoint_multistep_kernel"))
 
@@ -54,7 +59,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     import tpuwave_torch
     from tpuwave_torch.models.fast import FastWaveSolver
+    from tpuwave_torch.models.fast_engine import make_fast_solver
     from tpuwave_torch.models.inverse import FwiProblem
+    from tpuwave_torch.utils.params import load_params
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
@@ -108,6 +115,26 @@ def main() -> int:
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
             print(f"    {e.self_device_time_total / 1e3 / per:8.3f} ms "
                   f"{e.count / per:7.2f}x {e.key[:60]}", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    for nel, dtype in ((4096, torch.float32), (1024, torch.float64)):
+        label = f"P2 V-cycle 4 x {nel + 3}^2 {str(dtype)[6:]}"
+        if not wanted(label):
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            case = cs._case(Path(tmp), Nel=str(nel), R="2", Dt="4e-3",
+                            T="0.04", Beta="0.25", Gamma="0.5",
+                            **{"Enable Logging": "false"})
+            solver = make_fast_solver(load_params(str(case)), "newmark",
+                                      precond="mg", device="cuda",
+                                      dtype=dtype)
+        prec = solver._prec_sys
+        b = torch.rand((4, *solver._cshape), generator=gen, device="cuda",
+                       dtype=torch.float64)
+        b = torch.where(solver.interior, b, 0.0).to(dtype)
+        measure(f"{label}, per cycle", lambda: prec(b), 1)
+        del solver, prec, b
 
     nel, dt, n = 4096, 1e-3, 20
     for name, kw in cs.FAST_SCHEMES.items():

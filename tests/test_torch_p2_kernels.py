@@ -212,13 +212,60 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_smooth_tile_fits_and_refuses():
-    # the four planes' r and d slabs and x tiles in the H100's 227 KB
-    # opt-in limit: degree 4 (halo 4) fits tile 32 in f64, 64 in f32
-    assert kp.p2_smooth_tile(4, torch.float64, 232448) == 32
-    assert kp.p2_smooth_tile(4, torch.float32, 232448) == 64
-    assert kp.p2_smooth_tile(2, torch.float64, 232448) == 32
+    # up to degree 8 the register kernel: its double-buffered d slabs of
+    # the four planes fit the H100's 227 KB opt-in limit, the tile is the
+    # slab less a degree halo; above it the shared-slab kernel's square
+    # tiles, whose r and d slabs grow with the degree
+    lim = 232448
+    for dtype in (torch.float32, torch.float64):
+        for degree in range(1, kp.SMOOTH_REG_MAX_DEGREE + 1):
+            g = kp.p2_smooth_geometry(degree, dtype, lim)
+            assert g.threads_y > 0 and g.smem_bytes <= lim
+            assert g.tile_rows > 0 and g.tile_cols > 0
+            assert (g.tile_rows + 2 * degree
+                    == g.threads_y * g.rows_per_thread)
+    assert kp.p2_smooth_geometry(4, torch.float32, lim)[:3] == (24, 56, 4)
+    assert kp.p2_smooth_geometry(4, torch.float64, lim)[:3] == (24, 24, 8)
+    g = kp.p2_smooth_geometry(10, torch.float64, lim)
+    assert g[:3] == (32, 32, 0) and g.smem_bytes <= lim
     with pytest.raises(ValueError, match="shared memory"):
-        kp.p2_smooth_tile(32, torch.float64, 232448)
+        kp.p2_smooth_geometry(32, torch.float64, lim)
+    with pytest.raises(ValueError, match="shared memory"):
+        kp.p2_smooth_geometry(4, torch.float32, 60000)
+
+
+def _square_stiffness():
+    """The stiffness on square cells, whose two exact zeros
+    coeffs_to_static drops (44 terms)."""
+    space = FeSpace(StructuredTriMesh((8, 8), ((0.0, 0.0), (1.0, 1.0))), 2)
+    return P2PlaneStencil(space, element_stiffness_class(
+        space, gauss_simplex(3), 1.0), torch.float64, "cpu")
+
+
+@pytest.mark.parametrize("which", ["mass", "stiff", "system", "square"])
+def test_smooth_slots_order_the_stencils(which):
+    """Each stencil's terms land on their slots of the fixed pattern, in
+    order; absent terms leave 0.0. The system stencil is the pattern."""
+    st = _square_stiffness() if which == "square" else STENCILS[which]
+    slots = kp.smooth_slots(st.terms)
+    want = {t[:4]: t[4] for t in st.terms}
+    assert len(want) == (44 if which == "square" else 46)
+    assert slots == tuple(want.get(key, 0.0) for key in kp.SMOOTH_PATTERN)
+    assert tuple(t[:4] for t in STENCILS["system"].terms) == \
+        kp.SMOOTH_PATTERN
+
+
+@pytest.mark.parametrize("change", ["foreign", "reversed", "repeated"])
+def test_smooth_slots_refuse_other_patterns(change):
+    terms = STENCILS["system"].terms
+    bad = {"foreign": terms[:-1] + ((3, 3, -1, 1, 0.5),),
+           "reversed": terms[::-1],
+           "repeated": terms[:5] + terms[4:]}[change]
+    with pytest.raises(ValueError, match="pattern|order"):
+        kp.smooth_slots(bad)
+    x = torch.zeros((4, HC, WC), dtype=torch.float64)
+    with pytest.raises(ValueError, match="pattern|order"):
+        kp.p2_presmooth(x, bad, (1.0,) * 4, 1.0, (), NX, NY)
 
 
 def test_cpu_tensors_never_count_launches():
@@ -314,3 +361,102 @@ def test_cuda_postsmooth(cuda_device, dtype, degree):
                                                      degree + 1)
     again = kp.p2_postsmooth(x, r, corr, coeffs, inv, th, cf, NX, NY)
     assert torch.equal(got, again)
+
+
+# a ragged mesh over several tiles in both directions, with partial edge
+# tiles: canvases (100, 153); square cells, so the stiffness drops two
+# exact zeros (slots left at 0)
+NX2, NY2 = 150, 97
+
+
+@pytest.fixture(scope="module")
+def wide():
+    space = FeSpace(StructuredTriMesh((NX2, NY2), ((0.0, 0.0), (1.0, 1.0))),
+                    2)
+    quad = gauss_simplex(3)
+    mass = P2PlaneStencil(space, element_mass_class(space, quad),
+                          torch.float64, "cpu")
+    stiff = P2PlaneStencil(space, element_stiffness_class(space, quad, 1.0),
+                           torch.float64, "cpu")
+    return {"mass": mass, "stiff": stiff,
+            "system": mass.axpy(0.25 * 0.02 ** 2, stiff)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["mass", "stiff", "system"])
+@pytest.mark.parametrize("degree", [1, 2, 4, 8, 10])
+def test_cuda_smoothing_across_tiles(cuda_device, wide, dtype, which,
+                                     degree):
+    """B12 and B13 on 150 x 97 (degree 10 takes the shared-slab kernel),
+    the schedule on [lam / 8, lam], lam the Gershgorin bound of D^-1 A:
+    one launch each, bitwise-equal reruns. Tolerance: f64 1e-12 of the
+    largest value; f32 100 n eps of it times 1 + lam / theta (each of n
+    applies rounds ~46 terms, each at most lam / theta times |r|)."""
+    st = wide[which]
+    coeffs = st.terms
+    diags = [float(st.plane_diag[q]) for q in "VHWD"]
+    inv = tuple(1.0 / d for d in diags)
+    lam = max(sum(abs(t[4]) for t in coeffs if t[0] == p) / diags[p]
+              for p in range(4))
+    th, cf = chebyshev_coefficients(lam / 8.0, lam, degree)
+    cf = tuple((float(a), float(b)) for a, b in cf)
+    hc, wc = NY2 + 3, NX2 + 3
+    interior = kp.p2_canvas_interior(NX2, NY2, (hc, wc), "cpu").numpy()
+    rng = np.random.default_rng(degree)
+    b, x, corr = (np.where(m, rng.uniform(-1.0, 1.0, (4, hc, wc)), 0.0)
+                  for m in (interior, True, True))
+    b, x, corr = _on(cuda_device, dtype, b, x, corr)
+    n_before = (tk.LAUNCHES["p2_presmooth"], tk.LAUNCHES["p2_postsmooth"])
+    calls = (lambda: kp.p2_presmooth(b, coeffs, inv, th, cf, NX2, NY2),
+             lambda: kp.p2_postsmooth(x, b, corr, coeffs, inv, th, cf, NX2,
+                                      NY2))
+    got = [calls[0](), (calls[1](),)]
+    torch.cuda.synchronize()
+    assert (tk.LAUNCHES["p2_presmooth"], tk.LAUNCHES["p2_postsmooth"]) == \
+        (n_before[0] + 1, n_before[1] + 1)
+    want = [kp.p2_presmooth_reference(b, coeffs, inv, th, cf, NX2, NY2),
+            (kp.p2_postsmooth_reference(x, b, corr, coeffs, inv, th, cf,
+                                        NX2, NY2),)]
+    for outs, refs in zip(got, want):
+        for g, w in zip(outs, refs):
+            scale = max(float(w.abs().max()), 1.0)
+            if dtype == torch.float64:
+                bound = 1e-12 * scale
+            else:
+                bound = (100 * degree * float(torch.finfo(dtype).eps)
+                         * (1.0 + lam / th) * scale)
+            assert float((g - w).abs().max()) <= bound
+    again = [calls[0](), (calls[1](),)]
+    assert all(torch.equal(g, a) for outs, rep in zip(got, again)
+               for g, a in zip(outs, rep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_smoothing_on_padded_canvases(cuda_device, wide, dtype):
+    """B12 and B13 take any Hc >= ny + 3, Wc >= nx + 3: zero padding
+    leaves the engine's canvas bitwise the same (the same blocks cover it)
+    and gives zeros beyond it."""
+    st = wide["system"]
+    inv = tuple(1.0 / float(st.plane_diag[q]) for q in "VHWD")
+    th, cf = _schedule(4)
+    hc, wc = NY2 + 3, NX2 + 3
+    interior = kp.p2_canvas_interior(NX2, NY2, (hc, wc), "cpu").numpy()
+    rng = np.random.default_rng(7)
+    fields = [np.where(m, rng.uniform(-1.0, 1.0, (4, hc, wc)), 0.0)
+              for m in (interior, True, True)]
+    padded = []
+    for f in fields:
+        p = np.zeros((4, hc + 37, wc + 5))
+        p[:, :hc, :wc] = f
+        padded.append(p)
+    outs = []
+    for b, x, corr in (_on(cuda_device, dtype, *fields),
+                       _on(cuda_device, dtype, *padded)):
+        outs.append((*kp.p2_presmooth(b, st.terms, inv, th, cf, NX2, NY2),
+                     kp.p2_postsmooth(x, b, corr, st.terms, inv, th, cf,
+                                      NX2, NY2)))
+    for a, p in zip(*outs):
+        assert torch.equal(p[:, :hc, :wc], a)
+        assert not p[:, hc:].any() and not p[:, :, wc:].any()

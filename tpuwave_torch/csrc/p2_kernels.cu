@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include <utility>
+
 namespace {
 
 // most block-stencil terms a kernel takes (the P2 mass, stiffness and
@@ -124,29 +126,347 @@ __global__ void p2_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
 //       x += d;  r -= A_I(d)
 //   (c2_0 = 1 / theta; the pairs of j >= 1 come from the Chebyshev
 //   schedule). B12 writes (x, r); B13 writes x and skips the last r update,
-//   which nothing reads.
+//   which nothing reads. Both chain n_upd applies (B13's first is corr_m's),
+//   so a block's slab is its tile plus a halo of n_upd sites: after the
+//   k-th apply r is exact at distance >= k from the slab edge, and so is d
+//   after its update, so the tile is exact at the end.
 //
-// Each block owns a tile x tile square of canvas sites of all four planes.
-// It loads its inputs with a halo of n_upd sites on every side into dynamic
-// shared memory (zero outside the canvas) and runs the chain there: after
-// the k-th apply, r is exact at distance >= k from the slab edge, and d
-// after its update at distance >= the number of applies before it, so the
-// centre tile is exact at the end. Both kernels chain n_upd applies
-// (degree 4: 4 applies, halo 4). The slab holds r and d of the four planes,
-// (tile + 2 n_upd)^2 each, and the centre tile of x; the wrapper picks the
-// largest tile (64, 32, 16) that fits the card's opt-in limit. A barrier
-// after the loads (the x tile is written by other threads than those that
-// add d into it), then two per step: d (and x) in place, then r from d's
-// neighbours.
+// Bound on this card: memory (B12 reads 1 stack and writes 2, B13 reads 3
+// and writes 1: 101 MB and 135 MB at Nel 1024 f64, 30 and 40 us at 3.35
+// TB/s), against ~116 operations per site and apply, 46 of them
+// multiply-adds (degree 4 at 4 x 1027^2 f64: 0.49 GFLOP, 14 us at 34
+// TFLOP/s; 1.8x that over the slabs, which hold the tile and its halo).
 //
-// Bound on this card: memory in the limit (B12 reads 1 stack and writes 2,
-// B13 reads 3 and writes 1: 101 MB and 135 MB at Nel 1024 f64), against
-// ~46 multiply-adds per site and apply. The simple design reads every
-// stencil operand from shared memory over a slab larger than the tile, so
-// shared-memory traffic and the barriers bound it, not device memory.
+// Register design (degrees up to kRegMaxDegree):
+// - The term pattern is fixed at compile time: the 46 (target, source, dx,
+//   dy) slots of slot_at, which the mass, stiffness and Newmark-system
+//   stencils all fill (a stencil that drops an exact zero leaves its slot
+//   at 0). The wrapper maps its terms onto the slots; the coefficients
+//   arrive as a __grid_constant__ parameter, so each is a constant-bank
+//   operand that every thread of a warp reads alike. The 46 multiply-adds
+//   of a site are unrolled over register operands.
+// - Only d is read at neighbours. A thread owns R consecutive slab rows of
+//   one column and keeps r and x of the four planes in registers for the
+//   whole chain; d of the four planes sits in shared memory, double
+//   buffered (one barrier per step), read through a sliding register
+//   window: per site and apply 10 shared loads (V and W 3 columns, H and D
+//   2) for the 19 distinct operands, and the site's own d is the window's
+//   centre.
+// - Blocks whose slab is interior for all four planes run with no mask
+//   test; the others set each site's 4-bit interior mask once, at staging,
+//   load zeros outside the canvas, and mask corr_m as they stage it.
+// - B13 issues its loads of r_pre, x_in and corr together.
+// - Slab shapes per dtype are ops/kernels_p2.py's p2_smooth_geometry, one
+//   of TW_P2_SMOOTH_GEOMETRIES: 64 x 32 sites in f32 (8 rows a thread),
+//   32 x 32 in f64 (4 rows), 256 threads, registers capped at 128 so that
+//   two blocks share an SM and one's loads overlap the other's steps. That
+//   cap spills a few bytes (f32 B13, f64 B12) and still beats the same
+//   shapes uncapped (one block per SM, no spill) and slabs of 16 to 64
+//   rows, 32 to 128 columns and 128 to 512 threads
+//   (scripts/torch_p2_smooth_geometry.py times them side by side).
+//   Every slab site is computed at every step; sites near the slab edge
+//   read the buffers' zero pads or a neighbouring row's values and are
+//   never stored (the halo covers them).
+// Higher degrees take p2_smooth_smem_kernel below, the first version.
 // ---------------------------------------------------------------------------
-// r -= A_I(d) over slab sites at distance >= lo from the slab edge; the
-// terms are staged in shared memory (coefficient and slab offset each).
+constexpr int kRegMaxDegree = 8;
+
+struct Slot {
+  int tgt, src, dx, dy;
+};
+constexpr int kSlots = 46;
+
+// Slot k: (target plane, source plane, dx, dy) in coeffs_to_static order
+// (ops/kernels_p2.py SMOOTH_PATTERN). Device code calls this and the
+// helpers below in constant expressions only.
+__host__ __device__ constexpr Slot slot_at(int k) {
+  constexpr Slot table[kSlots] = {
+      {0, 0, -1, -1}, {0, 0, -1, 0}, {0, 0, 0, -1}, {0, 0, 0, 0},
+      {0, 0, 0, 1},   {0, 0, 1, 0},  {0, 0, 1, 1},  {0, 1, -1, -1},
+      {0, 1, -1, 0},  {0, 1, 0, 0},  {0, 1, 0, 1},  {0, 2, -1, -1},
+      {0, 2, 0, -1},  {0, 2, 0, 0},  {0, 2, 1, 0},  {0, 3, -1, -1},
+      {0, 3, -1, 0},  {0, 3, 0, -1}, {0, 3, 0, 0},  {1, 0, 0, -1},
+      {1, 0, 0, 0},   {1, 0, 1, 0},  {1, 0, 1, 1},  {1, 1, 0, 0},
+      {1, 2, 0, -1},  {1, 2, 1, 0},  {1, 3, 0, -1}, {1, 3, 0, 0},
+      {2, 0, -1, 0},  {2, 0, 0, 0},  {2, 0, 0, 1},  {2, 0, 1, 1},
+      {2, 1, -1, 0},  {2, 1, 0, 1},  {2, 2, 0, 0},  {2, 3, -1, 0},
+      {2, 3, 0, 0},   {3, 0, 0, 0},  {3, 0, 0, 1},  {3, 0, 1, 0},
+      {3, 0, 1, 1},   {3, 1, 0, 0},  {3, 1, 0, 1},  {3, 2, 0, 0},
+      {3, 2, 1, 0},   {3, 3, 0, 0}};
+  return table[k];
+}
+
+// source plane q is read at column offset dx
+__host__ __device__ constexpr bool slot_reads(int q, int dx) {
+  for (int k = 0; k < kSlots; ++k) {
+    if (slot_at(k).src == q && slot_at(k).dx == dx) return true;
+  }
+  return false;
+}
+
+// lowest (hi = false) or highest row offset at which plane q is read
+__host__ __device__ constexpr int slot_dy(int q, bool hi) {
+  int v = hi ? -2 : 2;
+  for (int k = 0; k < kSlots; ++k) {
+    const int dy = slot_at(k).dy;
+    if (slot_at(k).src == q && (hi ? dy > v : dy < v)) v = dy;
+  }
+  return v;
+}
+
+// first slot of target plane p (kSlots for p = 4)
+__host__ __device__ constexpr int slot_first(int p) {
+  for (int k = 0; k < kSlots; ++k) {
+    if (slot_at(k).tgt >= p) return k;
+  }
+  return kSlots;
+}
+
+template <typename T>
+struct SmoothParams {
+  T c[kSlots];          // the slot coefficients
+  T inv[4];             // inverse plane diagonals
+  T c1[kRegMaxDegree];  // update j: d = c1[j] d + c2[j] (inv r),
+  T c2[kRegMaxDegree];  // c2[0] = 1 / theta (c1[0] unused)
+};
+
+// A thread's window over the four planes of one d buffer: w[q][1 + dy][1 +
+// dx] holds plane q at row offset dy and column offset dx from the current
+// site; only the entries the pattern reads are set.
+template <typename T>
+using Window4 = T[4][3][3];
+
+// Loads row offset DY of plane Q (the columns the pattern reads) from the
+// buffer `cur`, whose plane 0 has the current site at index i.
+template <typename T, int SX, int SXY, int Q, int DY>
+__device__ __forceinline__ void window_row(Window4<T>& w,
+                                           const T* __restrict__ cur, int i) {
+  const T* row = cur + Q * SXY + i + DY * SX;
+  if constexpr (slot_reads(Q, -1)) w[Q][1 + DY][0] = row[-1];
+  w[Q][1 + DY][1] = row[0];
+  if constexpr (slot_reads(Q, 1)) w[Q][1 + DY][2] = row[1];
+}
+
+// Before the first site: rows lo .. hi - 1 of each plane.
+template <typename T, int SX, int SXY, int Q>
+__device__ __forceinline__ void window_prime_plane(Window4<T>& w,
+                                                   const T* __restrict__ cur,
+                                                   int i) {
+  constexpr int lo = slot_dy(Q, false), hi = slot_dy(Q, true);
+  if constexpr (lo < hi) window_row<T, SX, SXY, Q, lo>(w, cur, i);
+  if constexpr (lo + 1 < hi) window_row<T, SX, SXY, Q, lo + 1>(w, cur, i);
+}
+
+template <typename T, int SX, int SXY>
+__device__ __forceinline__ void window_prime(Window4<T>& w,
+                                             const T* __restrict__ cur,
+                                             int i) {
+  window_prime_plane<T, SX, SXY, 0>(w, cur, i);
+  window_prime_plane<T, SX, SXY, 1>(w, cur, i);
+  window_prime_plane<T, SX, SXY, 2>(w, cur, i);
+  window_prime_plane<T, SX, SXY, 3>(w, cur, i);
+}
+
+// At each site: the leading row (offset hi) of each plane.
+template <typename T, int SX, int SXY>
+__device__ __forceinline__ void window_lead(Window4<T>& w,
+                                            const T* __restrict__ cur,
+                                            int i) {
+  window_row<T, SX, SXY, 0, slot_dy(0, true)>(w, cur, i);
+  window_row<T, SX, SXY, 1, slot_dy(1, true)>(w, cur, i);
+  window_row<T, SX, SXY, 2, slot_dy(2, true)>(w, cur, i);
+  window_row<T, SX, SXY, 3, slot_dy(3, true)>(w, cur, i);
+}
+
+// One row down: offset dy of plane Q takes offset dy + 1's values,
+// lo <= dy < hi.
+template <typename T, int Q>
+__device__ __forceinline__ void window_slide_plane(Window4<T>& w) {
+  constexpr int lo = slot_dy(Q, false), hi = slot_dy(Q, true);
+#pragma unroll
+  for (int dy = lo; dy < hi; ++dy) {
+    if constexpr (slot_reads(Q, -1)) w[Q][1 + dy][0] = w[Q][2 + dy][0];
+    w[Q][1 + dy][1] = w[Q][2 + dy][1];
+    if constexpr (slot_reads(Q, 1)) w[Q][1 + dy][2] = w[Q][2 + dy][2];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void window_slide(Window4<T>& w) {
+  window_slide_plane<T, 0>(w);
+  window_slide_plane<T, 1>(w);
+  window_slide_plane<T, 2>(w);
+  window_slide_plane<T, 3>(w);
+}
+
+// acc_p = sum over the slots of target p, in slot order, of c_k * operand.
+template <int K, typename T>
+__device__ __forceinline__ void slot_add(T (&acc)[4], const Window4<T>& w,
+                                         const T* __restrict__ c) {
+  constexpr Slot s = slot_at(K);
+  constexpr int p = s.tgt, q = s.src, dx = s.dx, dy = s.dy;
+  const T v = c[K] * w[q][1 + dy][1 + dx];
+  if constexpr (slot_first(p) == K) {
+    acc[p] = v;
+  } else {
+    acc[p] += v;
+  }
+}
+
+template <typename T, int... K>
+__device__ __forceinline__ void slot_sums(T (&acc)[4], const Window4<T>& w,
+                                          const T* __restrict__ c,
+                                          std::integer_sequence<int, K...>) {
+  (slot_add<K>(acc, w, c), ...);
+}
+
+template <typename T, int SX, int TY, int R, bool POST, bool WALLS>
+__device__ __forceinline__ void p2_smooth_walk(
+    const T* __restrict__ rin, const T* __restrict__ xin,
+    const T* __restrict__ corr, T* __restrict__ out_x, T* __restrict__ out_r,
+    T* __restrict__ ds, int Hc, int Wc, int nx, int ny, int r0, int c0,
+    int deg, int tile_y, int tile_x, const SmoothParams<T>& sp) {
+  static_assert(4 * R <= 32, "one 32-bit interior mask per thread");
+  constexpr int SY = TY * R, SXY = SX * SY, kPad = SX + 1;
+  constexpr int SB = 4 * SXY + 2 * kPad;
+  const int sc = threadIdx.x, sr0 = threadIdx.y * R;
+  const int gc = c0 + sc;
+  const int base = kPad + sr0 * SX + sc;  // plane 0, the thread's first row
+  const size_t plane = (size_t)Hc * Wc;
+  const bool col_tile = sc >= deg && sc < deg + tile_x && gc < Wc;
+  T rv[R][4], xv[R][4], dv[R][4];
+  unsigned inter = 0, tile_bits = 0;
+  // every load of the block's inputs is issued before any is used
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int sr = sr0 + i, gr = r0 + sr;
+    const bool in = !WALLS || (gr >= 0 && gr < Hc && gc >= 0 && gc < Wc);
+    const bool t = col_tile && sr >= deg && sr < deg + tile_y &&
+                   (!WALLS || gr < Hc);
+    const size_t g = in ? (size_t)gr * Wc + gc : 0;
+    tile_bits |= (unsigned)t << i;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const bool ip = !WALLS || (in && p2_interior(p, gr, gc, nx, ny));
+      inter |= (unsigned)ip << (4 * i + p);
+      rv[i][p] = in ? __ldg(rin + p * plane + g) : T(0);
+      if constexpr (POST) {
+        xv[i][p] = t ? __ldg(xin + p * plane + g) : T(0);
+        dv[i][p] = ip ? __ldg(corr + p * plane + g) : T(0);
+      }
+    }
+  }
+  // the first d: corr_m (B13) or c2_0 inv r (B12)
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      T d;
+      if constexpr (POST) {
+        d = dv[i][p];
+        xv[i][p] += d;
+      } else {
+        d = sp.c2[0] * (sp.inv[p] * rv[i][p]);
+        xv[i][p] = d;
+      }
+      ds[p * SXY + base + i * SX] = d;
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < deg; ++s) {
+    // apply s reads buffer s & 1; the update after it writes the other
+    const T* __restrict__ cur = ds + (s & 1) * SB;
+    T* __restrict__ nxt = ds + ((s + 1) & 1) * SB;
+    const bool write = s + 1 < deg;
+    const bool update = POST || write;
+    const int j = POST ? s : s + 1;
+    const T c1 = update ? sp.c1[j] : T(0);
+    const T c2 = update ? sp.c2[j] : T(0);
+    Window4<T> w;
+    window_prime<T, SX, SXY>(w, cur, base);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int q = base + i * SX;
+      window_lead<T, SX, SXY>(w, cur, q);
+      T acc[4];
+      slot_sums(acc, w, sp.c, std::make_integer_sequence<int, kSlots>{});
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (!WALLS || ((inter >> (4 * i + p)) & 1u)) rv[i][p] -= acc[p];
+      }
+      if (update) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const T z = sp.inv[p] * rv[i][p];
+          const T d = j == 0 ? c2 * z : c1 * w[p][1][1] + c2 * z;
+          xv[i][p] += d;
+          if (write) nxt[p * SXY + q] = d;
+        }
+      }
+      window_slide(w);
+    }
+    if (write) __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (!((tile_bits >> i) & 1u)) continue;
+    const size_t g = (size_t)(r0 + sr0 + i) * Wc + gc;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      out_x[p * plane + g] = xv[i][p];
+      if constexpr (!POST) out_r[p * plane + g] = rv[i][p];
+    }
+  }
+}
+
+template <typename T, int SX, int TY, int R, int MINB, bool POST>
+__global__ void __launch_bounds__(SX * TY, MINB)
+p2_smooth_reg_kernel(const T* __restrict__ rin, const T* __restrict__ xin,
+                     const T* __restrict__ corr, T* __restrict__ out_x,
+                     T* __restrict__ out_r, int Hc, int Wc, int nx, int ny,
+                     int deg, const __grid_constant__ SmoothParams<T> sp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ds = reinterpret_cast<T*>(smem_raw);
+  constexpr int SY = TY * R, kPad = SX + 1;
+  constexpr int SB = 4 * SX * SY + 2 * kPad;
+  const int tile_y = SY - 2 * deg, tile_x = SX - 2 * deg;
+  const int r0 = blockIdx.y * tile_y - deg;  // canvas row of slab row 0
+  const int c0 = blockIdx.x * tile_x - deg;  // canvas col of slab col 0
+  const int tid = threadIdx.y * SX + threadIdx.x;
+  // the zero pads before and after each buffer's four planes
+  for (int q = tid; q < 2 * kPad; q += SX * TY) {
+    const int k = q < kPad ? q : SB - 2 * kPad + q;
+    ds[k] = T(0);
+    ds[SB + k] = T(0);
+  }
+  // the slab holds a site that is not interior for some plane
+  const bool walls = r0 < 2 || c0 < 2 || r0 + SY - 1 > ny ||
+                     c0 + SX - 1 > nx;
+  if (walls) {
+    p2_smooth_walk<T, SX, TY, R, POST, true>(rin, xin, corr, out_x, out_r,
+                                             ds, Hc, Wc, nx, ny, r0, c0, deg,
+                                             tile_y, tile_x, sp);
+  } else {
+    p2_smooth_walk<T, SX, TY, R, POST, false>(rin, xin, corr, out_x, out_r,
+                                              ds, Hc, Wc, nx, ny, r0, c0,
+                                              deg, tile_y, tile_x, sp);
+  }
+}
+
+// The first version, kept for degrees above kRegMaxDegree: each block
+// loads its inputs with a halo of n_upd sites on every side into dynamic
+// shared memory (zero outside the canvas) and runs the chain there. The
+// slab holds r and d of the four planes, (tile + 2 n_upd)^2 each, and the
+// centre tile of x; the wrapper picks the largest tile (64, 32, 16) that
+// fits the card's opt-in limit. A barrier after the loads (the x tile is
+// written by other threads than those that add d into it), then two per
+// step: d (and x) in place, then r from d's neighbours. Every stencil
+// operand is read from shared memory, with the terms (coefficient and slab
+// offset each) staged there too.
+//
+// r -= A_I(d) over slab sites at distance >= lo from the slab edge.
 template <typename T>
 __device__ __forceinline__ void p2_apply_slab(T* rs, const T* ds, int S,
                                               int lo, int r0, int c0, int nx,
@@ -172,13 +492,14 @@ __device__ __forceinline__ void p2_apply_slab(T* rs, const T* ds, int S,
 }
 
 template <typename T>
-__global__ void p2_smooth_kernel(const T* __restrict__ rin,
-                                 const T* __restrict__ xin,
-                                 const T* __restrict__ corr,
-                                 T* __restrict__ out_x, T* __restrict__ out_r,
-                                 int Hc, int Wc, int nx, int ny, P2Terms tm,
-                                 Plane4 inv, SmoothCoeffs cf, int n_upd,
-                                 int post, int tile) {
+__global__ void p2_smooth_smem_kernel(const T* __restrict__ rin,
+                                      const T* __restrict__ xin,
+                                      const T* __restrict__ corr,
+                                      T* __restrict__ out_x,
+                                      T* __restrict__ out_r, int Hc, int Wc,
+                                      int nx, int ny, P2Terms tm, Plane4 inv,
+                                      SmoothCoeffs cf, int n_upd, int post,
+                                      int tile) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int halo = n_upd;
   const int S = tile + 2 * halo;
@@ -308,8 +629,23 @@ int load_terms(const int* tgt, const int* src, const int* dx, const int* dy,
   return 0;
 }
 
-// dynamic shared memory of p2_smooth_kernel: r and d slabs and the x tile
-// of the four planes, then the staged terms
+// The slot pattern with its coefficients as a term list (the shared-slab
+// kernel's form).
+P2Terms slot_terms(const double* c) {
+  P2Terms tm;
+  for (int k = 0; k < kMaxTerms; ++k) {
+    const bool on = k < kSlots;
+    tm.c[k] = on ? c[k] : 0.0;
+    tm.src[k] = on ? slot_at(k).src : 0;
+    tm.dx[k] = on ? slot_at(k).dx : 0;
+    tm.dy[k] = on ? slot_at(k).dy : 0;
+  }
+  for (int p = 0; p <= 4; ++p) tm.start[p] = slot_first(p);
+  return tm;
+}
+
+// dynamic shared memory of p2_smooth_smem_kernel: r and d slabs and the x
+// tile of the four planes, then the staged terms
 size_t smooth_smem_bytes(int tile, int n_upd, size_t itemsize) {
   const size_t side = (size_t)tile + 2 * (size_t)n_upd;
   return 4 * (2 * side * side + (size_t)tile * tile) * itemsize +
@@ -320,6 +656,13 @@ Plane4 load4(const double* v) {
   Plane4 out;
   for (int p = 0; p < 4; ++p) out.v[p] = v[p];
   return out;
+}
+
+template <typename K>
+int opt_in_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T>
@@ -334,36 +677,111 @@ int launch_apply(const void* x, void* out, int Hc, int Wc, int nx, int ny,
   return (int)cudaGetLastError();
 }
 
+// The smoothing call's arguments (host values except the canvases).
+struct SmoothArgs {
+  int post;
+  const void *rin, *xin, *corr;
+  void *out_x, *out_r;
+  int Hc, Wc, nx, ny;
+  const double* slot_c;    // kSlots coefficients
+  const double* inv_diag;  // 4
+  double inv_theta;
+  const double *c1, *c2;   // n_pairs each
+  int n_pairs;
+  int tile_rows, tile_cols;
+  cudaStream_t stream;
+};
+
+template <typename T, int SX, int TY, int R, int MINB>
+int launch_smooth_reg(const SmoothArgs& a) {
+  const int deg = 1 + a.n_pairs;
+  if (deg > kRegMaxDegree || a.tile_rows != TY * R - 2 * deg ||
+      a.tile_cols != SX - 2 * deg || a.tile_rows <= 0 || a.tile_cols <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SmoothParams<T> sp;
+  for (int k = 0; k < kSlots; ++k) sp.c[k] = T(a.slot_c[k]);
+  for (int p = 0; p < 4; ++p) sp.inv[p] = T(a.inv_diag[p]);
+  for (int k = 0; k < kRegMaxDegree; ++k) {
+    sp.c1[k] = (k >= 1 && k <= a.n_pairs) ? T(a.c1[k - 1]) : T(0);
+    sp.c2[k] = k == 0 ? T(a.inv_theta)
+                      : (k <= a.n_pairs ? T(a.c2[k - 1]) : T(0));
+  }
+  const size_t smem = 2 * (4 * (size_t)SX * TY * R + 2 * (SX + 1)) * sizeof(T);
+  const dim3 grid((a.Wc + a.tile_cols - 1) / a.tile_cols,
+                  (a.Hc + a.tile_rows - 1) / a.tile_rows);
+  const dim3 block(SX, TY);
+  const T* rin = static_cast<const T*>(a.rin);
+  const T* xin = static_cast<const T*>(a.xin);
+  const T* corr = static_cast<const T*>(a.corr);
+  T* out_x = static_cast<T*>(a.out_x);
+  T* out_r = static_cast<T*>(a.out_r);
+  if (a.post) {
+    const int e =
+        opt_in_smem(p2_smooth_reg_kernel<T, SX, TY, R, MINB, true>, smem);
+    if (e != 0) return e;
+    p2_smooth_reg_kernel<T, SX, TY, R, MINB, true>
+        <<<grid, block, smem, a.stream>>>(
+        rin, xin, corr, out_x, out_r, a.Hc, a.Wc, a.nx, a.ny, deg, sp);
+  } else {
+    const int e =
+        opt_in_smem(p2_smooth_reg_kernel<T, SX, TY, R, MINB, false>, smem);
+    if (e != 0) return e;
+    p2_smooth_reg_kernel<T, SX, TY, R, MINB, false>
+        <<<grid, block, smem, a.stream>>>(
+        rin, xin, corr, out_x, out_r, a.Hc, a.Wc, a.nx, a.ny, deg, sp);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch_smooth(const void* rin, const void* xin, const void* corr,
-                  void* out_x, void* out_r, int Hc, int Wc, int nx, int ny,
-                  const P2Terms& tm, const double* inv_diag,
-                  double inv_theta, const double* c1, const double* c2,
-                  int n_pairs, int post, int tile, cudaStream_t stream) {
-  if (n_pairs < 0 || n_pairs > kMaxPairs || tile <= 0) {
+int launch_smooth_smem(const SmoothArgs& a) {
+  const int tile = a.tile_rows;
+  if (a.n_pairs < 0 || a.n_pairs > kMaxPairs || tile <= 0 ||
+      a.tile_cols != tile) {
     return (int)cudaErrorInvalidValue;
   }
   SmoothCoeffs cf;
   for (int k = 0; k <= kMaxPairs; ++k) {
-    cf.c1[k] = (k >= 1 && k <= n_pairs) ? c1[k - 1] : 0.0;
-    cf.c2[k] = k == 0 ? inv_theta : (k <= n_pairs ? c2[k - 1] : 0.0);
+    cf.c1[k] = (k >= 1 && k <= a.n_pairs) ? a.c1[k - 1] : 0.0;
+    cf.c2[k] = k == 0 ? a.inv_theta : (k <= a.n_pairs ? a.c2[k - 1] : 0.0);
   }
-  const int n_upd = 1 + n_pairs;
+  const int n_upd = 1 + a.n_pairs;
   const size_t smem = smooth_smem_bytes(tile, n_upd, sizeof(T));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        p2_smooth_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = opt_in_smem(p2_smooth_smem_kernel<T>, smem);
+  if (e != 0) return e;
   const dim3 block(32, 16);
-  const dim3 grid((Wc + tile - 1) / tile, (Hc + tile - 1) / tile);
-  p2_smooth_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(rin), static_cast<const T*>(xin),
-      static_cast<const T*>(corr), static_cast<T*>(out_x),
-      static_cast<T*>(out_r), Hc, Wc, nx, ny, tm, load4(inv_diag), cf, n_upd,
-      post, tile);
+  const dim3 grid((a.Wc + tile - 1) / tile, (a.Hc + tile - 1) / tile);
+  p2_smooth_smem_kernel<T><<<grid, block, smem, a.stream>>>(
+      static_cast<const T*>(a.rin), static_cast<const T*>(a.xin),
+      static_cast<const T*>(a.corr), static_cast<T*>(a.out_x),
+      static_cast<T*>(a.out_r), a.Hc, a.Wc, a.nx, a.ny,
+      slot_terms(a.slot_c), load4(a.inv_diag), cf, n_upd, a.post, tile);
   return (int)cudaGetLastError();
+}
+
+// The register kernel's geometries: (element type, slab columns, threads
+// in y, rows per thread, blocks per SM its registers must allow), the
+// shapes ops/kernels_p2.py's p2_smooth_geometry picks. A build may define
+// others first (nvcc --pre-include) to time them.
+#ifndef TW_P2_SMOOTH_GEOMETRIES
+#define TW_P2_SMOOTH_GEOMETRIES(X) X(float, 64, 4, 8, 2) X(double, 32, 8, 4, 2)
+#endif
+
+int launch_smooth(int dtype, const SmoothArgs& a, int threads_y, int rows) {
+  if (threads_y <= 0) {
+    return dtype == 0 ? launch_smooth_smem<float>(a)
+                      : launch_smooth_smem<double>(a);
+  }
+  const int slab_cols = a.tile_cols + 2 * (1 + a.n_pairs);
+#define TW_P2_TRY(TT, SX, TY, R, MINB)                                 \
+  if (dtype == (sizeof(TT) == 8 ? 1 : 0) && slab_cols == SX &&         \
+      threads_y == TY && rows == R) {                                  \
+    return launch_smooth_reg<TT, SX, TY, R, MINB>(a);                  \
+  }
+  TW_P2_SMOOTH_GEOMETRIES(TW_P2_TRY)
+#undef TW_P2_TRY
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -372,8 +790,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = float64. Pointers are device pointers except the
 // term arrays (n_terms host values each: target plane, source plane, dx,
-// dy, coefficient), the four host doubles of diag / inv_diag, and c1 / c2
-// (n_pairs host doubles each). Canvases are (4, Hc, Wc), contiguous.
+// dy, coefficient), the slot coefficients (kSlots host doubles), the four
+// host doubles of diag / inv_diag, and c1 / c2 (n_pairs host doubles
+// each). Canvases are (4, Hc, Wc), contiguous.
 
 int tw_p2_apply(int dtype, const void* x, void* out, int Hc, int Wc, int nx,
                 int ny, const int* tgt, const int* src, const int* dx,
@@ -394,25 +813,23 @@ int tw_p2_apply(int dtype, const void* x, void* out, int Hc, int Wc, int nx,
 
 // post = 0: B12, rin = b, out (x, r); xin and corr unused (may be null).
 // post = 1: B13, rin = r_pre, xin = x, corr; out x; out_r unused.
+// threads_y > 0: the register kernel, slabs of (tile_cols + 2 degree)
+// columns and threads_y * rows rows (one of TW_P2_SMOOTH_GEOMETRIES, else
+// refused); threads_y = 0: the shared-slab kernel, square tiles of
+// tile_rows = tile_cols sites.
 int tw_p2_smooth(int dtype, int post, const void* rin, const void* xin,
                  const void* corr, void* out_x, void* out_r, int Hc, int Wc,
-                 int nx, int ny, const int* tgt, const int* src,
-                 const int* dx, const int* dy, const double* c, int n_terms,
+                 int nx, int ny, const double* slot_c,
                  const double* inv_diag, double inv_theta, const double* c1,
-                 const double* c2, int n_pairs, int tile, void* stream) {
-  P2Terms tm;
-  if (load_terms(tgt, src, dx, dy, c, n_terms, &tm)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_smooth<float>(rin, xin, corr, out_x, out_r, Hc, Wc, nx, ny,
-                                tm, inv_diag, inv_theta, c1, c2, n_pairs,
-                                post, tile, st);
-  }
-  return launch_smooth<double>(rin, xin, corr, out_x, out_r, Hc, Wc, nx, ny,
-                               tm, inv_diag, inv_theta, c1, c2, n_pairs,
-                               post, tile, st);
+                 const double* c2, int n_pairs, int tile_rows, int tile_cols,
+                 int threads_y, int rows, void* stream) {
+  if (n_pairs < 0) return (int)cudaErrorInvalidValue;
+  const SmoothArgs a{post,     rin,      xin,       corr,   out_x,
+                     out_r,    Hc,       Wc,        nx,     ny,
+                     slot_c,   inv_diag, inv_theta, c1,     c2,
+                     n_pairs,  tile_rows, tile_cols,
+                     static_cast<cudaStream_t>(stream)};
+  return launch_smooth(dtype, a, threads_y, rows);
 }
 
 }  // extern "C"

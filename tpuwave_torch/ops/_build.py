@@ -65,8 +65,8 @@ _SIGNATURES = {
     "tw_fast_blocks": (_I, _I),
     "tw_p2_apply": (_I, _VP, _VP, _I, _I, _I, _I, _IP, _IP, _IP, _IP, _DP,
                     _I, _DP, _I, _VP),
-    "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _IP,
-                     _IP, _IP, _IP, _DP, _I, _DP, _D, _DP, _DP, _I, _I, _VP),
+    "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _DP,
+                     _DP, _D, _DP, _DP, _I, _I, _I, _I, _I, _VP),
     "tw_varcoef_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP),
     "tw_varcoef_multistep": (_I, _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I,
                              _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP,

@@ -12,7 +12,13 @@ Wc >= nx + 3; the engine's canvases are exactly (ny+3, nx+3)).
 The block-stencil is given as ``coeffs``, the tuple of
 ``stencil_p2.coeffs_to_static`` (``P2PlaneStencil.terms``: terms (target
 plane, source plane, ox, oy, c), sorted), and its terms are summed per
-target plane in that order. The plain versions are built on
+target plane in that order. B11 takes any such list; B12 and B13 take the
+fixed 46-term pattern of the P2 mass, stiffness and system stencils
+(``SMOOTH_PATTERN``, compiled into their kernel) and raise ValueError for
+a term outside it or out of its order, on either device. Their kernel
+(``p2_smooth_geometry``) is chosen by the smoothing degree alone: up to
+degree 8 the register kernel, above it the shared-slab kernel. The plain
+versions are built on
 ``stencil_p2.apply_terms`` and on ``solve/multigrid.py``'s
 ``_smooth_block_jacobi``. Launches are counted in ``ops.kernels.LAUNCHES``
 (only real CUDA launches).
@@ -21,6 +27,9 @@ target plane in that order. The plain versions are built on
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from tpuwave_torch.ops.kernels import (_DTYPES, LAUNCHES, _largest_tile,
@@ -32,7 +41,8 @@ __all__ = ["p2_canvas_interior", "MAX_TERMS",
            "MAX_SMOOTH_DEGREE", "p2_constrained_apply",
            "p2_constrained_apply_reference", "p2_presmooth",
            "p2_presmooth_reference", "p2_postsmooth",
-           "p2_postsmooth_reference", "p2_smooth_tile"]
+           "p2_postsmooth_reference", "SMOOTH_PATTERN", "smooth_slots",
+           "SmoothGeometry", "SMOOTH_REG_MAX_DEGREE", "p2_smooth_geometry"]
 
 #: most block-stencil terms the kernels take (csrc/p2_kernels.cu kMaxTerms)
 MAX_TERMS = 64
@@ -167,25 +177,99 @@ def p2_postsmooth_reference(x, r, corr, coeffs, inv_diags, theta: float,
     return out
 
 
-def p2_smooth_tile(degree: int, dtype: torch.dtype, max_smem: int) -> int:
-    """Largest tile side whose r and d slabs of the four planes,
-    (tile + 2 degree)^2 each, the four x tiles and the staged terms fit
-    ``max_smem`` bytes of shared memory (the smem_bytes of
-    csrc/p2_kernels.cu)."""
+#: B12 / B13's fixed term pattern: the 46 (target plane, source plane, ox,
+#: oy) slots of the P2 mass, stiffness and Newmark-system stencils in
+#: ``coeffs_to_static`` order (csrc/p2_kernels.cu slot_at)
+SMOOTH_PATTERN = (
+    (0, 0, -1, -1), (0, 0, -1, 0), (0, 0, 0, -1), (0, 0, 0, 0),
+    (0, 0, 0, 1), (0, 0, 1, 0), (0, 0, 1, 1), (0, 1, -1, -1), (0, 1, -1, 0),
+    (0, 1, 0, 0), (0, 1, 0, 1), (0, 2, -1, -1), (0, 2, 0, -1), (0, 2, 0, 0),
+    (0, 2, 1, 0), (0, 3, -1, -1), (0, 3, -1, 0), (0, 3, 0, -1), (0, 3, 0, 0),
+    (1, 0, 0, -1), (1, 0, 0, 0), (1, 0, 1, 0), (1, 0, 1, 1), (1, 1, 0, 0),
+    (1, 2, 0, -1), (1, 2, 1, 0), (1, 3, 0, -1), (1, 3, 0, 0), (2, 0, -1, 0),
+    (2, 0, 0, 0), (2, 0, 0, 1), (2, 0, 1, 1), (2, 1, -1, 0), (2, 1, 0, 1),
+    (2, 2, 0, 0), (2, 3, -1, 0), (2, 3, 0, 0), (3, 0, 0, 0), (3, 0, 0, 1),
+    (3, 0, 1, 0), (3, 0, 1, 1), (3, 1, 0, 0), (3, 1, 0, 1), (3, 2, 0, 0),
+    (3, 2, 1, 0), (3, 3, 0, 0))
+_SLOT = {t: k for k, t in enumerate(SMOOTH_PATTERN)}
+
+
+@functools.lru_cache(maxsize=64)
+def smooth_slots(coeffs: tuple) -> tuple:
+    """The coefficients of ``coeffs`` (``coeffs_to_static`` terms) on the
+    46 slots of SMOOTH_PATTERN, 0.0 where a term is absent (a stencil that
+    dropped an exact zero). Raises ValueError for a term outside the
+    pattern or terms out of its order: the kernels sum each plane's terms
+    in slot order."""
+    out = [0.0] * len(SMOOTH_PATTERN)
+    last = -1
+    for term in coeffs:
+        key = tuple(int(v) for v in term[:4])
+        k = _SLOT.get(key)
+        if k is None:
+            raise ValueError(f"p2 smoothing: term {key} lies outside the "
+                             "fixed pattern of the P2 stencils")
+        if k <= last:
+            raise ValueError(f"p2 smoothing: term {key} is out of "
+                             "coeffs_to_static order")
+        out[k] = float(term[4])
+        last = k
+    return tuple(out)
+
+
+class SmoothGeometry(NamedTuple):
+    """The blocks of one B12 / B13 launch. ``threads_y`` > 0: the register
+    kernel, slabs of tile_cols + 2 degree columns (one thread each) and
+    threads_y x rows_per_thread rows; 0: the shared-slab kernel, square
+    tiles."""
+    tile_rows: int
+    tile_cols: int
+    threads_y: int
+    rows_per_thread: int
+    smem_bytes: int
+
+
+#: the register kernel's slab (columns, threads in y, rows per thread) per
+#: dtype, one of csrc/p2_kernels.cu's TW_P2_SMOOTH_GEOMETRIES, and the
+#: highest degree it takes (kRegMaxDegree)
+_SMOOTH_REG_SLAB = {torch.float32: (64, 4, 8), torch.float64: (32, 8, 4)}
+SMOOTH_REG_MAX_DEGREE = 8
+
+
+@functools.lru_cache(maxsize=None)
+def p2_smooth_geometry(degree: int, dtype: torch.dtype,
+                       max_smem: int) -> SmoothGeometry:
+    """Blocks of B12 / B13 at ``degree`` (1 + coefficient pairs, the halo
+    of a tile): up to degree 8 the register kernel's slab of the dtype,
+    less the halo (its double-buffered d slabs of the four planes and their
+    pads must fit ``max_smem`` bytes); above it the shared-slab kernel's
+    largest square tile (64, 32, 16) whose r and d slabs of the four
+    planes, (tile + 2 degree)^2 each, the four x tiles and the staged terms
+    fit. Raises ValueError where none fits."""
     isz = torch.empty((), dtype=dtype).element_size()
-    return _largest_tile(
-        f"p2 smoothing: degree {degree} in {dtype}",
-        lambda t: (4 * (2 * (t + 2 * degree) ** 2 + t * t) * isz
-                   + MAX_TERMS * (isz + 4) + 32), max_smem)
+    if degree <= SMOOTH_REG_MAX_DEGREE:
+        cols, ty, rows = _SMOOTH_REG_SLAB[dtype]
+        smem = 2 * (4 * cols * ty * rows + 2 * (cols + 1)) * isz
+        if smem > max_smem:
+            raise ValueError(f"p2 smoothing: degree {degree} in {dtype} "
+                             f"needs {smem} B of shared memory; the card "
+                             f"allows {max_smem} B")
+        return SmoothGeometry(ty * rows - 2 * degree, cols - 2 * degree, ty,
+                              rows, smem)
+
+    def slab_bytes(t):
+        return (4 * (2 * (t + 2 * degree) ** 2 + t * t) * isz
+                + MAX_TERMS * (isz + 4) + 32)
+    tile = _largest_tile(f"p2 smoothing: degree {degree} in {dtype}",
+                         slab_bytes, max_smem)
+    return SmoothGeometry(tile, tile, 0, 0, slab_bytes(tile))
 
 
-def _smooth_launch(name, post, rin, xin, corr, coeffs, inv_diags, theta,
-                   sm_coeffs, nx, ny):
-    sm = [(float(a), float(b)) for a, b in sm_coeffs]
+def _smooth_launch(name, post, rin, xin, corr, slots, inv_diags, theta,
+                   sm, nx, ny):
     lib = _lib()
-    tile = p2_smooth_tile(1 + len(sm), rin.dtype,
-                          _max_smem(lib, name, rin.device))
-    terms = _terms_arg(name, coeffs)
+    geo = p2_smooth_geometry(1 + len(sm), rin.dtype,
+                             _max_smem(lib, name, rin.device))
     n = max(len(sm), 1)
     c1 = (ctypes.c_double * n)(*(a for a, _ in sm))
     c2 = (ctypes.c_double * n)(*(b for _, b in sm))
@@ -198,17 +282,22 @@ def _smooth_launch(name, post, rin, xin, corr, coeffs, inv_diags, theta,
             _DTYPES[rin.dtype], int(post), _ptr(rin),
             _ptr(xin) if post else null, _ptr(corr) if post else null,
             _ptr(out_x), null if post else _ptr(out_r), hc, wc, nx, ny,
-            *terms, _four(inv_diags), 1.0 / float(theta), c1, c2, len(sm),
-            tile, _stream(rin))
+            (ctypes.c_double * len(slots))(*slots), _four(inv_diags),
+            1.0 / float(theta), c1, c2, len(sm), geo.tile_rows,
+            geo.tile_cols, geo.threads_y, geo.rows_per_thread, _stream(rin))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out_x if post else (out_x, out_r)
 
 
-def _check_degree(name, sm_coeffs):
+def _smooth_args(name, coeffs, sm_coeffs):
+    """(slot coefficients, coefficient pairs) of a smoothing call; raises
+    for a degree above MAX_SMOOTH_DEGREE or terms off the fixed pattern."""
     if 1 + len(sm_coeffs) > MAX_SMOOTH_DEGREE:
         raise ValueError(f"{name}: degree {1 + len(sm_coeffs)} exceeds "
                          f"{MAX_SMOOTH_DEGREE}")
+    slots = smooth_slots(tuple(tuple(t) for t in coeffs))
+    return slots, [(float(a), float(b)) for a, b in sm_coeffs]
 
 
 def p2_presmooth(b: torch.Tensor, coeffs, inv_diags, theta: float,
@@ -216,14 +305,17 @@ def p2_presmooth(b: torch.Tensor, coeffs, inv_diags, theta: float,
     """Pre-smoothing block in one kernel pass: b -> (x, r) (replaces
     ``p2_presmooth_pallas``). ``b`` must be supported on the interior (the
     canvas-CG residual invariant); ``theta`` / ``sm_coeffs`` are the
-    smoother's Chebyshev schedule on the D^{-1}A spectrum."""
+    smoother's Chebyshev schedule on the D^{-1}A spectrum; ``coeffs`` must
+    fit SMOOTH_PATTERN. On the card the degree alone picks the kernel
+    (``p2_smooth_geometry``): the register kernel up to degree 8, the
+    shared-slab kernel above."""
     _check("p2_presmooth", nx, ny, b)
-    _check_degree("p2_presmooth", sm_coeffs)
+    slots, sm = _smooth_args("p2_presmooth", coeffs, sm_coeffs)
     if b.device.type == "cpu":
         return p2_presmooth_reference(b, coeffs, inv_diags, theta,
                                       sm_coeffs, nx, ny)
-    return _smooth_launch("p2_presmooth", False, b, None, None, coeffs,
-                          inv_diags, theta, sm_coeffs, nx, ny)
+    return _smooth_launch("p2_presmooth", False, b, None, None, slots,
+                          inv_diags, theta, sm, nx, ny)
 
 
 def p2_postsmooth(x: torch.Tensor, r: torch.Tensor, corr: torch.Tensor,
@@ -231,11 +323,12 @@ def p2_postsmooth(x: torch.Tensor, r: torch.Tensor, corr: torch.Tensor,
                   ny: int) -> torch.Tensor:
     """The V-cycle tail in one kernel pass: x_out = postsmooth(x + corr,
     r - A corr), corr masked to the interior in the kernel (replaces
-    ``p2_postsmooth_pallas``)."""
+    ``p2_postsmooth_pallas``). Same pattern and kernel choice as
+    ``p2_presmooth``."""
     _check("p2_postsmooth", nx, ny, x, r, corr)
-    _check_degree("p2_postsmooth", sm_coeffs)
+    slots, sm = _smooth_args("p2_postsmooth", coeffs, sm_coeffs)
     if x.device.type == "cpu":
         return p2_postsmooth_reference(x, r, corr, coeffs, inv_diags, theta,
                                        sm_coeffs, nx, ny)
-    return _smooth_launch("p2_postsmooth", True, r, x, corr, coeffs,
-                          inv_diags, theta, sm_coeffs, nx, ny)
+    return _smooth_launch("p2_postsmooth", True, r, x, corr, slots,
+                          inv_diags, theta, sm, nx, ny)
