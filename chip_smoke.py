@@ -41,7 +41,7 @@ varying and with a time-dependent wave speed at R = 1. Phases:
      the launch-and-event floor (an empty kernel), against which the small
      grids' rows read
   4. the leapfrog: 320 steps through kernel B1 and through kernel B2
-     (k = 32), each against the plain loop; DoF*steps/s
+     (k = 8 and k = 32), each against the plain loop; DoF*steps/s
   5. both CLIs (newmark beta 1/4, theta 1/2), 50 steps on --device cuda and
      on --device cpu: CSVs and per-step CG counts must agree
   6. the full-length newmark run (T = 0.05) on cuda: wall time, and its
@@ -468,7 +468,7 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
         "operations counted per node: B1 21, B2 and B6 21 per step, B3 17 "
         "(23 diff), B4 22 per degree, B5 33; times: median of calls each "
-        "timed alone after an L2 flush; B3, B4 and B6: a rerun bitwise "
+        "timed alone after an L2 flush; B2, B3, B4 and B6: a rerun bitwise "
         "equal")
     rows, results = {}, {}
 
@@ -545,27 +545,39 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         rows[tag] = r
     results["leapfrog_step"] = rows["B1 leapfrog_step 4097^2 float32"]
 
-    # B2 leapfrog_multistep
-    u, up = rnd((4097, 4097), torch.float32), rnd((4097, 4097),
-                                                  torch.float32)
-    for k in (1, 8, 32):
+    # B2 leapfrog_multistep: bench.py's shape at k = 1, 8 (phase 4) and 32
+    # (phase 4, bench.py's pallas-k32) in f32, and k = 8 in f64; a call's
+    # launches (a pass deeper than the dtype's launch depth is split), a
+    # rerun bitwise equal
+    for dtype, k in ((torch.float32, 1), (torch.float32, 8),
+                     (torch.float32, 32), (torch.float64, 8)):
+        u, up = rnd((4097, 4097), dtype), rnd((4097, 4097), dtype)
+        before = kn.LAUNCHES["leapfrog_multistep"]
         got = kn.leapfrog_multistep(u, up, stiff, coef, k)
+        again = kn.leapfrog_multistep(u, up, stiff, coef, k)
+        per_call = (kn.LAUNCHES["leapfrog_multistep"] - before) // 2
         want = kn.leapfrog_multistep_reference(u, up, stiff, coef, k)
+        torch.cuda.synchronize()
+        tag = f"B2 leapfrog_multistep k={k} 4097^2 {str(dtype)[6:]}"
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: a rerun is not bitwise equal")
         peak = max(1.0, float(want[0].abs().max()),
                    float(want[1].abs().max()))
-        bound = f32_bound((3.0 + coef * ssum(stiff)) * peak, k)
+        bound = (1e-12 * peak if dtype == torch.float64 else
+                 f32_bound((3.0 + coef * ssum(stiff)) * peak, k))
         ms = cuda_ms(lambda: kn.leapfrog_multistep(u, up, stiff, coef, k),
                      20)
         pms = cuda_ms(lambda: kn.leapfrog_multistep_reference(
             u, up, stiff, coef, k), 3, warm=1)
-        tag = f"B2 leapfrog_multistep k={k} 4097^2 float32"
-        r = row(0.0, ms, pms, 4 * u.numel() * 4, 21 * k * u.numel(),
-                torch.float32)
+        r = row(0.0, ms, pms, 4 * u.numel() * u.element_size(),
+                21 * k * u.numel(), dtype)
         e1 = check(tag + " u", got[0], want[0], bound)
         e2 = check(tag + " u_prev", got[1], want[1], bound,
-                   f"({ms * 1e3 / k:.1f}us/step) " + timing(r))
+                   f"({ms * 1e3 / k:.1f}us/step, {per_call} launches a "
+                   f"call) " + timing(r))
         r["err"] = max(e1, e2)
         rows[tag] = r
+        del u, up, got, again, want
     results["leapfrog_multistep"] = rows[
         "B2 leapfrog_multistep k=32 4097^2 float32"]
 
@@ -1025,8 +1037,9 @@ def phase_p2_kernels(torch, dev, kn) -> dict:
     gen.manual_seed(4321)
     say("phase 3 (P2): B11-B13 on the Newmark system M + dt^2/4 K (f64 "
         "bound: 1e-12 x max|plain|; f32: see f32_bound); operations "
-        "counted per canvas site: B11 92 (46 multiply-adds), B12 116 per "
-        "apply, B13 116 per apply + 8; smoothing on [lambda/8, lambda], "
+        "counted per canvas site: B11 92 (46 multiply-adds; a rerun "
+        "bitwise equal), B12 116 per apply, B13 116 per apply + 8; "
+        "smoothing on [lambda/8, lambda], "
         "lambda = 2.5687 (tpuwave's estimate at Nel 1024) at Nel 1024 and "
         "4096, the Gershgorin bound of D^-1 A at Nel 160")
     rows, results = {}, {}
@@ -1062,23 +1075,38 @@ def phase_p2_kernels(torch, dev, kn) -> dict:
             return (1e-12 * float(want.abs().max()) if dtype == torch.float64
                     else f32_bound(scale, n))
 
-        # B11, both forms
+        # B11, both forms (the pattern kernel: the engines' terms), and at
+        # Nel 1024 once on a foreign term list (the general kernel: the
+        # system's last term replaced by one off the pattern); a rerun
+        # bitwise equal
         x = rnd(support)
-        for mask_input in (True, False):
+        foreign = coeffs[:-1] + ((3, 3, -1, 1, coeffs[-1][4]),)
+        cases = [(coeffs, True, ""), (coeffs, False, "")]
+        if nel == 1024:
+            cases.append((foreign, True, " (general kernel)"))
+        for terms, mask_input, kind in cases:
             dg = diags if mask_input else (0.0,) * 4
-            got = kp.p2_constrained_apply(x, coeffs, dg, nel, nel,
+            got = kp.p2_constrained_apply(x, terms, dg, nel, nel,
                                           mask_input)
-            want = kp.p2_constrained_apply_reference(x, coeffs, dg, nel,
+            again = kp.p2_constrained_apply(x, terms, dg, nel, nel,
+                                            mask_input)
+            want = kp.p2_constrained_apply_reference(x, terms, dg, nel,
                                                      nel, mask_input)
+            torch.cuda.synchronize()
+            tag = (f"B11 p2_constrained_apply{kind} {name} "
+                   f"mask_input={mask_input}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: a rerun is not bitwise equal")
             ms = cuda_ms(lambda: kp.p2_constrained_apply(
-                x, coeffs, dg, nel, nel, mask_input), n_k)
+                x, terms, dg, nel, nel, mask_input), n_k)
             pms = cuda_ms(lambda: kp.p2_constrained_apply_reference(
-                x, coeffs, dg, nel, nel, mask_input), n_p, warm=1)
-            tag = f"B11 p2_constrained_apply {name} mask_input={mask_input}"
+                x, terms, dg, nel, nel, mask_input), n_p, warm=1)
             r = row(0.0, ms, pms, 2 * stack, 92 * n_site, dtype)
+            route = getattr(kp, "p2_apply_route", None)
             r["err"] = check(tag, got, want,
                              bound(want, gersh * float(x.abs().max())),
-                             timing(r))
+                             timing(r) + ("" if route is None else
+                                          f"({route(tuple(terms))}) "))
             rows[tag] = r
         # B12 and B13
         b, r_in = rnd(interior), rnd(interior)
@@ -1142,6 +1170,8 @@ def phase_leapfrog(torch, dev):
             st0, n_steps),
         "B1 (run_leapfrog_kernel)": lambda: fs.run_leapfrog_kernel(
             st0, n_steps),
+        "B2 k=8 (run_leapfrog_multistep)": lambda: fs.run_leapfrog_multistep(
+            st0, n_steps, steps_per_call=8),
         "B2 k=32 (run_leapfrog_multistep)": lambda: fs.run_leapfrog_multistep(
             st0, n_steps, steps_per_call=32),
     }

@@ -127,6 +127,70 @@ def test_leapfrog_multistep_matches_pallas(pk, k, offset):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("k,br,offset", [(16, 32, None), (16, 32, (5, 44)),
+                                         (32, 64, None)])
+def test_leapfrog_multistep_deep_matches_pallas(pk, k, br, offset):
+    """Passes as deep as one B2 launch (16 steps in f32) and deeper (32,
+    two launches in f32, four in f64), against the Pallas kernel at the
+    smallest block_rows its halo of k rows allows."""
+    u, up = _fields(16)
+    kw = dict(stencil=STIFF, coef=0.3, n_steps=k, block_rows=br,
+              true_cols=W, interpret=True)
+    row_offset, n_rows = offset if offset is not None else (0, H)
+    wu, wup = pk.leapfrog_multistep_pallas(
+        _pad(u, br), _pad(up, br), *(() if offset is None else (row_offset,)),
+        true_rows=n_rows, **kw)
+    gu, gup = tk.leapfrog_multistep(_t(u), _t(up), STIFF, 0.3, k,
+                                    row_offset=row_offset, n_rows=n_rows)
+    np.testing.assert_allclose(gu.numpy(), np.asarray(wu)[:H, :W],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(gup.numpy(), np.asarray(wup)[:H, :W],
+                               rtol=RTOL, atol=ATOL)
+
+
+def _chunked_pass(u, up, k, depths, row_offset, n_rows):
+    """The plain version run launch by launch as the B2 kernel splits a
+    pass: each launch's output keeps the rows the later launches still
+    step (the remaining steps' rows beyond the array on each side), and
+    the next launch reads them."""
+    rest = k - depths[0]
+    pad = (0, 0, rest, rest)
+    cur = (torch.nn.functional.pad(u, pad), torch.nn.functional.pad(up, pad))
+    cur = tk.leapfrog_multistep_reference(*cur, STIFF, 0.3, depths[0],
+                                          row_offset - rest, n_rows)
+    for d in depths[1:]:
+        nxt = tk.leapfrog_multistep_reference(*cur, STIFF, 0.3, d,
+                                              row_offset - rest, n_rows)
+        rest -= d
+        cur = tuple(t[d:t.shape[0] - d] for t in nxt)
+    return cur
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [None, (5, 44)])
+def test_split_pass_equals_one_pass(dtype, offset):
+    """k = 32 split as the wrapper splits it on the card (16 + 16 in f32,
+    4 x 8 in f64) gives one pass's result bitwise, also for a row block
+    whose rows beyond the array are stepped (row offset 5 of 44 rows)."""
+    k = 32
+    depths = tk.multistep_geometry(k, dtype, 232448).depths
+    assert len(depths) > 1
+    u, up = (torch.tensor(a, dtype=dtype) for a in _fields(17))
+    row_offset, n_rows = offset if offset is not None else (0, H)
+    got = _chunked_pass(u, up, k, depths, row_offset, n_rows)
+    want = tk.leapfrog_multistep_reference(u, up, STIFF, 0.3, k, row_offset,
+                                           n_rows)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    # the kept rows matter: a split that drops them differs
+    if offset is not None:
+        cut = (u, up)
+        for d in depths:
+            cut = tk.leapfrog_multistep_reference(*cut, STIFF, 0.3, d,
+                                                  row_offset, n_rows)
+        assert not torch.equal(cut[0], want[0])
+
+
 def test_multistep_equals_repeated_single_steps():
     u, up = _fields(4)
     a, b = _t(u), _t(up)
@@ -152,11 +216,48 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_multistep_tile_fits_and_refuses():
-    # the H100's 227 KB opt-in limit: k = 32 fits in f32 at tile 64
+    # the H100's 227 KB opt-in limit. B6's square slabs: k = 32 fits in
+    # f32 at tile 64
     assert tk.multistep_tile(32, torch.float32, 232448) == 64
     assert tk.multistep_tile(32, torch.float64, 232448) == 32
     with pytest.raises(ValueError, match="shared memory"):
         tk.multistep_tile(200, torch.float32, 232448)
+    # B2's streaming slabs: k = 32 is two launches of 16 in f32 and four
+    # of 8 in f64, within the limit; a smaller limit takes shallower
+    # launches; none where not even one step's rings fit
+    g = tk.multistep_geometry(32, torch.float32, 232448)
+    assert g.depths == (16, 16) and g.smem_bytes <= 232448
+    g = tk.multistep_geometry(32, torch.float64, 232448)
+    assert g.depths == (8, 8, 8, 8) and g.smem_bytes <= 232448
+    g = tk.multistep_geometry(32, torch.float32, 12000)
+    assert max(g.depths) < 16 and g.smem_bytes <= 12000
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.multistep_geometry(4, torch.float32, 500)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 16, 17, 33, 64])
+def test_multistep_geometry_splits_the_pass(dtype, k):
+    """ceil(k / K) launches, K = MULTISTEP_MAX_DEPTH[dtype], of depths
+    within one of each other, the first the shallowest (the scratch
+    between launches is sized by it); every launch's slab is a multiple of
+    the 16-byte vector, holds its items (512 threads, 3 items each in f32,
+    2 in f64) and a tile of at least 2 depth columns, and its depth + 2
+    rings of 8 rows fit the limit (one block per SM)."""
+    lim = 232448
+    g = tk.multistep_geometry(k, dtype, lim)
+    deepest = tk.MULTISTEP_MAX_DEPTH[dtype]
+    assert len(g.depths) == -(-k // deepest)
+    assert sum(g.depths) == k and max(g.depths) - min(g.depths) <= 1
+    assert g.depths[0] == min(g.depths)
+    isz = torch.empty((), dtype=dtype).element_size()
+    v = 16 // isz
+    items = 512 * (3 if dtype == torch.float32 else 2)
+    for d in set(g.depths):
+        sw = tk.multistep_slab(d, dtype, lim)
+        assert sw % v == 0 and sw <= 512 and d * sw // v <= items
+        assert sw - 2 * d >= 2 * d
+        assert (d + 2) * 8 * (sw + 2 * v) * isz <= lim
 
 
 def test_cpu_tensors_never_count_launches():
@@ -398,17 +499,62 @@ def test_cuda_recurrence_r0(cuda_device, dtype, mask_combo):
             1 if g.dim() else H * W)
 
 
+# B2 on a grid of several strips (columns) and bands (rows) whose sides
+# are not multiples of the tile: 1100 columns are 3 strips at k = 1 (the
+# 512-column slab) and 4 at k = 16 (312 columns); a row block whose first
+# rows are pinned (row offset -3 of 260 rows: its bands near the top and
+# bottom hold pinned rows), one whose rows beyond the array are stepped and
+# whose bands hold no pinned row (offset 100 of 2000)
+MULTI = (300, 1100)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k,offset", [(1, None), (8, None), (32, None),
-                                      (8, (5, 44)), (8, (-3, 60))])
+@pytest.mark.parametrize("k", [1, 2, 7, 8, 9, 16, 31, 32, 33, 64])
+@pytest.mark.parametrize("offset", [None, (-3, 260), (100, 2000)])
 def test_cuda_leapfrog_multistep(cuda_device, dtype, k, offset):
-    u, up = _on(cuda_device, *_fields(8), dtype=dtype)
+    rng = np.random.default_rng(8 + k)
+    u, up = _on(cuda_device, *(rng.uniform(-1.0, 1.0, MULTI)
+                               for _ in range(2)), dtype=dtype)
     ro, nr = offset if offset is not None else (0, None)
+    before = tk.LAUNCHES["leapfrog_multistep"]
     got = tk.leapfrog_multistep(u, up, STIFF, 0.3, k, row_offset=ro,
                                 n_rows=nr)
     torch.cuda.synchronize()
+    # one launch per depth of multistep_geometry
+    lim = tk._max_smem(tk._lib(), "test", cuda_device)
+    assert tk.LAUNCHES["leapfrog_multistep"] == before + len(
+        tk.multistep_geometry(k, dtype, lim).depths)
     want = tk.leapfrog_multistep_reference(u, up, STIFF, 0.3, k, ro, nr)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= _bound(dtype, scale, k)
+    again = tk.leapfrog_multistep(u, up, STIFF, 0.3, k, row_offset=ro,
+                                  n_rows=nr)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["cross", "mass", "rand"])
+@pytest.mark.parametrize("k", [8, 17])
+def test_cuda_leapfrog_multistep_zero_patterns(cuda_device, dtype, which, k):
+    """B2 compiles the stencil's exact zeros in: the stiffness on square
+    cells has zero corners (5 terms), the mass zero anti-diagonal corners
+    (7), a random stencil none (9); each instance against the plain
+    version, which skips the same zeros."""
+    st = {"cross": FastWaveSolver((64, 64), ((0.0, 0.0), (1.0, 1.0)), 1e-3,
+                                  beta=0.0, dtype=torch.float64,
+                                  device="cpu").stiff.stencil,
+          "mass": tuple(tuple(1e4 * c for c in row) for row in MASS),
+          "rand": RAND}[which]
+    coef = 0.3 if which == "cross" else 0.05
+    rng = np.random.default_rng(40 + k)
+    u, up = _on(cuda_device, *(rng.uniform(-1.0, 1.0, MULTI)
+                               for _ in range(2)), dtype=dtype)
+    got = tk.leapfrog_multistep(u, up, st, coef, k)
+    torch.cuda.synchronize()
+    want = tk.leapfrog_multistep_reference(u, up, st, coef, k)
     for g, w in zip(got, want):
         scale = float(w.abs().max())
         assert float((g - w).abs().max()) <= _bound(dtype, scale, k)

@@ -163,6 +163,35 @@ def test_postsmooth_matches_pallas(pp, degree):
     _close(got.numpy(), _crop(want))
 
 
+# a mesh whose canvas sides (40, 73) are multiples of none of B11's tiles
+# (32 or 64 columns, 16 or 32 rows)
+NX3, NY3 = 70, 37
+
+
+@pytest.mark.parametrize("mask_input", [True, False])
+def test_constrained_apply_on_a_ragged_canvas_matches_pallas(pp,
+                                                             mask_input):
+    space = FeSpace(StructuredTriMesh((NX3, NY3), ((0.0, 0.0), (1.0, 0.6))),
+                    2)
+    st = P2PlaneStencil(space, element_mass_class(space, gauss_simplex(3)),
+                        torch.float64, "cpu").axpy(
+        0.25 * 0.05 ** 2, P2PlaneStencil(space, element_stiffness_class(
+            space, gauss_simplex(3), 1.0), torch.float64, "cpu"))
+    diags = (tuple(float(st.plane_diag[q]) for q in "VHWD") if mask_input
+             else (0.0,) * 4)
+    hc, wc = NY3 + 3, NX3 + 3
+    x = np.random.default_rng(21).uniform(-1.0, 1.0, (4, hc, wc))
+    import jax.numpy as jnp
+    xp = np.zeros((4, 48, wc))
+    xp[:, :hc] = x
+    want = pp.p2_constrained_apply_pallas(
+        jnp.asarray(xp), coeffs=st.terms, diags=diags, nx=NX3, ny=NY3,
+        block_rows=8, interpret=True, mask_input=mask_input)
+    got = kp.p2_constrained_apply(torch.tensor(x), st.terms, diags, NX3, NY3,
+                                  mask_input=mask_input)
+    _close(got.numpy(), np.asarray(want)[:, :hc])
+
+
 def test_padded_canvas_gives_the_same_support_values():
     """The kernels take any Hc >= ny + 3, Wc >= nx + 3: zero padding
     outside the support changes nothing inside it."""
@@ -257,15 +286,46 @@ def test_smooth_slots_order_the_stencils(which):
 
 @pytest.mark.parametrize("change", ["foreign", "reversed", "repeated"])
 def test_smooth_slots_refuse_other_patterns(change):
-    terms = STENCILS["system"].terms
-    bad = {"foreign": terms[:-1] + ((3, 3, -1, 1, 0.5),),
-           "reversed": terms[::-1],
-           "repeated": terms[:5] + terms[4:]}[change]
+    bad = _refused(change)
     with pytest.raises(ValueError, match="pattern|order"):
         kp.smooth_slots(bad)
     x = torch.zeros((4, HC, WC), dtype=torch.float64)
     with pytest.raises(ValueError, match="pattern|order"):
         kp.p2_presmooth(x, bad, (1.0,) * 4, 1.0, (), NX, NY)
+
+
+def _refused(change):
+    terms = STENCILS["system"].terms
+    return {"foreign": terms[:-1] + ((3, 3, -1, 1, 0.5),),
+            "reversed": terms[::-1],
+            "repeated": terms[:5] + terms[4:]}[change]
+
+
+@pytest.mark.parametrize("which", ["mass", "stiff", "system", "square",
+                                   "foreign", "reversed", "repeated"])
+def test_apply_route_follows_the_pattern(which):
+    """B11's kernel is chosen by the terms alone: the engines' stencils
+    (the square cells' stiffness with two slots left at 0 included) take
+    the pattern kernel, a foreign, reordered or repeated term the general
+    one; the pattern kernel's tiles (a tile and its one-site halo of the
+    four planes in static shared memory) fit 48 KB."""
+    if which in ("foreign", "reversed", "repeated"):
+        terms, want = _refused(which), "general"
+    else:
+        st = _square_stiffness() if which == "square" else STENCILS[which]
+        terms, want = st.terms, "pattern"
+    assert kp.p2_apply_route(tuple(terms)) == want
+    if want == "pattern":
+        assert kp.smooth_slots(tuple(terms))
+    for dtype in (torch.float32, torch.float64):
+        isz = torch.empty((), dtype=dtype).element_size()
+        small = kp.p2_apply_geometry(dtype, HC, WC)
+        large = kp.p2_apply_geometry(dtype, 4099, 4099)
+        assert small != large
+        for g in (small, large):
+            assert g.tile_cols * g.threads_y <= 1024
+            assert 4 * (g.tile_cols + 2) * (g.threads_y * g.rows_per_thread
+                                            + 2) * isz <= 48 * 1024
 
 
 def test_cpu_tensors_never_count_launches():
@@ -364,8 +424,7 @@ def test_cuda_postsmooth(cuda_device, dtype, degree):
 
 
 # a ragged mesh over several tiles in both directions, with partial edge
-# tiles: canvases (100, 153); square cells, so the stiffness drops two
-# exact zeros (slots left at 0)
+# tiles: canvases (100, 153)
 NX2, NY2 = 150, 97
 
 
@@ -460,3 +519,93 @@ def test_cuda_smoothing_on_padded_canvases(cuda_device, wide, dtype):
     for a, p in zip(*outs):
         assert torch.equal(p[:, :hc, :wc], a)
         assert not p[:, hc:].any() and not p[:, :, wc:].any()
+
+
+def _apply_stencils(nx, ny):
+    """The mass, stiffness, system and square-cell stiffness (44 terms:
+    two slots left at 0) on an nx x ny mesh."""
+    quad = gauss_simplex(3)
+    space = FeSpace(StructuredTriMesh((nx, ny), ((0.0, 0.0), (1.0, 1.0))), 2)
+    sq = FeSpace(StructuredTriMesh((nx, ny), ((0.0, 0.0),
+                                              (0.01 * nx, 0.01 * ny))), 2)
+    mass = P2PlaneStencil(space, element_mass_class(space, quad),
+                          torch.float64, "cpu")
+    stiff = P2PlaneStencil(space, element_stiffness_class(space, quad, 1.0),
+                           torch.float64, "cpu")
+    return {"mass": mass, "stiff": stiff,
+            "system": mass.axpy(0.25 * 0.02 ** 2, stiff),
+            "square": P2PlaneStencil(sq, element_stiffness_class(
+                sq, quad, 1.0), torch.float64, "cpu")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mask_input", [True, False])
+@pytest.mark.parametrize("which", ["mass", "stiff", "system", "square"])
+@pytest.mark.parametrize("mesh", [(NX2, NY2), (600, 451)])
+def test_cuda_apply_across_tiles(cuda_device, dtype, mask_input, which,
+                                 mesh):
+    """B11's pattern kernel on canvases of several tiles with partial
+    edge tiles, random values on every canvas site (the rhs form must read
+    the boundary values, the masked form must not): (100, 153) takes the
+    small tile, (454, 603) the large one; one launch, a bitwise rerun."""
+    nx, ny = mesh
+    st = _apply_stencils(nx, ny)[which]
+    assert kp.p2_apply_route(st.terms) == "pattern"
+    diags = (tuple(float(st.plane_diag[q]) for q in "VHWD") if mask_input
+             else (0.0,) * 4)
+    rng = np.random.default_rng(nx + ny)
+    (x,) = _on(cuda_device, dtype, rng.uniform(-1.0, 1.0,
+                                               (4, ny + 3, nx + 3)))
+    before = tk.LAUNCHES["p2_constrained_apply"]
+    got = kp.p2_constrained_apply(x, st.terms, diags, nx, ny, mask_input)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["p2_constrained_apply"] == before + 1
+    want = kp.p2_constrained_apply_reference(x, st.terms, diags, nx, ny,
+                                             mask_input)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= _bound(dtype, scale)
+    again = kp.p2_constrained_apply(x, st.terms, diags, nx, ny, mask_input)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mask_input", [True, False])
+def test_cuda_apply_on_padded_canvases(cuda_device, dtype, mask_input):
+    """B11 takes any Hc >= ny + 3, Wc >= nx + 3: zero padding leaves the
+    engine's canvas bitwise the same (the same tiles cover it) and gives
+    zeros beyond it."""
+    st = _apply_stencils(NX2, NY2)["system"]
+    diags = (tuple(float(st.plane_diag[q]) for q in "VHWD") if mask_input
+             else (0.0,) * 4)
+    hc, wc = NY2 + 3, NX2 + 3
+    x = np.random.default_rng(5).uniform(-1.0, 1.0, (4, hc, wc))
+    xp = np.zeros((4, hc + 37, wc + 5))
+    xp[:, :hc, :wc] = x
+    a, p = (kp.p2_constrained_apply(t, st.terms, diags, NX2, NY2, mask_input)
+            for t in _on(cuda_device, dtype, x, xp))
+    assert torch.equal(p[:, :hc, :wc], a)
+    assert not p[:, hc:].any() and not p[:, :, wc:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mask_input", [True, False])
+def test_cuda_general_apply_on_a_foreign_term_list(cuda_device, dtype,
+                                                   mask_input):
+    """A term off the pattern takes B11's general kernel."""
+    terms = _refused("foreign")
+    assert kp.p2_apply_route(terms) == "general"
+    diags = (1.5, 0.5, 0.75, 2.0) if mask_input else (0.0,) * 4
+    (x,) = _on(cuda_device, dtype, _field(15, _support()))
+    before = tk.LAUNCHES["p2_constrained_apply"]
+    got = kp.p2_constrained_apply(x, terms, diags, NX, NY, mask_input)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["p2_constrained_apply"] == before + 1
+    want = kp.p2_constrained_apply_reference(x, terms, diags, NX, NY,
+                                             mask_input)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= _bound(dtype, scale)
+    again = kp.p2_constrained_apply(x, terms, diags, NX, NY, mask_input)
+    assert torch.equal(got, again)

@@ -4,6 +4,8 @@
 // tpuwave/ops/pallas_p2.py, templated on float and double:
 //
 //   B11  p2_constrained_apply  <- p2_constrained_apply_pallas (_p2_kernel)
+//        (the pattern kernel, and the general kernel for other term
+//        lists)
 //   B12  p2_presmooth          <- p2_presmooth_pallas
 //   B13  p2_postsmooth         <- p2_postsmooth_pallas
 //
@@ -74,15 +76,20 @@ __device__ __forceinline__ bool p2_interior(int p, long long r, long long c,
 //
 // With mask_input = 0 and zero diagonals it is where(interior, A x, 0), the
 // rhs and boundary-lift form that must read the true driven boundary
-// values. One thread per canvas site computes all four output planes and
-// reads the 46 operands from global memory (L1 serves the neighbours after
-// the first touch).
+// values.
 //
 // Bound on this card: memory, one stack read and one written (8 canvases:
 // 67.5 MB at Nel 1024 f64, 20 us at 3.35 TB/s); ~46 multiply-adds per site
-// are 2-3x below that. The simple design reads each operand through L1
-// (19 distinct (plane, offset) operands, 46 terms) rather than staging a
-// tile in shared memory.
+// are 2-3x below that.
+//
+// Two kernels. Term lists that fit the fixed 46-slot pattern of the P2
+// mass, stiffness and system stencils (every list the engines build) take
+// p2_apply_pattern_kernel below, after the slot machinery of B12 / B13;
+// the host picks it by the terms alone (ops/kernels_p2.py
+// p2_apply_route). Any other list (a foreign, reordered or repeated term)
+// takes this general kernel: one thread per canvas site computes all four
+// output planes, with a run-time term loop that reads each operand through
+// L1 and tests the mask per term.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void p2_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -318,6 +325,112 @@ __device__ __forceinline__ void slot_sums(T (&acc)[4], const Window4<T>& w,
                                           const T* __restrict__ c,
                                           std::integer_sequence<int, K...>) {
   (slot_add<K>(acc, w, c), ...);
+}
+
+// ---------------------------------------------------------------------------
+// B11 pattern kernel: the 46 slots of slot_at, coefficients and plane
+// diagonals as a __grid_constant__ parameter (constant-bank operands).
+//
+// Each block owns a TX x (TY R) tile of canvas sites and stages x of the
+// four planes over the tile plus a one-site halo in shared memory, every
+// thread issuing all its loads before it stores the first. With mask_input
+// it stages 0 for a site outside its plane's interior (and outside the
+// canvas), so the mask costs one test per staged site instead of one per
+// term; without it, raw x (0 outside the canvas). Each thread then walks R
+// rows of one column with the sliding window of B12 / B13 over the 19
+// distinct operands (10 shared loads per site for the four planes) and
+// sums the 46 multiply-adds unrolled in slot order, which is
+// coeffs_to_static order, the order of the plain version. An output
+// outside its plane's interior is diag_p times raw x: staged raw x without
+// mask_input, else a load of x. Only a block whose slab holds a site that
+// is not interior for some plane (rows < 2 or > ny, columns < 2 or > nx)
+// tests masks or canvas bounds; every other block runs the instance with
+// no test. Tile shapes per dtype and canvas size: ops/kernels_p2.py
+// p2_apply_geometry, one of TW_P2_APPLY_GEOMETRIES.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct ApplyParams {
+  T c[kSlots];  // the slot coefficients
+  T diag[4];    // the pinned outputs' scale per plane
+};
+
+template <typename T, int TX, int TY, int R, bool WALLS, bool MASK>
+__device__ __forceinline__ void p2_apply_pattern_walk(
+    const T* __restrict__ x, T* __restrict__ out, T* __restrict__ xs,
+    int Hc, int Wc, int nx, int ny, int r0, int c0,
+    const ApplyParams<T>& ap) {
+  constexpr int SX = TX + 2, SY = TY * R + 2, SXY = SX * SY;
+  constexpr int NT = TX * TY, NS = (4 * SXY + NT - 1) / NT;
+  const size_t plane = (size_t)Hc * Wc;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  // slab site (sr, sc) of plane p is canvas site (r0 - 1 + sr, c0 - 1 + sc)
+  T v[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int i = tid + k * NT;
+    const int p = i / SXY, j = i - p * SXY;
+    const int sr = j / SX, gr = r0 - 1 + sr, gc = c0 - 1 + (j - sr * SX);
+    bool in = i < 4 * SXY;
+    if (WALLS) {
+      in = in && gr >= 0 && gr < Hc && gc >= 0 && gc < Wc &&
+           (!MASK || p2_interior(p, gr, gc, nx, ny));
+    }
+    v[k] = in ? __ldg(x + p * plane + (size_t)gr * Wc + gc) : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int i = tid + k * NT;
+    if (i < 4 * SXY) xs[i] = v[k];
+  }
+  __syncthreads();
+  const int gc = c0 + threadIdx.x;
+  if (gc >= Wc) return;
+  const int row0 = r0 + threadIdx.y * R;
+  const int base = (threadIdx.y * R + 1) * SX + threadIdx.x + 1;
+  Window4<T> w;
+  window_prime<T, SX, SXY>(w, xs, base);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int gr = row0 + i;
+    if (gr >= Hc) break;
+    window_lead<T, SX, SXY>(w, xs, base + i * SX);
+    T acc[4];
+    slot_sums(acc, w, ap.c, std::make_integer_sequence<int, kSlots>{});
+    const size_t g = (size_t)gr * Wc + gc;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      T o = acc[p];
+      if (WALLS && !p2_interior(p, gr, gc, nx, ny)) {
+        o = ap.diag[p] * (MASK ? __ldg(x + p * plane + g) : w[p][1][1]);
+      }
+      out[p * plane + g] = o;
+    }
+    window_slide(w);
+  }
+}
+
+template <typename T, int TX, int TY, int R>
+__global__ void __launch_bounds__(TX * TY)
+p2_apply_pattern_kernel(const T* __restrict__ x, T* __restrict__ out, int Hc,
+                        int Wc, int nx, int ny, int mask_input,
+                        const __grid_constant__ ApplyParams<T> ap) {
+  __shared__ T xs[4 * (TX + 2) * (TY * R + 2)];
+  const int r0 = blockIdx.y * (TY * R);  // canvas row of the tile's row 0
+  const int c0 = blockIdx.x * TX;
+  // the slab (tile and halo) holds a site that is not interior for some
+  // plane: every plane's interior covers rows 2 .. ny, columns 2 .. nx
+  const bool walls = r0 - 1 < 2 || c0 - 1 < 2 || r0 + TY * R > ny ||
+                     c0 + TX > nx;
+  if (!walls) {
+    p2_apply_pattern_walk<T, TX, TY, R, false, false>(x, out, xs, Hc, Wc, nx,
+                                                      ny, r0, c0, ap);
+  } else if (mask_input) {
+    p2_apply_pattern_walk<T, TX, TY, R, true, true>(x, out, xs, Hc, Wc, nx,
+                                                    ny, r0, c0, ap);
+  } else {
+    p2_apply_pattern_walk<T, TX, TY, R, true, false>(x, out, xs, Hc, Wc, nx,
+                                                     ny, r0, c0, ap);
+  }
 }
 
 template <typename T, int SX, int TY, int R, bool POST, bool WALLS>
@@ -677,6 +790,31 @@ int launch_apply(const void* x, void* out, int Hc, int Wc, int nx, int ny,
   return (int)cudaGetLastError();
 }
 
+// The pattern kernel's tile shapes: (element type, tile columns, threads in
+// y, rows per thread), the shapes ops/kernels_p2.py's p2_apply_geometry
+// picks (a large tile on large canvases, a small one below). A build may
+// define others first (nvcc --pre-include) to time them
+// (scripts/torch_p2_apply_geometry.py).
+#ifndef TW_P2_APPLY_GEOMETRIES
+#define TW_P2_APPLY_GEOMETRIES(X) \
+  X(float, 128, 2, 8) X(float, 32, 8, 2) X(double, 64, 2, 4) X(double, 32, 8, 2)
+#endif
+
+template <typename T, int TX, int TY, int R>
+int launch_apply_pattern(const void* x, void* out, int Hc, int Wc, int nx,
+                         int ny, const double* slot_c, const double* diag,
+                         int mask_input, cudaStream_t stream) {
+  ApplyParams<T> ap;
+  for (int k = 0; k < kSlots; ++k) ap.c[k] = T(slot_c[k]);
+  for (int p = 0; p < 4; ++p) ap.diag[p] = T(diag[p]);
+  const dim3 block(TX, TY);
+  const dim3 grid((Wc + TX - 1) / TX, (Hc + TY * R - 1) / (TY * R));
+  p2_apply_pattern_kernel<T, TX, TY, R><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), Hc, Wc, nx, ny,
+      mask_input, ap);
+  return (int)cudaGetLastError();
+}
+
 // The smoothing call's arguments (host values except the canvases).
 struct SmoothArgs {
   int post;
@@ -809,6 +947,25 @@ int tw_p2_apply(int dtype, const void* x, void* out, int Hc, int Wc, int nx,
   }
   return launch_apply<double>(x, out, Hc, Wc, nx, ny, tm, diag, mask_input,
                               st);
+}
+
+// slot_c: kSlots host doubles, the terms on the slots of slot_at (0 for an
+// absent term); diag: 4 host doubles; a tile of tile_cols x (threads_y *
+// rows) sites, one of TW_P2_APPLY_GEOMETRIES (else refused).
+int tw_p2_apply_pattern(int dtype, const void* x, void* out, int Hc, int Wc,
+                        int nx, int ny, const double* slot_c,
+                        const double* diag, int mask_input, int tile_cols,
+                        int threads_y, int rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TW_P2_TRY_APPLY(TT, TX, TY, R)                                      \
+  if (dtype == (sizeof(TT) == 8 ? 1 : 0) && tile_cols == TX &&              \
+      threads_y == TY && rows == R) {                                       \
+    return launch_apply_pattern<TT, TX, TY, R>(x, out, Hc, Wc, nx, ny,      \
+                                               slot_c, diag, mask_input, st); \
+  }
+  TW_P2_APPLY_GEOMETRIES(TW_P2_TRY_APPLY)
+#undef TW_P2_TRY_APPLY
+  return (int)cudaErrorInvalidValue;
 }
 
 // post = 0: B12, rin = b, out (x, r); xin and corr unused (may be null).

@@ -22,6 +22,10 @@
 // entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() (0 = success).
 
+#include <algorithm>
+#include <type_traits>
+#include <utility>
+
 #include "grid_common.cuh"
 
 namespace {
@@ -235,7 +239,577 @@ __global__ void leapfrog_step_kernel(const T* __restrict__ u,
 }
 
 // ---------------------------------------------------------------------------
-// B2: n_steps leapfrog steps in one pass (temporal blocking).
+// B2: n_steps leapfrog steps in one pass (temporal blocking), a streaming
+// wavefront.
+//
+// Each block owns a strip of tile_cols output columns and a band of output
+// rows, and keeps for every time level q of its pass (q = -1 is u_prev,
+// q = 0 is u, q = 1 .. depth the steps) a ring of a few rows of a
+// slab_cols-wide slab (the strip plus a depth-wide column halo on each
+// side) in shared memory. It marches down its band in ticks: at tick t
+// level q steps the RB rows from base + RB t - L q (RB = 2 rows a tick,
+// L = RB + 1 = 3): level 0 (and -1) is loaded from device memory, every
+// level q >= 1 computes its rows from level q - 1's rows above, at and
+// below them and level q - 2's same rows. Level q - 1 finished the lowest
+// of those rows in an earlier tick (the lag L), so all levels of a tick
+// are independent and one barrier per tick suffices. The band's first
+// level-0 row is depth rows above it and its last depth rows below: level
+// q covers depth - q rows beyond the band on each side, so level depth is
+// exact on the band. Row R of every level sits in ring row (R - base) mod
+// the ring (8 rows, >= 3 RB + 2): its readers (level q + 1 one tick later,
+// level q + 2 as its u_prev, the writer) are done before it is
+// overwritten.
+//
+// A thread owns up to IPT items, each one (level, group of V columns); a
+// group's V values move as one 16-byte shared load or store. An item keeps
+// a sliding window of RB + 2 register rows over its level's input, so per
+// tick it loads RB new rows: its own V values, and the value on each side
+// from the neighbouring lanes by warp shuffles (a shared load only at a
+// warp's or a level's first and last group). Its u_prev is a vector load
+// per row, its result a vector store. The 9 coefficients and the time step
+// come as a __grid_constant__ parameter (constant-bank operands), and the
+// stencil's exact zeros are compiled in (the structured P1 stencils have
+// zero anti-diagonal corners, square cells' stiffness zero corners: 7 or 5
+// multiply-adds instead of 9), as the plain version skips them. Rows of
+// level depth leave through the ring as well: one tick later the block
+// writes them, and level depth - 1's same rows (u_prev), as whole coalesced
+// rows of its tile.
+//
+// The loads of level -1 and 0 run PF ticks ahead in registers, so a
+// block's loads, steps and stores overlap. The tick loop is unrolled so
+// that the window rows and the load buffers rotate by name (no register
+// moves, none of a register with a load in flight); the loader and writer
+// columns are fixed per thread; a warp whose items of a slot are all idle
+// skips them. Only a block whose slab holds a pinned row or column tests
+// for them: the walls (columns 0, W - 1) and the row offset's pinned rows
+// (global row <= 0 or >= n_rows - 1); each item keeps its columns' pins as
+// bits. The block shapes (TW_B2_SHAPES) were chosen on the card
+// (scripts/torch_b2_geometry.py): 512 threads and one block per SM, 3
+// items a thread in f32 and 2 in f64, loads 4 ticks ahead. An earlier
+// step of one row a tick (ring of 5, lag 2), four rows a tick, two blocks
+// per SM and fewer items each were slower (PERF.md).
+//
+// Work: level q computes its slab's width over band + 2 (depth - q) rows,
+// so a pass does about (slab_cols / tile_cols) (1 + depth / band_rows)
+// times the useful steps; the strips are evened out and their count picked
+// so that the blocks fill the SMs. Device memory: u and u_prev read once,
+// u and u_prev written once per pass (plus the rings' column halo from L2).
+// Bound on this card: operations above depth ~4 in f32 (21 per node and
+// step counted); the kernel is held by its instruction throughput, the
+// integer and control work around each step.
+//
+// A pass of n_steps steps is ceil(n_steps / max_depth) launches of depths
+// as even as they can be (ops/kernels.py multistep_geometry, which picks
+// max_depth per dtype: 16 in f32, 8 in f64). Between launches the state is
+// kept on the rows a single pass would still step (depth rows beyond the
+// array on each side that the remaining launches need), so every node
+// takes the same arithmetic as in one pass of all the steps, row-block
+// offsets included.
+// ---------------------------------------------------------------------------
+constexpr int kB2MaxSlab = 512;  // widest slab (columns)
+
+__host__ __device__ constexpr int b2_gcd(int x, int y) {
+  return y == 0 ? x : b2_gcd(y, x % y);
+}
+__host__ __device__ constexpr int b2_pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * b2_pow2_at_least((x + 1) / 2);
+}
+
+// B2's block shape per dtype: (element type, threads, items per thread,
+// blocks per SM that its registers must allow, ticks the loads run ahead
+// (1, 2 or 4), rows each level steps per tick (RB)). A level trails the
+// one below it by RB + 1 rows and keeps a ring of the power of 2 >= 3 RB +
+// 2 rows; a slab of depth d holds at most threads * items / d groups of V
+// columns, and its rings take 1 / (blocks per SM) of the shared memory. A
+// build may define others first (nvcc --pre-include) to time them
+// (scripts/torch_b2_geometry.py); ops/kernels.py mirrors these in
+// _B2_SHAPE.
+#ifndef TW_B2_SHAPES
+#define TW_B2_SHAPES(X) X(float, 512, 3, 1, 4, 2) X(double, 512, 2, 1, 4, 2)
+#endif
+
+template <typename T>
+struct B2Shape;
+#define TW_B2_SHAPE(TT, NT, IPT, MINB, PF, RB)                          \
+  template <>                                                            \
+  struct B2Shape<TT> {                                                   \
+    static constexpr int kThreads = NT, kIPT = IPT, kMinBlocks = MINB,   \
+                         kPrefetch = PF, kRows = RB, kLag = RB + 1,      \
+                         kRing = b2_pow2_at_least(3 * RB + 2);           \
+  };
+TW_B2_SHAPES(TW_B2_SHAPE)
+#undef TW_B2_SHAPE
+
+// 16-byte moves of V values
+template <typename T>
+struct B2Vec;
+template <>
+struct B2Vec<float> {
+  static constexpr int kV = 4;
+  __device__ __forceinline__ static void load(float (&a)[4], const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&a)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+template <>
+struct B2Vec<double> {
+  static constexpr int kV = 2;
+  __device__ __forceinline__ static void load(double (&a)[2],
+                                              const double* p) {
+    const double2 v = *reinterpret_cast<const double2*>(p);
+    a[0] = v.x;
+    a[1] = v.y;
+  }
+  __device__ __forceinline__ static void store(double* p,
+                                               const double (&a)[2]) {
+    *reinterpret_cast<double2*>(p) = make_double2(a[0], a[1]);
+  }
+};
+
+template <typename T>
+struct B2Params {
+  const T* u;    // input rows in_a .. in_a + in_h - 1 (0 outside)
+  const T* up;
+  T* out_u;      // output rows out_a .. out_a + out_h - 1
+  T* out_up;
+  int in_a, in_h, out_a, out_h, W;
+  int depth, tile_cols, slab_cols, band_rows;
+  int pin_lo, pin_hi;  // rows <= pin_lo or >= pin_hi are pinned
+  T s[9];
+  T coef;
+};
+
+// ring rows of one level at slab width sw
+__host__ __device__ constexpr int b2_pitch(int sw, int v) { return sw + 2 * v; }
+
+// The stencil's exact zeros, compiled in: kB2Full all 9 terms, kB2NoAnti
+// without the anti-diagonal corners s[0][2], s[2][0] (the P1 mass and
+// stiffness stencils of the structured triangulation), kB2Cross without
+// any corner (the stiffness on square cells: 5 terms). The plain version
+// skips zero terms too.
+constexpr int kB2Full = 0, kB2NoAnti = 1, kB2Cross = 2;
+
+// One row of an item's step: the 3x3 stencil on rows up / mid / dn (V + 2
+// values each, the group and a column on each side) in the plain version's
+// order (the centre, then the rows above, at and below); 2 u - u_prev is
+// exact in one rounding; pinned columns (pins bit i) and rows give 0.
+template <typename T, int V, int PAT, bool WALLS>
+__device__ __forceinline__ void b2_step(const B2Params<T>& a,
+                                        const T (&up)[V + 2],
+                                        const T (&mid)[V + 2],
+                                        const T (&dn)[V + 2],
+                                        const T (&pv)[V], bool row_pin,
+                                        unsigned pins, T (&out)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    T ku = a.s[4] * mid[i + 1];
+    if constexpr (PAT < kB2Cross) ku += a.s[0] * up[i];
+    ku += a.s[1] * up[i + 1];
+    if constexpr (PAT < kB2NoAnti) ku += a.s[2] * up[i + 2];
+    ku += a.s[3] * mid[i];
+    ku += a.s[5] * mid[i + 2];
+    if constexpr (PAT < kB2NoAnti) ku += a.s[6] * dn[i];
+    ku += a.s[7] * dn[i + 1];
+    if constexpr (PAT < kB2Cross) ku += a.s[8] * dn[i + 2];
+    const T v = fma(-a.coef, ku, fma(T(2), mid[i + 1], -pv[i]));
+    out[i] = (WALLS && (row_pin || ((pins >> i) & 1u))) ? T(0) : v;
+  }
+}
+
+template <int... PH, typename F>
+__device__ __forceinline__ void b2_unrolled(std::integer_sequence<int, PH...>,
+                                            F&& f) {
+  (f(std::integral_constant<int, PH>{}), ...);
+}
+
+template <typename T, int PAT, bool WALLS>
+__device__ __forceinline__ void leapfrog_wavefront_body(
+    const B2Params<T>& a, T* __restrict__ ring) {
+  using S = B2Shape<T>;
+  constexpr int V = B2Vec<T>::kV, IPT = S::kIPT, NT = S::kThreads;
+  constexpr int NL = kB2MaxSlab / NT, PF = S::kPrefetch;
+  constexpr int RB = S::kRows, L = S::kLag, M = S::kRing - 1;
+  constexpr int NB = RB + 2;  // window rows of an item: 2 kept, RB new
+  // the window rows rotate with period NB / gcd(RB, NB), the load buffers
+  // with period PF; the tick loop is unrolled by both
+  constexpr int PER = NB / b2_gcd(RB, NB);
+  constexpr int U = PER * PF / b2_gcd(PER, PF);
+  static_assert(NL * NT == kB2MaxSlab, "threads must divide the widest slab");
+  const int d = a.depth, sw = a.slab_cols, G = sw / V;
+  const int P = b2_pitch(sw, V);  // slab column j at ring index V + j
+  const int LS = S::kRing * P;    // level q's ring at ring + (q + 1) LS
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c_lo = blockIdx.x * a.tile_cols - d;  // column of slab col 0
+  const int band0 = a.out_a + blockIdx.y * a.band_rows;
+  const int rows = min(a.band_rows, a.out_a + a.out_h - band0);
+  const int base = band0 - d;  // level-0 row of tick 0
+  const int n_load = (rows + 2 * d + RB - 1) / RB;  // ticks of level 0
+  const int n_ticks = (rows + (L + 1) * d - 1) / RB + 2;
+
+  // the loader's and the writer's columns: slab column tid + l NT; the
+  // input row base + x lies in the input iff in_lo <= x < in_hi
+  int col[NL];
+  bool lok[NL], wok[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    const int j = tid + l * NT, c = c_lo + j;
+    col[l] = c;
+    lok[l] = j < sw && c >= 0 && c < a.W;
+    wok[l] = j >= d && j < d + a.tile_cols && c < a.W;
+  }
+  const int in_lo = a.in_a - base, in_hi = a.in_a + a.in_h - base;
+  const long long in_off = (long long)(base - a.in_a) * a.W;
+  const long long out_off = (long long)(band0 - a.out_a) * a.W;
+  using Buf = T[RB][NL];  // one tick's input rows of a field
+  // level 0's (and -1's) rows of tick t
+  auto fetch = [&](int t, Buf& pu, Buf& pp) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int x = RB * t + r;
+      const bool row_in = t < n_load && x >= in_lo && x < in_hi;
+      const long long ro = in_off + (long long)x * a.W;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const bool ok = row_in && lok[l];
+        pu[r][l] = ok ? __ldg(a.u + ro + col[l]) : T(0);
+        pp[r][l] = ok ? __ldg(a.up + ro + col[l]) : T(0);
+      }
+    }
+  };
+  Buf bu[PF], bp[PF];
+#pragma unroll
+  for (int k = 0; k < PF; ++k) fetch(k, bu[k], bp[k]);
+
+  // the items: level lev (1 .. d, 0 = idle), its group at ring offset
+  // wofs of the ring of level lev - 1, slot = ring row of its first row
+  // (RB t - L lev, mod the ring); flags: bit 0 the level's first group,
+  // bit 1 its last, bit 2 + i column i pinned, bit 31 the warp holds an
+  // item of this slot
+  int lev[IPT], wofs[IPT], slot[IPT];
+  unsigned flags[IPT];
+  T win[NB][IPT][V + 2];
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    const int item = tid + j * NT;
+    const bool on = item < d * G;
+    const int q = on ? item / G + 1 : 0;
+    const int g = on ? item - (q - 1) * G : 0;
+    lev[j] = q;
+    wofs[j] = q * LS + V + g * V;
+    slot[j] = (-L * q) & M;
+    unsigned f = (unsigned)(g == 0) | (unsigned)(g == G - 1) << 1 |
+                 (unsigned)((item & ~31) < d * G) << 31;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = c_lo + g * V + i;
+      f |= (unsigned)(c <= 0 || c >= a.W - 1) << (2 + i);
+    }
+    flags[j] = f;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int i = 0; i < V + 2; ++i) win[b][j][i] = T(0);
+    }
+  }
+  for (int i = tid; i < (d + 2) * LS; i += NT) ring[i] = T(0);
+  __syncthreads();
+
+  // One tick, at phase PH of the unrolled loop: level q steps rows
+  // base + RB t - L q .. + RB - 1. The load buffer PH mod PF holds level
+  // 0's (and -1's) rows of this tick, fetched PF ticks before, and takes
+  // those PF ticks ahead; each item keeps its window rows above and at its
+  // first row (window rows K0, K0 + 1, mod NB) and loads the RB below,
+  // whose last two it keeps for the next tick. Phases rename the rows and
+  // buffers: no register moves, none of a buffer with loads in flight.
+  auto run_tick = [&](auto phase, int t) {
+    constexpr int PH = decltype(phase)::value;
+    constexpr int K0 = (PH * RB) % NB;
+    Buf& pu = bu[PH % PF];
+    Buf& pp = bp[PH % PF];
+    if (t < n_load) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        T* rp = ring + ((RB * t + r) & M) * P + V;
+        T* ru = rp + LS;
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          const int j = tid + l * NT;
+          if (j < sw) {
+            ru[j] = pu[r][l];
+            rp[j] = pp[r][l];
+          }
+        }
+      }
+    }
+    fetch(t + PF, pu, pp);
+
+    // the rows level d finished last tick, and level d - 1's same rows
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int o = RB * (t - 1) - (L + 1) * d + r;  // row of the band
+      if (o >= 0 && o < rows) {
+        const T* ou = ring + (d + 1) * LS + ((o + d) & M) * P + V;
+        const T* op = ou - LS;
+        const long long oo = out_off + (long long)o * a.W;
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          if (wok[l]) {
+            const int j = tid + l * NT;
+            a.out_u[oo + col[l]] = ou[j];
+            a.out_up[oo + col[l]] = op[j];
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < IPT; ++j) {
+      const int q = lev[j], m = slot[j];
+      slot[j] = (m + RB) & M;
+      const unsigned f = flags[j];
+      if (!(f >> 31)) continue;  // the whole warp is idle in this slot
+      // the window's new rows: level q - 1, the RB below the item's first
+      // row and the one below its last
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const T* src = ring + wofs[j] + ((m + 1 + r) & M) * P;
+        T cv[V];
+        if (q != 0) {
+          B2Vec<T>::load(cv, src);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) cv[i] = T(0);
+        }
+        T left = __shfl_up_sync(0xffffffffu, cv[V - 1], 1);
+        T right = __shfl_down_sync(0xffffffffu, cv[0], 1);
+        if (q != 0 && (lane == 0 || (f & 1u))) left = src[-1];
+        if (q != 0 && (lane == 31 || (f & 2u))) right = src[V];
+        T(&nr)[V + 2] = win[(K0 + 2 + r) % NB][j];
+        nr[0] = left;
+#pragma unroll
+        for (int i = 0; i < V; ++i) nr[i + 1] = cv[i];
+        nr[V + 1] = right;
+      }
+
+      // active on the groups that hold a row of base + q .. base + rows +
+      // 2 d - q - 1
+      if (q != 0 && t >= (L + 1) * q / RB &&
+          t <= (rows + 2 * d - q - 1 + L * q) / RB) {
+        const T* prv = ring + wofs[j] - LS;
+        T* dst = ring + wofs[j] + LS;
+        const int R = base + RB * t - L * q;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          T pv[V], out[V];
+          B2Vec<T>::load(pv, prv + ((m + r) & M) * P);
+          const bool pin = WALLS && (R + r <= a.pin_lo || R + r >= a.pin_hi);
+          b2_step<T, V, PAT, WALLS>(a, win[(K0 + r) % NB][j],
+                                    win[(K0 + r + 1) % NB][j],
+                                    win[(K0 + r + 2) % NB][j], pv, pin,
+                                    f >> 2, out);
+          B2Vec<T>::store(dst + ((m + r) & M) * P, out);
+        }
+      }
+    }
+    __syncthreads();
+  };
+  for (int t = 0; t < n_ticks; t += U) {
+    b2_unrolled(std::make_integer_sequence<int, U>{}, [&](auto phase) {
+      if (t + decltype(phase)::value < n_ticks) {
+        run_tick(phase, t + decltype(phase)::value);
+      }
+    });
+  }
+}
+
+template <typename T, int PAT>
+__global__ void __launch_bounds__(B2Shape<T>::kThreads,
+                                  B2Shape<T>::kMinBlocks)
+leapfrog_wavefront_kernel(const __grid_constant__ B2Params<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  // the slab's columns and its levels' rows hold a pinned node
+  const int c_lo = blockIdx.x * a.tile_cols - a.depth;
+  const int band0 = a.out_a + blockIdx.y * a.band_rows;
+  const int rows = min(a.band_rows, a.out_a + a.out_h - band0);
+  const bool walls = c_lo <= 0 || c_lo + a.slab_cols - 1 >= a.W - 1 ||
+                     band0 - a.depth <= a.pin_lo ||
+                     band0 + rows + a.depth - 1 >= a.pin_hi;
+  if (walls) {
+    leapfrog_wavefront_body<T, PAT, true>(a, ring);
+  } else {
+    leapfrog_wavefront_body<T, PAT, false>(a, ring);
+  }
+}
+
+// One launch's blocks (ops/kernels.py multistep_slab mirrors the slab
+// rule): the widest slab, a multiple of V columns, that the items
+// (threads * items per thread / depth groups of V), kB2MaxSlab and the
+// shared memory of one of the shape's blocks per SM allow, with a tile of
+// at least 2 depth columns, else the whole block limit with a tile of at
+// least one column; then as many strips as that slab needs, their tile
+// evened out, and enough bands of rows to give every SM its blocks.
+struct B2Launch {
+  int slab_cols, tile_cols, band_rows, n_strips, n_bands;
+  size_t smem;
+};
+
+template <typename T>
+int b2_slab(int depth, int max_smem) {
+  constexpr int v = B2Vec<T>::kV, minb = B2Shape<T>::kMinBlocks;
+  const int cap = v * std::min(B2Shape<T>::kThreads * B2Shape<T>::kIPT /
+                                   depth,
+                               kB2MaxSlab / v);
+  const long long level = (long long)(depth + 2) * B2Shape<T>::kRing *
+                          sizeof(T);
+  const long long budgets[2] = {max_smem / minb - (minb > 1 ? 1024 : 0),
+                                max_smem};
+  for (int k = 0; k < 2; ++k) {
+    const int fit = (int)((budgets[k] / level - 2 * v) / v * v);
+    const int sw = std::min(cap, fit);
+    if (sw - 2 * depth >= (k == 0 ? 2 * depth : 1)) return sw;
+  }
+  return 0;
+}
+
+template <typename T>
+B2Launch b2_launch(int depth, int W, int out_h, int max_smem, int n_sm) {
+  B2Launch g{};
+  constexpr int v = B2Vec<T>::kV, minb = B2Shape<T>::kMinBlocks;
+  const int sw_max = b2_slab<T>(depth, max_smem);
+  if (sw_max <= 0) return g;
+  const int tw_max = sw_max - 2 * depth;
+  const int fewest = (W + tw_max - 1) / tw_max;
+  // of up to 4 more strips than the slab needs, the count whose blocks
+  // (strips x bands, bands = the SMs' blocks / strips) fill most SMs
+  const size_t smem_max = (size_t)(depth + 2) * B2Shape<T>::kRing *
+                          b2_pitch(sw_max, v) * sizeof(T);
+  const int per_sm =
+      smem_max <= (size_t)(max_smem / minb - (minb > 1 ? 1024 : 0)) ? minb
+                                                                    : 1;
+  int best = 0;
+  for (int n = fewest; n <= fewest + 4 && n <= W; ++n) {
+    const int blocks = n * std::max(1, per_sm * n_sm / n);
+    if (blocks > best) {
+      best = blocks;
+      g.n_strips = n;
+    }
+  }
+  g.tile_cols = (W + g.n_strips - 1) / g.n_strips;
+  g.slab_cols = (g.tile_cols + 2 * depth + v - 1) / v * v;
+  g.smem = (size_t)(depth + 2) * B2Shape<T>::kRing *
+           b2_pitch(g.slab_cols, v) * sizeof(T);
+  const int bands = std::max(1, per_sm * n_sm / g.n_strips);
+  g.band_rows = std::max((out_h + bands - 1) / bands, depth);
+  g.n_bands = (out_h + g.band_rows - 1) / g.band_rows;
+  return g;
+}
+
+template <typename T, int PAT>
+cudaError_t launch_wavefront(const B2Params<T>& a, dim3 grid, size_t smem,
+                             cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        leapfrog_wavefront_kernel<T, PAT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  leapfrog_wavefront_kernel<T, PAT>
+      <<<grid, B2Shape<T>::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The pass's launches: depths as even as they can be (the first is the
+// shallowest), the state between them in scratch (two pairs of
+// (H + 2 (n_steps - first depth)) x W arrays, one pair when there are two
+// launches), each launch's output covering the rows the later launches
+// still step.
+template <typename T>
+int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
+                     void* scratch, int H, int W, const double* s, double coef,
+                     int n_steps, int max_depth, long long row_offset,
+                     long long n_rows, cudaStream_t stream) {
+  if (n_steps < 1 || max_depth < 1) return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int n = (n_steps + max_depth - 1) / max_depth;
+  if (n > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int d0 = n_steps / n;  // the first launch, the shallowest
+  const size_t plane = (size_t)(H + 2 * (n_steps - d0)) * W;
+  T* sp = static_cast<T*>(scratch);
+  B2Params<T> a{};
+  a.u = static_cast<const T*>(u);
+  a.up = static_cast<const T*>(up);
+  a.in_a = 0;
+  a.in_h = H;
+  a.W = W;
+  // pinned rows: global row <= 0 or >= n_rows - 1, as local rows (every
+  // row a pass touches lies within n_steps of the array)
+  const long long lo = -row_offset, hi = n_rows - 1 - row_offset;
+  const long long reach = (long long)H + n_steps + 1;
+  a.pin_lo = (int)std::max(-reach, std::min(reach, lo));
+  a.pin_hi = (int)std::max(-reach, std::min(reach, hi));
+  for (int k = 0; k < 9; ++k) a.s[k] = T(s[k]);
+  a.coef = T(coef);
+  const bool anti = s[2] == 0.0 && s[6] == 0.0;
+  const int pat = anti && s[0] == 0.0 && s[8] == 0.0
+                      ? kB2Cross
+                      : (anti ? kB2NoAnti : kB2Full);
+  int done = 0;
+  for (int i = 0; i < n; ++i) {
+    const int d = (int)(((long long)n_steps * (i + 1)) / n - done);
+    done += d;
+    const int rest = n_steps - done;  // steps of the later launches
+    const B2Launch g = b2_launch<T>(d, W, H + 2 * rest, max_smem, n_sm);
+    if (g.slab_cols <= 0) return (int)cudaErrorInvalidValue;
+    a.depth = d;
+    a.slab_cols = g.slab_cols;
+    a.tile_cols = g.tile_cols;
+    a.band_rows = g.band_rows;
+    a.out_a = -rest;
+    a.out_h = H + 2 * rest;
+    if (i == n - 1) {
+      a.out_u = static_cast<T*>(out_u);
+      a.out_up = static_cast<T*>(out_up);
+    } else {
+      T* pair = sp + (size_t)(i & 1) * 2 * plane;
+      a.out_u = pair;
+      a.out_up = pair + plane;
+    }
+    const dim3 grid(g.n_strips, g.n_bands);
+    if (pat == kB2Cross) {
+      e = launch_wavefront<T, kB2Cross>(a, grid, g.smem, stream);
+    } else if (pat == kB2NoAnti) {
+      e = launch_wavefront<T, kB2NoAnti>(a, grid, g.smem, stream);
+    } else {
+      e = launch_wavefront<T, kB2Full>(a, grid, g.smem, stream);
+    }
+    if (e != cudaSuccess) return (int)e;
+    a.u = a.out_u;
+    a.up = a.out_up;
+    a.in_a = a.out_a;
+    a.in_h = a.out_h;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// B6: n_steps DRIVEN leapfrog steps in one pass (temporal blocking with
+// per-substep Dirichlet data).
 //
 // Each block owns a tile x tile square of output nodes. It loads u and
 // u_prev over the tile plus an n_steps-wide halo on all four sides into
@@ -243,124 +817,12 @@ __global__ void leapfrog_step_kernel(const T* __restrict__ u,
 // substeps there with one __syncthreads() between them. Substep s updates
 // the slab nodes at distance >= s from the slab edge, whose neighbours were
 // all valid after substep s - 1, so after n_steps substeps the centre tile
-// is exact. The global Dirichlet mask is applied at every substep. The
-// update is in place: u_next overwrites u_prev's slot (it reads only its
-// own u_prev value), and the two buffers swap roles.
-//
-// Bound on this card: shared memory bandwidth and the redundant halo work.
-// Device memory traffic is 2 reads + 2 writes per n_steps steps (16 B per
-// point per n_steps in f32); each substep reads 10 and writes 1 value of
-// shared memory per slab node, over a slab (tile + 2 n_steps)^2 that
-// shrinks by 2 per substep. The wrapper picks the largest tile (64, 32, 16)
-// whose two slabs fit the card's opt-in shared memory.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void leapfrog_multistep_kernel(const T* __restrict__ u,
-                                          const T* __restrict__ up,
-                                          T* __restrict__ out_u,
-                                          T* __restrict__ out_up, int H, int W,
-                                          Stencil9 st, T coef, int n_steps,
-                                          int tile, long long row_offset,
-                                          long long n_rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = tile + 2 * n_steps;  // slab side
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* prv = cur + (size_t)S * S;
-  const int r0 = blockIdx.y * tile - n_steps;  // array row of slab row 0
-  const int c0 = blockIdx.x * tile - n_steps;  // array col of slab col 0
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int bx = blockDim.x, by = blockDim.y;
-
-  for (int sr = ty; sr < S; sr += by) {
-    const int r = r0 + sr;
-    const bool row_in = r >= 0 && r < H;
-    for (int sc = tx; sc < S; sc += bx) {
-      const int c = c0 + sc;
-      const bool in = row_in && c >= 0 && c < W;
-      const size_t g = (size_t)r * W + c;
-      cur[sr * S + sc] = in ? __ldg(u + g) : T(0);
-      prv[sr * S + sc] = in ? __ldg(up + g) : T(0);
-    }
-  }
-  __syncthreads();
-
-  T s[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) s[k] = T(st.c[k]);
-
-  for (int step = 1; step <= n_steps; ++step) {
-    const int hi = S - step;
-    for (int sr = step + ty; sr < hi; sr += by) {
-      const long long gr = row_offset + (long long)(r0 + sr);
-      const T* rm = cur + (sr - 1) * S;
-      const T* rc = cur + sr * S;
-      const T* rp = cur + (sr + 1) * S;
-      for (int sc = step + tx; sc < hi; sc += bx) {
-        T v = T(0);
-        if (!is_pinned(gr, c0 + sc, n_rows, W)) {
-          T ku = s[4] * rc[sc];
-          ku += s[0] * rm[sc - 1];
-          ku += s[1] * rm[sc];
-          ku += s[2] * rm[sc + 1];
-          ku += s[3] * rc[sc - 1];
-          ku += s[5] * rc[sc + 1];
-          ku += s[6] * rp[sc - 1];
-          ku += s[7] * rp[sc];
-          ku += s[8] * rp[sc + 1];
-          v = (T(2) * rc[sc] - prv[sr * S + sc]) - coef * ku;
-        }
-        prv[sr * S + sc] = v;
-      }
-    }
-    __syncthreads();
-    T* t = cur;
-    cur = prv;
-    prv = t;
-  }
-
-  // cur holds u after n_steps, prv holds it after n_steps - 1
-  for (int sr = n_steps + ty; sr < n_steps + tile; sr += by) {
-    const int r = r0 + sr;
-    if (r < 0 || r >= H) continue;
-    for (int sc = n_steps + tx; sc < n_steps + tile; sc += bx) {
-      const int c = c0 + sc;
-      if (c < 0 || c >= W) continue;
-      const size_t g = (size_t)r * W + c;
-      out_u[g] = cur[sr * S + sc];
-      out_up[g] = prv[sr * S + sc];
-    }
-  }
-}
-
-template <typename T>
-int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
-                     int H, int W, const double* s, double coef, int n_steps,
-                     int tile, long long row_offset, long long n_rows,
-                     cudaStream_t stream) {
-  const size_t side = (size_t)tile + 2 * (size_t)n_steps;
-  const size_t smem = 2 * side * side * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        leapfrog_multistep_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 block(32, 16);
-  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
-  leapfrog_multistep_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(up),
-      static_cast<T*>(out_u), static_cast<T*>(out_up), H, W, load_stencil(s),
-      (T)coef, n_steps, tile, row_offset, n_rows);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// B6: n_steps DRIVEN leapfrog steps in one pass (temporal blocking with
-// per-substep Dirichlet data).
-//
-// B2's tile and shrinking slab, with one change: where B2 writes 0 on a
-// pinned node, B6 writes that substep's boundary value for the node's
-// GLOBAL row or column,
+// is exact. The update is in place: u_next overwrites u_prev's slot (it
+// reads only its own u_prev value), and the two buffers swap roles. The
+// wrapper picks the largest tile (64, 32, 16) whose two slabs fit the
+// card's opt-in shared memory (ops/kernels.py multistep_tile). Where B2
+// writes 0 on a pinned node, B6 writes that substep's boundary value for
+// the node's GLOBAL row or column,
 //
 //   row H - 1: gtb[s, 1, c]     row 0:     gtb[s, 0, c]
 //   col W - 1: glr[s, r, 1]     col 0:     glr[s, r, 0]
@@ -376,15 +838,17 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
 // dtype: 2 values per boundary node per substep, read straight from global
 // memory with __ldg (tiny, L2-resident; not staged in shared memory).
 //
-// Bound on this card: as B2, shared-memory traffic and the halo's
-// redundant work; device memory sees 2 reads + 2 writes per n_steps steps
+// Bound on this card: shared-memory traffic (each substep reads 10 and
+// writes 1 value per slab node) and the halo's redundant work over a slab
+// (tile + 2 n_steps)^2 that shrinks by 2 per substep; device memory sees
+// 2 reads + 2 writes per n_steps steps
 // (16 B per node per pass in f32) plus the edge tables. The boundary
 // tests are taken per slab row: a row outside the array or on row 0 or
 // H - 1 takes its values from the table (or 0) without a stencil, and in
 // every other row one unsigned compare per node separates the interior
-// from the two boundary columns, so the stencil loop is as lean as B2's.
-// (A first version tested all six cases per node: 48 registers and 1.6x
-// B2's time at k = 8.)
+// from the two boundary columns, so the stencil loop is as lean as an
+// undriven one. (A first version tested all six cases per node: 48
+// registers and 1.6x the undriven slab kernel's time at k = 8.)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -543,18 +1007,23 @@ int tw_leapfrog_step(int dtype, const void* u, const void* up, void* out,
   return (int)cudaGetLastError();
 }
 
+// n_steps steps in ceil(n_steps / max_depth) launches; scratch: two pairs
+// of (H + 2 (n_steps - n_steps / n_launches)) x W arrays of the dtype (one
+// pair for two launches, null for one).
 int tw_leapfrog_multistep(int dtype, const void* u, const void* up,
-                          void* out_u, void* out_up, int H, int W,
-                          const double* s, double coef, int n_steps, int tile,
-                          long long row_offset, long long n_rows,
-                          void* stream) {
+                          void* out_u, void* out_up, void* scratch, int H,
+                          int W, const double* s, double coef, int n_steps,
+                          int max_depth, long long row_offset,
+                          long long n_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_multistep<float>(u, up, out_u, out_up, H, W, s, coef,
-                                   n_steps, tile, row_offset, n_rows, st);
+    return launch_multistep<float>(u, up, out_u, out_up, scratch, H, W, s,
+                                   coef, n_steps, max_depth, row_offset,
+                                   n_rows, st);
   }
-  return launch_multistep<double>(u, up, out_u, out_up, H, W, s, coef,
-                                  n_steps, tile, row_offset, n_rows, st);
+  return launch_multistep<double>(u, up, out_u, out_up, scratch, H, W, s,
+                                  coef, n_steps, max_depth, row_offset,
+                                  n_rows, st);
 }
 
 // gtb: (n_steps, 2, W) bottom / top edge values per substep; glr:

@@ -43,8 +43,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "tw_constrained_apply": (_I, _VP, _VP, _I, _I, _DP, _D, _I, _VP),
     "tw_leapfrog_step": (_I, _VP, _VP, _VP, _I, _I, _DP, _D, _VP),
-    "tw_leapfrog_multistep": (_I, _VP, _VP, _VP, _VP, _I, _I, _DP, _D, _I,
-                              _I, _LL, _LL, _VP),
+    "tw_leapfrog_multistep": (_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _DP, _D,
+                              _I, _I, _LL, _LL, _VP),
     "tw_leapfrog_multistep_driven": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                                      _I, _DP, _D, _I, _I, _VP),
     "tw_max_dynamic_smem": (_I,),
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "tw_fast_blocks": (_I, _I),
     "tw_p2_apply": (_I, _VP, _VP, _I, _I, _I, _I, _IP, _IP, _IP, _IP, _DP,
                     _I, _DP, _I, _VP),
+    "tw_p2_apply_pattern": (_I, _VP, _VP, _I, _I, _I, _I, _DP, _DP, _I, _I,
+                            _I, _I, _VP),
     "tw_p2_smooth": (_I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _DP,
                      _DP, _D, _DP, _DP, _I, _I, _I, _I, _I, _VP),
     "tw_varcoef_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP),

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +33,8 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
            "constrained_stencil_apply", "constrained_stencil_apply_reference",
            "leapfrog_step", "leapfrog_step_reference",
            "leapfrog_multistep", "leapfrog_multistep_reference",
-           "leapfrog_multistep_driven",
+           "MULTISTEP_MAX_DEPTH", "MultistepGeometry", "multistep_slab",
+           "multistep_geometry", "leapfrog_multistep_driven",
            "leapfrog_multistep_driven_reference", "multistep_tile",
            "cheby_block", "cheby_block_reference",
            "cheby_tile", "MAX_CHEBY_DEGREE", "recurrence_r0",
@@ -234,44 +236,118 @@ def leapfrog_multistep_reference(u, u_prev, stencil, coef, n_steps: int,
     return cur[k:k + h].contiguous(), prev[k:k + h].contiguous()
 
 
-def multistep_tile(n_steps: int, dtype: torch.dtype, max_smem: int) -> int:
-    """Largest tile side whose two (tile + 2 n_steps)^2 slabs fit
-    ``max_smem`` bytes of shared memory; raises when none does."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return _largest_tile(
-        f"leapfrog_multistep: n_steps={n_steps} in {dtype}",
-        lambda t: 2 * (t + 2 * n_steps) ** 2 * itemsize, max_smem)
+#: B2's deepest launch per dtype (csrc/stencil_kernels.cu): a pass of k
+#: steps is ceil(k / K) launches of depths as even as they can be
+MULTISTEP_MAX_DEPTH = {torch.float32: 16, torch.float64: 8}
+#: csrc/stencil_kernels.cu's B2 constants: the widest slab, and per dtype
+#: the block shape of TW_B2_SHAPES (threads, items per thread, blocks per
+#: SM) and the ring rows per level it implies
+_B2_MAX_SLAB = 512
+_B2_SHAPE = {torch.float32: (512, 3, 1, 8), torch.float64: (512, 2, 1, 8)}
+
+
+class MultistepGeometry(NamedTuple):
+    """The launches of one B2 pass: the steps of each (``depths``, the
+    first the shallowest), and the shared memory of the deepest launch's
+    widest slab."""
+    depths: tuple
+    smem_bytes: int
+
+
+def multistep_slab(depth: int, dtype: torch.dtype, max_smem: int) -> int:
+    """Widest B2 slab (columns) of a launch of ``depth`` steps, as
+    csrc/stencil_kernels.cu b2_slab picks it: a multiple of the 16-byte
+    vector's V values, at most ``threads * items / depth`` groups of V and
+    512 columns, whose depth + 2 rings fit the shared memory of
+    one of the shape's blocks per SM (``max_smem`` / blocks, less 1 KB
+    each where they are several) with a tile of at least 2 depth columns,
+    else all of ``max_smem`` with a tile of at least one column; 0 where
+    none fits."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    v = 16 // isz
+    threads, ipt, minb, ring = _B2_SHAPE[dtype]
+    cap = v * min(threads * ipt // depth, _B2_MAX_SLAB // v)
+    level = (depth + 2) * ring * isz
+    for budget, min_tile in (
+            (max_smem // minb - (1024 if minb > 1 else 0), 2 * depth),
+            (max_smem, 1)):
+        sw = min(cap, (budget // level - 2 * v) // v * v)
+        if sw - 2 * depth >= min_tile:
+            return sw
+    return 0
+
+
+def multistep_geometry(n_steps: int, dtype: torch.dtype,
+                       max_smem: int) -> MultistepGeometry:
+    """The launches of a B2 pass of ``n_steps`` steps: as few launches of
+    at most MULTISTEP_MAX_DEPTH[dtype] steps (less where ``max_smem`` bytes
+    of shared memory hold no slab that deep) as will do, as even as they
+    can be. Raises ValueError where not even one step fits."""
+    k = int(n_steps)
+    if k < 1:
+        raise ValueError("n_steps must be >= 1")
+    deepest = min(MULTISTEP_MAX_DEPTH[dtype], k)
+    while deepest >= 1 and multistep_slab(deepest, dtype, max_smem) <= 0:
+        deepest -= 1
+    if deepest < 1:
+        raise ValueError(f"leapfrog_multistep in {dtype}: no slab fits "
+                         f"{max_smem} B of shared memory")
+    n = -(-k // deepest)
+    depths = tuple((k * (i + 1)) // n - (k * i) // n for i in range(n))
+    d = max(depths)
+    sw = multistep_slab(d, dtype, max_smem)
+    isz = torch.empty((), dtype=dtype).element_size()
+    return MultistepGeometry(
+        depths, (d + 2) * _B2_SHAPE[dtype][3] * (sw + 32 // isz) * isz)
 
 
 def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
                        coef: float, n_steps: int, row_offset: int = 0,
                        n_rows=None):
-    """``n_steps`` fused leapfrog steps in one kernel pass (replaces
-    ``leapfrog_multistep_pallas``). Returns (u, u_prev).
+    """``n_steps`` fused leapfrog steps (replaces
+    ``leapfrog_multistep_pallas``), in ``len(multistep_geometry(...).depths)``
+    kernel launches from one C call. Returns (u, u_prev).
 
     ``row_offset``: global row of the tensor's row 0, for a row block of a
     taller grid whose height is ``n_rows`` (default: the tensor's own)."""
     _check("leapfrog_multistep", u, u_prev)
-    if int(n_steps) < 1:
+    k = int(n_steps)
+    if k < 1:
         raise ValueError("n_steps must be >= 1")
     if u.device.type == "cpu":
-        return leapfrog_multistep_reference(u, u_prev, stencil, coef,
-                                            n_steps, row_offset, n_rows)
+        return leapfrog_multistep_reference(u, u_prev, stencil, coef, k,
+                                            row_offset, n_rows)
     lib = _lib()
-    tile = multistep_tile(int(n_steps), u.dtype,
-                          _max_smem(lib, "leapfrog_multistep", u.device))
+    geo = multistep_geometry(k, u.dtype,
+                             _max_smem(lib, "leapfrog_multistep", u.device))
+    n = len(geo.depths)
     h, w = u.shape
     out_u = torch.empty_like(u)
     out_up = torch.empty_like(u)
+    # the state between launches: the rows a single pass still steps
+    scratch = (torch.empty((2 * min(n - 1, 2), h + 2 * (k - geo.depths[0]),
+                            w), dtype=u.dtype, device=u.device)
+               if n > 1 else None)
     with torch.cuda.device(u.device):
         rc = lib.tw_leapfrog_multistep(
             _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(out_u),
-            _ptr(out_up), h, w, _stencil_arg(stencil), float(coef),
-            int(n_steps), tile, int(row_offset),
-            int(h if n_rows is None else n_rows), _stream(u))
+            _ptr(out_up), None if scratch is None else _ptr(scratch), h, w,
+            _stencil_arg(stencil), float(coef), k, -(-k // n),
+            int(row_offset), int(h if n_rows is None else n_rows),
+            _stream(u))
     _raise_on(rc, "leapfrog_multistep")
-    LAUNCHES["leapfrog_multistep"] += 1
+    LAUNCHES["leapfrog_multistep"] += n
     return out_u, out_up
+
+
+def multistep_tile(n_steps: int, dtype: torch.dtype, max_smem: int) -> int:
+    """B6's tile: the largest tile side whose two (tile + 2 n_steps)^2
+    slabs fit ``max_smem`` bytes of shared memory; raises when none
+    does."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _largest_tile(
+        f"leapfrog_multistep_driven: n_steps={n_steps} in {dtype}",
+        lambda t: 2 * (t + 2 * n_steps) ** 2 * itemsize, max_smem)
 
 
 # -- B6: n_steps driven leapfrog steps in one pass ---------------------------

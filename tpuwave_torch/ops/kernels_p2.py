@@ -12,10 +12,12 @@ Wc >= nx + 3; the engine's canvases are exactly (ny+3, nx+3)).
 The block-stencil is given as ``coeffs``, the tuple of
 ``stencil_p2.coeffs_to_static`` (``P2PlaneStencil.terms``: terms (target
 plane, source plane, ox, oy, c), sorted), and its terms are summed per
-target plane in that order. B11 takes any such list; B12 and B13 take the
+target plane in that order. B11 takes any such list: one that fits the
 fixed 46-term pattern of the P2 mass, stiffness and system stencils
-(``SMOOTH_PATTERN``, compiled into their kernel) and raise ValueError for
-a term outside it or out of its order, on either device. Their kernel
+(``SMOOTH_PATTERN``, compiled into the kernels) runs B11's pattern kernel,
+any other its general kernel (``p2_apply_route``, by the terms alone). B12
+and B13 take only the pattern and raise ValueError for a term outside it
+or out of its order, on either device. Their kernel
 (``p2_smooth_geometry``) is chosen by the smoothing degree alone: up to
 degree 8 the register kernel, above it the shared-slab kernel. The plain
 versions are built on
@@ -42,7 +44,8 @@ __all__ = ["p2_canvas_interior", "MAX_TERMS",
            "p2_constrained_apply_reference", "p2_presmooth",
            "p2_presmooth_reference", "p2_postsmooth",
            "p2_postsmooth_reference", "SMOOTH_PATTERN", "smooth_slots",
-           "SmoothGeometry", "SMOOTH_REG_MAX_DEGREE", "p2_smooth_geometry"]
+           "SmoothGeometry", "SMOOTH_REG_MAX_DEGREE", "p2_smooth_geometry",
+           "p2_apply_route", "ApplyGeometry", "p2_apply_geometry"]
 
 #: most block-stencil terms the kernels take (csrc/p2_kernels.cu kMaxTerms)
 MAX_TERMS = 64
@@ -89,11 +92,8 @@ def _check(name: str, nx: int, ny: int, *tensors: torch.Tensor) -> None:
                          "the kernels' 32-bit indexing")
 
 
-def _terms_arg(name: str, coeffs):
+def _terms_arg(coeffs):
     """ctypes arrays (target, source, ox, oy, c) of the block-stencil."""
-    if len(coeffs) > MAX_TERMS:
-        raise ValueError(f"{name}: {len(coeffs)} block-stencil terms exceed "
-                         f"the kernels' limit of {MAX_TERMS}")
     n = max(len(coeffs), 1)
     cols = list(zip(*coeffs)) if coeffs else [()] * 5
     ints = [(ctypes.c_int * n)(*(int(v) for v in col)) for col in cols[:4]]
@@ -124,22 +124,81 @@ def p2_constrained_apply(xc: torch.Tensor, coeffs, diags, nx: int, ny: int,
                          mask_input: bool = True) -> torch.Tensor:
     """The constrained P2 operator on canvases (the CG matvec; with
     ``mask_input=False`` and zero ``diags`` the rhs / lift form
-    where(interior, A x, 0)). Replaces ``p2_constrained_apply_pallas``."""
+    where(interior, A x, 0)). Replaces ``p2_constrained_apply_pallas``. On
+    the card, terms on the fixed pattern run the pattern kernel, others the
+    general kernel (``p2_apply_route``)."""
     _check("p2_constrained_apply", nx, ny, xc)
-    terms = _terms_arg("p2_constrained_apply", coeffs)
+    if len(coeffs) > MAX_TERMS:
+        raise ValueError(f"p2_constrained_apply: {len(coeffs)} block-stencil "
+                         f"terms exceed the kernels' limit of {MAX_TERMS}")
     diag = _four(diags)
     if xc.device.type == "cpu":
         return p2_constrained_apply_reference(xc, coeffs, diags, nx, ny,
                                               mask_input)
     out = torch.empty_like(xc)
     _, hc, wc = xc.shape
+    key = tuple(tuple(t) for t in coeffs)
     with torch.cuda.device(xc.device):
-        rc = _lib().tw_p2_apply(
-            _DTYPES[xc.dtype], _ptr(xc), _ptr(out), hc, wc, nx, ny, *terms,
-            diag, int(bool(mask_input)), _stream(xc))
+        if p2_apply_route(key) == "pattern":
+            geo = p2_apply_geometry(xc.dtype, hc, wc)
+            rc = _lib().tw_p2_apply_pattern(
+                _DTYPES[xc.dtype], _ptr(xc), _ptr(out), hc, wc, nx, ny,
+                _slot_arg(key), diag, int(bool(mask_input)),
+                geo.tile_cols, geo.threads_y, geo.rows_per_thread,
+                _stream(xc))
+        else:
+            rc = _lib().tw_p2_apply(
+                _DTYPES[xc.dtype], _ptr(xc), _ptr(out), hc, wc, nx, ny,
+                *_terms_arg(key), diag,
+                int(bool(mask_input)), _stream(xc))
     _raise_on(rc, "p2_constrained_apply")
     LAUNCHES["p2_constrained_apply"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def p2_apply_route(coeffs: tuple) -> str:
+    """B11's kernel for the terms ``coeffs`` (``coeffs_to_static`` terms,
+    as a tuple of tuples): "pattern" where they map onto SMOOTH_PATTERN
+    (``smooth_slots``: every stencil the engines build), "general" for
+    any other list (a foreign, reordered or repeated term)."""
+    try:
+        smooth_slots(coeffs)
+    except ValueError:
+        return "general"
+    return "pattern"
+
+
+@functools.lru_cache(maxsize=64)
+def _slot_arg(coeffs: tuple) -> ctypes.Array:
+    slots = smooth_slots(coeffs)
+    return (ctypes.c_double * len(slots))(*slots)
+
+
+class ApplyGeometry(NamedTuple):
+    """The tile of one B11 pattern-kernel block: tile_cols columns (one
+    thread each) by threads_y x rows_per_thread rows."""
+    tile_cols: int
+    threads_y: int
+    rows_per_thread: int
+
+
+#: B11's pattern-kernel tiles per dtype (csrc/p2_kernels.cu
+#: TW_P2_APPLY_GEOMETRIES): (large canvases, canvases of fewer than
+#: _APPLY_LARGE_SITES sites a plane)
+_APPLY_TILES = {torch.float32: ((128, 2, 8), (32, 8, 2)),
+                torch.float64: ((64, 2, 4), (32, 8, 2))}
+_APPLY_LARGE_SITES = 1 << 18
+
+
+def p2_apply_geometry(dtype: torch.dtype, hc: int, wc: int) -> ApplyGeometry:
+    """B11's pattern-kernel tile for (hc, wc) canvases of ``dtype``: 128 x
+    16 sites (f32) or 64 x 8 (f64) from 2^18 sites a plane, 32 x 16 below
+    (more blocks for the card's SMs on the small levels); the shapes that
+    scripts/torch_p2_apply_geometry.py timed fastest."""
+    large, small = _APPLY_TILES[dtype]
+    return ApplyGeometry(*(large if hc * wc >= _APPLY_LARGE_SITES
+                           else small))
 
 
 # -- B12 / B13: the V-cycle smoothing blocks ----------------------------------
