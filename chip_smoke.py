@@ -98,8 +98,9 @@ varying and with a time-dependent wave speed at R = 1. Phases:
      y = 0, x <= 1/3, and its forcing): run_leapfrog_driven (torch ops),
      run_leapfrog_driven_kernel with and without forcing (B1) and
      run_leapfrog_driven_multistep at k = 8, 16, 32 (B6): us/step,
-     DoF*steps/s, each kernel leg's end state within rel L2 1e-5 of the
-     torch-ops leg's; then 64 steps at 1024^2 f64 on B6 (k = 8): ||u||
+     DoF*steps/s, launches per run, B6's edge tables' share of its legs,
+     each kernel leg's end state within rel L2 1e-5 of the torch-ops
+     leg's; then 64 steps at 1024^2 f64 on B6 (k = 8): ||u||
      equal to tpuwave's at rtol 1e-10
  19. both CLIs (newmark beta 1/4, theta 1/2) at 160^2 elements, 10 steps,
      with a spatially varying C and with a time-dependent C, --precond
@@ -468,8 +469,7 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         "(f64 bound: 1e-12 x max|plain|; f32 bound: see f32_bound); "
         "operations counted per node: B1 21, B2 and B6 21 per step, B3 17 "
         "(23 diff), B4 22 per degree, B5 33; times: median of calls each "
-        "timed alone after an L2 flush; B2, B3, B4 and B6: a rerun bitwise "
-        "equal")
+        "timed alone after an L2 flush; B2-B6: a rerun bitwise equal")
     rows, results = {}, {}
 
     # the launch-and-event floor: an empty kernel through the same ctypes
@@ -582,21 +582,25 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         "B2 leapfrog_multistep k=32 4097^2 float32"]
 
     # B6 leapfrog_multistep_driven: phase 18's shape and coefficient at
-    # k = 1, 8, 32, and its 1024^2 f64 check's at k = 8; random fields
-    # and random edge tables (every substep's g differs)
+    # k = 1, 8, 16 (phase 18's best), 32, and its 1024^2 f64 check's at
+    # k = 8; random fields and random edge tables (every substep's g
+    # differs); a call's launches, a rerun bitwise equal
     lf1024 = FastWaveSolver((1024, 1024), ((0.0, 0.0), (1.0, 1.0)), 2e-4,
                             beta=0.0, dtype=torch.float64, device=dev)
     for size, dtype, k, c, n_k, n_p in (
             (4097, torch.float32, 1, coef, 20, 3),
             (4097, torch.float32, 8, coef, 20, 3),
+            (4097, torch.float32, 16, coef, 20, 2),
             (4097, torch.float32, 32, coef, 10, 2),
             (1025, torch.float64, 8,
              lf1024.dt * lf1024.dt / lf1024.mesh.det_j, 30, 3)):
         u, up = rnd((size, size), dtype), rnd((size, size), dtype)
         gtb, glr = rnd((k, 2, size), dtype), rnd((k, size, 2), dtype)
         args = (u, up, gtb, glr, stiff, c, k)
+        before = kn.LAUNCHES["leapfrog_multistep_driven"]
         got = kn.leapfrog_multistep_driven(*args)
         again = kn.leapfrog_multistep_driven(*args)
+        per_call = (kn.LAUNCHES["leapfrog_multistep_driven"] - before) // 2
         want = kn.leapfrog_multistep_driven_reference(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -614,7 +618,8 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
                 * u.element_size(), 21 * k * u.numel(), dtype)
         e1 = check(tag + " u", got[0], want[0], bound)
         e2 = check(tag + " u_prev", got[1], want[1], bound,
-                   f"({ms * 1e3 / k:.1f}us/step) " + timing(r))
+                   f"({ms * 1e3 / k:.1f}us/step, {per_call} launches a "
+                   f"call) " + timing(r))
         r["err"] = max(e1, e2)
         rows[tag] = r
         del u, up, gtb, glr, args, got, again, want
@@ -682,17 +687,24 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         del x, r, got, again, want
     results["cheby_block"] = rows["B4 cheby_block degree 2 2049^2 float64"]
 
-    # B5 recurrence_r0: phase 8's -dt^2 K stencil, Newmark gamma 1/2
+    # B5 recurrence_r0: phase 8's -dt^2 K stencil, Newmark gamma 1/2, at
+    # the 640^2 paths', phase 8's and phase 14's grids
     dt = 4e-3
     kneg = tuple(tuple(-dt * dt * c for c in row)
                  for row in big.stiff.stencil)
-    for size, dtype, mask_combo in ((2049, torch.float64, False),
+    for size, dtype, mask_combo in ((641, torch.float64, False),
+                                    (2049, torch.float64, False),
                                     (2049, torch.float64, True),
                                     (4097, torch.float32, False)):
         u, up = rnd((size, size), dtype), rnd((size, size), dtype)
         got = kn.recurrence_r0(u, up, kneg, 1.0, 0.0, mask_combo)
+        again = kn.recurrence_r0(u, up, kneg, 1.0, 0.0, mask_combo)
         want = kn.recurrence_r0_reference(u, up, kneg, 1.0, 0.0,
                                           mask_combo)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"B5 {size}^2 mask_combo={mask_combo}: a "
+                                 "rerun is not bitwise equal")
         ms = cuda_ms(lambda: kn.recurrence_r0(u, up, kneg, 1.0, 0.0,
                                               mask_combo), 50)
         pms = cuda_ms(lambda: kn.recurrence_r0_reference(
@@ -2039,16 +2051,33 @@ def _strip_drive(torch):
     return g_fn, f_fn
 
 
+def _range_share(torch, fn, name: str):
+    """(host seconds inside the profiler range ``name``, wall seconds) of
+    one run of ``fn`` under torch.profiler (host activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    inside = sum(e.cpu_time_total for e in prof.key_averages()
+                 if e.key == name)
+    return inside * 1e-6, wall
+
+
 def phase_driven_4096(torch, kn):
-    from tpuwave_torch.models.fast import FastWaveSolver
+    from tpuwave_torch.models.fast import EDGE_TABLES_RANGE, FastWaveSolver
 
     nel, dt, n = DRIVEN_NEL, DRIVEN_DT, DRIVEN_STEPS
     say(f"phase 18: the driven leapfrog at scripts/bench_driven.py's "
         f"defaults: {nel}^2 elements ({(nel + 1) ** 2:,} DoF), f32, dt {dt}, "
         f"{n} steps from rest, its strip drive and forcing, on cuda: "
         f"us/step and DoF*steps/s (best of 3 after a warm run, host clock "
-        f"around a synchronize); gate: each kernel leg's end state within "
-        f"rel L2 1e-5 of its torch-ops leg's")
+        f"around a synchronize; for B6 also the host's time in its edge "
+        f"tables, the four g_fn calls a chunk, against one run's wall, both "
+        f"under torch.profiler); gate: each kernel leg's end state "
+        f"within rel L2 1e-5 of its torch-ops leg's")
     fs = FastWaveSolver((nel, nel), UNIT_SQUARE, dt, beta=0.0,
                         dtype=torch.float32, device="cuda")
     g_fn, f_fn = _strip_drive(torch)
@@ -2071,6 +2100,7 @@ def phase_driven_4096(torch, kn):
     legs += [(f"B6 k={k} (run_leapfrog_driven_multistep)", "torch ops",
               lambda k=k: fs.run_leapfrog_driven_multistep(
                   lf, times, g_fn, steps_per_call=k)) for k in (8, 16, 32)]
+
     ends = {}
     for name, ref, fn in legs:
         before = dict(kn.LAUNCHES)
@@ -2083,6 +2113,11 @@ def phase_driven_4096(torch, kn):
                 f"{fs.n_dofs * n / best:.4e} DoF*steps/s  launches per run "
                 f"B1 {runs['leapfrog_step']} B6 "
                 f"{runs['leapfrog_multistep_driven']}")
+        if key.startswith("B6 k="):
+            g_s, wall = _range_share(torch, fn, EDGE_TABLES_RANGE)
+            line += (f"  edge tables {g_s * 1e6 / n:.1f} us/step of "
+                     f"{wall * 1e6 / n:.1f} under the profiler "
+                     f"({100 * g_s / wall:.0f}%)")
         if ref is None:
             say(line)
             continue

@@ -7,21 +7,25 @@ own).
 
 P2: one (p+h)-multigrid V-cycle of the R = 2 Newmark engine (beta 1/4, dt
 4e-3, mg_pre_degree 4) at phase 11b's 4 x 4099^2 canvases in f32 and at
-phase 11's 4 x 1027^2 in f64, on a random interior residual. Phase 14:
+phase 11's 4 x 1027^2 in f64, on a random interior residual. Phase 8: 10
+recurrence steps of the CLI's --solver 2term --precond mg engine (Newmark
+beta 1/4, 2048^2 elements, f64, dt 4e-3) after its first step. Phase 14:
 FastWaveSolver.run_implicit_mg_kernel at 4096^2 elements, f32, dt 1e-3, 20
-steps, for theta 1, theta 1/2 and Newmark beta 1/4. Phase 17: FwiProblem's
+steps, and the 2-term chain's 19 recurrence steps after its init, for
+theta 1, theta 1/2 and Newmark beta 1/4. Phase 17: FwiProblem's
 kernel engine at 1024^2 elements, f32, 2000 steps, steps_per_call 8, hard
 walls and the sponge ring: simulate and misfit_and_grad. Each: the best
 and the median of --repeats runs after a warm run (host clock around a
 synchronize), then one run under torch.profiler: its device-busy time (the
 sum of its kernels' and copies' times, which the host's noise does not
 move), the idle share of that run's wall, and the device time and launches
-of the kernels named (B4 cheby_block, the sum of its norm's partials where
-a checkout has that launch, B11, B12 and B13 together, B15, B17) and of
+of the kernels named (B4 cheby_block, B5 recurrence_r0, the sums of norm
+partials where a checkout has that launch, B11, B12 and B13 together,
+B15, B17) and of
 the largest device events. Needs nvcc and one card:
 
     python3 scripts/torch_device_time.py [--tree DIR] [--repeats 5]
-        [--only P2,newmark,sponge]
+        [--only P2,2term,newmark,sponge]
 
 (--only: run the cases whose label holds one of these words.)
 """
@@ -38,7 +42,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 #: (tag, substring of the kernel's symbol)
-NAMED = (("B4", "cheby_block"), ("B4 norm", "sum_partials"),
+NAMED = (("B4", "cheby_block"), ("B5", "recurrence_r0"),
+         ("norm partials", "sum_partials"),
          ("B11", "p2_apply_kernel"), ("B12 + B13", "p2_smooth"),
          ("B15", "varcoef_multistep_kernel"),
          ("B17", "varcoef_adjoint_multistep_kernel"))
@@ -136,15 +141,42 @@ def main() -> int:
         measure(f"{label}, per cycle", lambda: prec(b), 1)
         del solver, prec, b
 
+    label = "phase 8 2term CLI engine 2048^2 f64, per step"
+    if wanted(label):
+        dt = 4e-3
+        with tempfile.TemporaryDirectory() as tmp:
+            case = cs._case(Path(tmp), Nel="2048", Dt=str(dt), T="0.2",
+                            Beta="0.25", Gamma="0.5",
+                            **{"Enable Logging": "false"})
+            solver = make_fast_solver(load_params(str(case)), "newmark",
+                                      solver="2term", precond="mg",
+                                      device="cuda")
+        first, _ = solver.step(solver.initial_state(), dt)
+
+        def recur(n=10):
+            s = first
+            for i in range(n):
+                s, _ = solver.step(s, (2 + i) * dt)
+            return s
+        measure(label, recur, 10)
+        del solver, first
+
     nel, dt, n = 4096, 1e-3, 20
     for name, kw in cs.FAST_SCHEMES.items():
-        if not wanted(f"phase 14 {name}"):
+        kernel = f"phase 14 {name} run_implicit_mg_kernel {nel}^2 f32"
+        chain = f"phase 14 {name} 2term {nel}^2 f32"
+        if not (wanted(kernel) or wanted(chain)):
             continue
         fs = FastWaveSolver((nel, nel), cs.UNIT_SQUARE, dt,
                             dtype=torch.float32, device="cuda", **kw)
         st = fs.initial_state(cs._standing(torch))
-        measure(f"phase 14 {name} run_implicit_mg_kernel {nel}^2 f32, "
-                f"per step", lambda: fs.run_implicit_mg_kernel(st, n), n)
+        measure(f"{kernel}, per step",
+                lambda: fs.run_implicit_mg_kernel(st, n), n)
+        if wanted(chain):
+            lf0 = fs.implicit_2term_init(st)
+            measure(f"{chain}, per recurrence step",
+                    lambda: fs.run_implicit_mg_2term(lf0, n - 1), n - 1)
+            del lf0
         del fs, st
 
     dev = torch.device("cuda")

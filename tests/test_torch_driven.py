@@ -12,8 +12,8 @@ f64.
   oscillating-boundary strip drive of tests/test_fast.py;
 * ``leapfrog_velocity``, ``leapfrog_step_tdep`` and ``run_leapfrog_tdep``
   with and without g and f (the MMS of tests/test_tdep_c.py);
-* once, B6's plain version against tpuwave's
-  ``leapfrog_multistep_driven_pallas`` in interpret mode at k = 4.
+* B6's plain version against tpuwave's
+  ``leapfrog_multistep_driven_pallas`` in interpret mode at k = 1, 3 and 4.
 
 On the CPU the kernel paths run the kernels' plain versions. Tolerance
 rtol 1e-13 in the L2 norm, as tpuwave holds its own driven kernels: the
@@ -184,6 +184,23 @@ def test_multistep_driven_plain_version_matches_pallas_interpret():
                                             interpret=True)
     got = ts.run_leapfrog_driven_multistep(st, times, g_torch,
                                            steps_per_call=4)
+    _held(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_multistep_driven_plain_version_matches_pallas_interpret_at_k(k):
+    """The same at k = 1 (one substep a chunk) and k = 3 (a depth that is
+    no multiple of tpuwave's 8-row halo), on the (24, 70) grid (71 x 25
+    nodes)."""
+    js, ts = _pair((24, 70), 5e-3)
+    sj = js.initial_leapfrog_state(u0_jax, g_fn=g_jax)
+    st = ts.initial_leapfrog_state(u0_torch, g_fn=g_torch)
+    times = 5e-3 * (1.0 + np.arange(2 * k))
+    want = js.run_leapfrog_driven_multistep(sj, times, g_jax,
+                                            steps_per_call=k, block_rows=8,
+                                            interpret=True)
+    got = ts.run_leapfrog_driven_multistep(st, times, g_torch,
+                                           steps_per_call=k)
     _held(got, want)
 
 

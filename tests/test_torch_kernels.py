@@ -216,12 +216,13 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_multistep_tile_fits_and_refuses():
-    # the H100's 227 KB opt-in limit. B6's square slabs: k = 32 fits in
-    # f32 at tile 64
-    assert tk.multistep_tile(32, torch.float32, 232448) == 64
-    assert tk.multistep_tile(32, torch.float64, 232448) == 32
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.multistep_tile(200, torch.float32, 232448)
+    # the H100's 227 KB opt-in limit. B6 runs on B2's wavefront: k = 32 is
+    # two launches in f32, from steps 0 and 16; k = 200, which no square
+    # slab held, is 13 launches
+    g = tk.multistep_geometry(32, torch.float32, 232448)
+    assert g.starts == (0, 16)
+    assert len(tk.multistep_geometry(200, torch.float32, 232448).depths) \
+        == 13
     # B2's streaming slabs: k = 32 is two launches of 16 in f32 and four
     # of 8 in f64, within the limit; a smaller limit takes shallower
     # launches; none where not even one step's rings fit
@@ -258,6 +259,52 @@ def test_multistep_geometry_splits_the_pass(dtype, k):
         assert sw % v == 0 and sw <= 512 and d * sw // v <= items
         assert sw - 2 * d >= 2 * d
         assert (d + 2) * 8 * (sw + 2 * v) * isz <= lim
+
+
+#: B6's launches of a pass of k steps (first step, depth), as the wrapper
+#: and csrc/stencil_kernels.cu launch_multistep split it on the card: at
+#: most 16 steps a launch in f32, 8 in f64, as even as they can be, the
+#: first the shallowest
+DRIVEN_SPLITS = {
+    (torch.float32, 1): ((0, 1),),
+    (torch.float32, 16): ((0, 16),),
+    (torch.float32, 17): ((0, 8), (8, 9)),
+    (torch.float32, 32): ((0, 16), (16, 16)),
+    (torch.float32, 33): ((0, 11), (11, 11), (22, 11)),
+    (torch.float64, 1): ((0, 1),),
+    (torch.float64, 16): ((0, 8), (8, 8)),
+    (torch.float64, 17): ((0, 5), (5, 6), (11, 6)),
+    (torch.float64, 32): ((0, 8), (8, 8), (16, 8), (24, 8)),
+    (torch.float64, 33): ((0, 6), (6, 7), (13, 6), (19, 7), (26, 7)),
+}
+
+
+@pytest.mark.parametrize("dtype,k", DRIVEN_SPLITS)
+def test_driven_geometry_launches(dtype, k):
+    """B6's launch split: the number of launches, their depths and each
+    launch's first step, from which it reads its edge tables."""
+    g = tk.multistep_geometry(k, dtype, 232448)
+    assert tuple(zip(g.starts, g.depths)) == DRIVEN_SPLITS[dtype, k]
+
+
+@pytest.mark.parametrize("dtype,k", DRIVEN_SPLITS)
+def test_driven_split_pass_equals_one_pass(dtype, k):
+    """B6's pass split as the wrapper splits it on the card, each launch
+    run through the plain version on H x W pairs with its slice of the
+    edge tables, gives one pass's result bitwise."""
+    rng = np.random.default_rng(50 + k)
+    u, up = (torch.tensor(a, dtype=dtype) for a in _fields(18))
+    gtb = torch.tensor(rng.uniform(-2.0, 2.0, (k, 2, W)), dtype=dtype)
+    glr = torch.tensor(rng.uniform(-2.0, 2.0, (k, H, 2)), dtype=dtype)
+    g = tk.multistep_geometry(k, dtype, 232448)
+    got = (u, up)
+    for s0, d in zip(g.starts, g.depths):
+        got = tk.leapfrog_multistep_driven(*got, gtb[s0:s0 + d],
+                                           glr[s0:s0 + d], STIFF, 0.3, d)
+    want = tk.leapfrog_multistep_driven_reference(u, up, gtb, glr, STIFF,
+                                                  0.3, k)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_cpu_tensors_never_count_launches():
@@ -321,6 +368,42 @@ def test_recurrence_r0_matches_pallas(pk, br, mask_combo):
     r0, x0, rr0, xx0 = tk.recurrence_r0(_t(u), _t(up), kneg, c_u, c_up,
                                         mask_combo=mask_combo)
     wr0, wx0 = np.asarray(want[0])[:H, :W], np.asarray(want[1])[:H, :W]
+    np.testing.assert_allclose(r0.numpy(), wr0, rtol=RTOL,
+                               atol=RTOL * np.abs(wr0).max())
+    np.testing.assert_allclose(x0.numpy(), wx0, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(rr0), float(np.vdot(wr0, wr0)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(float(xx0), float(np.vdot(wx0, wx0)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(float(rr0), float(want[2][0, 0]), rtol=1e-5)
+    np.testing.assert_allclose(float(xx0), float(want[3][0, 0]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mask_combo", [True, False])
+def test_recurrence_r0_matches_pallas_odd_grid(pk, mask_combo):
+    """On an odd grid (37 x 53) with c_up != 0 (gamma = 0.7) and random
+    values on the pinned nodes, which mask_combo=False lets the stencil
+    read; the grid is zero-padded to Pallas's 8-row blocks and 64
+    columns."""
+    import jax.numpy as jnp
+    h, w = 37, 53
+    dt, gamma = 0.01, 0.7
+    c_u, c_up = gamma + 0.5, 0.5 - gamma
+    kneg = tuple(tuple(-dt * dt * c for c in row) for row in STIFF)
+    rng = np.random.default_rng(19)
+    u, up = (rng.uniform(-1.0, 1.0, (h, w)) for _ in range(2))
+    assert np.abs(u[0]).min() > 0.0 and np.abs(up[:, -1]).min() > 0.0
+
+    def pad(a):
+        out = np.zeros((40, 64))
+        out[:h, :w] = a
+        return jnp.asarray(out)
+    want = pk.recurrence_r0_pallas(
+        pad(u), pad(up), k_stencil=kneg, c_u=c_u, c_up=c_up, block_rows=8,
+        true_rows=h, true_cols=w, interpret=True, mask_combo=mask_combo)
+    r0, x0, rr0, xx0 = tk.recurrence_r0(_t(u), _t(up), kneg, c_u, c_up,
+                                        mask_combo=mask_combo)
+    wr0, wx0 = np.asarray(want[0])[:h, :w], np.asarray(want[1])[:h, :w]
     np.testing.assert_allclose(r0.numpy(), wr0, rtol=RTOL,
                                atol=RTOL * np.abs(wr0).max())
     np.testing.assert_allclose(x0.numpy(), wx0, rtol=RTOL, atol=ATOL)
@@ -485,18 +568,35 @@ def test_cuda_cheby_block(cuda_device, dtype, degree, shape, zero_guess):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mask_combo", [True, False])
-def test_cuda_recurrence_r0(cuda_device, dtype, mask_combo):
-    u, up = _on(cuda_device, *_fields(15), dtype=dtype)
+@pytest.mark.parametrize("shape", [(3, 3), (H, W), (37, 53), (17, 1000),
+                                   (1500, 1457)])
+def test_cuda_recurrence_r0(cuda_device, dtype, mask_combo, shape):
+    # one block, and several 64 x 32 tiles with ragged last ones in both
+    # directions; random values on the pinned nodes too
+    rng = np.random.default_rng(15)
+    u, up = _on(cuda_device, *(rng.uniform(-1.0, 1.0, shape)
+                               for _ in range(2)), dtype=dtype)
     kneg = tuple(tuple(-1e-4 * c for c in row) for row in STIFF)
     before = tk.LAUNCHES["recurrence_r0"]
     got = tk.recurrence_r0(u, up, kneg, 1.1, -0.1, mask_combo)
+    # back to back: the first call's last block set the ticket to 0 again
+    again = tk.recurrence_r0(u, up, kneg, 1.1, -0.1, mask_combo)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["recurrence_r0"] == before + 1
+    # one launch per call, the norms included
+    assert tk.LAUNCHES["recurrence_r0"] == before + 2
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert int(tk._ticket(cuda_device, stream)) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = tk.recurrence_r0_reference(u, up, kneg, 1.1, -0.1, mask_combo)
-    for g, w in zip(got, want):
-        scale = float(w.abs().max())
-        assert float((g - w).abs().max()) <= _bound(dtype, scale) * (
-            1 if g.dim() else H * W)
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= _bound(
+            dtype, float(w.abs().max()))
+    # the norms at a relative error that grows with sqrt(n), not n, so a
+    # norm of 0 or of the wrong terms fails at every shape
+    rel = (1e-12 if dtype == torch.float64 else
+           22 * float(torch.finfo(dtype).eps)) * (shape[0] * shape[1]) ** 0.5
+    for g, w in zip(got[2:], want[2:]):
+        assert abs(float(g) - float(w)) <= rel * abs(float(w))
 
 
 # B2 on a grid of several strips (columns) and bands (rows) whose sides
@@ -560,17 +660,17 @@ def test_cuda_leapfrog_multistep_zero_patterns(cuda_device, dtype, which, k):
         assert float((g - w).abs().max()) <= _bound(dtype, scale, k)
 
 
-# B6 on a grid of several tiles whose sides are not multiples of the tile
-# (64 in f32, 32 in f64 at k = 32): the last row and column of tiles are 3
-# and 5 wide, so for k >= 5 the boundary row H - 1 and column W - 1 lie in
-# the halos of the tiles before them, which must inject g there too
+# B6 on B2's wavefront: one block (3 x 3), a wide grid of one band and
+# several strips at small depths (17 x 1000), a tall one of one strip and
+# many bands (1000 x 17), and sides that are not multiples of 4 (131 x
+# 133); k = 17 and 33 split into launches of uneven depths in both dtypes
 DRIVEN = (131, 133)
 
 
-def _driven_tables(dev, dtype, k):
+def _driven_tables(dev, dtype, k, shape=DRIVEN):
     rng = np.random.default_rng(20 + k)
-    h, w = DRIVEN
-    u, up = (torch.tensor(rng.uniform(-1.0, 1.0, DRIVEN), dtype=dtype,
+    h, w = shape
+    u, up = (torch.tensor(rng.uniform(-1.0, 1.0, shape), dtype=dtype,
                           device=dev) for _ in range(2))
     gtb = torch.tensor(rng.uniform(-2.0, 2.0, (k, 2, w)), dtype=dtype,
                        device=dev)
@@ -581,46 +681,62 @@ def _driven_tables(dev, dtype, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 8, 32])
-def test_cuda_leapfrog_multistep_driven(cuda_device, dtype, k):
-    u, up, gtb, glr = _driven_tables(cuda_device, dtype, k)
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 17, 32, 33])
+@pytest.mark.parametrize("shape", [(3, 3), (17, 1000), (1000, 17), DRIVEN])
+def test_cuda_leapfrog_multistep_driven(cuda_device, dtype, k, shape):
+    u, up, gtb, glr = _driven_tables(cuda_device, dtype, k, shape)
     before = tk.LAUNCHES["leapfrog_multistep_driven"]
     got = tk.leapfrog_multistep_driven(u, up, gtb, glr, STIFF, 0.3, k)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["leapfrog_multistep_driven"] == before + 1
+    # one launch per depth of multistep_geometry
+    lim = tk._max_smem(tk._lib(), "test", cuda_device)
+    assert tk.LAUNCHES["leapfrog_multistep_driven"] == before + len(
+        tk.multistep_geometry(k, dtype, lim).depths)
     want = tk.leapfrog_multistep_driven_reference(u, up, gtb, glr, STIFF,
                                                   0.3, k)
     for g, w in zip(got, want):
         scale = float(w.abs().max())
         assert float((g - w).abs().max()) <= _bound(dtype, scale, k)
-    # the driven nodes carry the last substep's data exactly
+    # the driven nodes carry the last substep's data exactly (the rows win
+    # at the corners), u_prev the one before
     assert torch.equal(got[0][-1], gtb[-1, 1])
+    assert torch.equal(got[0][0], gtb[-1, 0])
     assert torch.equal(got[0][1:-1, -1], glr[-1, 1:-1, 1])
+    assert torch.equal(got[0][1:-1, 0], glr[-1, 1:-1, 0])
+    if k > 1:
+        assert torch.equal(got[1][-1], gtb[-2, 1])
+        assert torch.equal(got[1][1:-1, 0], glr[-2, 1:-1, 0])
     again = tk.leapfrog_multistep_driven(u, up, gtb, glr, STIFF, 0.3, k)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_leapfrog_multistep_driven_halo_injection(cuda_device, dtype):
-    """Data only on the last row and column, which sit in the previous
-    tiles' halos: a tile that skipped the injection there would leave
-    its interior wrong after a few substeps."""
-    k = 8
-    u, up, gtb, glr = _driven_tables(cuda_device, dtype, k)
-    u.zero_()
-    up.zero_()
+@pytest.mark.parametrize("k", [8, 16])
+def test_cuda_leapfrog_multistep_driven_halo_injection(cuda_device, dtype,
+                                                       k):
+    """Data only on the last row and column, on a grid of several strips
+    and bands (MULTI): every band within k rows of row H - 1 holds it in
+    its rows' halo, and every strip's slab holds its halo columns of that
+    row, so each must inject the data there; a block that skipped it
+    would leave its tile wrong after a few substeps."""
+    rng = np.random.default_rng(30 + k)
+    h, w = MULTI
+    u = torch.zeros(MULTI, dtype=dtype, device=cuda_device)
+    up = torch.zeros_like(u)
+    gtb, glr = _on(cuda_device, rng.uniform(-2.0, 2.0, (k, 2, w)),
+                   rng.uniform(-2.0, 2.0, (k, h, 2)), dtype=dtype)
     gtb[:, 0] = 0.0
     glr[:, :, 0] = 0.0
     got = tk.leapfrog_multistep_driven(u, up, gtb, glr, STIFF, 0.3, k)
     torch.cuda.synchronize()
     want = tk.leapfrog_multistep_driven_reference(u, up, gtb, glr, STIFF,
                                                   0.3, k)
-    tile = tk.multistep_tile(k, dtype, tk._max_smem(tk._lib(), "test",
-                                                    cuda_device))
-    h, w = DRIVEN
-    band = want[0][(h // tile) * tile - k:(h // tile) * tile]
-    assert float(band.abs().max()) > 0.0      # the data reached the halo
+    # the data reached k - 1 rows above the last row, along the whole of
+    # it, and no further
+    assert float(want[0][h - k].abs().max()) > 0.0
+    assert bool((want[0][h - 2, 1:-1] != 0.0).all())
+    assert float(want[0][:h - k, :w - k].abs().max()) == 0.0
     for g, w_ in zip(got, want):
         assert float((g - w_).abs().max()) <= _bound(
             dtype, float(w_.abs().max()), k)

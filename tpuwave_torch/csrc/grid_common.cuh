@@ -7,10 +7,11 @@
 // column is <= 0 or >= n_cols - 1 (the Dirichlet walls); nodes outside the
 // array count as pinned too.
 //
-// Reductions use no atomics: every block reduces its values in a fixed
-// order (warp shuffles, then the warps' sums in warp order) into one
-// partial, and sum_partials_kernel adds the partials in a fixed order.
-// Reruns on the same inputs and launch shape are therefore bitwise equal.
+// Reductions use no float atomics: every block reduces its values in a
+// fixed order (warp shuffles, then the warps' sums in warp order) into one
+// partial, and sum_partials_kernel (or the last block of the same launch)
+// adds the partials in a fixed order. Reruns on the same inputs and launch
+// shape are therefore bitwise equal.
 
 #pragma once
 
@@ -51,16 +52,19 @@ struct StencilT {
 // Staged slabs: a block stages a field over its tile plus a one-node halo,
 // an SX-wide slab of SN nodes in row-major order starting at array node
 // (r0, c0). slab_node gives the array offset of the node behind slab index
-// i, or kNoNode when i lies outside the slab or the node is pinned or
-// outside the array (its staged value is 0).
+// i, or kNoNode when i lies outside the slab or the node lies outside the
+// array or (`pinned`, the default) is pinned (its staged value is 0).
 constexpr size_t kNoNode = ~(size_t)0;
 
 template <int SX, int SN>
 __device__ __forceinline__ size_t slab_node(int i, int r0, int c0, int H,
-                                            int W) {
+                                            int W, bool pinned = true) {
   const int sr = i / SX;
   const int gr = r0 + sr, gc = c0 + (i - sr * SX);
-  return (i < SN && !is_pinned(gr, gc, H, W)) ? (size_t)gr * W + gc : kNoNode;
+  const bool skip = pinned ? is_pinned(gr, gc, H, W)
+                           : (unsigned)gr >= (unsigned)H ||
+                                 (unsigned)gc >= (unsigned)W;
+  return (i < SN && !skip) ? (size_t)gr * W + gc : kNoNode;
 }
 
 // Three neighbouring values of a slab row, centred on slab index i.

@@ -10,8 +10,8 @@
 // at its true shape, the 3x3 stencil and every coefficient as run-time
 // arguments, the Dirichlet mask in global coordinates (grid_common.cuh).
 // Each kernel also returns squared norms, reduced deterministically in the
-// tensor's dtype: one partial per block, then (B5) sum_partials_kernel or
-// (B4) the last block to finish sums the partials in the same launch.
+// tensor's dtype: one partial per block and norm, then the last block to
+// finish sums the partials in the same launch (finish_norms).
 //
 // Plain C interface, bound from Python with ctypes (ops/kernels.py). Every
 // entry point launches on the stream it is given, allocates nothing (the
@@ -90,30 +90,40 @@ constexpr size_t cheby_reg_smem_elems() {
   return 2 * ((size_t)kChebyX * TY * R + 2 * (kChebyX + 1));
 }
 
-// One partial per block, then the last block's sum of them into *rr; valid
-// with every thread of the block calling it.
-template <typename T>
-__device__ void finish_norm(T part, T* __restrict__ partials,
-                            unsigned* __restrict__ ticket, T* __restrict__ rr) {
+// N partials per block (value k of block b at partials[k nb + b], nb
+// blocks), then the last block to finish sums each value's partials in
+// block order into out[k] and resets the ticket; valid with every thread
+// of the block calling it.
+template <typename T, int N>
+__device__ void finish_norms(const T (&part)[N], T* __restrict__ partials,
+                             unsigned* __restrict__ ticket,
+                             T* __restrict__ out) {
   __shared__ bool last;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nth = blockDim.x * blockDim.y;
   const unsigned nb = gridDim.x * gridDim.y;
-  part = block_sum(part);
+  const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
+  T sum[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) sum[k] = block_sum(part[k]);
   if (tid == 0) {
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = part;
+#pragma unroll
+    for (int k = 0; k < N; ++k) partials[k * nb + b] = sum[k];
     __threadfence();
     last = atomicAdd(ticket, 1u) == nb - 1;
   }
   __syncthreads();
   if (!last) return;
-  T v = T(0);
-  for (unsigned i = tid; i < nb; i += nth) v += __ldcg(partials + i);
-  v = block_sum(v);
-  if (tid == 0) {
-    *rr = v;
-    *ticket = 0u;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    T v = T(0);
+    for (unsigned i = tid; i < nb; i += nth) {
+      v += __ldcg(partials + k * nb + i);
+    }
+    v = block_sum(v);
+    if (tid == 0) out[k] = v;
   }
+  if (tid == 0) *ticket = 0u;
 }
 
 template <typename T, int TY, int R, bool WALLS>
@@ -188,7 +198,7 @@ __device__ __forceinline__ void cheby_reg_walk(
       part += rv[i] * rv[i];
     }
   }
-  finish_norm(part, partials, ticket, rr);
+  finish_norms<T, 1>({part}, partials, ticket, rr);
 }
 
 template <typename T, int TY, int R>
@@ -348,7 +358,7 @@ __global__ void cheby_block_smem_kernel(const T* __restrict__ x,
       part += rv * rv;
     }
   }
-  finish_norm(part, partials, ticket, rr);
+  finish_norms<T, 1>({part}, partials, ticket, rr);
 }
 
 // ---------------------------------------------------------------------------
@@ -362,62 +372,116 @@ __global__ void cheby_block_smem_kernel(const T* __restrict__ x,
 //
 // and ||r0||^2, ||x0||^2. The stencil is the zero-row-sum difference form
 // of the -dt^2-scaled stiffness (tpuwave's _rolled_stencil_diff), summed in
-// the plain version's order (dj, di = -1, 0, 1).
+// the plain version's order (dj, di = -1, 0, 1; Window::apply_diff).
 //
 // Bound on this card: memory. It reads 2 arrays and writes 2 (16 B per node
-// in f32, 32 B in f64: 134 MB at 2049^2 f64, 40 us at 3.35 TB/s) for ~30
-// operations per node. One thread per node, 32x8 blocks, as B1 and B3: the
-// 3x3 neighbourhood reads are coalesced along rows and served by L1/L2
-// after the first touch; the combo is recomputed per neighbour rather than
-// staged, which costs operations the card has to spare.
+// in f32, 32 B in f64: 134 MB at 2049^2 f64, 40 us at 3.35 TB/s) for ~33
+// operations per node.
+//
+// B3's tiles: each block owns a 64 x (4 R) tile of outputs and stages the
+// combo and 2 u - u_prev over the tile plus a one-node halo in shared
+// memory, each computed once per node from one load of u and u_prev (a
+// thread starts all its staging loads before it stores the first). With
+// mask_combo a pinned node stages 0; without it the raw combo (every
+// neighbour of an interior node lies inside the grid, so a halo node
+// outside the array, staged 0, is never read by an output). Each thread
+// then walks down one column of the tile with the 3-row register window;
+// only a block whose tile touches a wall tests for pinned outputs. R = 8:
+// at each of the main paths' sizes (641^2 and 2049^2 f64, 4097^2 f32) it
+// beat B3's R = 2 for small grids (PERF.md). The norms come in the same
+// launch: each block reduces its tile's r0^2 and x0^2 in a
+// fixed order into two partials, and the last block to finish (an integer
+// ticket taken after a __threadfence, finish_norms) sums them in block
+// order; no float atomics, so reruns are bitwise equal. (The first version
+// ran one thread per node with 18 __ldg loads and nine four-compare mask
+// tests, and a second launch to sum the partials: 27-40% of the bound.)
 // ---------------------------------------------------------------------------
-constexpr int kR0BlockX = 32, kR0BlockY = 8;
+constexpr int kR0TileX = 64, kR0ThreadsY = 4;
+constexpr int kR0SlabX = kR0TileX + 2;
+constexpr int kR0Threads = kR0TileX * kR0ThreadsY;
+constexpr int kR0Rows = 8;  // the rows a thread walks
+constexpr int kR0TileY = kR0ThreadsY * kR0Rows;
 
-template <typename T>
-__global__ void recurrence_r0_kernel(const T* __restrict__ u,
-                                     const T* __restrict__ up,
-                                     T* __restrict__ out_r0,
-                                     T* __restrict__ out_x0,
-                                     T* __restrict__ partials, int n_blocks,
-                                     int H, int W, Stencil9 st, T c_u,
-                                     T c_up, int mask_combo) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  T rv = T(0), xv = T(0);
-  if (r < H && c < W) {
-    const size_t i = (size_t)r * W + c;
-    if (!is_pinned(r, c, H, W)) {
-      // every neighbour of an interior node lies inside the grid
-      T cb[9];
+dim3 recurrence_r0_grid(int H, int W) {
+  return dim3((W + kR0TileX - 1) / kR0TileX, (H + kR0TileY - 1) / kR0TileY);
+}
+
+template <typename T, bool WALLS>
+__device__ __forceinline__ void recurrence_r0_walk(
+    const T* __restrict__ cs, const T* __restrict__ xs,
+    T* __restrict__ out_r0, T* __restrict__ out_x0, int H, int W, int r0,
+    int c0, const StencilT<T>& st, T& rr, T& xx) {
+  const int gc = c0 + 1 + threadIdx.x;
+  const bool col_wall = gc == 0 || gc == W - 1;
+  int gr = r0 + 1 + threadIdx.y * kR0Rows;
+  int i = (threadIdx.y * kR0Rows + 1) * kR0SlabX + threadIdx.x + 1;
+  Window<T, kR0SlabX> w;
+  w.start(cs, i);
 #pragma unroll
-      for (int dj = -1; dj <= 1; ++dj) {
-#pragma unroll
-        for (int di = -1; di <= 1; ++di) {
-          const size_t m = (size_t)(r + dj) * W + (c + di);
-          T v = c_u * __ldg(u + m) + c_up * __ldg(up + m);
-          if (mask_combo && is_pinned(r + dj, c + di, H, W)) v = T(0);
-          cb[(dj + 1) * 3 + (di + 1)] = v;
-        }
-      }
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        if (k == 4) continue;
-        acc += T(st.c[k]) * (cb[k] - cb[4]);
-      }
-      rv = acc;
-      xv = T(2) * __ldg(u + i) - __ldg(up + i);
+  for (int j = 0; j < kR0Rows; ++j, ++gr, i += kR0SlabX) {
+    if (gr >= H) break;
+    w.next_row(cs, i);
+    const size_t g = (size_t)gr * W + gc;
+    T rv = T(0), xv = T(0);
+    if (!WALLS || !(col_wall || gr == 0 || gr == H - 1)) {
+      rv = w.apply_diff(st);
+      xv = xs[i];
     }
-    out_r0[i] = rv;
-    out_x0[i] = xv;
+    out_r0[g] = rv;
+    out_x0[g] = xv;
+    rr += rv * rv;
+    xx += xv * xv;
+    w.advance();
   }
-  const T pr = block_sum(rv * rv);
-  const T px = block_sum(xv * xv);
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-    const int b = blockIdx.y * gridDim.x + blockIdx.x;
-    partials[b] = pr;
-    partials[n_blocks + b] = px;
+}
+
+template <typename T, bool MASK>
+__global__ void __launch_bounds__(kR0Threads)
+recurrence_r0_kernel(const T* __restrict__ u, const T* __restrict__ up,
+                     T* __restrict__ out_r0, T* __restrict__ out_x0,
+                     T* __restrict__ partials, unsigned* __restrict__ ticket,
+                     T* __restrict__ norms, int H, int W, Stencil9 st9,
+                     T c_u, T c_up) {
+  constexpr int kSlab = kR0SlabX * (kR0TileY + 2);
+  constexpr int kStage = (kSlab + kR0Threads - 1) / kR0Threads;
+  __shared__ T cs[kSlab];  // the combo
+  __shared__ T xs[kSlab];  // 2 u - u_prev
+  const int r0 = blockIdx.y * kR0TileY - 1;  // array row of slab row 0
+  const int c0 = blockIdx.x * kR0TileX - 1;
+  const int tid = threadIdx.y * kR0TileX + threadIdx.x;
+  T vu[kStage], vp[kStage];
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const size_t g = slab_node<kR0SlabX, kSlab>(tid + k * kR0Threads, r0,
+                                                c0, H, W, MASK);
+    vu[k] = g != kNoNode ? __ldg(u + g) : T(0);
+    vp[k] = g != kNoNode ? __ldg(up + g) : T(0);
   }
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int i = tid + k * kR0Threads;
+    if (i < kSlab) {
+      cs[i] = c_u * vu[k] + c_up * vp[k];
+      xs[i] = T(2) * vu[k] - vp[k];
+    }
+  }
+  __syncthreads();
+  T rr = T(0), xx = T(0);
+  if (c0 + 1 + (int)threadIdx.x < W) {
+    const StencilT<T> st(st9);
+    // the tile's rows r0 + 1 .. r0 + kR0TileY and columns c0 + 1 ..
+    // c0 + kR0TileX touch a wall
+    const bool walls = r0 < 0 || c0 < 0 || r0 + kR0TileY >= H - 1 ||
+                       c0 + kR0TileX >= W - 1;
+    if (walls) {
+      recurrence_r0_walk<T, true>(cs, xs, out_r0, out_x0, H, W, r0, c0, st,
+                                  rr, xx);
+    } else {
+      recurrence_r0_walk<T, false>(cs, xs, out_r0, out_x0, H, W, r0, c0, st,
+                                   rr, xx);
+    }
+  }
+  finish_norms<T, 2>({rr, xx}, partials, ticket, norms);
 }
 
 template <typename K>
@@ -502,22 +566,21 @@ int launch_cheby(const void* x, const void* r, void* out_x, void* out_r,
 template <typename T>
 int launch_recurrence_r0(const void* u, const void* up, void* out_r0,
                          void* out_x0, void* partials, int n_partials,
-                         void* norms, int H, int W, const double* s,
-                         double c_u, double c_up, int mask_combo,
-                         cudaStream_t stream) {
-  const dim3 block(kR0BlockX, kR0BlockY);
-  const dim3 grid = point_grid(H, W, block);
-  const int n_blocks = (int)(grid.x * grid.y);
-  if (n_partials < 2 * n_blocks) return (int)cudaErrorInvalidValue;
-  recurrence_r0_kernel<T><<<grid, block, 0, stream>>>(
+                         void* ticket, void* norms, int H, int W,
+                         const double* s, double c_u, double c_up,
+                         int mask_combo, cudaStream_t stream) {
+  const dim3 grid = recurrence_r0_grid(H, W);
+  if (n_partials < 2 * (int)(grid.x * grid.y)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kR0TileX, kR0ThreadsY);
+  auto kernel = mask_combo ? recurrence_r0_kernel<T, true>
+                           : recurrence_r0_kernel<T, false>;
+  kernel<<<grid, block, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(up),
       static_cast<T*>(out_r0), static_cast<T*>(out_x0),
-      static_cast<T*>(partials), n_blocks, H, W, load_stencil(s), (T)c_u,
-      (T)c_up, mask_combo);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sum_partials_kernel<T><<<2, kSumThreads, 0, stream>>>(
-      static_cast<const T*>(partials), n_blocks, static_cast<T*>(norms));
+      static_cast<T*>(partials), static_cast<unsigned*>(ticket),
+      static_cast<T*>(norms), H, W, load_stencil(s), (T)c_u, (T)c_up);
   return (int)cudaGetLastError();
 }
 
@@ -529,8 +592,8 @@ extern "C" {
 // (9 host doubles, the row-major 3x3 stencil) and c1 / c2 (n_coeffs host
 // doubles each). `partials` holds n_partials values of the dtype; `rr`
 // receives ||r_new||^2 (one value), `norms` ||r0||^2 then ||x0||^2.
-// B4: x null = a zero initial guess; `ticket` is one unsigned int that is
-// 0 before the call and 0 again after it.
+// B4: x null = a zero initial guess. `ticket` (B4, B5) is one unsigned
+// int that is 0 before the call and 0 again after it.
 
 int tw_cheby_block(int dtype, const void* x, const void* r, void* out_x,
                    void* out_r, void* partials, int n_partials, void* ticket,
@@ -543,24 +606,25 @@ int tw_cheby_block(int dtype, const void* x, const void* r, void* out_x,
                 s, inv_theta, c1, c2, n_coeffs, tile_rows, tile_cols, st);
 }
 
+// B5: `partials` holds n_partials >= 2 tw_recurrence_r0_blocks(H, W)
+// values.
 int tw_recurrence_r0(int dtype, const void* u, const void* up, void* out_r0,
                      void* out_x0, void* partials, int n_partials,
-                     void* norms, int H, int W, const double* s, double c_u,
-                     double c_up, int mask_combo, void* stream) {
+                     void* ticket, void* norms, int H, int W,
+                     const double* s, double c_u, double c_up,
+                     int mask_combo, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_recurrence_r0<float>(u, up, out_r0, out_x0, partials,
-                                       n_partials, norms, H, W, s, c_u, c_up,
-                                       mask_combo, st);
-  }
-  return launch_recurrence_r0<double>(u, up, out_r0, out_x0, partials,
-                                      n_partials, norms, H, W, s, c_u, c_up,
-                                      mask_combo, st);
+  auto launch = dtype == 0 ? launch_recurrence_r0<float>
+                           : launch_recurrence_r0<double>;
+  return launch(u, up, out_r0, out_x0, partials, n_partials, ticket, norms,
+                H, W, s, c_u, c_up, mask_combo, st);
 }
 
-// Thread-block shape of B5 (the wrapper sizes its partials buffer from it).
-int tw_recurrence_r0_block(int axis) {
-  return axis == 0 ? kR0BlockX : kR0BlockY;
+// B5's blocks on an H x W grid (the wrapper sizes its partials buffer from
+// it).
+int tw_recurrence_r0_blocks(int H, int W) {
+  const dim3 grid = recurrence_r0_grid(H, W);
+  return (int)(grid.x * grid.y);
 }
 
 }  // extern "C"

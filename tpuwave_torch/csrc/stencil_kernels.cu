@@ -383,6 +383,11 @@ struct B2Params {
   int pin_lo, pin_hi;  // rows <= pin_lo or >= pin_hi are pinned
   T s[9];
   T coef;
+  // B6 only: the edge tables (n_steps, 2, W) and (n_steps, H, 2), and the
+  // pass's substep that this launch's level 1 steps
+  const T* gtb;
+  const T* glr;
+  int s0;
 };
 
 // ring rows of one level at slab width sw
@@ -422,13 +427,84 @@ __device__ __forceinline__ void b2_step(const B2Params<T>& a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B6: n_steps DRIVEN leapfrog steps in one pass: B2's wavefront (the same
+// shapes, rings, ticks, zero patterns and launch split; DRIVEN instances of
+// the same body), where each level's pinned nodes take their substep's
+// Dirichlet data instead of 0. Level q of a launch steps the pass's
+// substep s0 + q - 1; after it, by GLOBAL coordinates,
+//
+//   row H - 1: gtb[s, 1, c]     row 0:     gtb[s, 0, c]
+//   col W - 1: glr[s, r, 1]     col 0:     glr[s, r, 0]
+//
+// tested in that order (the rows win at the corners, as in tpuwave's
+// overlay order left, right, bottom, top); nodes outside the array are 0.
+// The value depends only on global coordinates, so every slab that holds a
+// boundary row or column, its halo copies of a neighbour's boundary
+// included, injects the same value at every level: blocks stay
+// independent, and no atomics are used (reruns are bitwise equal). gtb is
+// (n_steps, 2, W) and glr (n_steps, H, 2), row-major in the state's dtype.
+// The rows outside the array are 0 at every substep, so a split pass
+// chains its launches on H x W pairs.
+//
+// The interior blocks run B2's tick as it is. A block whose slab holds a
+// pinned node (WALLS) runs B2's items too (0 on the pinned nodes), then,
+// after a second barrier, a wall stage writes the tick's boundary values
+// into the rings: one thread per (level, row of the tick, side) for the
+// nodes of columns 0 and W - 1, its descriptor set once in shared memory
+// and its values copied from glr kB6Ahead ticks ahead by cp.async; and,
+// in the ticks that step rows 0 or H - 1, one thread per slab column from
+// gtb. B2's tick sits at the 128-register cap: anything the stage kept in
+// registers over the item loop cost more than the stage (PERF.md), so it
+// reads what it needs from shared memory. (The first version stepped a
+// square slab of side tile + 2 n_steps in shared memory, one barrier per
+// substep: 4-16% of the bound at k >= 8.)
+// ---------------------------------------------------------------------------
+
+// an asynchronous N-byte copy from device to shared memory, the end of a
+// group of them, and the waits for the thread's earlier groups
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa),
+               "l"(gmem), "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of the thread's latest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// B6's wall values are copied kB6Ahead ticks ahead into kB6Ahead + 1
+// buffers, so that a buffer is refilled a tick after it was read
+constexpr int kB6Ahead = 3;
+
+// B6's wall jobs (below): per job a descriptor (int4 and a 64-bit table
+// index) and kB6Ahead + 1 values, and 8 ints of block facts, after the
+// rings in shared memory
+template <typename T>
+constexpr size_t b6_job_bytes(int depth) {
+  return (size_t)2 * depth * B2Shape<T>::kRows *
+             (16 + 8 + (kB6Ahead + 1) * sizeof(T)) +
+         8 * sizeof(int);
+}
+
+// floor(x / y) for y > 0
+__device__ __forceinline__ int b6_floor_div(int x, int y) {
+  return x >= 0 ? x / y : -((y - 1 - x) / y);
+}
+
 template <int... PH, typename F>
 __device__ __forceinline__ void b2_unrolled(std::integer_sequence<int, PH...>,
                                             F&& f) {
   (f(std::integral_constant<int, PH>{}), ...);
 }
 
-template <typename T, int PAT, bool WALLS>
+template <typename T, int PAT, bool WALLS, bool DRIVEN>
 __device__ __forceinline__ void leapfrog_wavefront_body(
     const B2Params<T>& a, T* __restrict__ ring) {
   using S = B2Shape<T>;
@@ -518,6 +594,64 @@ __device__ __forceinline__ void leapfrog_wavefront_body(
     }
   }
   for (int i = tid; i < (d + 2) * LS; i += NT) ring[i] = T(0);
+
+  // level q steps rows base + RB t - L q .. in tick t
+  auto active = [&](int q, int t) {
+    return t >= (L + 1) * q / RB && t <= (rows + 2 * d - q - 1 + L * q) / RB;
+  };
+  // B6's wall jobs: thread tid < NJ = 2 d RB injects, in every tick, the
+  // node of column 0 (even tid) or W - 1 (odd) on row r = (tid / 2) mod RB
+  // of level q = tid / (2 RB) + 1, in the ticks t0 .. t1 where that row
+  // lies strictly between rows 0 and H - 1 and the column in the slab. Its
+  // descriptor (t0, t1, ring index but the row's, the row's index at tick
+  // 0; glr index at tick 0) sits in shared memory after the rings, then
+  // the block's facts (the ticks that step row H - 1, stage[0] ..
+  // stage[1], and row 0, stage[2] .. stage[3]; those rows from base; the
+  // slab's first column), then the values in flight.
+  const int NJ = DRIVEN && WALLS ? 2 * d * RB : 0;
+  int4* jobs = reinterpret_cast<int4*>(ring + (d + 2) * LS);
+  long long* job_g = reinterpret_cast<long long*>(jobs + NJ);
+  int* stage = reinterpret_cast<int*>(job_g + NJ);
+  T* staged = reinterpret_cast<T*>(stage + 8);
+
+  if constexpr (DRIVEN && WALLS) {
+    if (tid == 0) {
+      // levels 1 .. d step row x in the ticks t with
+      // x + L - RB + 1 <= RB t <= x + L d
+      const int x_hi = a.pin_hi - base, x_lo = a.pin_lo - base;
+      stage[0] = b6_floor_div(x_hi + L, RB);
+      stage[1] = b6_floor_div(x_hi + L * d, RB);
+      stage[2] = a.pin_lo == a.pin_hi ? 1 : b6_floor_div(x_lo + L, RB);
+      stage[3] = a.pin_lo == a.pin_hi ? 0 : b6_floor_div(x_lo + L * d, RB);
+      stage[4] = x_hi;
+      stage[5] = x_lo;
+      stage[6] = c_lo;
+    }
+    if (tid < NJ) {
+      const int p = tid >> 1, side = tid & 1;
+      const int q = p / RB + 1, r = p - (q - 1) * RB;
+      const int j = (side ? a.W - 1 : 0) - c_lo;
+      const int x0 = r - L * q;  // its row at tick 0, from base
+      // active ticks, then rows pin_lo < base + x0 + RB t < pin_hi
+      int t0 = max((L + 1) * q / RB,
+                   b6_floor_div(a.pin_lo - base - x0, RB) + 1);
+      int t1 = min((rows + 2 * d - q - 1 + L * q) / RB,
+                   b6_floor_div(a.pin_hi - base - x0 - 1, RB));
+      if (j < 0 || j >= sw || (side == 0 && a.W == 1)) t1 = t0 - 1;
+      jobs[tid] = make_int4(t0, t1, (q + 1) * LS + V + j, x0);
+      job_g[tid] =
+          ((long long)(a.s0 + q - 1) * (a.pin_hi + 1) + base + x0) * 2 +
+          side;
+#pragma unroll
+      for (int t = 0; t < kB6Ahead; ++t) {
+        if (t0 <= t && t <= t1) {
+          cp_async<sizeof(T)>(staged + t * NJ + tid,
+                              a.glr + job_g[tid] + 2 * RB * t);
+        }
+        cp_async_commit();
+      }
+    }
+  }
   __syncthreads();
 
   // One tick, at phase PH of the unrolled loop: level q steps rows
@@ -599,8 +733,7 @@ __device__ __forceinline__ void leapfrog_wavefront_body(
 
       // active on the groups that hold a row of base + q .. base + rows +
       // 2 d - q - 1
-      if (q != 0 && t >= (L + 1) * q / RB &&
-          t <= (rows + 2 * d - q - 1 + L * q) / RB) {
+      if (q != 0 && active(q, t)) {
         const T* prv = ring + wofs[j] - LS;
         T* dst = ring + wofs[j] + LS;
         const int R = base + RB * t - L * q;
@@ -617,6 +750,52 @@ __device__ __forceinline__ void leapfrog_wavefront_body(
         }
       }
     }
+    if constexpr (DRIVEN && WALLS) {
+      // B6's wall stage: the items stored 0 on the pinned nodes; after
+      // them, the nodes of columns 0 and W - 1 between rows 0 and H - 1
+      // (the wall jobs), and the slab rows of rows 0 and H - 1, take their
+      // substep's data
+      __syncthreads();
+      if (tid < NJ) {
+        const int4 jd = jobs[tid];
+        const long long g = job_g[tid];
+        cp_async_wait<kB6Ahead - 1>();  // this tick's copy has landed
+        const T v = staged[(t % (kB6Ahead + 1)) * NJ + tid];
+        if (t >= jd.x && t <= jd.y) {
+          ring[jd.z + ((jd.w + RB * t) & M) * P] = v;
+        }
+        const int tn = t + kB6Ahead;
+        if (tn >= jd.x && tn <= jd.y) {
+          cp_async<sizeof(T)>(staged + (tn % (kB6Ahead + 1)) * NJ + tid,
+                              a.glr + g + 2 * RB * tn);
+        }
+        cp_async_commit();
+      }
+      const int4 rt = *reinterpret_cast<const int4*>(stage);
+      const bool hi_now = t >= rt.x && t <= rt.y;
+      const bool lo_now = t >= rt.z && t <= rt.w;
+      if (hi_now || lo_now) {
+        const int c = stage[6] + tid;
+        if (tid < sw && c >= 0 && c < a.W) {
+          // row H - 1 (over row 0 when they coincide), then row 0
+#pragma unroll
+          for (int k = 1; k >= 0; --k) {
+            if (!(k ? hi_now : lo_now)) continue;
+            const int x = stage[k ? 4 : 5];
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              // the level that steps row x in this tick, if any
+              const int num = RB * t + r - x;
+              const int q = num / L;
+              if (num > 0 && num == q * L && q <= d && active(q, t)) {
+                ring[(q + 1) * LS + (x & M) * P + V + tid] = __ldg(
+                    a.gtb + ((size_t)(a.s0 + q - 1) * 2 + k) * a.W + c);
+              }
+            }
+          }
+        }
+      }
+    }
     __syncthreads();
   };
   for (int t = 0; t < n_ticks; t += U) {
@@ -628,7 +807,7 @@ __device__ __forceinline__ void leapfrog_wavefront_body(
   }
 }
 
-template <typename T, int PAT>
+template <typename T, int PAT, bool DRIVEN>
 __global__ void __launch_bounds__(B2Shape<T>::kThreads,
                                   B2Shape<T>::kMinBlocks)
 leapfrog_wavefront_kernel(const __grid_constant__ B2Params<T> a) {
@@ -642,9 +821,9 @@ leapfrog_wavefront_kernel(const __grid_constant__ B2Params<T> a) {
                      band0 - a.depth <= a.pin_lo ||
                      band0 + rows + a.depth - 1 >= a.pin_hi;
   if (walls) {
-    leapfrog_wavefront_body<T, PAT, true>(a, ring);
+    leapfrog_wavefront_body<T, PAT, true, DRIVEN>(a, ring);
   } else {
-    leapfrog_wavefront_body<T, PAT, false>(a, ring);
+    leapfrog_wavefront_body<T, PAT, false, DRIVEN>(a, ring);
   }
 }
 
@@ -661,15 +840,16 @@ struct B2Launch {
 };
 
 template <typename T>
-int b2_slab(int depth, int max_smem) {
+int b2_slab(int depth, int max_smem, size_t extra) {
   constexpr int v = B2Vec<T>::kV, minb = B2Shape<T>::kMinBlocks;
   const int cap = v * std::min(B2Shape<T>::kThreads * B2Shape<T>::kIPT /
                                    depth,
                                kB2MaxSlab / v);
   const long long level = (long long)(depth + 2) * B2Shape<T>::kRing *
                           sizeof(T);
-  const long long budgets[2] = {max_smem / minb - (minb > 1 ? 1024 : 0),
-                                max_smem};
+  const long long budgets[2] = {
+      max_smem / minb - (minb > 1 ? 1024 : 0) - (long long)extra,
+      max_smem - (long long)extra};
   for (int k = 0; k < 2; ++k) {
     const int fit = (int)((budgets[k] / level - 2 * v) / v * v);
     const int sw = std::min(cap, fit);
@@ -679,17 +859,19 @@ int b2_slab(int depth, int max_smem) {
 }
 
 template <typename T>
-B2Launch b2_launch(int depth, int W, int out_h, int max_smem, int n_sm) {
+B2Launch b2_launch(int depth, int W, int out_h, int max_smem, int n_sm,
+                   size_t extra) {
   B2Launch g{};
   constexpr int v = B2Vec<T>::kV, minb = B2Shape<T>::kMinBlocks;
-  const int sw_max = b2_slab<T>(depth, max_smem);
+  const int sw_max = b2_slab<T>(depth, max_smem, extra);
   if (sw_max <= 0) return g;
   const int tw_max = sw_max - 2 * depth;
   const int fewest = (W + tw_max - 1) / tw_max;
   // of up to 4 more strips than the slab needs, the count whose blocks
   // (strips x bands, bands = the SMs' blocks / strips) fill most SMs
   const size_t smem_max = (size_t)(depth + 2) * B2Shape<T>::kRing *
-                          b2_pitch(sw_max, v) * sizeof(T);
+                              b2_pitch(sw_max, v) * sizeof(T) +
+                          extra;
   const int per_sm =
       smem_max <= (size_t)(max_smem / minb - (minb > 1 ? 1024 : 0)) ? minb
                                                                     : 1;
@@ -704,37 +886,56 @@ B2Launch b2_launch(int depth, int W, int out_h, int max_smem, int n_sm) {
   g.tile_cols = (W + g.n_strips - 1) / g.n_strips;
   g.slab_cols = (g.tile_cols + 2 * depth + v - 1) / v * v;
   g.smem = (size_t)(depth + 2) * B2Shape<T>::kRing *
-           b2_pitch(g.slab_cols, v) * sizeof(T);
+               b2_pitch(g.slab_cols, v) * sizeof(T) +
+           extra;
   const int bands = std::max(1, per_sm * n_sm / g.n_strips);
   g.band_rows = std::max((out_h + bands - 1) / bands, depth);
   g.n_bands = (out_h + g.band_rows - 1) / g.band_rows;
   return g;
 }
 
-template <typename T, int PAT>
+template <typename T, int PAT, bool DRIVEN>
 cudaError_t launch_wavefront(const B2Params<T>& a, dim3 grid, size_t smem,
                              cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        leapfrog_wavefront_kernel<T, PAT>,
+        leapfrog_wavefront_kernel<T, PAT, DRIVEN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  leapfrog_wavefront_kernel<T, PAT>
+  leapfrog_wavefront_kernel<T, PAT, DRIVEN>
       <<<grid, B2Shape<T>::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the instance of the stencil's zero pattern
+template <typename T, bool DRIVEN>
+cudaError_t launch_pattern(int pat, const B2Params<T>& a, dim3 grid,
+                           size_t smem, cudaStream_t stream) {
+  if (pat == kB2Cross) {
+    return launch_wavefront<T, kB2Cross, DRIVEN>(a, grid, smem, stream);
+  }
+  if (pat == kB2NoAnti) {
+    return launch_wavefront<T, kB2NoAnti, DRIVEN>(a, grid, smem, stream);
+  }
+  return launch_wavefront<T, kB2Full, DRIVEN>(a, grid, smem, stream);
+}
+
 // The pass's launches: depths as even as they can be (the first is the
 // shallowest), the state between them in scratch (two pairs of
-// (H + 2 (n_steps - first depth)) x W arrays, one pair when there are two
-// launches), each launch's output covering the rows the later launches
-// still step.
+// (H + 2 keep) x W arrays, one pair when there are two launches), each
+// launch's output covering the rows the later launches still step. B2
+// keeps keep = n_steps - first depth rows beyond the array on each side (a
+// row block of a taller grid steps them); B6 (gtb non-null) keeps none: its
+// rows outside the array are 0 at every substep, so its launches chain on
+// H x W pairs, and each reads its edge tables from its first substep.
 template <typename T>
-int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
-                     void* scratch, int H, int W, const double* s, double coef,
-                     int n_steps, int max_depth, long long row_offset,
-                     long long n_rows, cudaStream_t stream) {
+int launch_multistep(const void* u, const void* up, const void* gtb,
+                     const void* glr, void* out_u, void* out_up,
+                     void* scratch, int H, int W, const double* s,
+                     double coef, int n_steps, int max_depth,
+                     long long row_offset, long long n_rows,
+                     cudaStream_t stream) {
   if (n_steps < 1 || max_depth < 1) return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0, n_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -746,10 +947,11 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   }
   if (e != cudaSuccess) return (int)e;
+  const bool driven = gtb != nullptr;
   const int n = (n_steps + max_depth - 1) / max_depth;
   if (n > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   const int d0 = n_steps / n;  // the first launch, the shallowest
-  const size_t plane = (size_t)(H + 2 * (n_steps - d0)) * W;
+  const size_t plane = (size_t)(H + (driven ? 0 : 2 * (n_steps - d0))) * W;
   T* sp = static_cast<T*>(scratch);
   B2Params<T> a{};
   a.u = static_cast<const T*>(u);
@@ -765,6 +967,8 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
   a.pin_hi = (int)std::max(-reach, std::min(reach, hi));
   for (int k = 0; k < 9; ++k) a.s[k] = T(s[k]);
   a.coef = T(coef);
+  a.gtb = static_cast<const T*>(gtb);
+  a.glr = static_cast<const T*>(glr);
   const bool anti = s[2] == 0.0 && s[6] == 0.0;
   const int pat = anti && s[0] == 0.0 && s[8] == 0.0
                       ? kB2Cross
@@ -772,16 +976,22 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
   int done = 0;
   for (int i = 0; i < n; ++i) {
     const int d = (int)(((long long)n_steps * (i + 1)) / n - done);
+    a.s0 = done;
     done += d;
-    const int rest = n_steps - done;  // steps of the later launches
-    const B2Launch g = b2_launch<T>(d, W, H + 2 * rest, max_smem, n_sm);
-    if (g.slab_cols <= 0) return (int)cudaErrorInvalidValue;
+    const int keep = driven ? 0 : n_steps - done;  // rows beyond the array
+    const B2Launch g = b2_launch<T>(d, W, H + 2 * keep, max_smem, n_sm,
+                                    driven ? b6_job_bytes<T>(d) : 0);
+    // (B6's wall jobs take a thread each: 2 d RB <= threads)
+    if (g.slab_cols <= 0 ||
+        (driven && 2 * d * B2Shape<T>::kRows > B2Shape<T>::kThreads)) {
+      return (int)cudaErrorInvalidValue;
+    }
     a.depth = d;
     a.slab_cols = g.slab_cols;
     a.tile_cols = g.tile_cols;
     a.band_rows = g.band_rows;
-    a.out_a = -rest;
-    a.out_h = H + 2 * rest;
+    a.out_a = -keep;
+    a.out_h = H + 2 * keep;
     if (i == n - 1) {
       a.out_u = static_cast<T*>(out_u);
       a.out_up = static_cast<T*>(out_up);
@@ -791,13 +1001,8 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
       a.out_up = pair + plane;
     }
     const dim3 grid(g.n_strips, g.n_bands);
-    if (pat == kB2Cross) {
-      e = launch_wavefront<T, kB2Cross>(a, grid, g.smem, stream);
-    } else if (pat == kB2NoAnti) {
-      e = launch_wavefront<T, kB2NoAnti>(a, grid, g.smem, stream);
-    } else {
-      e = launch_wavefront<T, kB2Full>(a, grid, g.smem, stream);
-    }
+    e = driven ? launch_pattern<T, true>(pat, a, grid, g.smem, stream)
+               : launch_pattern<T, false>(pat, a, grid, g.smem, stream);
     if (e != cudaSuccess) return (int)e;
     a.u = a.out_u;
     a.up = a.out_up;
@@ -805,171 +1010,6 @@ int launch_multistep(const void* u, const void* up, void* out_u, void* out_up,
     a.in_h = a.out_h;
   }
   return 0;
-}
-
-// ---------------------------------------------------------------------------
-// B6: n_steps DRIVEN leapfrog steps in one pass (temporal blocking with
-// per-substep Dirichlet data).
-//
-// Each block owns a tile x tile square of output nodes. It loads u and
-// u_prev over the tile plus an n_steps-wide halo on all four sides into
-// dynamic shared memory (zeros outside the array), then runs n_steps
-// substeps there with one __syncthreads() between them. Substep s updates
-// the slab nodes at distance >= s from the slab edge, whose neighbours were
-// all valid after substep s - 1, so after n_steps substeps the centre tile
-// is exact. The update is in place: u_next overwrites u_prev's slot (it
-// reads only its own u_prev value), and the two buffers swap roles. The
-// wrapper picks the largest tile (64, 32, 16) whose two slabs fit the
-// card's opt-in shared memory (ops/kernels.py multistep_tile). Where B2
-// writes 0 on a pinned node, B6 writes that substep's boundary value for
-// the node's GLOBAL row or column,
-//
-//   row H - 1: gtb[s, 1, c]     row 0:     gtb[s, 0, c]
-//   col W - 1: glr[s, r, 1]     col 0:     glr[s, r, 0]
-//
-// tested in that order (the rows win at the corners, as in tpuwave's
-// overlay order left, right, bottom, top); nodes outside the array are 0.
-// Because the value depends only on global coordinates, every tile whose
-// slab holds a boundary row or column, its halo copies of a neighbour's
-// boundary included, injects the same value at every substep: tiles stay
-// independent, and no atomics are used (reruns are bitwise equal).
-//
-// gtb is (n_steps, 2, W) and glr (n_steps, H, 2), row-major in the state's
-// dtype: 2 values per boundary node per substep, read straight from global
-// memory with __ldg (tiny, L2-resident; not staged in shared memory).
-//
-// Bound on this card: shared-memory traffic (each substep reads 10 and
-// writes 1 value per slab node) and the halo's redundant work over a slab
-// (tile + 2 n_steps)^2 that shrinks by 2 per substep; device memory sees
-// 2 reads + 2 writes per n_steps steps
-// (16 B per node per pass in f32) plus the edge tables. The boundary
-// tests are taken per slab row: a row outside the array or on row 0 or
-// H - 1 takes its values from the table (or 0) without a stencil, and in
-// every other row one unsigned compare per node separates the interior
-// from the two boundary columns, so the stencil loop is as lean as an
-// undriven one. (A first version tested all six cases per node: 48
-// registers and 1.6x the undriven slab kernel's time at k = 8.)
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void leapfrog_multistep_driven_kernel(
-    const T* __restrict__ u, const T* __restrict__ up,
-    const T* __restrict__ gtb, const T* __restrict__ glr,
-    T* __restrict__ out_u, T* __restrict__ out_up, int H, int W, Stencil9 st,
-    T coef, int n_steps, int tile) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = tile + 2 * n_steps;  // slab side
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* prv = cur + (size_t)S * S;
-  const int r0 = blockIdx.y * tile - n_steps;  // array row of slab row 0
-  const int c0 = blockIdx.x * tile - n_steps;  // array col of slab col 0
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int bx = blockDim.x, by = blockDim.y;
-
-  for (int sr = ty; sr < S; sr += by) {
-    const int r = r0 + sr;
-    const bool row_in = r >= 0 && r < H;
-    for (int sc = tx; sc < S; sc += bx) {
-      const int c = c0 + sc;
-      const bool in = row_in && c >= 0 && c < W;
-      const size_t g = (size_t)r * W + c;
-      cur[sr * S + sc] = in ? __ldg(u + g) : T(0);
-      prv[sr * S + sc] = in ? __ldg(up + g) : T(0);
-    }
-  }
-  __syncthreads();
-
-  T s[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) s[k] = T(st.c[k]);
-
-  for (int step = 1; step <= n_steps; ++step) {
-    const int hi = S - step;
-    const T* g_bot = gtb + (size_t)(step - 1) * 2 * W;  // gtb[s, 0, :]
-    const T* g_top = g_bot + W;                          // gtb[s, 1, :]
-    const T* g_lr = glr + (size_t)(step - 1) * H * 2;    // glr[s, :, :]
-    for (int sr = step + ty; sr < hi; sr += by) {
-      const int r = r0 + sr;
-      T* out = prv + sr * S;
-      if (r <= 0 || r >= H - 1) {
-        // outside the array (0) or a boundary row (its table; the rows
-        // win at the corners, row H - 1 over row 0)
-        const T* g_row = r == H - 1 ? g_top : (r == 0 ? g_bot : nullptr);
-        for (int sc = step + tx; sc < hi; sc += bx) {
-          const int c = c0 + sc;
-          out[sc] = (g_row != nullptr && c >= 0 && c < W) ? __ldg(g_row + c)
-                                                          : T(0);
-        }
-        continue;
-      }
-      const T* rm = cur + (sr - 1) * S;
-      const T* rc = cur + sr * S;
-      const T* rp = cur + (sr + 1) * S;
-      for (int sc = step + tx; sc < hi; sc += bx) {
-        const int c = c0 + sc;
-        T v;
-        if ((unsigned)(c - 1) < (unsigned)(W - 2)) {  // 0 < c < W - 1
-          T ku = s[4] * rc[sc];
-          ku += s[0] * rm[sc - 1];
-          ku += s[1] * rm[sc];
-          ku += s[2] * rm[sc + 1];
-          ku += s[3] * rc[sc - 1];
-          ku += s[5] * rc[sc + 1];
-          ku += s[6] * rp[sc - 1];
-          ku += s[7] * rp[sc];
-          ku += s[8] * rp[sc + 1];
-          v = (T(2) * rc[sc] - out[sc]) - coef * ku;
-        } else if (c == W - 1) {
-          v = __ldg(g_lr + (size_t)r * 2 + 1);
-        } else if (c == 0) {
-          v = __ldg(g_lr + (size_t)r * 2);
-        } else {
-          v = T(0);
-        }
-        out[sc] = v;
-      }
-    }
-    __syncthreads();
-    T* t = cur;
-    cur = prv;
-    prv = t;
-  }
-
-  // cur holds u after n_steps, prv holds it after n_steps - 1
-  for (int sr = n_steps + ty; sr < n_steps + tile; sr += by) {
-    const int r = r0 + sr;
-    if (r < 0 || r >= H) continue;
-    for (int sc = n_steps + tx; sc < n_steps + tile; sc += bx) {
-      const int c = c0 + sc;
-      if (c < 0 || c >= W) continue;
-      const size_t g = (size_t)r * W + c;
-      out_u[g] = cur[sr * S + sc];
-      out_up[g] = prv[sr * S + sc];
-    }
-  }
-}
-
-template <typename T>
-int launch_multistep_driven(const void* u, const void* up, const void* gtb,
-                            const void* glr, void* out_u, void* out_up, int H,
-                            int W, const double* s, double coef, int n_steps,
-                            int tile, cudaStream_t stream) {
-  const size_t side = (size_t)tile + 2 * (size_t)n_steps;
-  const size_t smem = 2 * side * side * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        leapfrog_multistep_driven_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 block(32, 16);
-  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
-  leapfrog_multistep_driven_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(up),
-      static_cast<const T*>(gtb), static_cast<const T*>(glr),
-      static_cast<T*>(out_u), static_cast<T*>(out_up), H, W, load_stencil(s),
-      (T)coef, n_steps, tile);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1016,30 +1056,25 @@ int tw_leapfrog_multistep(int dtype, const void* u, const void* up,
                           int max_depth, long long row_offset,
                           long long n_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_multistep<float>(u, up, out_u, out_up, scratch, H, W, s,
-                                   coef, n_steps, max_depth, row_offset,
-                                   n_rows, st);
-  }
-  return launch_multistep<double>(u, up, out_u, out_up, scratch, H, W, s,
-                                  coef, n_steps, max_depth, row_offset,
-                                  n_rows, st);
+  auto launch = dtype == 0 ? launch_multistep<float> : launch_multistep<double>;
+  return launch(u, up, nullptr, nullptr, out_u, out_up, scratch, H, W, s,
+                coef, n_steps, max_depth, row_offset, n_rows, st);
 }
 
-// gtb: (n_steps, 2, W) bottom / top edge values per substep; glr:
-// (n_steps, H, 2) left / right edge values per substep.
+// B6: gtb (n_steps, 2, W) bottom / top edge values per substep, glr
+// (n_steps, H, 2) left / right edge values per substep; n_steps steps in
+// ceil(n_steps / max_depth) launches; scratch: two pairs of H x W arrays of
+// the dtype (one pair for two launches, null for one).
 int tw_leapfrog_multistep_driven(int dtype, const void* u, const void* up,
                                  const void* gtb, const void* glr,
-                                 void* out_u, void* out_up, int H, int W,
-                                 const double* s, double coef, int n_steps,
-                                 int tile, void* stream) {
+                                 void* out_u, void* out_up, void* scratch,
+                                 int H, int W, const double* s, double coef,
+                                 int n_steps, int max_depth, void* stream) {
+  if (gtb == nullptr || glr == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_multistep_driven<float>(u, up, gtb, glr, out_u, out_up, H,
-                                          W, s, coef, n_steps, tile, st);
-  }
-  return launch_multistep_driven<double>(u, up, gtb, glr, out_u, out_up, H, W,
-                                         s, coef, n_steps, tile, st);
+  auto launch = dtype == 0 ? launch_multistep<float> : launch_multistep<double>;
+  return launch(u, up, gtb, glr, out_u, out_up, scratch, H, W, s, coef,
+                n_steps, max_depth, 0, H, st);
 }
 
 int tw_noop(void* stream) {

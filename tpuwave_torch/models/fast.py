@@ -63,7 +63,12 @@ from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
 from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
                                            gmg_for_system)
 
-__all__ = ["FastWaveSolver", "FastState", "LeapfrogState"]
+__all__ = ["FastWaveSolver", "FastState", "LeapfrogState",
+           "EDGE_TABLES_RANGE"]
+
+#: the torch.profiler range around each chunk's edge tables in
+#: FastWaveSolver.run_leapfrog_driven_multistep (its g_fn calls and stacks)
+EDGE_TABLES_RANGE = "tpuwave_torch.edge_tables"
 
 
 class FastState(NamedTuple):
@@ -465,9 +470,11 @@ class FastWaveSolver:
         u, up = state.u.contiguous(), state.u_prev.contiguous()
         for c in range(n // k):
             ts = times[c * k:(c + 1) * k].reshape(k, 1)
-            g_bot, g_top, g_lft, g_rgt = self._edge_values(g_fn, ts)
-            gtb = torch.stack([g_bot, g_top], dim=1)       # (k, 2, W)
-            glr = torch.stack([g_lft, g_rgt], dim=2)       # (k, H, 2)
+            # a profiler range: the host's time on the chunk's tables
+            with torch.profiler.record_function(EDGE_TABLES_RANGE):
+                g_bot, g_top, g_lft, g_rgt = self._edge_values(g_fn, ts)
+                gtb = torch.stack([g_bot, g_top], dim=1)   # (k, 2, W)
+                glr = torch.stack([g_lft, g_rgt], dim=2)   # (k, H, 2)
             u, up = kernels.leapfrog_multistep_driven(u, up, gtb, glr,
                                                       stencil, coef, k)
         return LeapfrogState(u=u, u_prev=up)

@@ -45,15 +45,15 @@ _SIGNATURES = {
     "tw_leapfrog_step": (_I, _VP, _VP, _VP, _I, _I, _DP, _D, _VP),
     "tw_leapfrog_multistep": (_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _DP, _D,
                               _I, _I, _LL, _LL, _VP),
-    "tw_leapfrog_multistep_driven": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
-                                     _I, _DP, _D, _I, _I, _VP),
+    "tw_leapfrog_multistep_driven": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                     _I, _I, _DP, _D, _I, _I, _VP),
     "tw_max_dynamic_smem": (_I,),
     "tw_noop": (_VP,),
     "tw_cheby_block": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I,
                        _DP, _D, _DP, _DP, _I, _I, _I, _VP),
-    "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
-                         _D, _D, _I, _VP),
-    "tw_recurrence_r0_block": (_I,),
+    "tw_recurrence_r0": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I,
+                         _DP, _D, _D, _I, _VP),
+    "tw_recurrence_r0_blocks": (_I, _I),
     "tw_newmark_rhs_r0": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I,
                           _DP, _DP, _D, _D, _VP),
     "tw_newmark_update": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D,

@@ -35,7 +35,7 @@ __all__ = ["LAUNCHES", "reset_launches", "pinned_mask",
            "leapfrog_multistep", "leapfrog_multistep_reference",
            "MULTISTEP_MAX_DEPTH", "MultistepGeometry", "multistep_slab",
            "multistep_geometry", "leapfrog_multistep_driven",
-           "leapfrog_multistep_driven_reference", "multistep_tile",
+           "leapfrog_multistep_driven_reference",
            "cheby_block", "cheby_block_reference",
            "cheby_tile", "MAX_CHEBY_DEGREE", "recurrence_r0",
            "recurrence_r0_reference", "newmark_rhs_r0",
@@ -247,11 +247,17 @@ _B2_SHAPE = {torch.float32: (512, 3, 1, 8), torch.float64: (512, 2, 1, 8)}
 
 
 class MultistepGeometry(NamedTuple):
-    """The launches of one B2 pass: the steps of each (``depths``, the
-    first the shallowest), and the shared memory of the deepest launch's
-    widest slab."""
+    """The launches of one B2 or B6 pass: the steps of each (``depths``,
+    the first the shallowest), and the shared memory of the deepest
+    launch's widest slab."""
     depths: tuple
     smem_bytes: int
+
+    @property
+    def starts(self) -> tuple:
+        """Each launch's first step of the pass (B6 reads its edge tables
+        from there)."""
+        return tuple(sum(self.depths[:i]) for i in range(len(self.depths)))
 
 
 def multistep_slab(depth: int, dtype: torch.dtype, max_smem: int) -> int:
@@ -277,12 +283,14 @@ def multistep_slab(depth: int, dtype: torch.dtype, max_smem: int) -> int:
     return 0
 
 
+@functools.lru_cache(maxsize=None)
 def multistep_geometry(n_steps: int, dtype: torch.dtype,
                        max_smem: int) -> MultistepGeometry:
-    """The launches of a B2 pass of ``n_steps`` steps: as few launches of
-    at most MULTISTEP_MAX_DEPTH[dtype] steps (less where ``max_smem`` bytes
-    of shared memory hold no slab that deep) as will do, as even as they
-    can be. Raises ValueError where not even one step fits."""
+    """The launches of a B2 or B6 pass of ``n_steps`` steps: as few
+    launches of at most MULTISTEP_MAX_DEPTH[dtype] steps (less where
+    ``max_smem`` bytes of shared memory hold no slab that deep) as will
+    do, as even as they can be. Raises ValueError where not even one step
+    fits."""
     k = int(n_steps)
     if k < 1:
         raise ValueError("n_steps must be >= 1")
@@ -340,16 +348,6 @@ def leapfrog_multistep(u: torch.Tensor, u_prev: torch.Tensor, stencil,
     return out_u, out_up
 
 
-def multistep_tile(n_steps: int, dtype: torch.dtype, max_smem: int) -> int:
-    """B6's tile: the largest tile side whose two (tile + 2 n_steps)^2
-    slabs fit ``max_smem`` bytes of shared memory; raises when none
-    does."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return _largest_tile(
-        f"leapfrog_multistep_driven: n_steps={n_steps} in {dtype}",
-        lambda t: 2 * (t + 2 * n_steps) ** 2 * itemsize, max_smem)
-
-
 # -- B6: n_steps driven leapfrog steps in one pass ---------------------------
 def leapfrog_multistep_driven_reference(u, u_prev, gtb, glr, stencil,
                                         coef, n_steps: int):
@@ -389,10 +387,13 @@ def _check_edges(name: str, u: torch.Tensor, gtb: torch.Tensor,
 def leapfrog_multistep_driven(u: torch.Tensor, u_prev: torch.Tensor,
                               gtb: torch.Tensor, glr: torch.Tensor, stencil,
                               coef: float, n_steps: int):
-    """``n_steps`` fused driven leapfrog steps in one kernel pass (replaces
-    ``leapfrog_multistep_driven_pallas``). ``gtb`` (n_steps, 2, W) holds
-    each substep's bottom and top rows, ``glr`` (n_steps, H, 2) its left
-    and right columns, in the state's dtype. Returns (u, u_prev)."""
+    """``n_steps`` fused driven leapfrog steps (replaces
+    ``leapfrog_multistep_driven_pallas``) on B2's wavefront, in
+    ``len(multistep_geometry(...).depths)`` kernel launches from one C
+    call; launch i steps the pass's steps ``starts[i]`` onwards and reads
+    its edge tables from there. ``gtb`` (n_steps, 2, W) holds each
+    substep's bottom and top rows, ``glr`` (n_steps, H, 2) its left and
+    right columns, in the state's dtype. Returns (u, u_prev)."""
     _check("leapfrog_multistep_driven", u, u_prev)
     k = int(n_steps)
     if k < 1:
@@ -402,18 +403,24 @@ def leapfrog_multistep_driven(u: torch.Tensor, u_prev: torch.Tensor,
         return leapfrog_multistep_driven_reference(u, u_prev, gtb, glr,
                                                    stencil, coef, k)
     lib = _lib()
-    tile = multistep_tile(k, u.dtype, _max_smem(
+    geo = multistep_geometry(k, u.dtype, _max_smem(
         lib, "leapfrog_multistep_driven", u.device))
+    n = len(geo.depths)
     h, w = u.shape
     out_u = torch.empty_like(u)
     out_up = torch.empty_like(u)
+    # the state between launches: H x W pairs (rows outside the array
+    # are 0 at every substep)
+    scratch = (torch.empty((2 * min(n - 1, 2), h, w), dtype=u.dtype,
+                           device=u.device) if n > 1 else None)
     with torch.cuda.device(u.device):
         rc = lib.tw_leapfrog_multistep_driven(
             _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(gtb), _ptr(glr),
-            _ptr(out_u), _ptr(out_up), h, w, _stencil_arg(stencil),
-            float(coef), k, tile, _stream(u))
+            _ptr(out_u), _ptr(out_up),
+            None if scratch is None else _ptr(scratch), h, w,
+            _stencil_arg(stencil), float(coef), k, -(-k // n), _stream(u))
     _raise_on(rc, "leapfrog_multistep_driven")
-    LAUNCHES["leapfrog_multistep_driven"] += 1
+    LAUNCHES["leapfrog_multistep_driven"] += n
     return out_u, out_up
 
 
@@ -468,8 +475,8 @@ def cheby_tile(degree: int, dtype: torch.dtype, max_smem: int) -> tuple:
     return tile, tile
 
 
-#: per (device, stream): the one-int ticket of B4's last-block reduction,
-#: 0 between calls (the kernel's last block resets it)
+#: per (device, stream): the one-int ticket of B4's and B5's last-block
+#: reductions, 0 between calls (the kernel's last block resets it)
 _TICKETS = {}
 
 
@@ -539,30 +546,33 @@ def recurrence_r0_reference(u, u_prev, k_stencil, c_u: float, c_up: float,
 
 def recurrence_r0(u: torch.Tensor, u_prev: torch.Tensor, k_stencil,
                   c_u: float, c_up: float, mask_combo: bool = True):
-    """The setup of one displacement-recurrence step in one kernel pass
-    (replaces ``recurrence_r0_pallas``). ``k_stencil`` carries the -dt^2
-    scale and is evaluated in difference form. Returns
-    ``(r0, x0, rr0, xx0)`` with the squared norms as 0-d tensors."""
+    """The setup of one displacement-recurrence step in one kernel launch
+    (replaces ``recurrence_r0_pallas``), both squared norms included (the
+    last block, by B4's ticket). ``k_stencil`` carries the -dt^2 scale and
+    is evaluated in difference form. Returns ``(r0, x0, rr0, xx0)`` with
+    the squared norms as 0-d tensors."""
     _check("recurrence_r0", u, u_prev)
     if u.device.type == "cpu":
         return recurrence_r0_reference(u, u_prev, k_stencil, c_u, c_up,
                                        mask_combo)
     lib = _lib()
     h, w = u.shape
-    n_blocks = (-(-w // lib.tw_recurrence_r0_block(0))
-                * -(-h // lib.tw_recurrence_r0_block(1)))
+    n = 2 * lib.tw_recurrence_r0_blocks(h, w)
     r0, x0 = torch.empty_like(u), torch.empty_like(u)
-    partials = torch.empty(2 * n_blocks, dtype=u.dtype, device=u.device)
-    norms = torch.empty(2, dtype=u.dtype, device=u.device)
+    # the blocks' partials of ||r0||^2, then of ||x0||^2, then the norms
+    partials = torch.empty(n + 2, dtype=u.dtype, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         rc = lib.tw_recurrence_r0(
             _DTYPES[u.dtype], _ptr(u), _ptr(u_prev), _ptr(r0), _ptr(x0),
-            _ptr(partials), 2 * n_blocks, _ptr(norms), h, w,
-            _stencil_arg(k_stencil), float(c_u), float(c_up),
-            int(bool(mask_combo)), _stream(u))
+            _ptr(partials), n, _ptr(_ticket(u.device, stream)),
+            ctypes.c_void_p(partials.data_ptr()
+                            + n * partials.element_size()),
+            h, w, _stencil_arg(k_stencil), float(c_u), float(c_up),
+            int(bool(mask_combo)), ctypes.c_void_p(stream))
     _raise_on(rc, "recurrence_r0")
     LAUNCHES["recurrence_r0"] += 1
-    return r0, x0, norms[0], norms[1]
+    return r0, x0, partials[n], partials[n + 1]
 
 
 # -- B7-B10: the fused setups and update of the implicit FastWaveSolver steps
