@@ -109,9 +109,9 @@ varying and with a time-dependent wave speed at R = 1. Phases:
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
-launches of B4, B11-B13 and B15 are printed per shape (grid, dtype, degree
-or fused steps), summed over the paths. Any failed check raises and
-the exit code is non-zero. The line before the last is
+launches of B4, B9, B11-B13, B15 and B16 are printed per shape (grid,
+dtype, degree or fused steps), summed over the paths. Any failed check
+raises and the exit code is non-zero. The line before the last is
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -318,6 +318,8 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 FAMILY_STEPS = 10
 #: bytes written before each timed call to evict the card's L2 (50 MB)
 L2_FLUSH_BYTES = 256 << 20
+#: calls under torch.profiler for a kernel's device time in phase 3
+DEVICE_CALLS = 10
 
 
 T_START = time.perf_counter()
@@ -386,6 +388,15 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def kernel_ms(fn, n: int) -> tuple:
+    """(cuda_ms of ``fn`` over ``n`` calls, the mean device time of a call
+    under torch.profiler) in ms: the first also counts a wrapper's host
+    time where it outlasts the L2 flush before the call, the second only
+    the call's kernels."""
+    import torch
+    return cuda_ms(fn, n), _call_kernels(torch, fn)[1]
+
+
 def f32_bound(scale: float, n_steps: int = 1) -> float:
     """f32 bound: each output is a sum of <= 11 rounded terms on either
     side (22 roundings of at most eps * scale, scale = an a-priori bound
@@ -406,14 +417,17 @@ def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
             "bytes" if t_mem >= t_ops else "operations")
 
 
-def row(err, ms, pms, n_bytes, n_flops, dtype) -> dict:
+def row(err, ms, pms, n_bytes, n_flops, dtype, device_ms) -> dict:
     """One measured kernel row, with its bound and the share reached."""
     b_ms, by = bound_ms(n_bytes, n_flops, dtype)
-    return dict(err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
+    return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=pms,
+                bound_ms=b_ms, bound_by=by)
 
 
 def timing(r) -> str:
-    return (f"kernel={r['ms'] * 1e3:.1f}us plain={r['plain_ms'] * 1e3:.1f}us "
+    return (f"kernel={r['ms'] * 1e3:.1f}us "
+            f"device={r['device_ms'] * 1e3:.1f}us "
+            f"plain={r['plain_ms'] * 1e3:.1f}us "
             f"bound={r['bound_ms'] * 1e3:.1f}us ({r['bound_by']}, "
             f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound) ")
 
@@ -516,12 +530,12 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
             scale = ssum(st) * float(x.abs().max()) * (2 if diff else 1)
             bound = (1e-12 * float(want.abs().max())
                      if dtype == torch.float64 else f32_bound(scale))
-            ms = cuda_ms(lambda: kn.constrained_stencil_apply(
+            ms, dms = kernel_ms(lambda: kn.constrained_stencil_apply(
                 x, st, diag, diff=diff), n_k)
             pms = cuda_ms(lambda: kn.constrained_stencil_apply_reference(
                 x, st, diag, diff), n_p)
             r = row(0.0, ms, pms, 2 * n, (23 if diff else 17) * x.numel(),
-                    dtype)
+                    dtype, dms)
             r["err"] = check(tag, got, want, bound, timing(r))
             rows[tag] = r
     results["constrained_stencil_apply"] = rows[
@@ -535,12 +549,13 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         scale = 3.0 + coef * ssum(stiff)
         bound = (1e-12 * float(want.abs().max())
                  if dtype == torch.float64 else f32_bound(scale))
-        ms = cuda_ms(lambda: kn.leapfrog_step(u, up, stiff, coef), 50)
+        ms, dms = kernel_ms(lambda: kn.leapfrog_step(u, up, stiff, coef),
+                            50)
         pms = cuda_ms(lambda: kn.leapfrog_step_reference(u, up, stiff,
                                                          coef), 10)
         tag = f"B1 leapfrog_step 4097^2 {str(dtype)[6:]}"
         r = row(0.0, ms, pms, 3 * u.numel() * u.element_size(),
-                21 * u.numel(), dtype)
+                21 * u.numel(), dtype, dms)
         r["err"] = check(tag, got, want, bound, timing(r))
         rows[tag] = r
     results["leapfrog_step"] = rows["B1 leapfrog_step 4097^2 float32"]
@@ -565,12 +580,12 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
                    float(want[1].abs().max()))
         bound = (1e-12 * peak if dtype == torch.float64 else
                  f32_bound((3.0 + coef * ssum(stiff)) * peak, k))
-        ms = cuda_ms(lambda: kn.leapfrog_multistep(u, up, stiff, coef, k),
-                     20)
+        ms, dms = kernel_ms(lambda: kn.leapfrog_multistep(u, up, stiff,
+                                                          coef, k), 20)
         pms = cuda_ms(lambda: kn.leapfrog_multistep_reference(
             u, up, stiff, coef, k), 3, warm=1)
         r = row(0.0, ms, pms, 4 * u.numel() * u.element_size(),
-                21 * k * u.numel(), dtype)
+                21 * k * u.numel(), dtype, dms)
         e1 = check(tag + " u", got[0], want[0], bound)
         e2 = check(tag + " u_prev", got[1], want[1], bound,
                    f"({ms * 1e3 / k:.1f}us/step, {per_call} launches a "
@@ -609,13 +624,13 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
                    float(want[1].abs().max()))
         bound = (1e-12 * peak if dtype == torch.float64
                  else f32_bound((3.0 + c * ssum(stiff)) * peak, k))
-        ms = cuda_ms(lambda: kn.leapfrog_multistep_driven(*args), n_k)
+        ms, dms = kernel_ms(lambda: kn.leapfrog_multistep_driven(*args), n_k)
         pms = cuda_ms(lambda: kn.leapfrog_multistep_driven_reference(*args),
                       n_p, warm=1)
         tag = f"B6 leapfrog_multistep_driven k={k} {size}^2 {str(dtype)[6:]}"
         r = row(0.0, ms, pms,
                 (4 * u.numel() + gtb.numel() + glr.numel())
-                * u.element_size(), 21 * k * u.numel(), dtype)
+                * u.element_size(), 21 * k * u.numel(), dtype, dms)
         e1 = check(tag + " u", got[0], want[0], bound)
         e2 = check(tag + " u_prev", got[1], want[1], bound,
                    f"({ms * 1e3 / k:.1f}us/step, {per_call} launches a "
@@ -662,11 +677,12 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{tag}: a rerun is not bitwise equal")
-        ms = cuda_ms(lambda: kn.cheby_block(x0, r, st, theta, coeffs), n_k)
+        ms, dms = kernel_ms(lambda: kn.cheby_block(x0, r, st, theta,
+                                                   coeffs), n_k)
         pms = cuda_ms(lambda: kn.cheby_block_reference(
             x0, r, st, theta, coeffs), 3, warm=1)
         rw = row(0.0, ms, pms, (3 if zero else 4) * x.numel()
-                 * x.element_size(), 22 * degree * x.numel(), dtype)
+                 * x.element_size(), 22 * degree * x.numel(), dtype, dms)
         errs = []
         for name, g, w in (("x", got[0], want[0]), ("r", got[1], want[1])):
             peak = float(w.abs().max())
@@ -705,14 +721,14 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"B5 {size}^2 mask_combo={mask_combo}: a "
                                  "rerun is not bitwise equal")
-        ms = cuda_ms(lambda: kn.recurrence_r0(u, up, kneg, 1.0, 0.0,
-                                              mask_combo), 50)
+        ms, dms = kernel_ms(lambda: kn.recurrence_r0(u, up, kneg, 1.0, 0.0,
+                                                     mask_combo), 50)
         pms = cuda_ms(lambda: kn.recurrence_r0_reference(
             u, up, kneg, 1.0, 0.0, mask_combo), 5, warm=1)
         tag = (f"B5 recurrence_r0 {size}^2 {str(dtype)[6:]} "
                f"mask_combo={mask_combo}")
         rw = row(0.0, ms, pms, 4 * u.numel() * u.element_size(),
-                 33 * u.numel(), dtype)
+                 33 * u.numel(), dtype, dms)
         errs = []
         for name, g, w, sc in (("r0", got[0], want[0], 2 * ssum(kneg)),
                                ("x0", got[1], want[1], 3.0)):
@@ -733,10 +749,12 @@ def phase_kernels(torch, dev, kn, foreign: bool = False) -> dict:
     return results
 
 
-def phase_fast_kernels(torch, dev, kn) -> dict:
+def phase_fast_kernels(torch, dev, kn, foreign: bool = False) -> dict:
     """Phase 3, kernels B7-B10 at phase 14's shape (4097^2 f32, its
     stencils) and at 2049^2 f64 (phase 8's dt), on fields that are random
-    everywhere, the pinned nodes included."""
+    everywhere, the pinned nodes included; the device kernels of one call
+    under torch.profiler (B9 must be one launch, unless ``foreign``: an
+    earlier checkout's kernels, --kernels-from)."""
     from tpuwave_torch.models.fast import FastWaveSolver
 
     gen = torch.Generator(device=dev)
@@ -784,12 +802,17 @@ def phase_fast_kernels(torch, dev, kn) -> dict:
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{kname}: a rerun is not bitwise equal")
+            tag = f"{kname} {shape[0]}^2 {str(dtype)[6:]}"
+            launched, dms = _call_kernels(torch, lambda: fn(*args))
+            say(f"  {tag:<44} device kernels of one call: {launched}")
+            if kname.startswith("B9") and not foreign and len(launched) != 1:
+                raise AssertionError(f"{tag}: {len(launched)} device "
+                                     "kernels a call, not one")
             ms = cuda_ms(lambda: fn(*args), n_k)
             pms = cuda_ms(lambda: ref_fn(*args), n_p, warm=1)
-            tag = f"{kname} {shape[0]}^2 {str(dtype)[6:]}"
             n = f[0].numel()
             r = row(0.0, ms, pms, (n_in + n_out) * n * f[0].element_size(),
-                    ops * n, dtype)
+                    ops * n, dtype, dms)
             errs, k = [], 0
             for g, w in zip(got, want):
                 if g.dim():
@@ -1109,11 +1132,11 @@ def phase_p2_kernels(torch, dev, kn) -> dict:
                    f"mask_input={mask_input}")
             if not torch.equal(got, again):
                 raise AssertionError(f"{tag}: a rerun is not bitwise equal")
-            ms = cuda_ms(lambda: kp.p2_constrained_apply(
+            ms, dms = kernel_ms(lambda: kp.p2_constrained_apply(
                 x, terms, dg, nel, nel, mask_input), n_k)
             pms = cuda_ms(lambda: kp.p2_constrained_apply_reference(
                 x, terms, dg, nel, nel, mask_input), n_p, warm=1)
-            r = row(0.0, ms, pms, 2 * stack, 92 * n_site, dtype)
+            r = row(0.0, ms, pms, 2 * stack, 92 * n_site, dtype, dms)
             route = getattr(kp, "p2_apply_route", None)
             r["err"] = check(tag, got, want,
                              bound(want, gersh * float(x.abs().max())),
@@ -1141,11 +1164,11 @@ def phase_p2_kernels(torch, dev, kn) -> dict:
                 got, want = fn(), ref_fn()
                 if not isinstance(got, tuple):
                     got, want = (got,), (want,)
-                ms = cuda_ms(fn, n_k)
+                ms, dms = kernel_ms(fn, n_k)
                 pms = cuda_ms(ref_fn, n_p, warm=1)
                 tag = f"{kname} {name} degree {degree}"
                 r = row(0.0, ms, pms, (n_in + n_out) * stack, ops * n_site,
-                        dtype)
+                        dtype, dms)
                 errs = []
                 for i, (g, w) in enumerate(zip(got, want)):
                     peak = max(1.0, float(w.abs().max()))
@@ -1409,6 +1432,31 @@ def phase_2term_2048(torch, kn, work: Path):
 def _device_events(prof):
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _call_kernels(torch, fn, n: int = DEVICE_CALLS) -> tuple:
+    """(the device kernels one call of ``fn`` launches, by torch.profiler's
+    names; the mean device time of a call in ms, from the kernels' own
+    times, which no host delay moves) over ``n`` profiled calls after a
+    warm one, each after an L2 flush as in cuda_ms; the flush's own
+    kernels are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    with profile(activities=acts) as prof:
+        flush.fill_(0)
+        torch.cuda.synchronize()
+    skip = {e.key for e in _device_events(prof)}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(n):
+            flush.fill_(0)
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in _device_events(prof) if e.key not in skip]
+    names = [e.key[:40] for e in events for _ in range(e.count // n)]
+    return names, sum(e.self_device_time_total for e in events) / n / 1e3
 
 
 def _device_time(prof):
@@ -1761,9 +1809,9 @@ def phase_fwi_kernels(torch, dev, kn) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{tag}: a rerun is not bitwise equal")
             t_fn, t_ref = timed or (fn, ref_fn)
-            ms = cuda_ms(t_fn, n_k)
+            ms, dms = kernel_ms(t_fn, n_k)
             pms = cuda_ms(t_ref, n_p, warm=1)
-            r = row(0.0, ms, pms, n_bytes, n_ops, dtype)
+            r = row(0.0, ms, pms, n_bytes, n_ops, dtype, dms)
             errs = [check(f"{tag} {o}", g, w, _fwi_bound(torch, dtype, w,
                                                          n_steps),
                           timing(r) if i == len(got) - 1 else "")
@@ -1853,6 +1901,23 @@ def phase_fwi_kernels(torch, dev, kn) -> dict:
                      lambda: kv.varcoef_adjoint_multistep_reference(
                          un, uc, lam, lp, ms_planes, wp, w, inj, src, coef,
                          pts, *ring_args)))
+        # B17 at k = 1, B16's step as one launch of the k-step kernel
+        w1, inj1 = w[:1].contiguous(), inj[:1].contiguous()
+        src = src_near(kv.adjoint_tile(1, 7, dtype, max_smem), True)
+        measure(f"B17 varcoef_adjoint_multistep k=1 {name} undamped",
+                lambda: kv.varcoef_adjoint_multistep(
+                    un, uc, lam, lp, planes, wbar0.clone(), w1, inj1, src,
+                    coef, pts),
+                lambda: kv.varcoef_adjoint_multistep_reference(
+                    un, uc, lam, lp, planes, wbar0.clone(), w1, inj1, src,
+                    coef, pts),
+                29 * grid_b, 49 * n_node, 1,
+                ["u_next", "u_cur", "lam", "lam_partial", "wbar", "wavbar"],
+                (lambda: kv.varcoef_adjoint_multistep(
+                    un, uc, lam, lp, planes, wt, w1, inj1, src, coef, pts),
+                 lambda: kv.varcoef_adjoint_multistep_reference(
+                     un, uc, lam, lp, planes, wp, w1, inj1, src, coef,
+                     pts)))
         del prob, planes, u, up, un, uc, lam, lp, wbar0, wt, wp
     return {
         "varcoef_leapfrog_step": rows[f"B14 varcoef_step {main} undamped"],
@@ -2211,10 +2276,10 @@ _COUNTING = {"on": False}
 
 
 def _count_shapes(kn):
-    """Wrap the B4, B11-B13 and B15 wrappers in the modules their callers
-    reach them through, so that each call's launches (the change of the
-    wrapper's own count in LAUNCHES) are added to SHAPE_LAUNCHES under the
-    call's shape."""
+    """Wrap the B4, B9, B11-B13, B15 and B16 wrappers in the modules their
+    callers reach them through, so that each call's launches (the change
+    of the wrapper's own count in LAUNCHES) are added to SHAPE_LAUNCHES
+    under the call's shape."""
     from tpuwave_torch.ops import kernels_p2 as kp
     from tpuwave_torch.ops import kernels_varcoef as kv
 
@@ -2236,8 +2301,10 @@ def _count_shapes(kn):
             t.shape[1] else f"{t.shape[0]}x{t.shape[1]} {str(t.dtype)[6:]}"
     wrap(kn, "cheby_block", lambda x, r, st, th, cf:
          f"{grid(r)} degree {1 + len(cf)}{' zero guess' if x is None else ''}")
+    wrap(kn, "theta_r0u", lambda u, *rest: grid(u))
     wrap(kv, "varcoef_leapfrog_multistep", lambda u, up, pl, w, *rest:
          f"{grid(u)} k={w.numel()} {pl.shape[0]} planes")
+    wrap(kv, "varcoef_adjoint_step", lambda un, *rest: grid(un))
     # the P2 engines and solve/multigrid.py call B11-B13 through the
     # kernels_p2 module
     wrap(kp, "p2_constrained_apply", lambda xc, *rest: f"4 x {grid(xc[0])}")

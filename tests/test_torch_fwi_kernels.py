@@ -427,19 +427,42 @@ def test_cuda_varcoef_multistep_points(cuda_device, dtype, damped, where):
             _close_card(g, wnt, dtype, k)
 
 
+# B16 marches strips of 32 columns over bands of rows: NEL_CUDA's grid
+# with a real problem's planes, and random planes on grids that cut the
+# last strip and the last band mid-way, one of them over 2^21 nodes
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_varcoef_adjoint_step(cuda_device, dtype):
-    prob, coef, planes, rng = _card_setup(cuda_device, dtype, False)
-    un, uc, lam, lp = _on(cuda_device, dtype, rng, prob._grid, 4)
-    (wbar,) = _on(cuda_device, dtype, rng, (7,) + prob._grid, 1)
-    got = kv.varcoef_adjoint_step(un, uc, lam, lp, planes, wbar.clone(),
-                                  coef)
+@pytest.mark.parametrize("dtype, shape", [
+    (torch.float32, None), (torch.float64, None),
+    (torch.float32, (3, 3)), (torch.float32, (67, 129)),
+    (torch.float64, (67, 129)), (torch.float64, (130, 97)),
+    (torch.float32, (1500, 1457))])
+def test_cuda_varcoef_adjoint_step(cuda_device, dtype, shape):
+    if shape is None:
+        prob, coef, planes, rng = _card_setup(cuda_device, dtype, False)
+        shape = prob._grid
+    else:
+        rng = np.random.default_rng(12)
+        # coef sum|planes| < 0.4, as on a stable problem
+        (planes,) = _on(cuda_device, dtype, rng, (7,) + shape, 1)
+        planes = 1.0 + 0.3 * planes
+        coef = 0.04
+    un, uc, lam, lp = _on(cuda_device, dtype, rng, shape, 4)
+    (wbar,) = _on(cuda_device, dtype, rng, (7,) + shape, 1)
+    w_in = wbar.clone()
+    before = tk.LAUNCHES["varcoef_adjoint_step"]
+    got = kv.varcoef_adjoint_step(un, uc, lam, lp, planes, w_in, coef)
     torch.cuda.synchronize()
+    assert tk.LAUNCHES["varcoef_adjoint_step"] == before + 1
+    # wbar is updated in place and returned
+    assert got[3] is w_in
     want = kv.varcoef_adjoint_step_reference(un, uc, lam, lp, planes,
                                              wbar.clone(), coef)
     for g, wt in zip(got, want):
         _close_card(g, wt, dtype)
+    # a rerun on the same inputs is bitwise equal
+    again = kv.varcoef_adjoint_step(un, uc, lam, lp, planes, wbar.clone(),
+                                    coef)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype, k, tile", [

@@ -789,15 +789,58 @@ def test_cuda_newmark_update(cuda_device, dtype):
           tk.newmark_update(*args))
 
 
+def _device_kernels(fn):
+    """Names of the device kernels that one call of fn launches, as
+    torch.profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            for _ in range(e.count) if e.device_type == DeviceType.CUDA]
+
+
+# B9's blocks take tiles of 64 x 16 nodes in turn, one wave of resident
+# blocks: ODD is one column of tiles, (67, 129) and (65, 130) cut the last
+# column and row of tiles mid-way, (1500, 1457) has over 2^21 nodes, tiles
+# whose slab touches no wall, and more tiles than resident blocks, so a
+# block computes a second tile (in f64 it loads that tile when its turn
+# comes, in f32 while it computes the one before)
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_theta_r0u(cuda_device, dtype):
-    u, v = _odd_fields(cuda_device, dtype, 33, 2)
+@pytest.mark.parametrize("dtype, shape", [
+    (torch.float32, ODD), (torch.float64, ODD), (torch.float64, (3, 3)),
+    (torch.float32, (67, 129)), (torch.float64, (67, 129)),
+    (torch.float32, (65, 130)), (torch.float64, (65, 130)),
+    (torch.float32, (1500, 1457)), (torch.float64, (1500, 1457))])
+def test_cuda_theta_r0u(cuda_device, dtype, shape):
+    rng = np.random.default_rng(33)
+    u, v = _on(cuda_device, *(rng.uniform(-1.0, 1.0, shape)
+                              for _ in range(2)), dtype=dtype)
     args = (u, v, MASS, STIFF, -1e-4, -2e-4, 0.02)
     before = tk.LAUNCHES["theta_r0u"]
     got = tk.theta_r0u(*args)
-    assert tk.LAUNCHES["theta_r0u"] == before + 1
-    _held(got, tk.theta_r0u_reference(*args), dtype, tk.theta_r0u(*args))
+    # back to back: the first call's last block set the ticket to 0 again
+    again = tk.theta_r0u(*args)
+    torch.cuda.synchronize()
+    # one launch per call, the three norms included
+    assert tk.LAUNCHES["theta_r0u"] == before + 2
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert int(tk._ticket(cuda_device, stream)) == 0
+    launched = _device_kernels(lambda: tk.theta_r0u(*args))
+    assert len(launched) == 1 and "theta_r0u" in launched[0], launched
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tk.theta_r0u_reference(*args)
+    assert float((got[0] - want[0]).abs().max()) <= _bound(
+        dtype, float(want[0].abs().max()))
+    # the norms within 1e-12 / 1e-5 relative (phase 3's bound), and in f32
+    # within 22 eps sqrt(n) where that is tighter (a few nodes)
+    eps = float(torch.finfo(dtype).eps)
+    rel = 1e-12 if dtype == torch.float64 else min(
+        1e-5, 22 * eps * (shape[0] * shape[1]) ** 0.5)
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g) - float(w)) <= rel * abs(float(w))
 
 
 @pytest.mark.cuda

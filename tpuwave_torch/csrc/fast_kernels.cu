@@ -15,19 +15,21 @@
 // as run-time arguments, the Dirichlet mask in global coordinates
 // (grid_common.cuh). B7, B9 and B10 also return three squared norms
 // (||r0||^2, ||rhs||^2, ||x0||^2), reduced deterministically in the
-// tensor's dtype: one partial per block and norm, then sum_partials_kernel.
+// tensor's dtype: one partial per block and norm, then sum_partials_kernel
+// (B7, B10) or the last block of the same launch (B9).
 //
 // B7, B9 and B10 apply two or three stencils to fields that are masked
 // combinations of the inputs. Each block owns a kTileX x kTileY tile of
-// output nodes and first stages those combinations over the tile plus a
-// one-node halo in shared memory (zero on pinned nodes and outside the
-// array), so every input value is loaded from global memory once per
-// block and combined once; a thread starts all its loads (kStage per
-// input) before it uses the first, to keep enough bytes in flight. Each
-// thread then walks down one column of the tile for kRows outputs with a
-// sliding 3x3 window in registers: three shared-memory loads per slab and
-// output instead of nine. A stencil is summed in the plain version's
-// order: the centre, then dj, di = -1, 0, 1.
+// output nodes (B9: tiles in turn, from a persistent grid) and first
+// stages those combinations over the tile plus a one-node halo in shared
+// memory (zero on pinned nodes and outside the array), so every input
+// value is loaded from global memory once per block and combined once; a
+// thread starts all its loads (kStage per input) before it uses the
+// first, to keep enough bytes in flight. Each thread then walks down one
+// column of the tile for kRows outputs with a sliding 3x3 window in
+// registers: three shared-memory loads per slab and output instead of
+// nine. A stencil is summed in the plain version's order: the centre,
+// then dj, di = -1, 0, 1.
 //
 // Bound on this card: memory, for all four (B7 reads 3 grids and writes 2
 // for ~47 operations per node; B8 4 + 3, elementwise; B9 2 + 1; B10 3 + 2).
@@ -164,67 +166,172 @@ newmark_rhs_r0_kernel(const T* __restrict__ u, const T* __restrict__ v,
 //   r0  = c_r0k K u + c_mv M v            on interior nodes, 0 pinned
 //   rhs = M u + c_comb K u + c_mv M v     reduced only, never written
 //
-// Writes r0; reduces ||r0||^2, ||rhs||^2, ||masked u||^2. Slabs: u, v.
+// Writes r0; reduces ||r0||^2, ||rhs||^2, ||masked u||^2 in the same
+// launch.
+//
+// Bound on this card: memory. It reads 2 grids and writes 1 (12 B per node
+// in f32: 201 MB at 4097^2, 60 us at 3.35 TB/s) for 62 operations per node.
+//
+// Persistent tiles: a grid of one wave of resident blocks, each block
+// taking tiles of 64 x 16 output nodes in turn (tile t + gridDim.x after
+// tile t), so that the norms' per-block cost (the partials, a fence and
+// the ticket's atomic) is paid once a block and not once a tile. A block
+// stages masked u and v over a tile plus a one-node halo in shared memory
+// (a pinned node, or one outside the array, stages 0), then each thread
+// walks down one column of the tile for kRows outputs with a sliding
+// 3-row register window per slab. In f32 the loads of the block's next
+// tile go to registers before it computes this one, so they are in flight
+// across the tile's stencils; in f64 those registers would cut the blocks
+// an SM holds (110 registers a thread against 63) and the tile is loaded
+// when its turn comes (PERF.md). Only a tile whose slab reaches a pinned
+// node or the array's edge tests its loads and its outputs for them; the
+// others load from offsets each thread computes once. The norms: each
+// thread sums its outputs in tile and row order, each block its threads in
+// a fixed order, and the last block to finish sums the blocks' partials in
+// block order (finish_norms, B4's ticket): no float atomics, reruns are
+// bitwise equal. (The first version, one block a tile, tested every
+// output for the mask and summed the partials in a second launch: 44-56%
+// of the bound; one block a tile with the ticket was slower still,
+// PERF.md.)
 // ---------------------------------------------------------------------------
+
+// whether a B9 block loads its next tile while it computes this one
+template <typename T>
+constexpr bool kR0uAhead = sizeof(T) == 4;
+
+// the thread's values of masked u and v over the slab whose node 0 is
+// array node (r0, c0), loaded into registers; off[k] is the array offset
+// of the thread's k-th slab node from node (r0, c0). A slab clear of the
+// walls and the array's edges (WALLS false) loads with no test.
+template <typename T, bool WALLS>
+__device__ __forceinline__ void r0u_load(const T* __restrict__ u,
+                                         const T* __restrict__ v,
+                                         T (&ur)[kStage], T (&vr)[kStage],
+                                         int r0, int c0, int H, int W,
+                                         const int (&off)[kStage]) {
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const size_t base = WALLS ? 0 : (size_t)r0 * W + c0;
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int i = tid + k * kThreads;
+    if (WALLS) {
+      const size_t g = tile_node(i, r0, c0, H, W);
+      ur[k] = g != kNoNode ? __ldg(u + g) : T(0);
+      vr[k] = g != kNoNode ? __ldg(v + g) : T(0);
+    } else {
+      const bool in = i < kSlab;
+      ur[k] = in ? __ldg(u + base + off[k]) : T(0);
+      vr[k] = in ? __ldg(v + base + off[k]) : T(0);
+    }
+  }
+}
+
+template <typename T, bool WALLS>
+__device__ __forceinline__ void theta_r0u_walk(
+    const T* __restrict__ us, const T* __restrict__ vs, T* __restrict__ out_r0,
+    int H, int W, int r0, int c0, const StencilT<T>& mst,
+    const StencilT<T>& kst, T c_comb, T c_r0k, T c_mv, T& pr, T& pb, T& px) {
+  const int gc = c0 + 1 + threadIdx.x;
+  if (WALLS && gc >= W) return;
+  const bool col_wall = gc == 0 || gc == W - 1;
+  int gr = r0 + 1 + threadIdx.y * kRows;
+  int i = (threadIdx.y * kRows + 1) * kSlabX + threadIdx.x + 1;
+  Window<T, kSlabX> uw, vw;
+  uw.start(us, i);
+  vw.start(vs, i);
+#pragma unroll
+  for (int j = 0; j < kRows; ++j, ++gr, i += kSlabX) {
+    if (WALLS && gr >= H) break;
+    uw.next_row(us, i);
+    vw.next_row(vs, i);
+    T rhs = T(0), r = T(0);
+    if (!WALLS || !(col_wall || gr == 0 || gr == H - 1)) {
+      const T ku = uw.apply(kst);
+      const T mu = uw.apply(mst);
+      const T mv = vw.apply(mst);
+      r = c_r0k * ku + c_mv * mv;
+      rhs = mu + c_comb * ku + c_mv * mv;
+    }
+    out_r0[(size_t)gr * W + gc] = r;
+    pr += r * r;
+    pb += rhs * rhs;
+    px += uw.mid.v[1] * uw.mid.v[1];
+    uw.advance();
+    vw.advance();
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 theta_r0u_kernel(const T* __restrict__ u, const T* __restrict__ v,
                  T* __restrict__ out_r0, T* __restrict__ partials,
-                 int n_blocks, int H, int W, Stencil9 m9, Stencil9 k9,
+                 unsigned* __restrict__ ticket, T* __restrict__ norms, int H,
+                 int W, int tiles_x, int n_tiles, Stencil9 m9, Stencil9 k9,
                  T c_comb, T c_r0k, T c_mv) {
-  __shared__ T us[kSlab];
-  __shared__ T vs[kSlab];
-  const int r0 = blockIdx.y * kTileY - 1;
-  const int c0 = blockIdx.x * kTileX - 1;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  T ur[kStage], vr[kStage];
-#pragma unroll
-  for (int k = 0; k < kStage; ++k) {
-    const size_t g = tile_node(tid + k * kThreads, r0, c0, H, W);
-    const bool in = g != kNoNode;
-    ur[k] = in ? __ldg(u + g) : T(0);
-    vr[k] = in ? __ldg(v + g) : T(0);
-  }
-#pragma unroll
-  for (int k = 0; k < kStage; ++k) {
-    const int i = tid + k * kThreads;
-    if (i < kSlab) {
-      us[i] = ur[k];
-      vs[i] = vr[k];
-    }
-  }
-  __syncthreads();
+  __shared__ T su[kSlab];
+  __shared__ T sv[kSlab];
   const StencilT<T> mst(m9), kst(k9);
-  T pr = T(0), pb = T(0), px = T(0);
-  const int gc = c0 + 1 + threadIdx.x;
-  if (gc < W) {
-    int i = (threadIdx.y * kRows + 1) * kSlabX + threadIdx.x + 1;
-    int gr = r0 + 1 + threadIdx.y * kRows;
-    Window<T, kSlabX> uw, vw;
-    uw.start(us, i);
-    vw.start(vs, i);
+  int off[kStage];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j, ++gr, i += kSlabX) {
-      if (gr >= H) break;
-      uw.next_row(us, i);
-      vw.next_row(vs, i);
-      T rhs = T(0), r = T(0);
-      if (!is_pinned(gr, gc, H, W)) {
-        const T ku = uw.apply(kst);
-        const T mu = uw.apply(mst);
-        const T mv = vw.apply(mst);
-        r = c_r0k * ku + c_mv * mv;
-        rhs = mu + c_comb * ku + c_mv * mv;
-      }
-      out_r0[(size_t)gr * W + gc] = r;
-      pr += r * r;
-      pb += rhs * rhs;
-      px += uw.mid.v[1] * uw.mid.v[1];
-      uw.advance();
-      vw.advance();
-    }
+  for (int k = 0; k < kStage; ++k) {
+    const int i = threadIdx.y * kTileX + threadIdx.x + k * kThreads;
+    off[k] = (i / kSlabX) * W + i % kSlabX;
   }
-  store_partials(partials, n_blocks, pr, pb, px);
+  // tile t's slab origin (array row and column of slab node 0), and
+  // whether the slab reaches a pinned node or past the array
+  auto origin = [&](int t, int& r0, int& c0) {
+    r0 = (t / tiles_x) * kTileY - 1;
+    c0 = (t % tiles_x) * kTileX - 1;
+    return r0 < 1 || c0 < 1 || r0 + kTileY + 1 > H - 2 ||
+           c0 + kTileX + 1 > W - 2;
+  };
+  T ur[kStage], vr[kStage];
+  auto load = [&](int t) {
+    int r0, c0;
+    if (origin(t, r0, c0)) {
+      r0u_load<T, true>(u, v, ur, vr, r0, c0, H, W, off);
+    } else {
+      r0u_load<T, false>(u, v, ur, vr, r0, c0, H, W, off);
+    }
+  };
+  auto store = [&]() {
+    const int tid = threadIdx.y * kTileX + threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int i = tid + k * kThreads;
+      if (i < kSlab) {
+        su[i] = ur[k];
+        sv[i] = vr[k];
+      }
+    }
+  };
+  T pr = T(0), pb = T(0), px = T(0);
+  int t = blockIdx.x;
+  if (kR0uAhead<T> && t < n_tiles) {
+    load(t);
+    store();
+  }
+  for (; t < n_tiles; t += gridDim.x) {
+    if (!kR0uAhead<T>) {
+      load(t);
+      store();
+    }
+    __syncthreads();  // the slab of tile t is in
+    // f32: the next tile's loads are in flight while this one is computed
+    const bool more = kR0uAhead<T> && t + (int)gridDim.x < n_tiles;
+    if (more) load(t + gridDim.x);
+    int r0, c0;
+    if (origin(t, r0, c0)) {
+      theta_r0u_walk<T, true>(su, sv, out_r0, H, W, r0, c0, mst, kst,
+                              c_comb, c_r0k, c_mv, pr, pb, px);
+    } else {
+      theta_r0u_walk<T, false>(su, sv, out_r0, H, W, r0, c0, mst, kst,
+                               c_comb, c_r0k, c_mv, pr, pb, px);
+    }
+    __syncthreads();  // every thread is done with the slab
+    if (more) store();
+  }
+  finish_norms<T, 3>({pr, pb, px}, partials, ticket, norms);
 }
 
 // ---------------------------------------------------------------------------
@@ -381,20 +488,36 @@ int launch_newmark_rhs_r0(const void* u, const void* v, const void* a,
   return sum_three<T>(partials, n_blocks, norms, stream);
 }
 
+int theta_r0u_tiles(int H, int W) {
+  return ((W + kTileX - 1) / kTileX) * ((H + kTileY - 1) / kTileY);
+}
+
+// B9's blocks: one wave of resident blocks, or fewer where there are fewer
+// tiles
+template <typename T>
+int theta_r0u_blocks(int H, int W) {
+  const int tiles = theta_r0u_tiles(H, W);
+  const int blocks = resident_blocks(theta_r0u_kernel<T>, kThreads);
+  if (blocks <= 0) return blocks < 0 ? blocks : -(int)cudaErrorUnknown;
+  return blocks < tiles ? blocks : tiles;
+}
+
 template <typename T>
 int launch_theta_r0u(const void* u, const void* v, void* out_r0,
-                     void* partials, int n_partials, void* norms, int H,
-                     int W, const double* ms, const double* ks,
-                     double c_comb, double c_r0k, double c_mv,
-                     cudaStream_t stream) {
-  const dim3 grid = tile_grid(H, W);
-  const int n_blocks = (int)(grid.x * grid.y);
-  if (n_partials < 3 * n_blocks) return (int)cudaErrorInvalidValue;
-  theta_r0u_kernel<T><<<grid, dim3(kThreadsX, kThreadsY), 0, stream>>>(
+                     void* partials, int n_partials, void* ticket,
+                     void* norms, int H, int W, int blocks, const double* ms,
+                     const double* ks, double c_comb, double c_r0k,
+                     double c_mv, cudaStream_t stream) {
+  if (blocks < 1 || n_partials < 3 * blocks) {
+    return (int)cudaErrorInvalidValue;
+  }
+  theta_r0u_kernel<T><<<blocks, dim3(kThreadsX, kThreadsY), 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(v),
-      static_cast<T*>(out_r0), static_cast<T*>(partials), n_blocks, H, W,
-      load_stencil(ms), load_stencil(ks), (T)c_comb, (T)c_r0k, (T)c_mv);
-  return sum_three<T>(partials, n_blocks, norms, stream);
+      static_cast<T*>(out_r0), static_cast<T*>(partials),
+      static_cast<unsigned*>(ticket), static_cast<T*>(norms), H, W,
+      (W + kTileX - 1) / kTileX, theta_r0u_tiles(H, W), load_stencil(ms),
+      load_stencil(ks), (T)c_comb, (T)c_r0k, (T)c_mv);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -435,9 +558,9 @@ int launch_newmark_update(const void* z, const void* v, const void* a,
 extern "C" {
 
 // dtype: 0 = float32, 1 = float64. Pointers are device pointers except the
-// stencils (9 host doubles each, row-major 3x3). `partials` holds
+// stencils (9 host doubles each, row-major 3x3). B7, B10: `partials` holds
 // n_partials >= 3 * tw_fast_blocks(H, W) values of the dtype; `norms`
-// receives ||r0||^2, ||rhs||^2, ||x0||^2.
+// receives ||r0||^2, ||rhs||^2, ||x0||^2 (B9 too).
 
 int tw_newmark_rhs_r0(int dtype, const void* u, const void* v, const void* a,
                       void* out_r0, void* out_z, void* partials,
@@ -468,19 +591,25 @@ int tw_newmark_update(int dtype, const void* z, const void* v, const void* a,
                                        c_ua, c_va, c_van, st);
 }
 
+// B9: `blocks` is tw_theta_r0u_blocks's; `partials` holds n_partials >=
+// 3 x blocks values; `ticket` is one unsigned int that is 0 before the
+// call and 0 again after it.
 int tw_theta_r0u(int dtype, const void* u, const void* v, void* out_r0,
-                 void* partials, int n_partials, void* norms, int H, int W,
-                 const double* m_stencil, const double* k_stencil,
-                 double c_comb, double c_r0k, double c_mv, void* stream) {
+                 void* partials, int n_partials, void* ticket, void* norms,
+                 int H, int W, int blocks, const double* m_stencil,
+                 const double* k_stencil, double c_comb, double c_r0k,
+                 double c_mv, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_theta_r0u<float>(u, v, out_r0, partials, n_partials, norms,
-                                   H, W, m_stencil, k_stencil, c_comb, c_r0k,
-                                   c_mv, st);
-  }
-  return launch_theta_r0u<double>(u, v, out_r0, partials, n_partials, norms,
-                                  H, W, m_stencil, k_stencil, c_comb, c_r0k,
-                                  c_mv, st);
+  auto launch = dtype == 0 ? launch_theta_r0u<float>
+                           : launch_theta_r0u<double>;
+  return launch(u, v, out_r0, partials, n_partials, ticket, norms, H, W,
+                blocks, m_stencil, k_stencil, c_comb, c_r0k, c_mv, st);
+}
+
+// B9's blocks on an H x W grid on the current card, or -cudaError
+int tw_theta_r0u_blocks(int dtype, int H, int W) {
+  return dtype == 0 ? theta_r0u_blocks<float>(H, W)
+                    : theta_r0u_blocks<double>(H, W);
 }
 
 int tw_theta_r0v(int dtype, const void* u, const void* e, const void* v,
@@ -499,8 +628,8 @@ int tw_theta_r0v(int dtype, const void* u, const void* e, const void* v,
                                   k_stencil, c_ku, c_kun, st);
 }
 
-// Blocks of B7, B9 and B10 on an (H, W) grid (the wrapper sizes the
-// partials buffer from it).
+// Blocks of B7 and B10 on an (H, W) grid (the wrapper sizes the partials
+// buffer from it).
 int tw_fast_blocks(int H, int W) {
   const dim3 grid = tile_grid(H, W);
   return (int)(grid.x * grid.y);

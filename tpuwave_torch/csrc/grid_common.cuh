@@ -1,7 +1,8 @@
 // Helpers shared by the hand-written grid kernels (stencil_kernels.cu,
 // solver_kernels.cu, fast_kernels.cu, ...): the run-time 3x3 stencil, the
-// Dirichlet mask, staged slabs with a sliding register window, and a
-// deterministic reduction.
+// Dirichlet mask, staged slabs with a sliding register window, a
+// deterministic reduction, and the size of a grid of one wave of resident
+// blocks.
 //
 // A node is PINNED when its global row is <= 0 or >= n_rows - 1, or its
 // column is <= 0 or >= n_cols - 1 (the Dirichlet walls); nodes outside the
@@ -9,9 +10,9 @@
 //
 // Reductions use no float atomics: every block reduces its values in a
 // fixed order (warp shuffles, then the warps' sums in warp order) into one
-// partial, and sum_partials_kernel (or the last block of the same launch)
-// adds the partials in a fixed order. Reruns on the same inputs and launch
-// shape are therefore bitwise equal.
+// partial, and sum_partials_kernel (or the last block of the same launch,
+// finish_norms) adds the partials in a fixed order. Reruns on the same
+// inputs and launch shape are therefore bitwise equal.
 
 #pragma once
 
@@ -153,6 +154,59 @@ __device__ T block_sum(T v) {
     for (int w = 0; w < n_warps; ++w) s += warp_sums[w];
   }
   return s;
+}
+
+// N partials per block (value k of block b at partials[k nb + b], nb
+// blocks), then the last block to finish sums each value's partials in
+// block order into out[k] and resets the ticket; valid with every thread
+// of the block calling it.
+template <typename T, int N>
+__device__ void finish_norms(const T (&part)[N], T* __restrict__ partials,
+                             unsigned* __restrict__ ticket,
+                             T* __restrict__ out) {
+  __shared__ bool last;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nth = blockDim.x * blockDim.y;
+  const unsigned nb = gridDim.x * gridDim.y;
+  const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
+  T sum[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) sum[k] = block_sum(part[k]);
+  if (tid == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) partials[k * nb + b] = sum[k];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == nb - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    T v = T(0);
+    for (unsigned i = tid; i < nb; i += nth) {
+      v += __ldcg(partials + k * nb + i);
+    }
+    v = block_sum(v);
+    if (tid == 0) out[k] = v;
+  }
+  if (tid == 0) *ticket = 0u;
+}
+
+// The blocks of `kernel` at `threads` threads that the card holds at once
+// (its SMs times the blocks that fit on one): a grid of at most this many
+// runs in one wave. Returns -cudaError when the card cannot be queried.
+template <typename K>
+int resident_blocks(K kernel, int threads) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  }
+  return e == cudaSuccess ? n_sm * per_sm : -(int)e;
 }
 
 // out[b] = sum of partials[b * n .. (b + 1) * n - 1], one block per output.

@@ -90,42 +90,6 @@ constexpr size_t cheby_reg_smem_elems() {
   return 2 * ((size_t)kChebyX * TY * R + 2 * (kChebyX + 1));
 }
 
-// N partials per block (value k of block b at partials[k nb + b], nb
-// blocks), then the last block to finish sums each value's partials in
-// block order into out[k] and resets the ticket; valid with every thread
-// of the block calling it.
-template <typename T, int N>
-__device__ void finish_norms(const T (&part)[N], T* __restrict__ partials,
-                             unsigned* __restrict__ ticket,
-                             T* __restrict__ out) {
-  __shared__ bool last;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nth = blockDim.x * blockDim.y;
-  const unsigned nb = gridDim.x * gridDim.y;
-  const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
-  T sum[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) sum[k] = block_sum(part[k]);
-  if (tid == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) partials[k * nb + b] = sum[k];
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == nb - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    T v = T(0);
-    for (unsigned i = tid; i < nb; i += nth) {
-      v += __ldcg(partials + k * nb + i);
-    }
-    v = block_sum(v);
-    if (tid == 0) out[k] = v;
-  }
-  if (tid == 0) *ticket = 0u;
-}
-
 template <typename T, int TY, int R, bool WALLS>
 __device__ __forceinline__ void cheby_reg_walk(
     const T* __restrict__ x, const T* __restrict__ r, T* __restrict__ out_x,

@@ -78,63 +78,6 @@ __global__ void varcoef_step_kernel(const T* __restrict__ u,
   }
 }
 
-// ---------------------------------------------------------------------------
-// B16: one backward step of the time-reversal adjoint (hard walls).
-//   blam     = mask0(lam_next)
-//   lam_cur  = mask0(lam_partial + 2 blam - coef * K blam)
-//   u_prev   = mask0(2 u_cur - u_next - coef * K u_cur)
-//   lpart'   = -blam
-//   wbar[j] -= coef * blam * u_cur[I + d_j]      (in place)
-//
-// Bound on this card: memory. It reads 18 arrays and writes 10 for ~49
-// operations per node. One thread per node, as B14; each node's seven wbar
-// values belong to its own thread, so the in-place update needs no atomics.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void varcoef_adjoint_step_kernel(
-    const T* __restrict__ un, const T* __restrict__ uc,
-    const T* __restrict__ lamn, const T* __restrict__ lpart,
-    const T* __restrict__ planes, T* __restrict__ wbar,
-    T* __restrict__ out_up, T* __restrict__ out_lc, T* __restrict__ out_lp,
-    int H, int W, T coef) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= H || c >= W) return;
-  const long long i = (long long)r * W + c;
-  if (is_pinned(r, c, H, W)) {
-    // blam = 0 here: wbar keeps its value
-    out_up[i] = T(0);
-    out_lc[i] = T(0);
-    out_lp[i] = -T(0);
-    return;
-  }
-  const long long n = (long long)H * W;
-  const T blam = __ldg(lamn + i);
-  const T ucv = __ldg(uc + i);
-  T ush[7];
-  ush[0] = ucv;
-  T kb = __ldg(planes + i) * blam;
-  T ku = __ldg(planes + i) * ucv;
-#pragma unroll
-  for (int j = 1; j < 7; ++j) {
-    const int dy = off_dy(j), dx = off_dx(j);
-    const long long t = i + (long long)dy * W + dx;
-    const T p = __ldg(planes + j * n + i);
-    const T bn = is_pinned(r + dy, c + dx, H, W) ? T(0) : __ldg(lamn + t);
-    ush[j] = __ldg(uc + t);
-    kb += p * bn;
-    ku += p * ush[j];
-  }
-  out_lc[i] = (__ldg(lpart + i) + T(2) * blam) - coef * kb;
-  out_up[i] = (T(2) * ucv - __ldg(un + i)) - coef * ku;
-  out_lp[i] = -blam;
-  const T mu = coef * blam;
-#pragma unroll
-  for (int j = 0; j < 7; ++j) {
-    wbar[j * n + i] = wbar[j * n + i] - mu * ush[j];
-  }
-}
-
 // The K stencil on a window, in OFFSETS order (0,0) (-1,0) (1,0) (0,-1)
 // (-1,-1) (0,1) (1,1) as (dx, dy).
 template <typename T, int SX>
@@ -148,6 +91,246 @@ __device__ __forceinline__ T window_k(const T* __restrict__ p,
   acc += p[5] * w.down.v[1];
   acc += p[6] * w.down.v[2];
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// B16: one backward step of the time-reversal adjoint (hard walls).
+//   blam     = mask0(lam_next)
+//   lam_cur  = mask0(lam_partial + 2 blam - coef * K blam)
+//   u_prev   = mask0(2 u_cur - u_next - coef * K u_cur)
+//   lpart'   = -blam
+//   wbar[j] -= coef * blam * u_cur[I + d_j]      (in place)
+//
+// Bound on this card: memory. It reads 18 grids and writes 10 (112 B per
+// node in f32: 117.7 MB at 1025^2, 35.1 us at 3.35 TB/s) for ~49
+// operations per node.
+//
+// A register column march: each warp owns a strip of 32 columns over a
+// band of rows and walks down the band one row a step, a lane per column.
+// u_cur and blam arrive as 3-row register windows: a lane loads its own
+// column's value of a row, its left and right neighbours come from the
+// neighbouring lanes by warp shuffles, and lanes 0 and 31 load the one
+// value beyond the strip on their side. blam is masked once, when its row
+// is loaded, so no neighbour is tested for the mask. The windows' rows are
+// loaded two rows ahead of the row computed, and the node's 16 own values
+// (u_next, lam_partial, the 7 planes and the 7 wbar) one row ahead, so a
+// warp keeps them in flight across a row's arithmetic. Only a warp whose
+// strip or band, with its one-node halo, reaches a pinned node or the
+// array's edge runs the instance that tests for them. The bands are as
+// many as fit one wave of resident warps (adjoint_step_band, at least
+// kAdjMinBand rows high). Each node's seven wbar values belong to its own
+// lane, read and written in place: no atomics, reruns are bitwise equal.
+// (The first version ran one thread per node in 32 x 8 blocks, with 12
+// neighbour loads through L1 and a four-compare mask test on each of its
+// six lam neighbours: 44-48% of the bound.)
+// ---------------------------------------------------------------------------
+constexpr int kAdjWarps = 4;     // warps of a block, a (strip, band) each
+constexpr int kAdjMinBand = 8;   // rows of a band, at least
+
+// one row of a lane's column: u_cur, blam, and (lanes 0 and 31) the values
+// one column beyond the strip
+template <typename T>
+struct AdjRow {
+  T u, l, ue, le;
+};
+
+// a node's own values
+template <typename T>
+struct AdjOwn {
+  T un, lp, p[7], w[7];
+};
+
+template <typename T, bool WALLS>
+__device__ __forceinline__ AdjRow<T> adj_fetch(const T* __restrict__ uc,
+                                               const T* __restrict__ lamn,
+                                               int gr, int gc, int ec,
+                                               bool edge, int H, int W) {
+  AdjRow<T> x;
+  if (WALLS) {
+    const bool row_in = gr >= 0 && gr < H;
+    const bool in = row_in && gc < W;
+    const bool ein = edge && row_in && ec >= 0 && ec < W;
+    const size_t g = in ? (size_t)gr * W + gc : 0;
+    const size_t e = ein ? (size_t)gr * W + ec : 0;
+    x.u = in ? __ldg(uc + g) : T(0);
+    x.l = is_pinned(gr, gc, H, W) ? T(0) : __ldg(lamn + g);
+    x.ue = ein ? __ldg(uc + e) : T(0);
+    x.le = (edge && !is_pinned(gr, ec, H, W)) ? __ldg(lamn + e) : T(0);
+  } else {
+    const size_t g = (size_t)gr * W + gc, e = (size_t)gr * W + ec;
+    x.u = __ldg(uc + g);
+    x.l = __ldg(lamn + g);
+    x.ue = edge ? __ldg(uc + e) : T(0);
+    x.le = edge ? __ldg(lamn + e) : T(0);
+  }
+  return x;
+}
+
+// a fetched row into the windows' rows (every lane of the warp calls it)
+template <typename T>
+__device__ __forceinline__ void adj_spread(const AdjRow<T>& x, int lane,
+                                           Row3<T>& u3, Row3<T>& l3) {
+  const T ul = __shfl_up_sync(0xffffffffu, x.u, 1);
+  const T ur = __shfl_down_sync(0xffffffffu, x.u, 1);
+  const T ll = __shfl_up_sync(0xffffffffu, x.l, 1);
+  const T lr = __shfl_down_sync(0xffffffffu, x.l, 1);
+  u3.v[0] = lane == 0 ? x.ue : ul;
+  u3.v[1] = x.u;
+  u3.v[2] = lane == 31 ? x.ue : ur;
+  l3.v[0] = lane == 0 ? x.le : ll;
+  l3.v[1] = x.l;
+  l3.v[2] = lane == 31 ? x.le : lr;
+}
+
+// the node's own values, when it is updated (inside the array, not pinned)
+template <typename T>
+__device__ __forceinline__ AdjOwn<T> adj_own(const T* __restrict__ un,
+                                             const T* __restrict__ lpart,
+                                             const T* __restrict__ planes,
+                                             const T* wbar, size_t g,
+                                             size_t n, bool need) {
+  AdjOwn<T> o;
+  o.un = need ? __ldg(un + g) : T(0);
+  o.lp = need ? __ldg(lpart + g) : T(0);
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    o.p[j] = need ? __ldg(planes + j * n + g) : T(0);
+  }
+#pragma unroll
+  for (int j = 0; j < 7; ++j) o.w[j] = need ? wbar[j * n + g] : T(0);
+  return o;
+}
+
+template <typename T, bool WALLS>
+__device__ __forceinline__ void adjoint_march(
+    const T* __restrict__ un, const T* __restrict__ uc,
+    const T* __restrict__ lamn, const T* __restrict__ lpart,
+    const T* __restrict__ planes, T* wbar, T* __restrict__ out_up,
+    T* __restrict__ out_lc, T* __restrict__ out_lp, int H, int W, int gc,
+    int lane, int ra, int rb, T coef) {
+  const size_t n = (size_t)H * W;
+  const bool edge = lane == 0 || lane == 31;
+  const int ec = lane == 0 ? gc - 1 : gc + 1;
+  const bool col_in = !WALLS || gc < W;
+  const bool col_pin = WALLS && (gc == 0 || gc >= W - 1);
+  auto fetch = [&](int gr) {
+    return adj_fetch<T, WALLS>(uc, lamn, gr, gc, ec, edge, H, W);
+  };
+  // rows ra .. rb - 1: the node of row gr is updated when it is inside
+  // the array and not pinned
+  auto updated = [&](int gr) {
+    return col_in && !(col_pin || (WALLS && (gr == 0 || gr == H - 1)));
+  };
+  auto own = [&](int gr) {
+    return adj_own(un, lpart, planes, wbar, (size_t)gr * W + gc, n,
+                   gr < rb && updated(gr));
+  };
+  Window<T, 1> uw, lw;
+  adj_spread(fetch(ra - 1), lane, uw.up, lw.up);
+  adj_spread(fetch(ra), lane, uw.mid, lw.mid);
+  AdjRow<T> down = fetch(ra + 1);
+  AdjOwn<T> cur = own(ra);
+  for (int gr = ra; gr < rb; ++gr) {
+    // two rows ahead for the windows, one for the node's own values
+    AdjRow<T> far = {};
+    if (gr + 2 <= rb) far = fetch(gr + 2);
+    const AdjOwn<T> nxt = own(gr + 1);
+    adj_spread(down, lane, uw.down, lw.down);
+    if (col_in) {
+      const size_t g = (size_t)gr * W + gc;
+      if (updated(gr)) {
+        const T bl = lw.mid.v[1], ucv = uw.mid.v[1];
+        const T kb = window_k(cur.p, lw);
+        const T ku = window_k(cur.p, uw);
+        out_lc[g] = (cur.lp + T(2) * bl) - coef * kb;
+        out_up[g] = (T(2) * ucv - cur.un) - coef * ku;
+        out_lp[g] = -bl;
+        const T mu = coef * bl;
+        const T sh[7] = {ucv,        uw.mid.v[0],  uw.mid.v[2], uw.up.v[1],
+                         uw.up.v[0], uw.down.v[1], uw.down.v[2]};
+#pragma unroll
+        for (int j = 0; j < 7; ++j) wbar[j * n + g] = cur.w[j] - mu * sh[j];
+      } else {
+        // blam = 0 here: wbar keeps its value
+        out_up[g] = T(0);
+        out_lc[g] = T(0);
+        out_lp[g] = -T(0);
+      }
+    }
+    uw.advance();
+    lw.advance();
+    down = far;
+    cur = nxt;
+  }
+}
+
+// blocks of B16 per SM that its registers must allow, per dtype (f32: 5,
+// at most 102 registers a thread, where ptxas fits it without spilling:
+// 54.0 against 55.9 us at 1025^2 with 4; f64 keeps its 152)
+template <typename T>
+constexpr int kAdjMinBlocks = sizeof(T) == 4 ? 5 : 3;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kAdjWarps, kAdjMinBlocks<T>)
+varcoef_adjoint_step_kernel(
+    const T* __restrict__ un, const T* __restrict__ uc,
+    const T* __restrict__ lamn, const T* __restrict__ lpart,
+    const T* __restrict__ planes, T* wbar, T* __restrict__ out_up,
+    T* __restrict__ out_lc, T* __restrict__ out_lp, int H, int W, int band,
+    int n_strips, int n_units, T coef) {
+  // (strip, band) units in strip order, a warp each
+  const int unit = blockIdx.x * kAdjWarps + threadIdx.y;
+  if (unit >= n_units) return;
+  const int lane = threadIdx.x;
+  const int c0 = (unit % n_strips) * 32;
+  const int ra = (unit / n_strips) * band;
+  const int rb = min(ra + band, H);
+  // the rows ra - 1 .. rb and columns c0 - 1 .. c0 + 32 that the warp
+  // reads hold a pinned node or reach past the array
+  const bool walls = ra < 2 || rb > H - 2 || c0 < 2 || c0 + 32 > W - 2;
+  if (walls) {
+    adjoint_march<T, true>(un, uc, lamn, lpart, planes, wbar, out_up, out_lc,
+                           out_lp, H, W, c0 + lane, lane, ra, rb, coef);
+  } else {
+    adjoint_march<T, false>(un, uc, lamn, lpart, planes, wbar, out_up,
+                            out_lc, out_lp, H, W, c0 + lane, lane, ra, rb,
+                            coef);
+  }
+}
+
+// The height of B16's bands: as many bands of 32-column strips as one
+// wave of the card's resident warps holds, each at least kAdjMinBand rows
+// high where H allows, so that every warp starts at once and none waits
+// for a second wave. Returns -cudaError when the card cannot be queried.
+template <typename T>
+int adjoint_step_band(int H, int W) {
+  const int blocks =
+      resident_blocks(varcoef_adjoint_step_kernel<T>, 32 * kAdjWarps);
+  if (blocks < 0) return blocks;
+  const long long warps = (long long)blocks * kAdjWarps;
+  const long long most = H / kAdjMinBand > 1 ? H / kAdjMinBand : 1;
+  long long bands = warps / ((W + 31) / 32);
+  bands = bands < 1 ? 1 : (bands > most ? most : bands);
+  return (int)((H + bands - 1) / bands);
+}
+
+template <typename T>
+int launch_adjoint_step(const void* un, const void* uc, const void* lamn,
+                        const void* lpart, const void* planes, void* wbar,
+                        void* out_up, void* out_lc, void* out_lp, int H,
+                        int W, int band, double coef, cudaStream_t stream) {
+  if (band < 1) return (int)cudaErrorInvalidValue;
+  const int n_strips = (W + 31) / 32;
+  const long long n_units = (long long)n_strips * ((H + band - 1) / band);
+  if (n_units >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n_units + kAdjWarps - 1) / kAdjWarps);
+  varcoef_adjoint_step_kernel<T><<<blocks, dim3(32, kAdjWarps), 0, stream>>>(
+      static_cast<const T*>(un), static_cast<const T*>(uc),
+      static_cast<const T*>(lamn), static_cast<const T*>(lpart),
+      static_cast<const T*>(planes), static_cast<T*>(wbar),
+      static_cast<T*>(out_up), static_cast<T*>(out_lc),
+      static_cast<T*>(out_lp), H, W, band, n_strips, (int)n_units, (T)coef);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -795,30 +978,24 @@ int tw_varcoef_multistep(int dtype, const void* u, const void* up,
                 ring_cols, H, W, coef, st);
 }
 
+// B16: `band` is tw_varcoef_adjoint_step_band's.
 int tw_varcoef_adjoint_step(int dtype, const void* un, const void* uc,
                             const void* lamn, const void* lpart,
                             const void* planes, void* wbar, void* out_up,
                             void* out_lc, void* out_lp, int H, int W,
-                            double coef, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid = point_grid(H, W, block);
+                            int band, double coef, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    varcoef_adjoint_step_kernel<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(un), static_cast<const float*>(uc),
-        static_cast<const float*>(lamn), static_cast<const float*>(lpart),
-        static_cast<const float*>(planes), static_cast<float*>(wbar),
-        static_cast<float*>(out_up), static_cast<float*>(out_lc),
-        static_cast<float*>(out_lp), H, W, (float)coef);
-  } else {
-    varcoef_adjoint_step_kernel<double><<<grid, block, 0, st>>>(
-        static_cast<const double*>(un), static_cast<const double*>(uc),
-        static_cast<const double*>(lamn), static_cast<const double*>(lpart),
-        static_cast<const double*>(planes), static_cast<double*>(wbar),
-        static_cast<double*>(out_up), static_cast<double*>(out_lc),
-        static_cast<double*>(out_lp), H, W, coef);
-  }
-  return (int)cudaGetLastError();
+  auto launch = dtype == 0 ? launch_adjoint_step<float>
+                           : launch_adjoint_step<double>;
+  return launch(un, uc, lamn, lpart, planes, wbar, out_up, out_lc, out_lp, H,
+                W, band, coef, st);
+}
+
+// B16's band height on an H x W grid on the current card (one wave of
+// resident warps), or -cudaError
+int tw_varcoef_adjoint_step_band(int dtype, int H, int W) {
+  return dtype == 0 ? adjoint_step_band<float>(H, W)
+                    : adjoint_step_band<double>(H, W);
 }
 
 int tw_varcoef_adjoint_multistep(

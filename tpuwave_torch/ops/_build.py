@@ -58,8 +58,9 @@ _SIGNATURES = {
                           _DP, _DP, _D, _D, _VP),
     "tw_newmark_update": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D,
                           _D, _D, _VP),
-    "tw_theta_r0u": (_I, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP, _DP, _D,
-                     _D, _D, _VP),
+    "tw_theta_r0u": (_I, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _DP,
+                     _DP, _D, _D, _D, _VP),
+    "tw_theta_r0u_blocks": (_I, _I, _I),
     "tw_theta_r0v": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I, _DP,
                      _DP, _D, _D, _VP),
     "tw_fast_blocks": (_I, _I),
@@ -74,7 +75,8 @@ _SIGNATURES = {
                              _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP,
                              _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP),
     "tw_varcoef_adjoint_step": (_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                _VP, _I, _I, _D, _VP),
+                                _VP, _I, _I, _I, _D, _VP),
+    "tw_varcoef_adjoint_step_band": (_I, _I, _I),
     "tw_varcoef_adjoint_multistep": (_I, _VP, _VP, _VP, _VP, _VP, _I, _VP,
                                      _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I,
                                      _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,

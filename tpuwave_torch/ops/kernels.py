@@ -115,6 +115,20 @@ def _lib():
     return load_library()
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_size(entry: str, device: int, dtype: torch.dtype, h: int,
+               w: int) -> int:
+    """What the C function ``entry`` sizes a kernel's grid by on an h x w
+    grid on card ``device`` (B9's blocks, B16's band rows: one wave of
+    resident blocks, csrc/grid_common.cuh resident_blocks); cached per
+    card, dtype and shape."""
+    n = getattr(_lib(), entry)(_DTYPES[dtype], h, w)
+    if n < 1:
+        raise RuntimeError(f"{entry}: cannot size the grid (cudaError "
+                           f"{-n})")
+    return n
+
+
 def _max_smem(lib, name: str, device: torch.device) -> int:
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
@@ -475,8 +489,9 @@ def cheby_tile(degree: int, dtype: torch.dtype, max_smem: int) -> tuple:
     return tile, tile
 
 
-#: per (device, stream): the one-int ticket of B4's and B5's last-block
-#: reductions, 0 between calls (the kernel's last block resets it)
+#: per (device, stream): the one-int ticket of B4's, B5's and B9's
+#: last-block reductions, 0 between calls (the kernel's last block resets
+#: it); kernels on one stream run in turn, so they share it
 _TICKETS = {}
 
 
@@ -581,7 +596,8 @@ def _masked(pinned, x):
 
 
 def _three_norms(lib, ref: torch.Tensor):
-    """(partials, norms) buffers of the three-norm setup kernels."""
+    """(partials, norms) buffers of the two-launch setup kernels B7 and
+    B10."""
     n_blocks = lib.tw_fast_blocks(*ref.shape)
     partials = torch.empty(3 * n_blocks, dtype=ref.dtype, device=ref.device)
     norms = torch.empty(3, dtype=ref.dtype, device=ref.device)
@@ -685,17 +701,24 @@ def theta_r0u(u: torch.Tensor, v: torch.Tensor, m_stencil, k_stencil,
                                    c_mv)
     lib = _lib()
     h, w = u.shape
-    r0 = torch.empty_like(u)
-    partials, norms = _three_norms(lib, u)
     with torch.cuda.device(u.device):
+        n_blocks = _grid_size("tw_theta_r0u_blocks",
+                              torch.cuda.current_device(), u.dtype, h, w)
+        r0 = torch.empty_like(u)
+        # the blocks' partials of the three norms, then the norms
+        n = 3 * n_blocks
+        partials = torch.empty(n + 3, dtype=u.dtype, device=u.device)
+        stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = lib.tw_theta_r0u(
-            _DTYPES[u.dtype], _ptr(u), _ptr(v), _ptr(r0), _ptr(partials),
-            partials.numel(), _ptr(norms), h, w, _stencil_arg(m_stencil),
-            _stencil_arg(k_stencil), float(c_comb), float(c_r0k),
-            float(c_mv), _stream(u))
+            _DTYPES[u.dtype], _ptr(u), _ptr(v), _ptr(r0), _ptr(partials), n,
+            _ptr(_ticket(u.device, stream)),
+            ctypes.c_void_p(partials.data_ptr()
+                            + n * partials.element_size()),
+            h, w, n_blocks, _stencil_arg(m_stencil), _stencil_arg(k_stencil),
+            float(c_comb), float(c_r0k), float(c_mv), ctypes.c_void_p(stream))
     _raise_on(rc, "theta_r0u")
     LAUNCHES["theta_r0u"] += 1
-    return r0, norms[0], norms[1], norms[2]
+    return r0, partials[n], partials[n + 1], partials[n + 2]
 
 
 def theta_r0v_reference(u, e, v, m_stencil, k_stencil, c_ku: float,

@@ -35,8 +35,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tpuwave_torch.ops.kernels import (LAUNCHES, _DTYPES, _lib, _max_smem,
-                                       _ptr, _raise_on, _stream, pinned_mask)
+from tpuwave_torch.ops.kernels import (LAUNCHES, _DTYPES, _grid_size, _lib,
+                                       _max_smem, _ptr, _raise_on, _stream,
+                                       pinned_mask)
 
 __all__ = ["OFFSETS", "Receivers", "varcoef_stencil",
            "varcoef_leapfrog_step", "varcoef_leapfrog_step_reference",
@@ -389,10 +390,12 @@ def varcoef_adjoint_step(u_next: torch.Tensor, u_cur: torch.Tensor,
     h, w = u_next.shape
     u_prev, lam_cur, lp_new = (torch.empty_like(u_next) for _ in range(3))
     with torch.cuda.device(u_next.device):
+        band = _grid_size("tw_varcoef_adjoint_step_band",
+                          torch.cuda.current_device(), u_next.dtype, h, w)
         rc = _lib().tw_varcoef_adjoint_step(
             _DTYPES[u_next.dtype], _ptr(u_next), _ptr(u_cur), _ptr(lam_next),
             _ptr(lam_partial), _ptr(planes), _ptr(wbar), _ptr(u_prev),
-            _ptr(lam_cur), _ptr(lp_new), h, w, float(coef),
+            _ptr(lam_cur), _ptr(lp_new), h, w, band, float(coef),
             _stream(u_next))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
