@@ -2269,17 +2269,17 @@ def phase_cli_varcoef(torch, kn, work: Path):
                                          f"B4 or no B3")
 
 
-#: the main paths' launches of B4, B11-B13 and B15 per shape (see
-#: _count_shapes; counted only while _run_path drives a path)
+#: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
+#: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
 _COUNTING = {"on": False}
 
 
 def _count_shapes(kn):
-    """Wrap the B4, B9, B11-B13, B15 and B16 wrappers in the modules their
-    callers reach them through, so that each call's launches (the change
-    of the wrapper's own count in LAUNCHES) are added to SHAPE_LAUNCHES
-    under the call's shape."""
+    """Wrap the B4, B9, B11-B16 wrappers in the modules their callers
+    reach them through, so that each call's launches (the change of the
+    wrapper's own count in LAUNCHES) are added to SHAPE_LAUNCHES under the
+    call's shape (and B14's form)."""
     from tpuwave_torch.ops import kernels_p2 as kp
     from tpuwave_torch.ops import kernels_varcoef as kv
 
@@ -2302,6 +2302,8 @@ def _count_shapes(kn):
     wrap(kn, "cheby_block", lambda x, r, st, th, cf:
          f"{grid(r)} degree {1 + len(cf)}{' zero guess' if x is None else ''}")
     wrap(kn, "theta_r0u", lambda u, *rest: grid(u))
+    wrap(kv, "varcoef_leapfrog_step", lambda u, up, pl, coef, damp=None:
+         f"{grid(u)} {'undamped' if damp is None else 'damped'}")
     wrap(kv, "varcoef_leapfrog_multistep", lambda u, up, pl, w, *rest:
          f"{grid(u)} k={w.numel()} {pl.shape[0]} planes")
     wrap(kv, "varcoef_adjoint_step", lambda un, *rest: grid(un))

@@ -21,7 +21,7 @@ sum of its kernels' and copies' times, which the host's noise does not
 move), the idle share of that run's wall, and the device time and launches
 of the kernels named (B4 cheby_block, B5 recurrence_r0, B9 theta_r0u,
 the sums of norm partials where a checkout has that launch, B11, B12 and
-B13 together, B15, B16, B17) and of the largest device events. Needs nvcc and one card:
+B13 together, B14, B15, B16, B17) and of the largest device events. Needs nvcc and one card:
 
     python3 scripts/torch_device_time.py [--tree DIR] [--repeats 5]
         [--only P2,2term,newmark,sponge]
@@ -44,6 +44,7 @@ ROOT = Path(__file__).resolve().parent.parent
 NAMED = (("B4", "cheby_block"), ("B5", "recurrence_r0"),
          ("B9", "theta_r0u_kernel"), ("norm partials", "sum_partials"),
          ("B11", "p2_apply_kernel"), ("B12 + B13", "p2_smooth"),
+         ("B14", "varcoef_step_kernel"),
          ("B15", "varcoef_multistep_kernel"),
          ("B16", "varcoef_adjoint_step_kernel"),
          ("B17", "varcoef_adjoint_multistep_kernel"))

@@ -333,17 +333,44 @@ def _on(dev, dtype, rng, shape, n):
                          device=dev) for _ in range(n)]
 
 
+# B14 runs a thread per node in 32 x 8 blocks: NEL_CUDA's grid with a real
+# problem's planes (and sponge), and random planes on grids that cut the
+# last block column and row mid-way, one of them over 2^21 nodes;
+# ``alias``: u_prev is u, as in the half start
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("damped", [False, True])
-def test_cuda_varcoef_step(cuda_device, dtype, damped):
-    prob, coef, planes, rng = _card_setup(cuda_device, dtype, damped)
-    u, up = _on(cuda_device, dtype, rng, prob._grid, 2)
-    damp = prob._kernel_damp[:2] if damped else None
+@pytest.mark.parametrize("dtype, shape, alias", [
+    (torch.float32, None, False), (torch.float64, None, False),
+    (torch.float32, None, True), (torch.float32, (3, 3), False),
+    (torch.float64, (3, 3), True), (torch.float32, (67, 129), False),
+    (torch.float64, (67, 129), False), (torch.float64, (130, 97), False),
+    (torch.float32, (130, 97), True), (torch.float32, (1500, 1457), False),
+    (torch.float64, (1500, 1457), False)])
+def test_cuda_varcoef_step(cuda_device, dtype, shape, alias, damped):
+    if shape is None:
+        prob, coef, planes, rng = _card_setup(cuda_device, dtype, damped)
+        shape = prob._grid
+        damp = prob._kernel_damp[:2] if damped else None
+    else:
+        rng = np.random.default_rng(13)
+        # coef sum|planes| < 0.4, as on a stable problem
+        (planes,) = _on(cuda_device, dtype, rng, (7,) + shape, 1)
+        planes = 1.0 + 0.3 * planes
+        coef = 0.04
+        damp = None
+        if damped:
+            dnum, dden = _on(cuda_device, dtype, rng, shape, 2)
+            damp = (1.0 + 0.1 * dnum, 1.0 - 0.1 * dden.abs())
+    u, up = _on(cuda_device, dtype, rng, shape, 2)
+    if alias:
+        up = u
     before = tk.LAUNCHES["varcoef_leapfrog_step"]
     got = kv.varcoef_leapfrog_step(u, up, planes, coef, damp)
+    again = kv.varcoef_leapfrog_step(u, up, planes, coef, damp)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["varcoef_leapfrog_step"] == before + 1
+    # one launch a call, and a rerun on the same inputs is bitwise equal
+    assert tk.LAUNCHES["varcoef_leapfrog_step"] == before + 2
+    assert torch.equal(got, again)
     _close_card(got, kv.varcoef_leapfrog_step_reference(u, up, planes, coef,
                                                         damp), dtype)
 

@@ -41,10 +41,18 @@ __device__ __forceinline__ int off_dy(int j) {
 //   undamped: u' = 2u - u_prev - coef * K u
 //   damped:   u' = (2u - dnum * u_prev - coef * K u) * dden
 //
-// Bound on this card: memory. It reads 9 arrays (11 damped) and writes 1 for
-// ~17 operations per node. One thread per node, 32x8 blocks: a warp reads 32
-// consecutive addresses of every plane, and the neighbours of u come from
-// L1/L2 after their first touch.
+// Bound on this card: memory. It reads 9 arrays (11 damped) and writes 1
+// (40 B per node in f32, 48 damped: 42.0 / 50.4 MB at 1025^2, 12.5 / 15.0
+// us at 3.35 TB/s) for ~17 (19) operations per node. One thread per node,
+// 32x8 blocks: a warp reads 32 consecutive addresses of every plane, and
+// the neighbours of u come from L1/L2 after their first touch. What a node
+// alone reads (u_prev, the 7 planes, dnum, dden) is read once, so it is
+// loaded evict-first (__ldcs) and leaves the L2 before other lines; u,
+// which neighbours read again, stays __ldg (52-60% of the bound by device
+// time without the hint, 55-63% with it). u and u_prev may be one array (the
+// half start passes u0 as both): both are only read. B16's register column
+// march, with the same hint, was no faster here, and slower in the FWI
+// loop, where these inputs are warm.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void varcoef_step_kernel(const T* __restrict__ u,
@@ -64,17 +72,17 @@ __global__ void varcoef_step_kernel(const T* __restrict__ u,
   }
   const long long n = (long long)H * W;
   const T uc = __ldg(u + i);
-  T ku = __ldg(planes + i) * uc;
+  T ku = __ldcs(planes + i) * uc;
 #pragma unroll
   for (int j = 1; j < 7; ++j) {
-    ku += __ldg(planes + j * n + i) *
+    ku += __ldcs(planes + j * n + i) *
           __ldg(u + i + (long long)off_dy(j) * W + off_dx(j));
   }
   if (dnum == nullptr) {
-    out[i] = (T(2) * uc - __ldg(up + i)) - coef * ku;
+    out[i] = (T(2) * uc - __ldcs(up + i)) - coef * ku;
   } else {
-    out[i] = ((T(2) * uc - __ldg(dnum + i) * __ldg(up + i)) - coef * ku) *
-             __ldg(dden + i);
+    out[i] = ((T(2) * uc - __ldcs(dnum + i) * __ldcs(up + i)) - coef * ku) *
+             __ldcs(dden + i);
   }
 }
 
