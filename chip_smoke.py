@@ -30,7 +30,11 @@ configuration, 1024^2 elements, f32. Path F: the driven explicit leapfrog
 (run_leapfrog_driven, run_leapfrog_driven_kernel on B1,
 run_leapfrog_driven_multistep on B6) at scripts/bench_driven.py's
 configuration, 4096^2 elements, f32, and both CLIs with a spatially
-varying and with a time-dependent wave speed at R = 1. Phases:
+varying and with a time-dependent wave speed at R = 1. Path G: the R = 2
+engines of the CLIs with a spatially varying and with a time-dependent
+wave speed (the varcoef K in torch ops, the mass part and every mass solve
+on B11, the frozen mg V-cycle on B12 / B13 and B4 / B3), up to 1024^2
+elements (4.2 M DoF) against tpuwave. Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
@@ -106,6 +110,20 @@ varying and with a time-dependent wave speed at R = 1. Phases:
      with a spatially varying C and with a time-dependent C, --precond
      jacobi and mg, on --device cuda and on --device cpu: CSVs agree,
      per-step CG counts are equal, the mg runs launch B4 and B3
+ 20. both CLIs (newmark beta 1/4, theta 1/2) at R = 2, 160^2 elements, 10
+     steps, f64, with a spatially varying and with a time-dependent C,
+     --precond jacobi and mg, and newmark --solver 2term --precond mg with
+     the varying C, on --device cuda and on --device cpu: CSVs agree,
+     per-step CG counts are equal, every run launches B11 and the mg runs
+     B12, B13, B4 and B3
+ 21. R = 2 at 1024^2 elements (4.2 M DoF), f64, dt 4e-3, 10 steps, Log
+     Every 1, on cuda: (a) newmark beta 1/4 --solver 2term --precond mg
+     with the varying C, (b) theta 1/2 --precond mg with the
+     time-dependent C: wall time, ms/step, CG iterations per step, peak
+     device memory, B11-B13 launches per step; per-step CG counts equal
+     tpuwave's and the last CSV rows within rtol 1e-8 of tpuwave's (its
+     CPU run; error norms within 1e-11 of the solution's norm); then one step of (b) under torch.profiler: the device-busy
+     share, the varcoef apply's share (torch ops) and B11-B13's
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -308,6 +326,8 @@ PATH_E = ("varcoef_leapfrog_step", "varcoef_leapfrog_multistep",
           "varcoef_adjoint_step", "varcoef_adjoint_multistep")
 PATH_F = ("leapfrog_step", "leapfrog_multistep_driven", "cheby_block",
           "constrained_stencil_apply")
+PATH_G = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
+          "cheby_block", "constrained_stencil_apply")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -2269,6 +2289,208 @@ def phase_cli_varcoef(torch, kn, work: Path):
                                          f"B4 or no B3")
 
 
+# ---------------------------------------------------------------------------
+# phases 20 and 21: path G, the R = 2 engines with a varying C
+# ---------------------------------------------------------------------------
+#: phase 20's runs: (C, family, flags, overrides of _p2_case); dt 4e-2 for
+#: mg (q = 10, as phase 10), 2e-3 for Jacobi-CG
+P2_VARCOEF_RUNS = tuple(
+    (cname, family, ("--precond", precond),
+     {**over, "Dt": "4e-2" if precond == "mg" else "2e-3"})
+    for cname in ("varying C", "time-dep. C")
+    for family, over in (("newmark", {"Beta": "0.25"}),
+                         ("theta", {"Theta": "0.5"}))
+    for precond in ("jacobi", "mg")) + (
+    ("varying C", "newmark", ("--solver", "2term", "--precond", "mg"),
+     {"Beta": "0.25", "Dt": "4e-2"}),)
+P2_VARCOEF_C = {"varying C": VARYING_C, "time-dep. C": TDEP_C}
+
+
+def phase_p2_cli_varcoef(torch, kn, work: Path):
+    say(f"phase 20: both CLIs with a varying and with a time-dependent C, "
+        f"R = 2, standing mode, 160^2 elements (103,041 DoF), "
+        f"{FAMILY_STEPS} steps, f64, Log Every 1: --device cuda against "
+        f"--device cpu (CSVs within rtol 1e-9, per-step CG counts equal; "
+        f"every run launches B11, the mg runs B12, B13, B4 and B3 too)")
+    for cname, family, flags, over in P2_VARCOEF_RUNS:
+        case = _p2_case(work, over, **P2_VARCOEF_C[cname])
+        tag = f"{cname} {family} {' '.join(flags)}"
+        out = work / "p2var" / re.sub(r"[ .]+", "_", tag)
+        before = dict(kn.LAUNCHES)
+        w_cuda, _ = _cli(family, case, out / "cuda", "cuda", flags=flags)
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_G}
+        w_cpu, _ = _cli(family, case, out / "cpu", "cpu", flags=flags)
+        rows = _compare_csvs(out / "cuda" / "res", out / "cpu" / "res",
+                             its_tol=0)
+        say(f"  {tag:<46} cuda {w_cuda:6.2f} s  cpu {w_cpu:6.2f} s  "
+            f"{rows} CSV rows agree  launches {n}")
+        need = PATH_G if "mg" in flags else ("p2_constrained_apply",)
+        for k in need:
+            if n[k] <= 0:
+                raise AssertionError(f"{tag}: the cuda run launched no {k}")
+
+
+#: phase 21's runs: (tag, family, flags, overrides of _case, C)
+P2_VARCOEF_1024 = (
+    ("a", "newmark", ("--solver", "2term", "--precond", "mg"),
+     {"Beta": "0.25", "Gamma": "0.5"}, VARYING_C),
+    ("b", "theta", ("--precond", "mg"), {"Theta": "0.5"}, TDEP_C),
+)
+P2_VARCOEF_1024_STEPS = 10
+#: tpuwave's last CSV rows and per-step CG counts (iterations_1,
+#: iterations_2) of phase 21's runs: standing-mode-wsol.json with R 2, Nel
+#: 1024, Dt 4e-3, T 0.04, Log Every 1, Save Solution false and the C,
+#: family and flags of P2_VARCOEF_1024 (the file _case writes); f64, on
+#: the CPU with the JAX package (smoother lambda_max from tpuwave's own
+#: power iteration; 168 s and 88 s of time loop):
+#:   JAX_PLATFORMS=cpu python -m tpuwave.cli.newmark standing-mode-wsol.json
+#:     --solver 2term --precond mg      (run a)
+#:   JAX_PLATFORMS=cpu python -m tpuwave.cli.theta standing-mode-wsol.json
+#:     --precond mg                     (run b)
+TPUWAVE_P2_VARCOEF_1024 = {
+    "a": {"energy.csv": "10,0.04,4.4516",
+          "error.csv": "10,4.000000e-02,7.380140e-03,4.410102e-02,"
+                       "1.499647e-02,1.967782e-02",
+          "probe.csv": "10,4.0000000000e-02,9.7290139136e-01",
+          "iterations": [(8, 0)] + [(7, 0)] * 9},
+    "b": {"energy.csv": "10,0.04,2.46366",
+          "error.csv": "10,4.000000e-02,1.097491e-09,2.132904e-06,"
+                       "2.196739e-09,9.374599e-07",
+          "probe.csv": "10,4.0000000000e-02,9.9920010830e-01",
+          "iterations": [(2, 4)] * 2 + [(3, 4)] * 6 + [(3, 3)] * 2},
+}
+
+
+def _last_row_gate(name: str, head: list, got: list, want: list) -> list:
+    """The columns of a CSV's last row that differ from tpuwave's by more
+    than their limit plus one unit in the last printed digit: rtol 1e-8
+    for energy, time and probe; 1e-11 of the exact solution's norm for an
+    error norm (err / rel_err of the same row), and 1e-11 for a relative
+    error. A difference of error norms is at most the norm of the state
+    difference, so the error columns are held to that scale: the cuda run
+    of (b) differs from tpuwave's by 2.6e-13 of the solution's norm
+    (rel_L2_error 2.196484e-09 against 2.196739e-09, H100 80GB HBM3 at
+    700 W), ~40 times below the limit; an f32 state or a wrong K is far
+    above it."""
+    bad = []
+    vals = dict(zip(head, (float(v) for v in want)))
+    for col, u, v in zip(head, got, want):
+        fu, fv = float(u), float(v)
+        lim = 1e-8 * max(abs(fu), abs(fv))
+        if col in ("L2_error", "H1_error"):
+            rel = vals["rel_" + col]
+            lim = 1e-11 * (fv / rel if rel > 0.0 else max(abs(fu), abs(fv)))
+        elif col.startswith("rel_"):
+            lim = 1e-11
+        if abs(fu - fv) > lim + max(_quantum(u), _quantum(v)):
+            bad.append(f"{name} {col}: {u} vs tpuwave {v}")
+    return bad
+
+
+def phase_p2_varcoef_1024(torch, kn, work: Path):
+    n_steps = P2_VARCOEF_1024_STEPS
+    say(f"phase 21: R = 2 with a varying C, 1024^2 elements (4,198,401 "
+        f"DoF), dt 4e-3, {n_steps} steps, f64, Log Every 1, on cuda: (a) "
+        f"newmark beta 1/4 --solver 2term --precond mg, varying C; (b) "
+        f"theta 1/2 --precond mg, time-dependent C. Gates: per-step CG "
+        f"counts equal tpuwave's; the last CSV rows within rtol 1e-8 of "
+        f"tpuwave's (error norms within 1e-11 of the solution's norm) plus "
+        f"one unit in the last printed digit")
+    dofs = 4198401
+    failed = []
+    for tag, family, flags, over, cover in P2_VARCOEF_1024:
+        case = _case(work, Nel="1024", R="2", Dt="4e-3",
+                     T=str(n_steps * 4e-3), **{"Log Every": "1"}, **over,
+                     **cover)
+        out = work / f"p2var_1024_{tag}"
+        before = dict(kn.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        wall, text = _cli(family, case, out, "cuda", quiet=False,
+                          flags=flags)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_G}
+        run = next((out / "res").glob(f"{family}-*/run-*"))
+        conv = list(csv.DictReader(next(
+            (out / "res").glob(f"{family}-*/convergence.csv")).open()))[-1]
+        elapsed = float(conv["elapsed_time_s"])
+        its = [(int(r["iterations_1"]), int(r["iterations_2"]))
+               for r in csv.DictReader((run / "iterations.csv").open())]
+        want = TPUWAVE_P2_VARCOEF_1024[tag]
+        say(f"  ({tag}) {family} {' '.join(flags)}: CLI wall {wall:.2f} s, "
+            f"time loop {elapsed:.3f} s = {elapsed / n_steps * 1e3:.1f} "
+            f"ms/step ({dofs * n_steps / elapsed:.4e} DoF*steps/s, "
+            f"diagnostics every step included); peak device memory "
+            f"{peak:.2f} GiB")
+        say(f"      CG iterations per step {its} (tpuwave "
+            f"{want['iterations']})")
+        say("      launches per step (initial state and diagnostics "
+            "included): " + ", ".join(
+                f"{k} {n[k] / n_steps:.1f}" for k in PATH_G))
+        if its != want["iterations"]:
+            failed.append(f"({tag}) per-step CG counts differ")
+        for name in ("energy.csv", "error.csv", "probe.csv"):
+            rows = list(csv.reader((run / name).open()))
+            got, ref = rows[-1], want[name].split(",")
+            say(f"      {name} last row {','.join(got)} (tpuwave "
+                f"{want[name]})")
+            failed += [f"({tag}) {b}" for b in
+                       _last_row_gate(name, rows[0], got, ref)]
+        for k in PATH_G:
+            if n[k] <= 0:
+                failed.append(f"({tag}) launched no {k}")
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 21: " + "; ".join(failed))
+
+
+def phase_p2_varcoef_profile(torch, kn, work: Path):
+    """Where a step of phase 21's run (b) goes: one theta step under
+    torch.profiler after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.utils.params import load_params
+
+    tag, family, flags, over, cover = P2_VARCOEF_1024[1]
+    say(f"phase 21 (profile): one step of run ({tag}), theta 1/2 "
+        f"--precond mg, time-dependent C, 1024^2, f64, under "
+        f"torch.profiler")
+    case = _case(work, Nel="1024", R="2", Dt="4e-3", T="0.04", **over,
+                 **cover)
+    solver = make_fast_solver(load_params(str(case)), family,
+                              precond="mg", device="cuda")
+    st, _ = solver.step(solver.initial_state(), 4e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, info = solver.step(st, 8e-3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_t = _device_time(prof)
+    if dev_t is None:
+        say("  the profiler saw no device time (not measured)")
+        return
+    events = _device_events(prof)
+    say(f"  step 2 (CG {info['iterations_1']} + {info['iterations_2']}): "
+        f"wall {wall * 1e3:.1f} ms under the profiler, {dev_t[0]} device "
+        f"events, device busy {dev_t[1]:.2f} ms = "
+        f"{dev_t[1] / 1e3 / wall:.3f} of the wall")
+    for what, part in (("varcoef slice-adds (addcmul, torch ops)",
+                        "addcmul"),
+                       ("B11 p2_constrained_apply", "p2_apply"),
+                       ("B12 + B13 p2_presmooth / p2_postsmooth",
+                        "p2_smooth")):
+        hit = [e for e in events if part in e.key]
+        us = sum(e.self_device_time_total for e in hit)
+        say(f"    {what}: {us / 1e3:8.3f} ms in "
+            f"{sum(e.count for e in hit)} launches = "
+            f"{us / 1e3 / dev_t[1]:.3f} of device time")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        say(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
+            f"{e.key[:70]}")
+
+
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
 #: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
@@ -2434,6 +2656,10 @@ def main() -> int:
             phase_driven_1024(torch)
             phase_cli_varcoef(torch, kn, work)
 
+        def path_g():
+            phase_p2_cli_varcoef(torch, kn, work)
+            phase_p2_varcoef_1024(torch, kn, work)
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -2443,6 +2669,8 @@ def main() -> int:
         launches_d = _run_path(kn, "D", PATH_D, path_d)
         launches_e = _run_path(kn, "E", PATH_E, path_e)
         launches_f = _run_path(kn, "F", PATH_F, path_f)
+        launches_g = _run_path(kn, "G", PATH_G, path_g)
+        phase_p2_varcoef_profile(torch, kn, work)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -2455,7 +2683,7 @@ def main() -> int:
             replaces=REPLACES[name],
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
-                launches_f)),
+                launches_f, launches_g)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

@@ -129,13 +129,14 @@ def test_engine_refuses_unported_configurations():
     with pytest.raises(ValueError, match="time-static wave speed"):
         tfe.make_fast_solver(tload(tdep), "theta", solver="2term",
                              dtype=torch.float64, device=CPU)
-    # R = 2 is ported; with varying or time-dependent C it is refused (A5)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tfe.make_fast_solver(tload(dict(varc, R="2")), "theta",
-                             precond="mg", solver="2term",
-                             dtype=torch.float64, device=CPU)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # and so at R = 2, where varying and time-dependent C are ported too
+    with pytest.raises(ValueError, match="constant wave speed"):
+        tfe.make_fast_solver(tload(dict(varc, R="2")), "newmark",
+                             solver="cheby", dtype=torch.float64,
+                             device=CPU)
+    with pytest.raises(ValueError, match="time-static wave speed"):
         tfe.make_fast_solver(tload(dict(tdep, R="2")), "theta",
+                             precond="mg", solver="2term",
                              dtype=torch.float64, device=CPU)
 
 
@@ -226,42 +227,57 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 
 @pytest.mark.parametrize("flag,item", [
     (["--engine", "parity"], "A10"),
-    # the solver flags, R = 2 and varying / time-dependent C at R = 1 are
-    # ported: refused only with what is not (varying or time-dependent C
-    # at R = 2)
-    (["--precond", "chebyshev", "R=2", "C=x"], "A5"),
-    (["--precond", "mg", "R=2", "C=t"], "A5"),
-    (["--precond", "auto", "R=2", "C=x"], "A5"),
-    (["--solver", "2term", "R=2", "C=t"], "A5"),
-    (["--solver", "cheby", "R=2", "C=x"], "A5"),
     (["--shard", "rows"], "A11"),
     (["--distributed"], "A11"),
     (["--unstructured-sharding", "cells"], "A11"),
     (["--checkpoint-every", "2"], "A1"),
     (["--resume"], "A1"),
     (["--profile-dir", "trace"], "A13"),
-    (["R=2", "C=t"], "A5"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     from tpuwave_torch.cli import theta
-    problem = {"R=2": {"R": "2"},
-               "C=x": {"C": {"Function expression": "1 + 0.5*x",
-                             "Variable names": "x, y, t"}},
-               "C=t": {"Time Dependent C": "true",
-                       "C": {"Function expression": "1 + 0.1*t",
-                             "Variable names": "x, y, t"}}}
-    over = {}
-    for f in flag:
-        over.update(problem.get(f, {}))
-    path = _write_case(tmp_path, "standing-mode-wsol", **over)
-    extra = [f for f in flag if f not in problem]
+    path = _write_case(tmp_path, "standing-mode-wsol")
     rc = theta.main([str(path), "--device", "cpu", "--results-root",
                      str(tmp_path / "r"), "--mesh-root",
-                     str(tmp_path / "m")] + extra)
+                     str(tmp_path / "m")] + flag)
     err = capsys.readouterr().err.strip().splitlines()
     assert rc == 1
     assert len(err) == 1 and f"ROADMAP {item}" in err[0]
     assert not (tmp_path / "r").exists()
+
+
+_C_CASES = {"C=x": {"C": {"Function expression": "1 + 0.5*x",
+                          "Variable names": "x, y, t"}},
+            "C=t": {"Time Dependent C": "true",
+                    "C": {"Function expression": "1 + 0.1*t",
+                          "Variable names": "x, y, t"}}}
+
+
+@pytest.mark.parametrize("flags,cmode", [
+    (["--precond", "chebyshev"], "C=x"),
+    (["--precond", "mg"], "C=t"),
+    (["--precond", "auto"], "C=x"),
+    ([], "C=t"),
+])
+def test_cli_r2_runs_varying_c(tmp_path, capsys, flags, cmode):
+    """The R = 2 CLI with a varying or time-dependent C and these flags
+    runs (Nel 4, 2 steps) and writes its CSVs; test_torch_p2_varcoef_*.py
+    hold such runs against tpuwave."""
+    from tpuwave_torch.cli import theta
+    path = _write_case(tmp_path, "standing-mode-wsol", Nel="4", R="2",
+                       T="0.02", Dt="0.01", **{"Save Solution": "false",
+                                               "Log Every": "1"},
+                       **_C_CASES[cmode])
+    rc = theta.main([str(path), "--device", "cpu", "--results-root",
+                     str(tmp_path / "r"), "--mesh-root",
+                     str(tmp_path / "m")] + flags)
+    capsys.readouterr()
+    assert rc == 0
+    names = {q.name for q in (tmp_path / "r").rglob("*.csv")}
+    assert {"energy.csv", "error.csv", "probe.csv",
+            "iterations.csv"} <= names
+    its = (tmp_path / "r").rglob("iterations.csv")
+    assert len(next(its).read_text().splitlines()) == 3
 
 
 def test_cli_cuda_without_card_exits_1(tmp_path, capsys):

@@ -6,9 +6,10 @@ run folder and file set as ``tpuwave.cli``, energy.csv, error.csv and
 probe.csv within rtol 1e-9 (the convergence.csv wall-clock column
 aside), iterations.csv identical, the same console step lines. With
 ``--precond mg`` each package sizes its P2 smoother by its own power
-iteration (the same start vector). Varying or time-dependent C at R = 2 still exits
-1 with one line naming ROADMAP A5. The ``--solver 2term`` case is in
-test_torch_p2_cli_2term.py (tpuwave's compile of it takes ~45 s).
+iteration (the same start vector). The ``--solver 2term`` case is in
+test_torch_p2_cli_2term.py (tpuwave's compile of it takes ~45 s); the
+runs with a varying or time-dependent C are in
+test_torch_p2_varcoef_theta.py and test_torch_p2_varcoef_2term.py.
 """
 
 import csv
@@ -21,13 +22,19 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _write_case(tmp_path, preset, **over):
+def cli_case(preset, **over):
+    """The parameter dict ``_write_case`` writes: ``preset`` at R = 2, Nel
+    8, 10 steps, Log Every 1, then ``over``."""
     case = json.loads((ROOT / "parameters" / f"{preset}.json").read_text())
     case.update({"Nel": "8", "R": "2", "T": "0.1", "Dt": "0.01",
                  "Log Every": "1"})
     case.update(over)
+    return case
+
+
+def _write_case(tmp_path, preset, **over):
     path = tmp_path / f"{preset}.json"
-    path.write_text(json.dumps(case))
+    path.write_text(json.dumps(cli_case(preset, **over)))
     return path
 
 
@@ -61,10 +68,30 @@ def test_cli_r2_reproduces_tpuwave(tmp_path, capsys, family, preset, flags,
     check_cli_against_tpuwave(tmp_path, capsys, family, preset, flags, over)
 
 
+def jit_velocity(engine):
+    """``engine`` (a tpuwave engine) with its ``state_velocity`` under
+    ``jax.jit``. tpuwave's 2-term engines reconstruct v through a
+    ``lax.cond`` outside jit whose branches close over the state, so each
+    call (the CLI makes two a log point) compiles anew; the same function
+    under jit compiles once."""
+    sv = getattr(engine, "state_velocity", None)
+    if sv is not None and not hasattr(sv, "lower"):
+        import jax
+        engine.state_velocity = jax.jit(sv)
+    return engine
+
+
 def check_cli_against_tpuwave(tmp_path, capsys, family, preset, flags,
-                              over):
+                              over, engine=None):
     """Both packages' CLI on the same R = 2 file: same exit code, files,
-    CSVs (rtol 1e-9), iterations.csv bytes and console step lines."""
+    CSVs (rtol 1e-9), iterations.csv bytes and console step lines.
+
+    ``engine``: a tpuwave engine built from ``cli_case(preset, **over)``
+    with the factory arguments the CLI passes for ``flags``; tpuwave's CLI
+    then runs it in place of building its own (one XLA compile of the
+    step instead of two). tpuwave's CLI runs its engine's
+    ``state_velocity`` under ``jax.jit`` (``jit_velocity``)."""
+    from tpuwave.models import fast_engine as jfe
     jcli = importlib.import_module(f"tpuwave.cli.{family}")
     tcli = importlib.import_module(f"tpuwave_torch.cli.{family}")
     path = _write_case(tmp_path, preset, **over)
@@ -73,7 +100,19 @@ def check_cli_against_tpuwave(tmp_path, capsys, family, preset, flags,
         return [str(path), "--results-root", str(tmp_path / tag / "res"),
                 "--mesh-root", str(tmp_path / tag / "mesh"), *flags]
 
-    rc_j = jcli.main(args("jax"))
+    real = jfe.make_fast_solver
+
+    def built(problem, fam, **kw):
+        if engine is None:
+            return jit_velocity(real(problem, fam, **kw))
+        assert fam == family and problem.r == 2
+        assert kw.get("precond") == engine.precond
+        return jit_velocity(engine)
+    jfe.make_fast_solver = built
+    try:
+        rc_j = jcli.main(args("jax"))
+    finally:
+        jfe.make_fast_solver = real
     out_j = capsys.readouterr().out
     rc_t = tcli.main(args("torch") + ["--device", "cpu"])
     out_t = capsys.readouterr().out
@@ -100,21 +139,3 @@ def check_cli_against_tpuwave(tmp_path, capsys, family, preset, flags,
         return [ln.replace(str(root), "ROOT") for ln in out.splitlines()
                 if ln.startswith(pick)]
     assert lines(out_t, tmp_path / "torch") == lines(out_j, tmp_path / "jax")
-
-
-@pytest.mark.parametrize("which", ["C=x", "C=t"])
-def test_cli_r2_still_refuses_varying_c(tmp_path, capsys, which):
-    from tpuwave_torch.cli import newmark
-    c = {"C=x": {"C": {"Function expression": "1 + 0.5*x",
-                       "Variable names": "x, y, t"}},
-         "C=t": {"Time Dependent C": "true",
-                 "C": {"Function expression": "1 + 0.1*t",
-                       "Variable names": "x, y, t"}}}[which]
-    path = _write_case(tmp_path, "standing-mode-wsol", **c)
-    rc = newmark.main([str(path), "--device", "cpu", "--results-root",
-                       str(tmp_path / "r"), "--mesh-root",
-                       str(tmp_path / "m")])
-    err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 1
-    assert len(err) == 1 and "ROADMAP A5" in err[0]
-    assert not (tmp_path / "r").exists()

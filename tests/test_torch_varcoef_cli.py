@@ -6,8 +6,7 @@ test_torch_varcoef_engine.py):
   counts identical, (u, u_prev) and the reconstructed velocity within
   rtol 1e-10;
 * the refusals: 2term with a time-dependent C and cheby with a varying C
-  print tpuwave's own messages; R = 2 with either prints one line naming
-  ROADMAP A5 (R=2);
+  print tpuwave's own messages, at R = 1 and at R = 2;
 * one CLI run per family whose CSVs equal tpuwave's CLI's.
 """
 
@@ -51,12 +50,13 @@ def _cli(module, path, tmp_path, tag, extra=()):
                         "--mesh-root", str(tmp_path / "mesh"), *extra])
 
 
+@pytest.mark.parametrize("r", ["1", "2"])
 @pytest.mark.parametrize("cmode,flags", [("tdep", ("--solver", "2term")),
                                          ("var", ("--solver", "cheby"))])
-def test_cli_refusals_match_tpuwave(tmp_path, capsys, cmode, flags):
+def test_cli_refusals_match_tpuwave(tmp_path, capsys, cmode, flags, r):
     from tpuwave.cli import newmark as jcli
     from tpuwave_torch.cli import newmark as tcli
-    path = _write(tmp_path, _case(cmode), "case")
+    path = _write(tmp_path, _case(cmode, R=r), "case")
     assert _cli(jcli, path, tmp_path, "jax", flags) == 1
     err_j = capsys.readouterr().err
     assert _cli(tcli, path, tmp_path, "torch",
@@ -64,16 +64,6 @@ def test_cli_refusals_match_tpuwave(tmp_path, capsys, cmode, flags):
     err_t = capsys.readouterr().err
     assert err_t == err_j and err_t.startswith(f"--solver {flags[1]} ")
     assert "Traceback" not in err_t
-
-
-@pytest.mark.parametrize("cmode", ["var", "tdep"])
-def test_cli_r2_refuses_varying_c_in_one_line(tmp_path, capsys, cmode):
-    from tpuwave_torch.cli import theta as tcli
-    path = _write(tmp_path, _case(cmode, R="2"), "case")
-    assert _cli(tcli, path, tmp_path, "torch", ("--device", "cpu")) == 1
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "ROADMAP A5 (R=2)" in err[0]
-    assert not (tmp_path / "torch").exists()
 
 
 @pytest.mark.parametrize("family,cmode,flags", [

@@ -143,12 +143,6 @@ def run_main(family: str, argv=None) -> int:
         print("imported meshes (Mesh File Name) are not ported yet "
               "(ROADMAP A10)", file=sys.stderr)
         return 1
-    if params.r == 2:
-        from tpuwave_torch.models.fast_engine_p2 import p2_c_refusal
-        refusal = p2_c_refusal(params)
-        if refusal is not None:
-            print(refusal, file=sys.stderr)
-            return 1
 
     # export the reference's env channels for the duration of the run only
     env_save = {k: os.environ.get(k) for k in

@@ -38,8 +38,8 @@ constant stencil too); the mass solves keep B3, and ``--precond mg``
 sizes a frozen constant-c V-cycle (rms c at t = 0, ``_frozen_c_ref``)
 whose fine level still runs on B4 / B3. ``--solver cheby`` needs a
 constant c. R = 2 problems route to the P2 canvas engines
-(models/fast_engine_p2.py, models/fast_engine_p2_2term.py), which take a
-constant c only (ROADMAP A5 (R=2)); the parity engine (A10) raises
+(models/fast_engine_p2.py, models/fast_engine_p2_2term.py), which take
+the same three kinds of c; the parity engine (A10) raises
 NotImplementedError.
 
 State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
@@ -77,8 +77,9 @@ class FastGridState(NamedTuple):
     u: torch.Tensor
     v: torch.Tensor
     a: torch.Tensor   # consistent acceleration (Newmark); zeros for theta
-    #: K(t^n) varcoef scales (ny, nx, 2) carried across steps under `Time
-    #: Dependent C` (theta family only; None otherwise), as tpuwave's
+    #: K(t^n) varcoef scales carried across steps under `Time Dependent C`
+    #: (theta family only; None otherwise), as tpuwave's: (ny, nx, 2) at
+    #: R = 1, (2, Q, ny, nx) at R = 2
     k_payload: Optional[torch.Tensor] = None
 
 
@@ -126,8 +127,9 @@ def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
     parity CG contract, default), ``2term`` (the displacement recurrence,
     models/fast_engine_2term.py) or ``cheby`` (restarted Chebyshev
     iteration). ``engine_kwargs`` take ``dtype`` and ``device`` (default
-    "cuda", which raises where there is no card). R = 2 problems route to
-    the P2 plane-canvas engines, which also take ``cheby_solver_degree``,
+    "cuda", which raises where there is no card). R = 2 problems, with a
+    constant, spatially varying or time-dependent c, route to the P2
+    plane-canvas engines, which also take ``cheby_solver_degree``,
     ``mg_pre_degree`` and ``mg_smooth_range``."""
     p = problem
     if p.r == 2:

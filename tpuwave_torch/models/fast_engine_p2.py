@@ -1,13 +1,23 @@
 """P2 (R = 2) product-surface engine on plane canvases.
 
-Counterpart of tpuwave's models/fast_engine_p2.py for constant wave speed.
+Counterpart of tpuwave's models/fast_engine_p2.py.
 :class:`FastP2ThetaSolver` and :class:`FastP2NewmarkSolver` implement the
 EXACT parity step algebra of the P1 engines (models/fast_engine.py) on the
 four P2 DoF planes (ops/stencil_p2.py): symmetric Dirichlet elimination
 with time-dependent g on the vertex AND edge-midpoint boundary planes,
 the derived acceleration boundary formulas (WaveNewmark.cpp:177-262), the
 quadrature-consistent P2 load (r+1 rule = gauss_simplex(3)), the
-consistent a0 solve, and the same ReductionControl stopping contract.
+consistent a0 solve, and the same ReductionControl stopping contract,
+with tpuwave's wave-speed class:
+
+* constant c          -> constant block-stencils M, K and M + coef K
+* spatially varying c -> K a :class:`P2VarcoefStencil` from the scale
+                         planes det w_q c^2(x_kq), built once
+* `Time Dependent C`  -> K(t) rebuilt from c(x, y, t) every step; the
+                         theta family carries K(t^n)'s (2, Q, ny, nx)
+                         scale planes across steps in
+                         ``FastGridState.k_payload`` (the operator built
+                         from them is kept beside them)
 
 The state lives as four zero-padded CANVASES (4, ny+3, nx+3) for the whole
 step. Every constant-stencil canvas apply goes through
@@ -20,16 +30,21 @@ tail on ``KernelGmgPreconditioner`` (B4 + B3). tpuwave used its fused
 kernels only for f32 on an accelerator, because Mosaic has no f64; the
 CUDA kernels take both, so every run on the card goes through them.
 
+With a varying C the K applies are torch ops (tpuwave runs no fused
+kernel on its varcoef operator either); the mass applies stay on B11,
+including the mass part of the system M + coef K(c), whose constrained
+apply is B11's interior form plus coef times the varcoef apply.
+``--precond mg`` then builds a frozen constant-c V-cycle at the rms of
+c(x, y, 0) (``_frozen_c_ref``) that still smooths on B12 / B13 and runs
+its P1 tail on B4 / B3. ``--solver cheby`` needs a constant c.
+
 Flat vectors appear only at the diagnostics / IO boundary (log cadence),
 through :class:`_CanvasDiag` around :class:`P2GridDiagnostics`.
-Spatially varying or time-dependent C (tpuwave's P2VarcoefStencil) is
-ROADMAP A5 (R=2): :func:`p2_c_refusal` names it, the CLI prints it before
-the run, and the engine raises NotImplementedError with it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,42 +54,37 @@ from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave_torch.core.quadrature import gauss_simplex
 from tpuwave_torch.models.fast_engine import (FastGridState, StepLoopMixin,
                                               fast_engine_ineligible_reason)
-from tpuwave_torch.models.p2_diag import P2_PLANE_OFFS, P2GridDiagnostics
+from tpuwave_torch.models.p2_diag import (P2_PLANE_OFFS, P2GridDiagnostics,
+                                          p2_plane_coords)
 from tpuwave_torch.ops import kernels_p2
 from tpuwave_torch.ops.assembly import (element_mass_class,
                                         element_stiffness_class)
 from tpuwave_torch.ops.stencil import P1_CLASS_CORNERS
 from tpuwave_torch.ops.stencil_p2 import (_P2_POSITIONS, _PLANES,
-                                          P2PlaneStencil, canvas_shape,
-                                          canvases_to_planes,
-                                          p2_plane_shapes, planes_to_flat)
+                                          P2PlaneStencil, P2VarcoefStencil,
+                                          canvas_shape, canvases_to_planes,
+                                          p2_plane_shapes, p2_varcoef_data,
+                                          p2_varcoef_scales, planes_to_flat)
 from tpuwave_torch.solve.cg import pcg
 
-__all__ = ["FastP2ThetaSolver", "FastP2NewmarkSolver", "p2_c_refusal"]
-
-
-def p2_c_refusal(params):
-    """The one-line refusal of a wave speed the P2 engines do not take
-    (time-dependent or spatially varying C), or None."""
-    if params.time_dependent_c and params.c.time_dependent:
-        return "time-dependent C at R = 2 is not ported yet (ROADMAP A5 (R=2))"
-    if params.c.constant_value is None:
-        return ("spatially varying C at R = 2 is not ported yet "
-                "(ROADMAP A5 (R=2))")
-    return None
+__all__ = ["FastP2ThetaSolver", "FastP2NewmarkSolver"]
 
 
 class _P2Op(NamedTuple):
-    """Canvas operator of a constant P2 block-stencil: ``apply_c`` the
-    constrained apply (the CG matvec), ``apply_i`` = where(interior, A x,
-    0) with x read unmasked (the rhs assembly and the boundary lift), both
-    kernel B11 on the card; the (4, 1, 1) plane diagonals and an upper
-    eigenvalue bound (f32 backward-error floor / Chebyshev)."""
-    stencil: P2PlaneStencil
+    """Canvas P2 operator: ``apply_c`` the constrained apply (the CG
+    matvec), ``apply_i`` = where(interior, A x, 0) with x read unmasked
+    (the rhs assembly and the boundary lift), the assembled diagonal
+    ((4, 1, 1) plane constants, or (4, Hc, Wc) canvases with 1.0 padding)
+    and an upper eigenvalue bound (f32 backward-error floor / Chebyshev),
+    a host float. A constant block-stencil has ``stencil`` and its applies
+    are kernel B11 on the card; a varcoef operator has ``stencil`` None
+    and ``var`` its P2VarcoefStencil (torch ops)."""
+    stencil: Optional[P2PlaneStencil]
     apply_c: Callable
     apply_i: Callable
     diag: torch.Tensor
     lam_hi: float
+    var: Optional[P2VarcoefStencil] = None
 
 
 def _gershgorin_plane_stencil(op: P2PlaneStencil) -> float:
@@ -134,14 +144,22 @@ class _FastP2EngineBase(StepLoopMixin):
         p = problem
         if p.r != 2:
             raise ValueError("FastP2*Solver needs R = 2")
-        refusal = p2_c_refusal(p)
-        if refusal is not None:
-            raise NotImplementedError(refusal)
         c_const = p.c.constant_value
+        if p.time_dependent_c and p.c.time_dependent:
+            self._c_mode = "tdep"
+        elif c_const is None:
+            self._c_mode = "varcoef"
+        else:
+            self._c_mode = "const"
         if solver not in ("3term", "cheby"):
             raise ValueError(f"unknown solver {solver!r} for this engine "
                              "(3term | cheby; 2term is the displacement-"
                              "form classes in models/fast_engine_p2_2term)")
+        if solver == "cheby" and self._c_mode != "const":
+            raise ValueError(
+                "--solver cheby needs a constant wave speed (block-symbol "
+                "eigenvalue bounds); use 3term for varcoef or "
+                "time-dependent C")
         self.device = resolve_device(device)
         self.mesh = StructuredTriMesh(p.nel, p.geometry)
         self.space = FeSpace(self.mesh, 2)
@@ -157,6 +175,7 @@ class _FastP2EngineBase(StepLoopMixin):
         self._g = p.g
         self._dgdt = p.dgdt
         self._f = p.f if not p.f.is_zero else None
+        self._c = p.c
         self._solver = solver
         self._cheby_solver_degree = int(cheby_solver_degree)
 
@@ -164,10 +183,10 @@ class _FastP2EngineBase(StepLoopMixin):
         mass = P2PlaneStencil(
             self.space, element_mass_class(self.space, quad), dtype,
             self.device)
-        stiff = P2PlaneStencil(
-            self.space, element_stiffness_class(self.space, quad,
-                                                float(c_const) ** 2),
-            dtype, self.device)
+        #: the Gershgorin bound of K(c = 1): lam(K(c)) <= max(c^2) times it
+        self._k_unit_lam = _gershgorin_plane_stencil(P2PlaneStencil(
+            self.space, element_stiffness_class(self.space, quad, 1.0),
+            dtype, self.device))
         #: system coefficient: M + coef * K
         self.coef = (p.beta * p.dt * p.dt if self.method_name == "newmark"
                      else (p.theta * p.dt) ** 2)
@@ -186,10 +205,21 @@ class _FastP2EngineBase(StepLoopMixin):
             self.nx, self.ny, self._cshape, self.device)
         self.boundary = self.support & ~self.interior
         self._mass_op = self._op(mass)
-        self._k_op = self._op(stiff)
-        # theta = 0 / beta = 0: the system is the bare mass
-        self._sys_op = self._op(mass.axpy(self.coef, stiff)) \
-            if self.coef != 0.0 else self._mass_op
+        #: the last varcoef K built, beside the scale planes it came from
+        self._k_last = None
+        #: K and the system M + coef K: built here for a constant or a
+        #: spatially varying c, per step (None here) for a time-dependent c
+        if self._c_mode == "const":
+            self._k_op = self._op(P2PlaneStencil(
+                self.space, element_stiffness_class(self.space, quad,
+                                                    float(c_const) ** 2),
+                dtype, self.device))
+        elif self._c_mode == "varcoef":
+            self._k_op = self._k_from_scales(self._tdep_scales(0.0))
+        else:
+            self._k_op = None
+        self._sys_op = (self._system_of(self._k_op)
+                        if self._k_op is not None else None)
         self._prec_mass = 1.0 / self._mass_op.diag
 
         # preconditioner of the implicit system (the theta v-system is the
@@ -202,8 +232,12 @@ class _FastP2EngineBase(StepLoopMixin):
         self.precond = precond
         self.cheby_degree = int(cheby_degree)
         if precond == "mg":
-            self._prec_sys = self._build_mg(p, float(c_const),
-                                            int(mg_pre_degree),
+            # a varying c freezes the hierarchy at the rms wave speed (a
+            # fixed SPD V-cycle stays a valid CG preconditioner for a
+            # varying SPD system)
+            c_ref = (float(c_const) if c_const is not None
+                     else self._frozen_c_ref())
+            self._prec_sys = self._build_mg(p, c_ref, int(mg_pre_degree),
                                             float(mg_smooth_range))
         elif precond in ("jacobi", "chebyshev"):
             self._prec_sys = None   # derived from the system op per solve
@@ -215,9 +249,11 @@ class _FastP2EngineBase(StepLoopMixin):
                 self._sys_op.stencil)
 
     def _build_mg(self, p, c: float, pre_degree: int, smooth_range: float):
-        """The canvas (p+h)-multigrid V-cycle: smoothing blocks through
-        kernels B12 / B13, the P1 tail on KernelGmgPreconditioner (B4 + B3)
-        when the hierarchy has >= 2 levels."""
+        """The canvas (p+h)-multigrid V-cycle at wave speed ``c``:
+        smoothing blocks through kernels B12 / B13 on the system stencil
+        (the constant one of ``p2_gmg_for_system`` when c varies), the P1
+        tail on KernelGmgPreconditioner (B4 + B3) when the hierarchy has
+        >= 2 levels."""
         from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
                                                    P2CanvasGmgPreconditioner,
                                                    p2_gmg_for_system)
@@ -230,8 +266,9 @@ class _FastP2EngineBase(StepLoopMixin):
             p1_cycle = KernelGmgPreconditioner(p1_cycle.levels,
                                                p1_cycle.coarse_theta,
                                                p1_cycle.coarse_coeffs)
-        return P2CanvasGmgPreconditioner(self._sys_op.stencil,
-                                         flat_pre.sm_theta,
+        mg_st = (self._sys_op.stencil if self._c_mode == "const"
+                 else flat_pre.system)
+        return P2CanvasGmgPreconditioner(mg_st, flat_pre.sm_theta,
                                          flat_pre.sm_coeffs, p1_cycle,
                                          self._cshape)
 
@@ -261,6 +298,92 @@ class _FastP2EngineBase(StepLoopMixin):
         pad = pad_rel * (hi - lo)
         lo = max(lo - pad, 1e-12 * hi)
         return lo, hi + pad
+
+    # -- wave-speed machinery -------------------------------------------
+    def _frozen_c_ref(self) -> float:
+        """rms of c(x, y, 0) over the DoF support points, in f64."""
+        tot = cnt = 0.0
+        for xs, ys in p2_plane_coords(self.mesh, torch.float64,
+                                      self.device).values():
+            cv = torch.broadcast_to(
+                self._c.evaluate(xs, ys, 0.0).to(torch.float64), xs.shape)
+            tot += float(torch.sum(cv ** 2))
+            cnt += cv.numel()
+        return float(np.sqrt(tot / cnt))
+
+    def _tdep_data(self):
+        if getattr(self, "_tdep_cache", None) is None:
+            self._tdep_cache = p2_varcoef_data(self.space, gauss_simplex(3))
+        return self._tdep_cache
+
+    def _tdep_scales(self, t) -> torch.Tensor:
+        """(2, Q, ny, nx) planes det * w_q * c^2(x_ekq, t)."""
+        _, frac, w, det = self._tdep_data()
+        return p2_varcoef_scales(self.mesh, self._c, t, frac, w, det,
+                                 self.dtype, self.device)
+
+    def _k_from_scales(self, s: torch.Tensor) -> _P2Op:
+        """The varcoef K from the scale planes ``s`` (the operator last
+        built is reused for the same ``s``); lam_hi by the SPD majorant
+        K(c) <= max(c^2) K(1), read to the host once per build."""
+        if self._k_last is not None and self._k_last[0] is s:
+            return self._k_last[1]
+        G, _, w, det = self._tdep_data()
+        op = P2VarcoefStencil(self.space, s, G, self.dtype)
+        wdet = torch.tensor(det * np.asarray(w), dtype=self.dtype,
+                            device=self.device)
+        c2max = float(torch.max(s / wdet[None, :, None, None]))
+        # padding pinned to 1.0 (a zero pad diagonal would NaN the Jacobi
+        # scaling: inf * 0 residual)
+        diag = torch.where(self.support,
+                           op.diagonal_canvases(self._cshape), 1.0)
+        interior = self.interior
+
+        def apply_c(w):
+            return torch.where(
+                interior, op.apply_canvases(torch.where(interior, w, 0.0)),
+                diag * w)
+
+        def apply_i(xc):
+            return torch.where(interior, op.apply_canvases(xc), 0.0)
+        k_op = _P2Op(None, apply_c, apply_i, diag,
+                     c2max * self._k_unit_lam, op)
+        self._k_last = (s, k_op)
+        return k_op
+
+    def _k_at(self, t) -> _P2Op:
+        if self._k_op is not None:
+            return self._k_op
+        return self._k_from_scales(self._tdep_scales(t))
+
+    def _system_of(self, k_op: _P2Op) -> _P2Op:
+        """M + coef * K as one canvas operator: the merged constant
+        stencil when K is constant; else B11's interior form of M plus
+        coef times the varcoef apply (only interior rows of M x are
+        read)."""
+        coef = self.coef
+        m_op = self._mass_op
+        if coef == 0.0:   # theta = 0 / beta = 0: the system is bare mass
+            return m_op
+        if k_op.stencil is not None:
+            return self._op(m_op.stencil.axpy(coef, k_op.stencil))
+        m_terms, nx, ny = m_op.stencil.terms, self.nx, self.ny
+        zeros = (0.0, 0.0, 0.0, 0.0)
+        k_var, interior = k_op.var, self.interior
+        diag = torch.where(self.support, m_op.diag + coef * k_op.diag, 1.0)
+
+        def apply_c(w):
+            y = kernels_p2.p2_constrained_apply(w, m_terms, zeros, nx, ny) \
+                + coef * k_var.apply_canvases(torch.where(interior, w, 0.0))
+            return torch.where(interior, y, diag * w)
+
+        def apply_i(xc):
+            y = kernels_p2.p2_constrained_apply(
+                xc, m_terms, zeros, nx, ny, mask_input=False) \
+                + coef * k_var.apply_canvases(xc)
+            return torch.where(interior, y, 0.0)
+        return _P2Op(None, apply_c, apply_i, diag,
+                     m_op.lam_hi + coef * k_op.lam_hi, k_var)
 
     # -- canvas layout helpers ------------------------------------------
     def to_flat(self, xc) -> torch.Tensor:
@@ -394,8 +517,12 @@ class _FastP2EngineBase(StepLoopMixin):
         # chebyshev on the CONSTRAINED apply; the Gershgorin bound of the
         # unconstrained operator majorises it (pinned rows pure diagonal)
         from tpuwave_torch.solve.chebyshev import chebyshev_apply
-        lmax = sys_op.lam_hi / min(sys_op.stencil.plane_diag[q]
-                                   for q in _PLANES)
+        if sys_op.stencil is not None:
+            dmin = min(sys_op.stencil.plane_diag[q] for q in _PLANES)
+        else:
+            dmin = float(torch.min(torch.where(self.support, sys_op.diag,
+                                               torch.inf)))
+        lmax = sys_op.lam_hi / dmin
         deg = self.cheby_degree
 
         def prec(r):
@@ -510,8 +637,8 @@ class _FastP2EngineBase(StepLoopMixin):
 class FastP2ThetaSolver(_FastP2EngineBase):
     """theta-method on the P2 canvases: the parity algebra of tpuwave's
     models/theta.py (reference WaveTheta.cpp:119-339), including
-    time-dependent Dirichlet g on vertex AND edge-midpoint planes and
-    theta-weighted forcing."""
+    time-dependent Dirichlet g on vertex AND edge-midpoint planes,
+    theta-weighted forcing, and variable / time-dependent wave speed."""
 
     method_name = "theta"
 
@@ -523,16 +650,30 @@ class FastP2ThetaSolver(_FastP2EngineBase):
         p = self.disc.params
         u0 = self._cdata(p.u0, 0.0)
         v0 = self._cdata(p.v0, 0.0)
-        return FastGridState(u=u0, v=v0, a=torch.zeros_like(u0))
+        pay = self._tdep_scales(0.0) if self._c_mode == "tdep" else None
+        return FastGridState(u=u0, v=v0, a=torch.zeros_like(u0),
+                             k_payload=pay)
 
     def step(self, state: FastGridState, t: float):
         dt, th = self.dt, self.theta
         u, v = state.u, state.v
-        sys_op = self._sys_op
+        pay_np1 = None
+        if self._c_mode == "tdep":
+            # K^n from the carried payload (built as K^{n+1} last step);
+            # K^{n+1} rebuilt from c(x, y, t): one build per step
+            k_n = (self._k_from_scales(state.k_payload)
+                   if state.k_payload is not None
+                   else self._k_at(t - dt))
+            pay_np1 = self._tdep_scales(t)
+            k_np1 = self._k_from_scales(pay_np1)
+            sys_op = self._system_of(k_np1)
+        else:
+            k_n = k_np1 = self._k_op
+            sys_op = self._sys_op
         prec_sys = self._sys_precond(sys_op)
 
         m_rhs = self._mass_op.apply_i
-        mu, ku = m_rhs(u), self._k_op.apply_i(u)
+        mu, ku = m_rhs(u), k_n.apply_i(u)
         mv = m_rhs(v)
 
         if self._f is not None:
@@ -551,7 +692,7 @@ class FastP2ThetaSolver(_FastP2EngineBase):
 
         # v system (WaveTheta.cpp:188-249, 296-339)
         rhs_v = mv - (dt * (1.0 - th)) * ku \
-            - (dt * th) * self._k_op.apply_i(u_new)
+            - (dt * th) * k_np1.apply_i(u_new)
         if f_avg is not None:
             rhs_v = rhs_v + dt * f_avg
         res_v = self._solve(self._mass_op, rhs_v,
@@ -559,7 +700,8 @@ class FastP2ThetaSolver(_FastP2EngineBase):
                             self._prec_mass, g_zero=self._dgdt.is_zero)
         v_new = res_v.x.to(self.dtype)
 
-        new_state = FastGridState(u=u_new, v=v_new, a=state.a)
+        new_state = FastGridState(u=u_new, v=v_new, a=state.a,
+                                  k_payload=pay_np1)
         info = {
             "iterations_1": res_u.iterations,
             "iterations_2": res_v.iterations,
@@ -573,7 +715,8 @@ class FastP2NewmarkSolver(_FastP2EngineBase):
     """Newmark-beta on the P2 canvases: the parity algebra of tpuwave's
     models/newmark.py (reference WaveNewmark.cpp:116-390): consistent-mass
     a-solve (also at beta = 0), the derived acceleration boundary
-    formulas, consistent a0, per-step forcing."""
+    formulas, consistent a0, per-step forcing, variable / time-dependent
+    wave speed."""
 
     method_name = "newmark"
 
@@ -598,7 +741,7 @@ class FastP2NewmarkSolver(_FastP2EngineBase):
         p, dt = self.disc.params, self.dt
         u0 = self._cdata(p.u0, 0.0)
         v0 = self._cdata(p.v0, 0.0)
-        rhs = -self._k_op.apply_i(u0)
+        rhs = -self._k_at(0.0).apply_i(u0)
         if self._f is not None:
             rhs = rhs + self.grid_load(0.0)
         g_p = self._bdata(self._g, dt)
@@ -614,12 +757,15 @@ class FastP2NewmarkSolver(_FastP2EngineBase):
         dt, beta, gamma = self.dt, self.beta, self.gamma
         u, v, a = state.u, state.v, state.a
 
-        sys_op = self._sys_op
+        # the elastic force acts at t^{n+1}
+        k_np1 = self._k_at(t)
+        sys_op = (self._sys_op if self._sys_op is not None
+                  else self._system_of(k_np1))
         prec_sys = self._sys_precond(sys_op)
 
         # z = u + dt v + dt^2 (1/2 - beta) a  (WaveNewmark.cpp:123-126)
         z = u + dt * v + (dt * dt * (0.5 - beta)) * a
-        rhs = -self._k_op.apply_i(z)
+        rhs = -k_np1.apply_i(z)
         if self._f is not None:
             rhs = rhs + self.grid_load(t)
 

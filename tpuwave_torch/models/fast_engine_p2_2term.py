@@ -29,8 +29,11 @@ layout of models/fast_engine_p2.py:
 
 Every canvas apply is kernel B11 on the card (the recurrence stencil and
 the lift read the true driven boundary values: ``mask_input=False``), and
-the correction solve's V-cycle runs B12 / B13. Scope: constant wave speed,
-beta > 0 for Newmark.
+the correction solve's V-cycle runs B12 / B13; with a spatially varying c
+the K applies of the recurrence are torch ops (``P2VarcoefStencil``) and
+the mass part of the system stays on B11. Scope: a constant or spatially
+varying wave speed (the elimination assumes K static in time), beta > 0
+for Newmark.
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
 """O(grid) diagnostics surface for the P2 product engine.
 
-Counterpart of tpuwave's models/p2_diag.py for constant wave speed:
-everything the run driver needs (models/runner.py) reduces to plane
-arithmetic on the four P2 sub-grids of ops/stencil_p2.py (V vertices,
-H/W/D edge midpoints):
+Counterpart of tpuwave's models/p2_diag.py: everything the run driver
+needs (models/runner.py) reduces to plane arithmetic on the four P2
+sub-grids of ops/stencil_p2.py (V vertices, H/W/D edge midpoints):
 
 * interpolation = expression evaluation at plane coordinates,
 * the energy quadratic forms = per-class (6, 6) element matrices
-  contracted against 6 plane windows,
+  contracted against 6 plane windows (with a varying c, u^T K u with K
+  the varcoef stencil frozen at t = 0, as the reference freezes it for the
+  energy),
 * the L2/H1 errors = the r+2 rule (gauss_simplex(4)) with q-DEPENDENT
   per-class P2 gradients,
 * the probe = closed-form cell/plane indexing.
@@ -16,7 +17,7 @@ State vectors are flat (n_dofs,) in the core/mesh.py numbering. Semantics
 match tpuwave's P2GridDiagnostics to summation-order roundoff (identical
 element matrices and quadrature; reference WaveEquationBase.cpp:148-222
 energy/probe, :367-423 errors with the r+2 rule and the 1e-14 relative
-guard). Spatially varying C is ROADMAP A5.
+guard).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from tpuwave_torch.ops.assembly import (element_mass_class,
                                         element_stiffness_class)
 from tpuwave_torch.ops.stencil import P1_CLASS_CORNERS
 from tpuwave_torch.ops.stencil_p2 import (_P2_POSITIONS, _PLANES,
-                                          flat_to_planes, p2_plane_shapes)
+                                          P2VarcoefStencil, flat_to_planes,
+                                          p2_plane_shapes, p2_varcoef_data,
+                                          p2_varcoef_scales)
 from tpuwave_torch.utils.params import Params
 
 __all__ = ["P2GridDiagnostics", "P2_PLANE_OFFS", "p2_plane_offsets",
@@ -87,16 +90,12 @@ def p2_interpolate_flat(mesh: StructuredTriMesh, expr, t, dtype, device):
 
 class P2GridDiagnostics:
     """The runner-facing diagnostics of a P2 structured rectangle run, on
-    tensors of ``dtype`` on ``device`` (constant wave speed)."""
+    tensors of ``dtype`` on ``device``."""
 
     def __init__(self, params: Params, *, dtype: torch.dtype,
                  device: torch.device):
         if params.r != 2:
             raise ValueError("P2GridDiagnostics needs R = 2")
-        c_const = params.c.constant_value
-        if c_const is None:
-            raise NotImplementedError(
-                "spatially varying C is not ported yet (ROADMAP A5)")
         self.params = params
         self.mesh = StructuredTriMesh(params.nel, params.geometry)
         self.dtype = dtype
@@ -108,8 +107,15 @@ class P2GridDiagnostics:
 
         quad = gauss_simplex(3)                     # assembly rule r + 1
         self._m_class = np.asarray(element_mass_class(self.space, quad))
-        self._k_class = np.asarray(
-            element_stiffness_class(self.space, quad, c_const ** 2))
+        c_const = params.c.constant_value
+        if c_const is not None:
+            self._k_class = np.asarray(
+                element_stiffness_class(self.space, quad, c_const ** 2))
+        else:
+            self._k_class = None
+        #: varcoef: K frozen at t = 0 as a P2VarcoefStencil, built at the
+        #: first energy call
+        self._k_frozen = None
 
         # probe: containing cell + P2 basis at the domain centre
         # (reference VectorTools::point_value, WaveEquationBase.cpp:170-222)
@@ -168,17 +174,31 @@ class P2GridDiagnostics:
 
     def energy(self, u, v):
         """E = 1/2 (v^T M v + u^T K u) (reference WaveEquationBase.cpp:
-        148-154; K contains c^2). 0-d tensor."""
+        148-154; K contains c^2, frozen at t = 0 like the reference).
+        0-d tensor."""
         nx, ny = self.mesh.nx, self.mesh.ny
-        up = flat_to_planes(u.to(self.dtype), nx, ny)
+        u = u.to(self.dtype)
+        up = flat_to_planes(u, nx, ny)
         vp = flat_to_planes(v.to(self.dtype), nx, ny)
         em = ek = torch.zeros((), dtype=self.dtype, device=self.device)
         for k in range(2):
             em = em + self._quad_form_class(self._windows(vp, k),
                                             self._m_class[k])
-            ek = ek + self._quad_form_class(self._windows(up, k),
-                                            self._k_class[k])
+            if self._k_class is not None:
+                ek = ek + self._quad_form_class(self._windows(up, k),
+                                                self._k_class[k])
+        if self._k_class is None:
+            ek = torch.dot(u, self._frozen_k()(u))
         return 0.5 * (em + ek)
+
+    def _frozen_k(self) -> P2VarcoefStencil:
+        if self._k_frozen is None:
+            G, frac, w, det = p2_varcoef_data(self.space, gauss_simplex(3))
+            scales = p2_varcoef_scales(self.mesh, self.params.c, 0.0, frac,
+                                       w, det, self.dtype, self.device)
+            self._k_frozen = P2VarcoefStencil(self.space, scales, G,
+                                              self.dtype)
+        return self._k_frozen
 
     # -- probe ----------------------------------------------------------
     def probe(self, u):

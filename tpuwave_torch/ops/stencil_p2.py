@@ -1,7 +1,7 @@
 """P2 plane-stencil operators: the structured fast path for quadratics.
 
-Counterpart of tpuwave's ops/stencil_p2.py (constant wave speed). On the
-structured triangulated rectangle the P2 DoFs split into FOUR
+Counterpart of tpuwave's ops/stencil_p2.py. On the structured
+triangulated rectangle the P2 DoFs split into FOUR
 translation-invariant sub-grids ("planes"):
 
     V: vertices                  (ny+1, nx+1)
@@ -11,7 +11,9 @@ translation-invariant sub-grids ("planes"):
 
 and for constant wave speed both M and K are CONSTANT block-stencils
 between planes: y_p[n] = sum_{q, off} C[p,q,off] * x_q[n + off] with
-offsets in {-1, 0, 1}^2. Each plane is embedded at (1, 1) in a common
+offsets in {-1, 0, 1}^2 (:class:`P2PlaneStencil`); a spatially varying or
+time-dependent c makes K a variable-coefficient operator
+(:class:`P2VarcoefStencil`). Each plane is embedded at (1, 1) in a common
 zero-padded (ny+3, nx+3) canvas, so the cross-plane shifts are uniform and
 ``torch.roll`` wraparound lands only in the canvas halo ring, outside every
 plane's support. The canvas is the true (ny+3, nx+3): no row or column
@@ -20,7 +22,8 @@ multiple (tpuwave's Mosaic alignment) is needed on the card.
 The flat DoF ordering (core/mesh.py: vertices, then h/v/d edge blocks,
 each row-major) makes flat <-> planes a reshape/concat. These are the
 plain PyTorch forms; the CUDA kernels of ``ops/kernels_p2.py`` apply the
-same block-stencil.
+same constant block-stencil. The varcoef operator is torch ops (tpuwave
+runs no fused kernel on it either).
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ import torch
 
 from tpuwave_torch.config import resolve_device
 from tpuwave_torch.core.mesh import FeSpace
+from tpuwave_torch.ops.stencil import P1_CLASS_CORNERS
 
 __all__ = ["P2PlaneStencil", "p2_plane_shapes", "flat_to_planes",
            "planes_to_flat", "canvas_shape", "planes_to_canvases",
-           "canvases_to_planes", "coeffs_to_static", "apply_terms"]
+           "canvases_to_planes", "coeffs_to_static", "apply_terms",
+           "p2_varcoef_data", "p2_varcoef_scales", "P2VarcoefStencil"]
 
 # local-DoF -> (plane, (di, dj)) cell-relative positions, per element class
 # (ordering matches core.mesh.FeSpace.cell_dofs: v0 v1 v2 e01 e12 e20)
@@ -200,3 +205,144 @@ class P2PlaneStencil:
         merged.plane_diag = {p: merged.coeffs.get((p, p, 0, 0), 1.0)
                              for p in _PLANES}
         return merged
+
+
+# ---------------------------------------------------------------------------
+# variable-coefficient P2 operator (time / space-dependent wave speed)
+# ---------------------------------------------------------------------------
+
+def p2_varcoef_data(space: FeSpace, quad):
+    """Host constants for the varcoef P2 stiffness on the structured grid.
+
+    Returns ``(G, frac, w, det)``: per-class per-quad gradient products
+    G[k, q, i, j] = grad phi_i(q) . grad phi_j(q) (physical), fractional
+    quadrature offsets frac[k, q, 2] within the unit grid cell, quadrature
+    weights w[q], and the constant |det J|. The element matrix at time t is
+    K_e = det * sum_q w_q c^2(x_eq, t) G[k, q]: unlike P1, G is
+    q-DEPENDENT for quadratics, so the scales are kept per (k, q).
+    """
+    sh = space.shape_at(quad)
+    grads = np.asarray(space.physical_grads(sh))        # (2, Q, 6, 2)
+    G = np.einsum("kqia,kqja->kqij", grads, grads)      # (2, Q, 6, 6)
+    ref = np.asarray(quad.points)                       # (Q, 2)
+    frac = np.empty((2, len(ref), 2))
+    for k in range(2):
+        c0, c1, c2_ = (np.asarray(c, float) for c in P1_CLASS_CORNERS[k])
+        frac[k] = (c0[None]
+                   + ref[:, 0:1] * (c1 - c0)[None]
+                   + ref[:, 1:2] * (c2_ - c0)[None])
+    return G, frac, np.asarray(quad.weights), float(space.mesh.det_j)
+
+
+def p2_varcoef_scales(mesh, c, t, frac, w, det, dtype,
+                      device) -> torch.Tensor:
+    """(2, Q, ny, nx) scale planes det * w_q * c^2(x_ekq, t) of the varcoef
+    P2 stiffness: ``c`` is the wave-speed expression, ``frac``, ``w`` and
+    ``det`` come from :func:`p2_varcoef_data`."""
+    ny, nx = mesh.ny, mesh.nx
+    (x0, y0) = mesh.origin
+    hx, hy = mesh.hx, mesh.hy
+    ix = torch.arange(nx, dtype=dtype, device=device)[None, :].expand(ny, nx)
+    iy = torch.arange(ny, dtype=dtype, device=device)[:, None].expand(ny, nx)
+    rows = []
+    for k in range(2):
+        qrows = []
+        for q in range(frac.shape[1]):
+            fx, fy = float(frac[k, q, 0]), float(frac[k, q, 1])
+            c2 = c.evaluate(x0 + (ix + fx) * hx, y0 + (iy + fy) * hy,
+                            t).to(dtype) ** 2
+            qrows.append((det * float(w[q]))
+                         * torch.broadcast_to(c2, (ny, nx)))
+        rows.append(torch.stack(qrows))
+    return torch.stack(rows)
+
+
+class P2VarcoefStencil:
+    """Variable-coefficient P2 stiffness.
+
+    ``scales``: (2, Q, ny, nx) per-class / per-quad-point planes
+    det * w_q * c^2(x_ekq, t) (:func:`p2_varcoef_scales`). Every
+    element-matrix entry (k, i, j) couples fixed plane positions, scaled by
+    its own (ny, nx) coefficient plane sum_q G[k, q, i, j] * scales[k, q].
+    tpuwave sums those planes inside every apply, where XLA fuses them; in
+    eager torch that is over a thousand launches a matvec, so here the (at
+    most 72) planes are built ONCE per operator, in tpuwave's order of
+    summation over q, and an apply is one ``addcmul_`` per plane on canvas
+    slices, in tpuwave's (k, i, j) order. Memory: 72 planes of (ny, nx),
+    ~0.6 GB at 1024^2 in f64.
+    """
+
+    def __init__(self, space: FeSpace, scales: torch.Tensor, G, dtype):
+        self.nx, self.ny = space.mesh.nx, space.mesh.ny
+        self.dtype = dtype
+        self.n_dofs = space.n_dofs
+        self.scales = scales                  # (2, Q, ny, nx)
+        self.G = np.asarray(G)                # (2, Q, 6, 6) host constants
+        #: {(k, i, j): sum_q G[k, q, i, j] * scales[k, q]}, nonzero only
+        self.planes = self._coeff_sums()
+
+    def _coeff_sums(self):
+        """sum_q scales[k, q] * G[k, q, i, j] -> (ny, nx) for every (k, i,
+        j) with a nonzero G (tpuwave's ``_coeff_plane``)."""
+        sums = {}
+        for k in range(2):
+            for i in range(6):
+                for j in range(6):
+                    acc = None
+                    for q in range(self.G.shape[1]):
+                        g = float(self.G[k, q, i, j])
+                        if g == 0.0:
+                            continue
+                        term = g * self.scales[k, q]
+                        acc = term if acc is None else acc + term
+                    if acc is not None:
+                        sums[(k, i, j)] = acc
+        return sums
+
+    def _canvas_shape(self):
+        return (self.ny + 3, self.nx + 3)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        cs = self._canvas_shape()
+        xc = planes_to_canvases(flat_to_planes(x, self.nx, self.ny), cs)
+        out = self.apply_canvases(xc)
+        return planes_to_flat(canvases_to_planes(out, self.nx, self.ny))
+
+    def apply_canvases(self, xc: torch.Tensor) -> torch.Tensor:
+        """Apply on stacked common canvases (4, Hc, Wc) (plane order V, H,
+        W, D, each embedded at (1, 1)): every plane's output window +=
+        coefficient plane * the source window. The caller guarantees zeros
+        outside each plane's support; every slice window stays inside the
+        canvas for any Hc >= ny + 3, Wc >= nx + 3."""
+        out = torch.zeros_like(xc)
+        ny, nx = self.ny, self.nx
+        for (k, i, j), cp in self.planes.items():
+            pa, (xa, ya) = _P2_POSITIONS[k][i]
+            pb, (xb, yb) = _P2_POSITIONS[k][j]
+            out[_PLANE_INDEX[pa], 1 + ya:1 + ya + ny,
+                1 + xa:1 + xa + nx].addcmul_(
+                cp, xc[_PLANE_INDEX[pb], 1 + yb:1 + yb + ny,
+                       1 + xb:1 + xb + nx])
+        return out
+
+    def diagonal_canvases(self, cshape) -> torch.Tensor:
+        """(4, Hc, Wc) EXACT assembled diagonal on the common canvases
+        (support entries only; zero on padding: callers pin the padding to
+        a harmless 1.0 themselves). Canvas twin of :meth:`diagonal`."""
+        ny, nx = self.ny, self.nx
+        diag = self.scales.new_zeros((4, *cshape))
+        for k in range(2):
+            for i in range(6):
+                cp = self.planes.get((k, i, i))
+                if cp is None:
+                    continue
+                pa, (xa, ya) = _P2_POSITIONS[k][i]
+                diag[_PLANE_INDEX[pa], 1 + ya:1 + ya + ny,
+                     1 + xa:1 + xa + nx] += cp
+        return diag
+
+    def diagonal(self) -> torch.Tensor:
+        """Flat EXACT assembled diagonal (the varcoef diagonal varies per
+        node, so it is assembled instead of broadcast)."""
+        d = self.diagonal_canvases(self._canvas_shape())
+        return planes_to_flat(canvases_to_planes(d, self.nx, self.ny))
