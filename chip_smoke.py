@@ -34,7 +34,10 @@ varying and with a time-dependent wave speed at R = 1. Path G: the R = 2
 engines of the CLIs with a spatially varying and with a time-dependent
 wave speed (the varcoef K in torch ops, the mass part and every mass solve
 on B11, the frozen mg V-cycle on B12 / B13 and B4 / B3), up to 1024^2
-elements (4.2 M DoF) against tpuwave. Phases:
+elements (4.2 M DoF) against tpuwave. Path H: the parity (gather-path)
+engine of the CLIs (--engine parity: ops/operators.py's matvecs in torch
+ops, the mg V-cycle's P1 levels on B4 / B3) at Nel 24 and at BASELINE.md's
+640^2. Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
@@ -124,6 +127,25 @@ elements (4.2 M DoF) against tpuwave. Phases:
      tpuwave's and the last CSV rows within rtol 1e-8 of tpuwave's (its
      CPU run; error norms within 1e-11 of the solution's norm); then one step of (b) under torch.profiler: the device-busy
      share, the varcoef apply's share (torch ops) and B11-B13's
+
+ 22. both CLIs on the parity engine at Nel 24, 10 steps, f64, Log Every 1:
+     theta 1/2 jacobi, theta 1 mg, newmark 1/4 chebyshev, newmark 1/4
+     jacobi with a time-dependent C, theta 1/2 on a forcing preset, and at
+     R = 2 theta 1/2 mg and newmark 1/4 chebyshev with a varying C, on
+     --device cuda and on --device cpu: CSVs agree, per-step CG counts are
+     equal, the mg runs launch B4 and B3, and a second cuda run of each mg
+     case (through api.build_solver) is bitwise equal to the first
+ 23. the parity engine at 640^2 (410,881 DoF), f64, on cuda: (a) phase
+     6's file (newmark beta 1/4, dt 8e-5, T 0.05, logging off): the final
+     relative L2 error within 1e-6 of tpuwave's and the CG total equal to
+     phase 6's; (b) theta 1/2 --precond mg, (c) R = 2 at Nel 320 (the same
+     DoF) newmark beta 1/4 --precond mg, dt 1e-2, 10 steps, Log Every 1,
+     each against the fast engine on the same file: per-step CG counts
+     equal, last CSV rows within rtol 1e-10 plus one unit in the last
+     printed digit, B4 and B3 launched; ms/step, peak device memory and
+     launches per step of each run; then one step of (a) and one of (b)
+     under torch.profiler: the device-busy share, the top device ops, and
+     the shares of the gather and the gather-sum
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -328,6 +350,7 @@ PATH_F = ("leapfrog_step", "leapfrog_multistep_driven", "cheby_block",
           "constrained_stencil_apply")
 PATH_G = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
           "cheby_block", "constrained_stencil_apply")
+PATH_H = ("cheby_block", "constrained_stencil_apply")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -1257,12 +1280,11 @@ def phase_leapfrog(torch, dev):
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the CLIs
 # ---------------------------------------------------------------------------
-def _case(work: Path, **over) -> Path:
-    case = json.loads((ROOT / "parameters" /
-                       "standing-mode-wsol.json").read_text())
+def _case(work: Path, preset: str = "standing-mode-wsol", **over) -> Path:
+    case = json.loads((ROOT / "parameters" / f"{preset}.json").read_text())
     case.update({"Nel": "640", "Dt": "8e-5", "Save Solution": "false"})
     case.update(over)
-    path = work / "standing-mode-wsol.json"
+    path = work / f"{preset}.json"
     path.write_text(json.dumps(case, indent=2))
     return path
 
@@ -1365,6 +1387,8 @@ def phase_cli(torch, kn, work: Path):
         f"rel diff {rel:.2e} (bound 1e-6) {'ok' if rel <= 1e-6 else 'FAIL'}")
     if rel > 1e-6:
         raise AssertionError("final rel L2 differs from tpuwave's")
+    # phase 23 (a) runs the same file on the parity engine
+    return int(steps[1].split(":")[1].split(",")[0])
 
 
 # ---------------------------------------------------------------------------
@@ -2491,6 +2515,311 @@ def phase_p2_varcoef_profile(torch, kn, work: Path):
             f"{e.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 22 and 23: path H, the parity (gather-path) engine
+# ---------------------------------------------------------------------------
+#: phase 22's runs: (tag, family, flags, preset, overrides); each at Nel
+#: 24, FAMILY_STEPS steps, f64, Log Every 1, --engine parity
+PARITY_RUNS = (
+    ("theta 1/2 jacobi", "theta", (), "standing-mode-wsol",
+     {"Theta": "0.5", "Dt": "1e-2"}),
+    ("theta 1 mg", "theta", ("--precond", "mg"), "standing-mode-wsol",
+     {"Theta": "1.0", "Dt": "4e-2"}),
+    ("newmark 1/4 chebyshev", "newmark", ("--precond", "chebyshev"),
+     "standing-mode-wsol", {"Beta": "0.25", "Dt": "1e-2"}),
+    ("newmark 1/4 jacobi, time-dep. C", "newmark", (), "standing-mode-wsol",
+     {"Beta": "0.25", "Dt": "1e-2", **TDEP_C}),
+    ("theta 1/2 jacobi, forcing", "theta", (), "dumping-wave",
+     {"Theta": "0.5", "Dt": "1e-2"}),
+    ("R=2 theta 1/2 mg", "theta", ("--precond", "mg"), "standing-mode-wsol",
+     {"R": "2", "Theta": "0.5", "Dt": "4e-2"}),
+    ("R=2 newmark 1/4 chebyshev, varying C", "newmark",
+     ("--precond", "chebyshev"), "standing-mode-wsol",
+     {"R": "2", "Beta": "0.25", "Dt": "1e-2", **VARYING_C}),
+)
+#: tpuwave's total CG iterations of phase 6's run (TPUWAVE_REL_L2's
+#: comment); phase 23 (a) is held to phase 6's own total, and to this one
+#: when phase 6 did not run (--only)
+TPUWAVE_CG_640 = 3546
+#: phase 23 (b) and (c): (tag, family, overrides of _case, keyword
+#: arguments of the fast engine), each run with --precond mg on the
+#: parity engine (the CLI) and on the fast engine (make_fast_solver and
+#: run_solver, the CLI's pipeline), dt 1e-2, PARITY_640_STEPS steps,
+#: Log Every 1. The parity engine's flat (p+h) cycle smooths with
+#: degree 2 (p2_gmg_for_system's default), the fast P2 engine's canvas
+#: cycle with 4 (its mg_pre_degree, as tpuwave's): (c) sets it to 2, the
+#: same polynomial, where the CLI's counts would differ by design
+PARITY_640_RUNS = (
+    ("b", "theta", {"Theta": "0.5"}, {}),
+    ("c", "newmark", {"R": "2", "Nel": "320", "Beta": "0.25", "Gamma": "0.5"},
+     {"mg_pre_degree": 2}),
+)
+PARITY_640_STEPS = 10
+
+
+def _parity_bitwise(torch, case: Path, family: str, precond: str) -> bool:
+    """Two cuda runs of ``case`` on fresh parity solvers (api.build_solver,
+    run_steps over the run's time stamps): states, per-step CG counts and
+    norms bitwise equal."""
+    import numpy as np
+    from tpuwave_torch import api
+    from tpuwave_torch.models.runner import time_steps
+    from tpuwave_torch.utils.params import load_params
+
+    p = load_params(str(case))
+    runs = []
+    for _ in range(2):
+        s = api.build_solver(p, family, engine="parity", device="cuda",
+                             precond=precond)
+        runs.append(s.run_steps(s.initial_state(),
+                                time_steps(p.t_final, p.dt)))
+    (a, ia), (b, ib) = runs
+    return (torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
+            and all(np.array_equal(ia[k], ib[k]) for k in ia))
+
+
+def phase_parity_cli(torch, kn, work: Path):
+    say(f"phase 22: both CLIs on the parity engine (--engine parity), Nel "
+        f"24, {FAMILY_STEPS} steps, f64, Log Every 1: --device cuda against "
+        f"--device cpu (CSVs within rtol 1e-9, per-step CG counts equal; "
+        f"the mg runs launch B4 and B3, and a second cuda run of each is "
+        f"bitwise equal to the first)")
+    for tag, family, flags, preset, over in PARITY_RUNS:
+        case = _case(work, preset, Nel="24",
+                     T=str(FAMILY_STEPS * float(over["Dt"])),
+                     **{"Log Every": "1"}, **over)
+        flags = ("--engine", "parity") + flags
+        out = work / "parity" / re.sub(r"[ .,/=]+", "_", tag)
+        before = dict(kn.LAUNCHES)
+        w_cuda, _ = _cli(family, case, out / "cuda", "cuda", flags=flags)
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_H}
+        w_cpu, _ = _cli(family, case, out / "cpu", "cpu", flags=flags)
+        rows = _compare_csvs(out / "cuda" / "res", out / "cpu" / "res",
+                             its_tol=0)
+        say(f"  {tag:<38} cuda {w_cuda:6.2f} s  cpu {w_cpu:6.2f} s  "
+            f"{rows} CSV rows agree  launches {n}")
+        if "mg" in flags:
+            for k in PATH_H:
+                if n[k] <= 0:
+                    raise AssertionError(f"{tag}: the cuda run launched no "
+                                         f"{k}")
+            same = _parity_bitwise(torch, case, family, "mg")
+            say(f"    a second cuda run: bitwise "
+                f"{'equal' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"{tag}: two cuda runs differ")
+
+
+def _run_record(out: Path, family: str, text: str) -> dict:
+    """A CLI run's folder, per-step CG counts, steps and time loop."""
+    run = next((out / "res").glob(f"{family}-*/run-*"))
+    conv = list(csv.DictReader(next(
+        (out / "res").glob(f"{family}-*/convergence.csv")).open()))[-1]
+    its = [(int(r["iterations_1"]), int(r["iterations_2"]))
+           for r in csv.DictReader((run / "iterations.csv").open())]
+    done = next(ln for ln in text.splitlines()
+                if ln.startswith("Simulation completed"))
+    return dict(run=run, its=its, steps=int(done.split(":")[1].split()[0]),
+                elapsed=float(conv["elapsed_time_s"]),
+                rel_l2=float(conv["rel_L2_error_final"]))
+
+
+def _run_fast(case: Path, family: str, out: Path, **kw):
+    """(wall s, console text) of the CLI's pipeline on the fast engine
+    built with ``kw`` (make_fast_solver, then run_solver)."""
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.models.runner import RunConfig, run_solver
+    from tpuwave_torch.utils.params import load_params
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    solver = make_fast_solver(load_params(str(case)), family, device="cuda",
+                              **kw)
+    with contextlib.redirect_stdout(buf):
+        run_solver(solver, f"{family}-{case.stem}",
+                   RunConfig(results_root=str(out / "res"),
+                             mesh_root=str(out / "mesh")))
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def _rows_gate(name: str, head: list, got: list, want: list,
+               rtol: float) -> list:
+    """The columns of two CSV rows that differ by more than rtol of the
+    larger plus one unit in the last printed digit."""
+    bad = []
+    for col, u, v in zip(head, got, want):
+        fu, fv = float(u), float(v)
+        lim = rtol * max(abs(fu), abs(fv)) + max(_quantum(u), _quantum(v))
+        if abs(fu - fv) > lim:
+            bad.append(f"{name} {col}: {u} vs {v}")
+    return bad
+
+
+def phase_parity_640(torch, kn, work: Path, phase6_its=None):
+    dofs = 641 * 641
+    say("phase 23: the parity engine at BASELINE.md's 640^2 elements "
+        "(410,881 DoF), f64, on cuda")
+    failed = []
+    # (a) phase 6's file on the parity engine
+    case = _case(work, T="0.05", Beta="0.25", Gamma="0.5",
+                 **{"Enable Logging": "false"})
+    out = work / "parity640a"
+    before = dict(kn.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    wall, text = _cli("newmark", case, out, "cuda", quiet=False,
+                      flags=("--engine", "parity"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_H}
+    rel_l2, elapsed, n_steps, its = _cli_summary(out, text)
+    want_its = TPUWAVE_CG_640 if phase6_its is None else phase6_its
+    rel = abs(rel_l2 - TPUWAVE_REL_L2) / TPUWAVE_REL_L2
+    say(f"  (a) newmark beta 1/4 jacobi, dt 8e-5, T 0.05, logging off: CLI "
+        f"wall {wall:.2f} s, time loop {elapsed:.3f} s = "
+        f"{elapsed / n_steps * 1e3:.3f} ms/step ({dofs * n_steps / elapsed:.4e}"
+        f" DoF*steps/s); peak device memory {peak:.3f} GiB; launches per "
+        f"step {', '.join(f'{k} {n[k] / n_steps:.1f}' for k in PATH_H)}")
+    say(f"      final rel L2 {rel_l2:.10e}, tpuwave {TPUWAVE_REL_L2:.10e}, "
+        f"rel diff {rel:.2e} (bound 1e-6); CG iterations {its}, phase 6's "
+        f"{want_its}{' (tpuwave, phase 6 not run)' if phase6_its is None else ''}")
+    if rel > 1e-6:
+        failed.append("(a) final rel L2 differs from tpuwave's")
+    if its != want_its:
+        failed.append(f"(a) CG iterations {its} != {want_its}")
+
+    # (b), (c): the parity engine against the fast engine, same file
+    for tag, family, over, fast_kw in PARITY_640_RUNS:
+        case = _case(work, Dt="1e-2", T=str(PARITY_640_STEPS * 1e-2),
+                     **{"Log Every": "1"}, **over)
+        rec = {}
+        for engine in ("parity", "fast"):
+            out = work / f"parity640{tag}_{engine}"
+            before = dict(kn.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
+            if engine == "parity":
+                wall, text = _cli(family, case, out, "cuda", quiet=False,
+                                  flags=("--engine", "parity", "--precond",
+                                         "mg"))
+            else:
+                wall, text = _run_fast(case, family, out, precond="mg",
+                                       **fast_kw)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_H}
+            r = rec[engine] = _run_record(out, family, text)
+            say(f"  ({tag}) {family} R {over.get('R', '1')} --precond mg "
+                f"{engine:<6}{fast_kw if engine == 'fast' else ''}: wall "
+                f"{wall:.2f} s, time loop {r['elapsed']:.3f} s = "
+                f"{r['elapsed'] / r['steps'] * 1e3:.2f} ms/step "
+                f"(diagnostics every step included); peak device memory "
+                f"{peak:.3f} GiB; launches per step "
+                + ", ".join(f"{k} {n[k] / r['steps']:.1f}" for k in PATH_H))
+            say(f"      CG iterations per step {r['its']}")
+            if engine == "parity":
+                failed += [f"({tag}) the parity run launched no {k}"
+                           for k in PATH_H if n[k] <= 0]
+        par, fast = rec["parity"], rec["fast"]
+        if par["its"] != fast["its"]:
+            failed.append(f"({tag}) per-step CG counts differ")
+        for name in ("energy.csv", "error.csv", "probe.csv"):
+            ra = list(csv.reader((par["run"] / name).open()))
+            rb = list(csv.reader((fast["run"] / name).open()))
+            say(f"      {name} last row parity {','.join(ra[-1])}, fast "
+                f"{','.join(rb[-1])}")
+            failed += [f"({tag}) {b}" for b in
+                       _rows_gate(name, ra[0], ra[-1], rb[-1], 1e-10)]
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 23: " + "; ".join(failed))
+
+
+#: the profiler range of each CellConnectivity method phase 23's profile
+#: reads
+GATHER_RANGES = {"gather": "parity gather", "assemble": "parity gather-sum"}
+
+
+@contextlib.contextmanager
+def _gather_ranges(torch):
+    """CellConnectivity.gather and .assemble (the matvec's gather and the
+    gather-sum) inside torch.profiler ranges of their names, for the
+    duration of the block (a range costs ~15 us of host time, so the busy
+    share is read in a window without them)."""
+    from tpuwave_torch.ops.operators import CellConnectivity as conn
+    orig = {name: getattr(conn, name) for name in GATHER_RANGES}
+
+    def ranged(label, fn):
+        def call(self, *args):
+            with torch.profiler.record_function(label):
+                return fn(self, *args)
+        return call
+    try:
+        for name, fn in orig.items():
+            setattr(conn, name, ranged(GATHER_RANGES[name], fn))
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(conn, name, fn)
+
+
+def phase_parity_profile(torch, kn, work: Path):
+    """Where a step of phase 23's (a) and (b) goes: one step under
+    torch.profiler after a warm one (device-busy share, top device ops),
+    then one more with the gather and the gather-sum in profiler ranges
+    (their shares of device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpuwave_torch import api
+    from tpuwave_torch.utils.params import load_params
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for tag, family, precond, dt, over in (
+            ("a", "newmark", "jacobi", 8e-5, {"Beta": "0.25"}),
+            ("b", "theta", "mg", 1e-2, {"Theta": "0.5"})):
+        say(f"phase 23 (profile): one step of run ({tag}), {family} "
+            f"--precond {precond}, 640^2, f64, dt {dt}, under torch.profiler")
+        case = _case(work, Dt=str(dt), T=str(10 * dt), **over)
+        s = api.build_solver(load_params(str(case)), family, engine="parity",
+                             device="cuda", precond=precond)
+        st, _ = s.step(s.initial_state(), dt)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            st, info = s.step(st, 2 * dt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_t = _device_time(prof)
+        if dev_t is None:
+            say("  the profiler saw no device time (not measured)")
+            continue
+        say(f"  step 2 (CG {info['iterations_1']} + {info['iterations_2']}):"
+            f" wall {wall * 1e3:.2f} ms under the profiler, {dev_t[0]} device"
+            f" events, device busy {dev_t[1]:.3f} ms = "
+            f"{dev_t[1] / 1e3 / wall:.3f} of the wall")
+        events = _device_events(prof)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            say(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
+                f"{e.key[:70]}")
+        with _gather_ranges(torch), profile(activities=acts) as prof:
+            st, info = s.step(st, 3 * dt)
+            torch.cuda.synchronize()
+        # the ranges' own device-side annotations are not device work
+        dev_ms = sum(e.self_device_time_total for e in _device_events(prof)
+                     if e.key not in GATHER_RANGES.values()) / 1e3
+        for label in GATHER_RANGES.values():
+            # the kernels of the ops inside the range (the range's own
+            # device-side annotation spans the gaps between them too)
+            calls = [e for e in prof.events() if e.name == label
+                     and e.device_type == DeviceType.CPU]
+            us = sum(c.device_time_total for e in calls
+                     for c in e.cpu_children)
+            if not us:
+                say(f"    {label}: no device time under its range (not "
+                    f"measured)")
+                continue
+            say(f"    {label} ({len(calls)} calls in step 3, CG "
+                f"{info['iterations_1']} + {info['iterations_2']}): "
+                f"{us / 1e3:.3f} ms = {us / 1e3 / dev_ms:.3f} of the "
+                f"step's {dev_ms:.3f} ms of device time, "
+                f"{us / len(calls):.1f} us a call")
+
+
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
 #: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
@@ -2567,7 +2896,8 @@ def _run_only(torch, dev, kn, names: str, foreign: bool) -> int:
                      foreign=foreign)
         for name in names.split(","):
             fn = globals()[f"phase_{name.strip()}"]
-            fn(**{k: avail[k] for k in inspect.signature(fn).parameters})
+            fn(**{k: avail[k] for k in inspect.signature(fn).parameters
+                  if k in avail})
     say(f"done ({time.perf_counter() - T_START:.0f} s)")
     return 0
 
@@ -2629,9 +2959,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
 
+        phase6 = {}
+
         def path_a():
             phase_leapfrog(torch, dev)
-            phase_cli(torch, kn, work)
+            phase6["its"] = phase_cli(torch, kn, work)
 
         def path_b():
             phase_solvers(torch, kn, work)
@@ -2660,6 +2992,10 @@ def main() -> int:
             phase_p2_cli_varcoef(torch, kn, work)
             phase_p2_varcoef_1024(torch, kn, work)
 
+        def path_h():
+            phase_parity_cli(torch, kn, work)
+            phase_parity_640(torch, kn, work, phase6["its"])
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -2671,6 +3007,8 @@ def main() -> int:
         launches_f = _run_path(kn, "F", PATH_F, path_f)
         launches_g = _run_path(kn, "G", PATH_G, path_g)
         phase_p2_varcoef_profile(torch, kn, work)
+        launches_h = _run_path(kn, "H", PATH_H, path_h)
+        phase_parity_profile(torch, kn, work)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -2683,7 +3021,7 @@ def main() -> int:
             replaces=REPLACES[name],
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
-                launches_f, launches_g)),
+                launches_f, launches_g, launches_h)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

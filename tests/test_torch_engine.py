@@ -226,7 +226,6 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--engine", "parity"], "A10"),
     (["--shard", "rows"], "A11"),
     (["--distributed"], "A11"),
     (["--unstructured-sharding", "cells"], "A11"),
@@ -295,7 +294,8 @@ def test_import_tpuwave_torch_leaves_jax_out():
             "tpuwave_torch.cli.theta, tpuwave_torch.models.convert, "
             "tpuwave_torch.ops.kernels, tpuwave_torch.ops.kernels_p2, "
             "tpuwave_torch.models.fast_engine_p2, "
-            "tpuwave_torch.models.fast_engine_p2_2term; "
+            "tpuwave_torch.models.fast_engine_p2_2term, tpuwave_torch.api, "
+            "tpuwave_torch.models.theta, tpuwave_torch.models.newmark; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuwave')))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -20,6 +20,8 @@ import sys
 from pathlib import Path
 
 from tpuwave_torch import config
+from tpuwave_torch.models.general import (IMPORTED_MESH_REFUSAL,
+                                          make_discretization)
 from tpuwave_torch.models.runner import RunConfig, run_solver
 from tpuwave_torch.utils.params import ParamError, load_params
 
@@ -54,8 +56,9 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
     parser.add_argument("--engine", choices=("auto", "fast", "parity"),
                         default="auto",
                         help="solver engine: fast = grid-stencil engine on "
-                             "structured rectangles; auto = fast when "
-                             "eligible; parity is not ported yet")
+                             "structured rectangles; parity = the general "
+                             "gather-path engine; auto = fast when "
+                             "eligible, else parity")
     parser.add_argument("--precond",
                         choices=["jacobi", "chebyshev", "mg", "auto"],
                         default="jacobi",
@@ -92,8 +95,6 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
 
 def _refused(args):
     """The one-line refusal for a flag whose path is not ported, or None."""
-    if args.engine == "parity":
-        return "--engine parity is not ported yet (ROADMAP A10)"
     if args.shard != "none":
         return f"--shard {args.shard} is not ported yet (ROADMAP A11)"
     if args.distributed:
@@ -140,8 +141,7 @@ def run_main(family: str, argv=None) -> int:
               "JSON schema (see parameters/*.json).", file=sys.stderr)
         return 1
     if params.mesh_file is not None:
-        print("imported meshes (Mesh File Name) are not ported yet "
-              "(ROADMAP A10)", file=sys.stderr)
+        print(IMPORTED_MESH_REFUSAL, file=sys.stderr)
         return 1
 
     # export the reference's env channels for the duration of the run only
@@ -158,9 +158,12 @@ def run_main(family: str, argv=None) -> int:
     try:
         from tpuwave_torch.models.fast_engine import resolve_engine
         try:
-            solver, reason = resolve_engine(
-                params, family, args.engine, precond=args.precond,
-                solver=args.solver, dtype=dtype, device=device)
+            solver, disc, reason = resolve_engine(
+                params, family, args.engine,
+                make_disc=lambda: make_discretization(params, dtype=dtype,
+                                                      device=device),
+                precond=args.precond, solver=args.solver, dtype=dtype,
+                device=device)
         except ValueError as e:
             if args.solver == "3term":
                 raise
@@ -168,14 +171,29 @@ def run_main(family: str, argv=None) -> int:
                   f"{e}\nHint: use the default --solver 3term.",
                   file=sys.stderr)
             return 1
-        if solver is None:
-            print(f"--engine {args.engine} unavailable for this problem: "
-                  f"{reason}", file=sys.stderr)
+        if solver is None and args.solver != "3term":
+            print(f"--solver {args.solver} requires the fast engine "
+                  f"(ineligible here: {reason}); the parity engine runs "
+                  "the 3term form only.", file=sys.stderr)
             return 1
-        banner = "  Engine: fast (grid-stencil)"
-        if args.solver != "3term":
-            banner += f" [{args.solver}]"
-        print(banner)
+        if solver is not None:
+            banner = "  Engine: fast (grid-stencil)"
+            if args.solver != "3term":
+                banner += f" [{args.solver}]"
+            print(banner)
+        elif reason is not None:
+            if args.engine == "fast":
+                print("--engine fast unavailable for this problem: "
+                      f"{reason}\nHint: use --engine auto (falls back "
+                      "to the parity engine) or --engine parity.",
+                      file=sys.stderr)
+                return 1
+            print(f"  Engine: parity (fast engine ineligible: {reason})")
+        if solver is None:
+            from tpuwave_torch.models.newmark import NewmarkSolver
+            from tpuwave_torch.models.theta import ThetaSolver
+            cls = ThetaSolver if family == "theta" else NewmarkSolver
+            solver = cls(disc, precond=args.precond)
         cfg = RunConfig(results_root=args.results_root,
                         mesh_root=args.mesh_root, quiet=args.quiet,
                         phase_timing=args.phase_timing,

@@ -60,8 +60,7 @@ from tpuwave_torch.ops.stencil import (P1_CLASS_CORNERS, GridStencilOperator,
 from tpuwave_torch.solve.cg import pcg, vdot
 from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
                                             stencil_symbol_bounds)
-from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
-                                           gmg_for_system)
+from tpuwave_torch.solve.multigrid import gmg_for_system, kernel_cycle
 
 __all__ = ["FastWaveSolver", "FastState", "LeapfrogState",
            "EDGE_TABLES_RANGE"]
@@ -150,6 +149,7 @@ class FastWaveSolver:
         self._n_dofs = self.shape[0] * self.shape[1]
         self._load_cache = None
         self._tdep_cache = None
+        self._energy_ops = None
         #: linear-solver iterations of the last ``run_*`` call, one entry
         #: per step: an int (Newmark: the a-solve; 2-term: the u-solve) or
         #: a (u-solve, v-solve) pair (theta)
@@ -710,11 +710,7 @@ class FastWaveSolver:
         (:class:`KernelGmgPreconditioner`) when the hierarchy has >= 2
         levels, else the one-level cycle of :meth:`gmg_preconditioner`
         (nothing to fuse; its level operator is B3 all the same)."""
-        base = self.gmg_preconditioner(**mg)
-        if len(base.levels) < 2:
-            return base
-        return KernelGmgPreconditioner(base.levels, base.coarse_theta,
-                                       base.coarse_coeffs)
+        return kernel_cycle(self.gmg_preconditioner(**mg))
 
     def run_implicit_mg(self, state: FastState, n_steps: int, *,
                         pre_degree: int = 1, smooth_range: float = 8.0,
@@ -1071,6 +1067,26 @@ class FastWaveSolver:
         return self._run(LeapfrogState(state.u.contiguous(),
                                        state.u_prev.contiguous()),
                          n_steps, step)
+
+    def energy(self, state: FastState) -> torch.Tensor:
+        """E = 1/2 (v M v + u K u) in f64, a 0-d tensor: the boundary-
+        correct quadratic forms of the parity engine's element operators
+        (ops/operators.py), built once and cached."""
+        if self._energy_ops is None:
+            from tpuwave_torch.ops.operators import (CellConnectivity,
+                                                     MatrixFreeOperator)
+            quad = gauss_simplex(2)
+            conn = CellConnectivity(self.space.cell_dofs, self.space.n_dofs,
+                                    self.device)
+            self._energy_ops = tuple(
+                MatrixFreeOperator(conn, a_class=a, dtype=torch.float64)
+                for a in (element_mass_class(self.space, quad),
+                          element_stiffness_class(self.space, quad,
+                                                  self.c * self.c)))
+        mass, stiff = self._energy_ops
+        u = state.u.reshape(-1).to(torch.float64)
+        v = state.v.reshape(-1).to(torch.float64)
+        return 0.5 * (torch.dot(v, mass(v)) + torch.dot(u, stiff(u)))
 
     @property
     def n_dofs(self) -> int:

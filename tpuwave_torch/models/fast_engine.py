@@ -39,8 +39,8 @@ sizes a frozen constant-c V-cycle (rms c at t = 0, ``_frozen_c_ref``)
 whose fine level still runs on B4 / B3. ``--solver cheby`` needs a
 constant c. R = 2 problems route to the P2 canvas engines
 (models/fast_engine_p2.py, models/fast_engine_p2_2term.py), which take
-the same three kinds of c; the parity engine (A10) raises
-NotImplementedError.
+the same three kinds of c. ``resolve_engine`` falls back to the parity
+engine (models/theta.py, models/newmark.py) where this one is ineligible.
 
 State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
 the steppers reshape to the (ny+1, nx+1) vertex grid internally (free: the
@@ -63,8 +63,8 @@ from tpuwave_torch.solve.chebyshev import chebyshev_apply
 from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
                                             stencil_chebyshev,
                                             stencil_symbol_bounds)
-from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
-                                           auto_precond, gmg_for_system)
+from tpuwave_torch.solve.multigrid import (auto_precond, gmg_for_system,
+                                           kernel_cycle)
 from tpuwave_torch.utils.params import Params
 
 __all__ = ["FastGridState", "FastThetaSolver", "FastNewmarkSolver",
@@ -107,10 +107,10 @@ def fast_engine_ineligible_reason(problem) -> Optional[str]:
     """None when ``problem`` (a Params) can run on the grid-stencil engine
     of this port, else why not."""
     if not isinstance(problem, Params):
-        return "the port's fast engine takes Params (parity engine: A10)"
+        return "the port's fast engine takes Params"
     p = problem
     if p.mesh_file is not None:
-        return "imported mesh (unstructured meshes: ROADMAP A10)"
+        return "imported mesh (unstructured meshes: ROADMAP A10(b))"
     if p.r not in (1, 2):
         return f"fast engine supports R = 1/2 (R = {p.r})"
     if min(p.nel) < 2:
@@ -171,19 +171,28 @@ def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
                solver=solver, **engine_kwargs)
 
 
-def resolve_engine(params, family: str, engine: str, **solver_kwargs):
-    """``--engine auto|fast`` resolution. Returns ``(solver_or_None,
-    reason_or_None)``; the parity engine is not ported (ROADMAP A10), so
-    an ineligible problem returns (None, reason)."""
+def resolve_engine(params, family: str, engine: str, *, make_disc,
+                   **solver_kwargs):
+    """Shared ``--engine auto|fast|parity`` resolution of the CLI and
+    :mod:`tpuwave_torch.api`, tpuwave's contract.
+
+    ``make_disc``: zero-argument callable building the parity
+    discretisation (models/general.py::make_discretization), invoked only
+    when the parity engine runs. Returns ``(solver_or_None, disc_or_None,
+    reason_or_None)``:
+
+    * solver set          -> a fast engine was built (disc None)
+    * solver None, parity -> the caller builds the parity solver on ``disc``
+    * solver None + engine == 'fast' -> unsatisfiable; error with reason
+    """
     if engine == "parity":
-        raise NotImplementedError("--engine parity is not ported yet "
-                                  "(ROADMAP A10)")
+        return None, make_disc(), None
     if engine not in ("auto", "fast"):
         raise ValueError(f"Unknown engine {engine!r}")
     reason = fast_engine_ineligible_reason(params)
-    if reason is not None:
-        return None, reason
-    return make_fast_solver(params, family, **solver_kwargs), None
+    if reason is None:
+        return make_fast_solver(params, family, **solver_kwargs), None, None
+    return None, make_disc(), reason
 
 
 class StepLoopMixin:
@@ -298,16 +307,11 @@ class _FastEngineBase(StepLoopMixin):
             # varying SPD system)
             c_ref = (_frozen_c_ref(self.disc) if c_const is None
                      else float(c_const))
-            gmg = gmg_for_system((fs.mesh.nx, fs.mesh.ny), fs.mesh.geometry,
-                                 c_ref, self.coef)
-            if len(gmg.levels) >= 2:
-                self._prec_sys = KernelGmgPreconditioner(
-                    gmg.levels, gmg.coarse_theta, gmg.coarse_coeffs)
-            else:
-                # tpuwave's routing (fast_engine.py:374-382): a one-level
-                # hierarchy has no fine level to fuse, so the plain cycle
-                # runs (and the 2-term step takes its unfused setup)
-                self._prec_sys = gmg
+            # a one-level hierarchy stays the plain cycle (and the 2-term
+            # step then takes its unfused setup)
+            self._prec_sys = kernel_cycle(gmg_for_system(
+                (fs.mesh.nx, fs.mesh.ny), fs.mesh.geometry, c_ref,
+                self.coef))
         elif precond in ("jacobi", "chebyshev"):
             self._prec_sys = None   # derived from the system op per solve
         else:

@@ -254,18 +254,14 @@ class _FastP2EngineBase(StepLoopMixin):
         (the constant one of ``p2_gmg_for_system`` when c varies), the P1
         tail on KernelGmgPreconditioner (B4 + B3) when the hierarchy has
         >= 2 levels."""
-        from tpuwave_torch.solve.multigrid import (KernelGmgPreconditioner,
-                                                   P2CanvasGmgPreconditioner,
+        from tpuwave_torch.solve.multigrid import (P2CanvasGmgPreconditioner,
+                                                   kernel_cycle,
                                                    p2_gmg_for_system)
         flat_pre = p2_gmg_for_system(
             (self.nx, self.ny), p.geometry, c, self.coef, dtype=self.dtype,
             device=self.device, pre_degree=pre_degree,
             smooth_range=smooth_range)
-        p1_cycle = flat_pre.p1_cycle
-        if len(p1_cycle.levels) >= 2:
-            p1_cycle = KernelGmgPreconditioner(p1_cycle.levels,
-                                               p1_cycle.coarse_theta,
-                                               p1_cycle.coarse_coeffs)
+        p1_cycle = kernel_cycle(flat_pre.p1_cycle)
         mg_st = (self._sys_op.stencil if self._c_mode == "const"
                  else flat_pre.system)
         return P2CanvasGmgPreconditioner(mg_st, flat_pre.sm_theta,

@@ -7,7 +7,7 @@ It is symmetric and positive for SPD A, so it is a valid CG
 preconditioner; one application is ``degree - 1`` operator applies (the
 fast engines pass the constrained apply, kernel B3 or B11 on the card).
 ``estimate_lambda_max`` is the power iteration the P2 V-cycle's smoother
-is sized by.
+and the parity engine's :class:`ChebyshevPreconditioner` are sized by.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import torch
 
 from tpuwave_torch.utils.prng import threefry_normal
 
-__all__ = ["chebyshev_apply", "estimate_lambda_max"]
+__all__ = ["chebyshev_apply", "estimate_lambda_max",
+           "ChebyshevPreconditioner"]
 
 
 def chebyshev_apply(apply_a: Callable, inv_diag, r, *, lambda_max,
@@ -65,3 +66,27 @@ def estimate_lambda_max(apply_a: Callable, inv_diag, n: int, *,
     w = inv_diag * apply_a(v)
     lam = torch.dot(v, w) / torch.dot(v, v)
     return float(lam) * 1.2
+
+
+class ChebyshevPreconditioner:
+    """z = P(r): fixed ``degree`` Chebyshev iteration on D^{-1}A r = z
+    (the parity engine's ``--precond chebyshev``, its lambda_max from
+    :func:`estimate_lambda_max` at setup).
+
+    Symmetric and positive for SPD A (valid CG preconditioner). All state
+    is a handful of scalars; application is ``degree`` operator applies.
+    """
+
+    def __init__(self, apply_a: Callable, diag, *, lambda_max: float,
+                 eig_ratio: float = 30.0, degree: int = 4):
+        self.apply_a = apply_a
+        self.inv_diag = 1.0 / diag
+        self.degree = int(degree)
+        self.lmax = float(lambda_max)
+        self.lmin = self.lmax / float(eig_ratio)
+
+    def __call__(self, r):
+        return chebyshev_apply(self.apply_a, self.inv_diag, r,
+                               lambda_max=self.lmax,
+                               eig_ratio=self.lmax / self.lmin,
+                               degree=self.degree)

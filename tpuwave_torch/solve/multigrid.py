@@ -1,8 +1,8 @@
 """Geometric multigrid for the grid-stencil systems (``--precond mg``).
 
-Counterpart of tpuwave's solve/multigrid.py (the parity engine's
-``gmg_flat_preconditioner`` aside). At time steps beyond the CFL limit
-the implicit system ``M + c K`` becomes stiffness-dominated (condition ~ (dt/h)^2) and single-level solvers need O(dt/h)
+Counterpart of tpuwave's solve/multigrid.py. At time steps beyond the
+CFL limit the implicit system ``M + c K`` becomes stiffness-dominated
+(condition ~ (dt/h)^2) and single-level solvers need O(dt/h)
 iterations; a V-cycle keeps the count flat. On the structured
 triangulated rectangle the spaces are nested: the P1 space on the Nel/2
 mesh is a subspace of the fine one, the inclusion P is P1 interpolation
@@ -52,9 +52,10 @@ from tpuwave_torch.solve.cheby_iter import (chebyshev_block,
 
 __all__ = ["prolong_p1", "restrict_p1", "MgLevel", "build_gmg_levels",
            "GmgPreconditioner", "KernelGmgPreconditioner", "gmg_for_system",
-           "auto_precond", "AUTO_MG_THRESHOLD", "prolong_p1_to_p2",
-           "restrict_p2_to_p1", "P2GmgPreconditioner",
-           "P2CanvasGmgPreconditioner", "p2_gmg_for_system"]
+           "auto_precond", "AUTO_MG_THRESHOLD", "kernel_cycle",
+           "gmg_flat_preconditioner", "prolong_p1_to_p2", "restrict_p2_to_p1",
+           "P2GmgPreconditioner", "P2CanvasGmgPreconditioner",
+           "p2_gmg_for_system"]
 
 #: ``precond='auto'`` switches to the V-cycle once the dimensionless
 #: stiffness ratio q = stiff_coef * c^2 / (hx * hy) of the system
@@ -306,6 +307,57 @@ def auto_precond(params, mesh, stiff_coef: float) -> str:
     c = float(p.c.constant_value)
     q = float(stiff_coef) * c * c / (mesh.hx * mesh.hy)
     return "mg" if q >= AUTO_MG_THRESHOLD else "jacobi"
+
+
+def kernel_cycle(gmg: GmgPreconditioner) -> GmgPreconditioner:
+    """The same cycle with its fine level on kernels B4 / B3
+    (:class:`KernelGmgPreconditioner`) when the hierarchy has >= 2 levels;
+    a one-level hierarchy has no fine level to fuse and stays plain, as in
+    tpuwave's routing (fast_engine.py:374-382)."""
+    if len(gmg.levels) < 2:
+        return gmg
+    return KernelGmgPreconditioner(gmg.levels, gmg.coarse_theta,
+                                   gmg.coarse_coeffs)
+
+
+def gmg_flat_preconditioner(disc, stiff_coef: float, c_ref=None,
+                            **kw) -> Callable:
+    """GMG V-cycle as a FLAT-DoF-vector preconditioner for the parity
+    solvers (models/theta.py, models/newmark.py), whose state is the flat
+    DoF vector of models/discretization.py, on ``disc``'s dtype and
+    device.
+
+    Needs the structured discretization with a constant wave speed, or an
+    explicit frozen coefficient ``c_ref``. At R = 1 the flat DoF numbering
+    IS the row-major vertex grid, so the adapter is a pair of reshapes
+    around the V-cycle; at R = 2 it is the plane concatenation of
+    ops/stencil_p2.py, on which :class:`P2GmgPreconditioner` runs
+    directly. Either way the P1 V-cycle's fine level runs on B4 / B3 when
+    the hierarchy has >= 2 levels. Raises ValueError otherwise.
+    """
+    p = disc.params
+    mesh = disc.mesh
+    c_val = p.c.constant_value if c_ref is None else float(c_ref)
+    if c_val is None:
+        raise ValueError("mg preconditioner needs a constant wave speed C "
+                         "(or an explicit c_ref frozen coefficient)")
+    if p.r == 2:
+        pre = p2_gmg_for_system(mesh.nel, mesh.geometry, float(c_val),
+                                stiff_coef, dtype=disc.dtype,
+                                device=disc.device, **kw)
+        pre.p1_cycle = kernel_cycle(pre.p1_cycle)
+        return pre
+    if p.r != 1:
+        raise ValueError("mg preconditioner supports only R=1/R=2")
+    shape = (mesh.ny + 1, mesh.nx + 1)
+    inner = kernel_cycle(gmg_for_system(mesh.nel, mesh.geometry,
+                                       float(c_val), stiff_coef, **kw))
+
+    def precond(r):
+        return inner(r.reshape(shape)).reshape(-1)
+
+    precond.cycle = inner
+    return precond
 
 
 # ----------------------------------------------------------------------
