@@ -37,7 +37,10 @@ on B11, the frozen mg V-cycle on B12 / B13 and B4 / B3), up to 1024^2
 elements (4.2 M DoF) against tpuwave. Path H: the parity (gather-path)
 engine of the CLIs (--engine parity: ops/operators.py's matvecs in torch
 ops, the mg V-cycle's P1 levels on B4 / B3) at Nel 24 and at BASELINE.md's
-640^2. Phases:
+640^2. Path I: imported meshes (Mesh File Name): the reference's default
+mesh (recognised as the 40 x 40 rectangle: the fast engine, B4 / B3 with
+--precond mg) and perturbed meshes on the parity engine up to 640^2.
+Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
   2. build the kernels (one nvcc per source, in parallel), print the build
@@ -146,6 +149,28 @@ ops, the mg V-cycle's P1 levels on B4 / B3) at Nel 24 and at BASELINE.md's
      launches per step of each run; then one step of (a) and one of (b)
      under torch.profiler: the device-busy share, the top device ops, and
      the shares of the gather and the gather-sum
+ 24. imported meshes (Mesh File Name), f64, Log Every 1: (a) the
+     reference's default mesh/mesh-square-40.msh through newmark --precond
+     mg on cuda: recognised as the 40 x 40 rectangle (the fast engine),
+     CSVs byte-equal to the Nel 40 run's, B4 and B3 launched; (b) a
+     perturbed Nel 24 mesh at R = 1 and 2 (theta 1/2 chebyshev, newmark
+     1/4 jacobi, one with a time-dependent C), 10 steps on the parity
+     engine, --device cuda against --device cpu: CSVs agree, per-step CG
+     counts equal, run_steps states within 1e-12, a second cuda run
+     bitwise equal; (c) api.solve on perturbed meshes (newmark 1/4 jacobi
+     at Nel 64, theta 1/2 chebyshev at R = 2 Nel 32): the final relative
+     L2 error within 1e-6 of tpuwave's and the CG totals equal to its
+ 25. a perturbed 640^2 mesh (410,881 vertices, 819,200 triangles) written
+     by write_msh: the write and parse times and the setup; (a) phase 6's
+     file on it (newmark beta 1/4 jacobi, dt 8e-5, T 0.05, --engine
+     parity): ms/step, peak device memory, the final relative L2 error
+     within 1e-6 of tpuwave's and the CG total equal to its, and the
+     first 5 steps against the cpu (CG counts equal, states within 1e-9);
+     (a') the same with a time-dependent C, 10 steps; (b) R = 2 at Nel
+     320, theta 1/2 chebyshev, 3 steps: per-step CG counts equal to
+     tpuwave's, the final relative L2 error within 1e-6 of its, and cuda
+     against cpu; then one step of (a) under torch.profiler: the
+     device-busy share and the top device ops
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -351,6 +376,7 @@ PATH_F = ("leapfrog_step", "leapfrog_multistep_driven", "cheby_block",
 PATH_G = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
           "cheby_block", "constrained_stencil_apply")
 PATH_H = ("cheby_block", "constrained_stencil_apply")
+PATH_I = ("cheby_block", "constrained_stencil_apply")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -2820,6 +2846,393 @@ def phase_parity_profile(torch, kn, work: Path):
                 f"{us / len(calls):.1f} us a call")
 
 
+# ---------------------------------------------------------------------------
+# phases 24 and 25: path I, imported meshes (Mesh File Name)
+# ---------------------------------------------------------------------------
+#: the reference's default mesh (tpuwave/utils/params.py:103-108): the
+#: 40 x 40 unit square, Gmsh 2.2
+DEFAULT_MESH = ROOT / "mesh" / "mesh-square-40.msh"
+#: phase 24's runs on a perturbed Nel 24 mesh: (tag, family, flags,
+#: overrides); FAMILY_STEPS steps, f64, Log Every 1, --engine auto (which
+#: routes an imported mesh to the parity engine)
+UNSTRUCTURED_RUNS = (
+    ("R=1 theta 1/2 chebyshev", "theta", ("--precond", "chebyshev"),
+     {"R": "1", "Theta": "0.5"}),
+    ("R=1 newmark 1/4 jacobi, time-dep. C", "newmark", (),
+     {"R": "1", "Beta": "0.25", **TDEP_C}),
+    ("R=2 theta 1/2 chebyshev", "theta", ("--precond", "chebyshev"),
+     {"R": "2", "Theta": "0.5"}),
+    ("R=2 newmark 1/4 jacobi", "newmark", (), {"R": "2", "Beta": "0.25"}),
+)
+#: tpuwave's results on perturbed meshes (phase 24 (c)): (family, Nel,
+#: overrides of standing-mode-wsol.json, solver keywords, final relative
+#: L2 error, total CG iterations of the first and second solves). Each
+#: mesh is perturbed_mesh_file(path, Nel) (seed 0, amp 0.25), written by
+#: the port's write_msh (tpuwave's write_msh writes the same bytes);
+#: Save Solution and Enable Logging false; f64; computed on the CPU with
+#: the JAX package:
+#:   JAX_PLATFORMS=cpu python -c "import json; from tpuwave import config;
+#:     config.use_x64(); from tpuwave import api;
+#:     from tpuwave.models.runner import RunConfig;
+#:     case = json.load(open('parameters/standing-mode-wsol.json'));
+#:     case.update(OVERRIDES, **{'Save Solution': 'false',
+#:       'Enable Logging': 'false', 'Mesh File Name': 'perturbed-NEL.msh'});
+#:     r = api.solve(case, FAMILY, config=RunConfig(quiet=True,
+#:       write_mesh=False), **KEYWORDS);
+#:     print(repr(r.rel_l2), r.total_iterations_1, r.total_iterations_2)"
+TPUWAVE_UNSTRUCTURED = (
+    ("newmark", 64, {"R": "1", "Dt": "1e-3", "T": "0.05", "Beta": "0.25",
+                     "Gamma": "0.5"}, {}, 0.0005970855377285055, 650, 0),
+    ("theta", 32, {"R": "2", "Dt": "1e-2", "T": "0.05", "Theta": "0.5"},
+     {"precond": "chebyshev"}, 2.4786332250439278e-05, 90, 55),
+)
+#: tpuwave's results on phase 25's perturbed meshes (perturbed_mesh_file,
+#: seed 0, amp 0.25, written by the port's write_msh), computed on the CPU
+#: with the JAX package, f64. (a): final relative L2 error and total CG
+#: iterations of phase 6's file (standing-mode-wsol.json with Nel 640, Dt
+#: 8e-5, T 0.05, Beta 0.25, Gamma 0.5, Save Solution and Enable Logging
+#: false; 626 steps; Newmark 1/4 jacobi on the parity engine) with Mesh
+#: File Name perturbed-640.msh, by the command of TPUWAVE_UNSTRUCTURED with
+#: those overrides. (b): per-step CG iterations (first, second solve) and
+#: the final relative L2 error of theta 1/2 chebyshev at R 2 on
+#: perturbed-320.msh (that file with R 2, Nel 320, Dt 1e-2, T 0.03, Theta
+#: 0.5, written to case.json):
+#:   JAX_PLATFORMS=cpu python -c "import numpy as np; from tpuwave import
+#:     config; config.use_x64();
+#:     from tpuwave.models.general import make_discretization;
+#:     from tpuwave.models.runner import time_steps;
+#:     from tpuwave.models.theta import ThetaSolver;
+#:     from tpuwave.utils.params import load_params;
+#:     p = load_params('case.json');
+#:     s = ThetaSolver(make_discretization(p), precond='chebyshev');
+#:     ts = time_steps(p.t_final, p.dt);
+#:     st, info = s.run_steps(s.initial_state(), ts);
+#:     print(list(zip(np.asarray(info['iterations_1']).tolist(),
+#:       np.asarray(info['iterations_2']).tolist())),
+#:       repr(float(s.disc.errors(st.u, ts[-1])[2])))"
+TPUWAVE_UNSTRUCTURED_640 = (5.991096338054994e-06, 8138)
+TPUWAVE_UNSTRUCTURED_320 = ([(44, 8)] * 3, 2.9386293448544515e-06)
+#: phase 25's steps held cuda against cpu at full width, and the bound on
+#: their states' difference (relative to the cpu state's largest entry):
+#: phase 13's for u at 640^2 (the two devices' roundoff, carried through
+#: 13-52 CG iterations a step at 410,881 DoF, reaches ~1e-10 here; at
+#: Nel 24, phase 24 holds 1e-12)
+UNSTRUCTURED_640_STEPS = 5
+UNSTRUCTURED_640_RTOL = 1e-9
+
+
+def perturbed_mesh_file(path: Path, nel: int, seed: int = 0,
+                        amp: float = 0.25):
+    """The structured nel x nel unit square with its interior vertices
+    moved by up to ``amp`` of a cell (uniform, seeded; the perturbed_mesh
+    of tests/test_unstructured.py), written as Gmsh 2.2 by the port's
+    write_msh: (path, seconds to write)."""
+    import numpy as np
+    from tpuwave_torch.core.mesh import StructuredTriMesh
+    from tpuwave_torch.core.unstructured import write_msh
+    m = StructuredTriMesh((nel, nel), UNIT_SQUARE)
+    pts = m.vertex_coords.copy()
+    rng = np.random.default_rng(seed)
+    interior = ~m.boundary_vertex_mask
+    pts[interior] += (rng.uniform(-amp, amp, (interior.sum(), 2))
+                      * np.array([m.hx, m.hy]))
+    t0 = time.perf_counter()
+    write_msh(path, pts, m.cells)
+    return path, time.perf_counter() - t0
+
+
+def _parity_solver(case: Path, family: str, precond: str, device: str,
+                   mesh=None):
+    """The parity solver of ``case`` on ``device`` (make_discretization
+    with an already-read ``mesh``, as the CLI builds it)."""
+    from tpuwave_torch.models.general import make_discretization
+    from tpuwave_torch.models.newmark import NewmarkSolver
+    from tpuwave_torch.models.theta import ThetaSolver
+    from tpuwave_torch.utils.params import load_params
+    disc = make_discretization(load_params(str(case)), device=device,
+                               mesh=mesh)
+    cls = ThetaSolver if family == "theta" else NewmarkSolver
+    return cls(disc, precond=precond)
+
+
+def _cuda_cpu_states(torch, case: Path, family: str, precond: str,
+                     n_steps=None, mesh=None, rerun: bool = True) -> dict:
+    """``case`` on the parity engine through run_steps, on cuda (twice
+    with ``rerun``) and on the cpu: the cuda run's wall, per-step CG
+    counts, whether they equal the cpu run's, the largest difference of
+    u and v against the cpu run (relative to the cpu state's largest
+    entry), the cuda run's final relative L2 error and whether the cuda
+    rerun is bitwise equal."""
+    import numpy as np
+    from tpuwave_torch.models.runner import time_steps
+    from tpuwave_torch.utils.params import load_params
+    p = load_params(str(case))
+    times = time_steps(p.t_final, p.dt)[:n_steps]
+    runs, wall = [], None
+    for dev in ("cuda", "cuda", "cpu") if rerun else ("cuda", "cpu"):
+        s = _parity_solver(case, family, precond, dev, mesh)
+        st = s.initial_state()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(s.run_steps(st, times))
+        if wall is None:
+            wall = time.perf_counter() - t0
+            rel_l2 = float(s.disc.errors(runs[0][0].u, times[-1])[2])
+        del s
+    (a, ia), (c, ic) = runs[0], runs[-1]
+    its = ("iterations_1", "iterations_2")
+    rec = dict(wall=wall, steps=len(times), rel_l2=rel_l2,
+               its=[(int(x), int(y)) for x, y in zip(ia[its[0]], ia[its[1]])],
+               its_equal=all(np.array_equal(ia[k], ic[k]) for k in its),
+               diff=max(float((getattr(a, k).cpu() - getattr(c, k)).abs().max()
+                              / getattr(c, k).abs().max()) for k in "uv"))
+    if rerun:
+        b, ib = runs[1]
+        rec["bitwise"] = (torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
+                          and all(np.array_equal(ia[k], ib[k]) for k in ia))
+    return rec
+
+
+def phase_unstructured_cli(torch, kn, work: Path):
+    say("phase 24: imported meshes (Mesh File Name), f64, Log Every 1: (a) "
+        "the reference's default mesh/mesh-square-40.msh through newmark "
+        "--precond mg on cuda against the Nel 40 rectangle's run; (b) a "
+        f"perturbed Nel 24 mesh at R = 1 and 2, {FAMILY_STEPS} steps, "
+        "--device cuda against --device cpu (CSVs within rtol 1e-9, "
+        "per-step CG counts equal, run_steps states within 1e-12, a second "
+        "cuda run bitwise equal); (c) perturbed meshes through api.solve "
+        "against tpuwave's final error and CG totals")
+    failed = []
+    # (a) recognised as the structured 40 x 40 rectangle
+    dt = 1e-2
+    texts, outs = {}, {}
+    for tag, over in (("nel 40", {}),
+                      ("mesh file", {"Mesh File Name": str(DEFAULT_MESH),
+                                     "Nel": "7"})):
+        out = work / "default_mesh" / tag.replace(" ", "_")
+        out.mkdir(parents=True)
+        case = _case(out, **{"Nel": "40", "Dt": str(dt),
+                             "T": str(FAMILY_STEPS * dt), "Beta": "0.25",
+                             "Gamma": "0.5", "Log Every": "1", **over})
+        before = dict(kn.LAUNCHES)
+        wall, texts[tag] = _cli("newmark", case, out, "cuda", quiet=False,
+                                flags=("--precond", "mg"))
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_I}
+        outs[tag] = out
+        say(f"  (a) {tag:<9} newmark 1/4 --precond mg: wall {wall:.2f} s, "
+            f"launches {n}")
+        failed += [f"(a) {tag}: no {k} launched" for k in PATH_I
+                   if n[k] <= 0]
+    lines = texts["mesh file"].splitlines()
+    for want in ("  Recognised as a structured 40x40 rectangle -> "
+                 "structured engines", "  Engine: fast (grid-stencil)"):
+        say(f"      {'printed' if want in lines else 'MISSING'}: "
+            f"{want.strip()}")
+        if want not in lines:
+            failed.append(f"(a) the mesh file's run did not print {want!r}")
+    a, b = outs["nel 40"] / "res", outs["mesh file"] / "res"
+    same = [f.name for f in sorted(a.rglob("*.csv"))
+            if f.name != "convergence.csv"
+            and f.read_bytes() == (b / f.relative_to(a)).read_bytes()]
+    say(f"      byte-equal CSVs of the two runs: {same}")
+    if len(same) != 4:
+        failed.append("(a) the mesh file's CSVs differ from the Nel 40 run's")
+    if (outs["mesh file"] / "mesh").exists():
+        failed.append("(a) a mesh VTK snapshot was written for an import")
+
+    # (b) a perturbed mesh on the parity engine
+    msh, _ = perturbed_mesh_file(work / "perturbed-24.msh", 24, seed=0)
+    for tag, family, flags, over in UNSTRUCTURED_RUNS:
+        out = work / "unstructured" / re.sub(r"[ .,/=]+", "_", tag)
+        out.mkdir(parents=True)
+        case = _case(out, Nel="24", Dt=str(dt), T=str(FAMILY_STEPS * dt),
+                     **{"Log Every": "1", "Mesh File Name": str(msh)},
+                     **over)
+        w_cuda, text = _cli(family, case, out / "cuda", "cuda", quiet=False,
+                            flags=flags)
+        w_cpu, _ = _cli(family, case, out / "cpu", "cpu", flags=flags)
+        banner = ("  Engine: parity (fast engine ineligible: mesh is not a "
+                  "generated structured rectangle)")
+        if banner not in text.splitlines():
+            failed.append(f"(b) {tag}: no parity banner")
+        rows = _compare_csvs(out / "cuda" / "res", out / "cpu" / "res",
+                             its_tol=0)
+        precond = flags[1] if flags else "jacobi"
+        rec = _cuda_cpu_states(torch, case, family, precond)
+        say(f"  (b) {tag:<37} cuda {w_cuda:5.2f} s cpu {w_cpu:5.2f} s, "
+            f"{rows} CSV rows agree; run_steps: CG counts "
+            f"{'equal' if rec['its_equal'] else 'DIFFER'}, u / v within "
+            f"{rec['diff']:.2e} of cpu, rerun bitwise "
+            f"{'equal' if rec['bitwise'] else 'DIFFERENT'}")
+        if not (rec["its_equal"] and rec["bitwise"]) or rec["diff"] > 1e-12:
+            failed.append(f"(b) {tag}: {rec}")
+
+    # (c) against tpuwave's results on perturbed meshes (api.solve)
+    from tpuwave_torch import api
+    from tpuwave_torch.models.runner import RunConfig
+    for family, nel, over, kw, rel_l2, its1, its2 in TPUWAVE_UNSTRUCTURED:
+        msh, _ = perturbed_mesh_file(work / f"perturbed-{nel}.msh", nel)
+        case = json.loads((ROOT / "parameters"
+                           / "standing-mode-wsol.json").read_text())
+        case.update(over, **{"Save Solution": "false",
+                             "Enable Logging": "false",
+                             "Mesh File Name": str(msh)})
+        t0 = time.perf_counter()
+        r = api.solve(case, family, device="cuda",
+                      config=RunConfig(quiet=True, write_mesh=False,
+                                       results_root=str(work / "tpw")),
+                      **kw)
+        wall = time.perf_counter() - t0
+        rel = abs(r.rel_l2 - rel_l2) / rel_l2
+        its = (r.total_iterations_1, r.total_iterations_2)
+        say(f"  (c) {family} R {over['R']} Nel {nel} perturbed "
+            f"{kw or ''}: api.solve {wall:.2f} s, final rel L2 "
+            f"{r.rel_l2:.12e} (tpuwave {rel_l2:.12e}, rel diff {rel:.2e}, "
+            f"bound 1e-6), CG {its} (tpuwave {(its1, its2)})")
+        if rel > 1e-6 or its != (its1, its2):
+            failed.append(f"(c) {family} Nel {nel}: rel L2 or CG totals "
+                          "differ from tpuwave's")
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 24: " + "; ".join(failed))
+
+
+def phase_unstructured_640(torch, kn, work: Path):
+    say("phase 25: a perturbed 640^2 mesh (seed 0, interior vertices moved "
+        "by up to a quarter cell; 410,881 vertices, 819,200 triangles), "
+        "written by write_msh, f64, --engine parity, on cuda")
+    import math
+    from tpuwave_torch.core.unstructured import read_mesh_file
+    from tpuwave_torch.models.general import make_discretization
+    from tpuwave_torch.utils.params import load_params
+    failed = []
+    msh, w_s = perturbed_mesh_file(work / "perturbed-640.msh", 640, seed=0)
+    t0 = time.perf_counter()
+    mesh = read_mesh_file(msh)
+    parse_s = time.perf_counter() - t0
+    say(f"  mesh file {msh.stat().st_size / 2 ** 20:.1f} MiB: write "
+        f"{w_s:.2f} s, parse (read_mesh_file) {parse_s:.2f} s, "
+        f"{mesh.n_vertices} vertices, {mesh.n_cells} triangles")
+    if (mesh.n_vertices, mesh.n_cells) != (641 * 641, 2 * 640 * 640):
+        failed.append("(a) the mesh has the wrong size")
+
+    # (a) phase 6's file on the imported mesh
+    out = work / "unstructured640a"
+    out.mkdir()
+    case = _case(out, T="0.05", Beta="0.25", Gamma="0.5",
+                 **{"Enable Logging": "false", "Mesh File Name": str(msh)})
+    p = load_params(str(case))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disc = make_discretization(p, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    say(f"  setup (make_discretization on cuda, the mesh read): "
+        f"{setup_s:.2f} s; the slot table pads to {disc.conn.slots.shape[1]}"
+        f" cells a vertex")
+    del disc
+    torch.cuda.reset_peak_memory_stats()
+    wall, text = _cli("newmark", case, out, "cuda", quiet=False,
+                      flags=("--engine", "parity"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel_l2, elapsed, n_steps, its = _cli_summary(out, text)
+    say(f"  (a) newmark beta 1/4 jacobi, dt 8e-5, T 0.05, logging off: CLI "
+        f"wall {wall:.2f} s (the file read included), time loop "
+        f"{elapsed:.3f} s = {elapsed / n_steps * 1e3:.3f} ms/step; peak "
+        f"device memory {peak:.3f} GiB")
+    want_l2, want_its = TPUWAVE_UNSTRUCTURED_640
+    rel = abs(rel_l2 - want_l2) / want_l2
+    say(f"      final rel L2 {rel_l2:.10e}, tpuwave {want_l2:.10e} (rel "
+        f"diff {rel:.2e}, bound 1e-6; the structured mesh's: "
+        f"{TPUWAVE_REL_L2:.10e}); CG iterations {its}, tpuwave {want_its}")
+    if not (math.isfinite(rel_l2) and rel <= 1e-6 and its == want_its):
+        failed.append(f"(a) rel L2 {rel_l2!r} / CG {its} against tpuwave's "
+                      f"{want_l2!r} / {want_its}")
+    rec = _cuda_cpu_states(torch, case, "newmark", "jacobi",
+                           n_steps=UNSTRUCTURED_640_STEPS, mesh=mesh,
+                           rerun=False)
+    say(f"      the first {rec['steps']} steps through run_steps, cuda "
+        f"against cpu: CG counts {rec['its']} "
+        f"{'equal' if rec['its_equal'] else 'DIFFER'}, u / v within "
+        f"{rec['diff']:.2e}")
+    if not rec["its_equal"] or rec["diff"] > UNSTRUCTURED_640_RTOL:
+        failed.append(f"(a) cuda against cpu: {rec}")
+    # (a') a time-dependent C rebuilds the per-cell K(t) every step
+    case_t = _case(out, Dt="8e-5", T=str(10 * 8e-5), Beta="0.25",
+                   Gamma="0.5", **{"Mesh File Name": str(msh)}, **TDEP_C)
+    s = _parity_solver(case_t, "newmark", "jacobi", "cuda", mesh)
+    st, _ = s.step(s.initial_state(), 8e-5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from tpuwave_torch.models.runner import time_steps
+    st, info = s.run_steps(st, time_steps(10 * 8e-5, 8e-5)[1:])
+    torch.cuda.synchronize()
+    tdep_ms = (time.perf_counter() - t0) / 9 * 1e3
+    say(f"  (a') the same with a time-dependent C (K(t) rebuilt per step): "
+        f"{tdep_ms:.3f} ms/step over 9 steps, CG "
+        f"{info['iterations_1'].tolist()}")
+    del s, st
+
+    # (b) R = 2 at Nel 320 (the same DoF count), theta 1/2 chebyshev
+    msh2, _ = perturbed_mesh_file(work / "perturbed-320.msh", 320, seed=0)
+    case2 = _case(out, R="2", Nel="320", Dt="1e-2", T="0.03", Theta="0.5",
+                  **{"Mesh File Name": str(msh2)})
+    rec = _cuda_cpu_states(torch, case2, "theta", "chebyshev",
+                           mesh=read_mesh_file(msh2), rerun=False)
+    want_its, want_l2 = TPUWAVE_UNSTRUCTURED_320
+    rel = abs(rec["rel_l2"] - want_l2) / want_l2
+    say(f"  (b) R = 2 Nel 320 (410,881 DoF) theta 1/2 --precond chebyshev, "
+        f"dt 1e-2, {rec['steps']} steps: cuda {rec['wall'] / rec['steps'] * 1e3:.2f}"
+        f" ms/step, CG {rec['its']} (tpuwave {want_its}), final rel L2 "
+        f"{rec['rel_l2']:.10e} (tpuwave {want_l2:.10e}, rel diff "
+        f"{rel:.2e}, bound 1e-6); cuda against cpu: CG counts "
+        f"{'equal' if rec['its_equal'] else 'DIFFER'}, u / v within "
+        f"{rec['diff']:.2e}")
+    if rec["its"] != want_its or rel > 1e-6:
+        failed.append(f"(b) CG {rec['its']} / rel L2 {rec['rel_l2']!r} "
+                      f"against tpuwave's {want_its} / {want_l2!r}")
+    if not rec["its_equal"] or rec["diff"] > UNSTRUCTURED_640_RTOL:
+        failed.append(f"(b) cuda against cpu: {rec}")
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 25: " + "; ".join(failed))
+
+
+def phase_unstructured_profile(torch, kn, work: Path):
+    """Where a step of phase 25 (a) goes: one step on the perturbed 640^2
+    mesh under torch.profiler after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+    say("phase 25 (profile): one step of run (a), newmark jacobi, the "
+        "perturbed 640^2 mesh, f64, dt 8e-5, under torch.profiler")
+    msh = work / "perturbed-640.msh"      # phase 25's, unless run alone
+    if not msh.exists():
+        perturbed_mesh_file(msh, 640, seed=0)
+    case = _case(work, T="0.05", Beta="0.25", Gamma="0.5",
+                 **{"Mesh File Name": str(msh)})
+    s = _parity_solver(case, "newmark", "jacobi", "cuda")
+    dt = 8e-5
+    st, _ = s.step(s.initial_state(), dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, info = s.step(st, 2 * dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_t = _device_time(prof)
+    if dev_t is None:
+        say("  the profiler saw no device time (not measured)")
+        return
+    say(f"  step 2 (CG {info['iterations_1']}): wall {wall * 1e3:.2f} ms "
+        f"under the profiler, {dev_t[0]} device events, device busy "
+        f"{dev_t[1]:.3f} ms = {dev_t[1] / 1e3 / wall:.3f} of the wall")
+    for e in sorted(_device_events(prof),
+                    key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
+            f"{e.key[:70]}")
+
+
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
 #: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
@@ -2996,6 +3409,10 @@ def main() -> int:
             phase_parity_cli(torch, kn, work)
             phase_parity_640(torch, kn, work, phase6["its"])
 
+        def path_i():
+            phase_unstructured_cli(torch, kn, work)
+            phase_unstructured_640(torch, kn, work)
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -3009,6 +3426,8 @@ def main() -> int:
         phase_p2_varcoef_profile(torch, kn, work)
         launches_h = _run_path(kn, "H", PATH_H, path_h)
         phase_parity_profile(torch, kn, work)
+        launches_i = _run_path(kn, "I", PATH_I, path_i)
+        phase_unstructured_profile(torch, kn, work)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -3021,7 +3440,7 @@ def main() -> int:
             replaces=REPLACES[name],
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
-                launches_f, launches_g, launches_h)),
+                launches_f, launches_g, launches_h, launches_i)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models.discretization import Discretization as JDisc
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models.discretization import Discretization

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models.fast import FastWaveSolver as JFast
 from tpuwave.models.fast import LeapfrogState as JState
 from tpuwave_torch.models.fast import FastWaveSolver as TFast

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models import convert
@@ -295,7 +296,8 @@ def test_import_tpuwave_torch_leaves_jax_out():
             "tpuwave_torch.ops.kernels, tpuwave_torch.ops.kernels_p2, "
             "tpuwave_torch.models.fast_engine_p2, "
             "tpuwave_torch.models.fast_engine_p2_2term, tpuwave_torch.api, "
-            "tpuwave_torch.models.theta, tpuwave_torch.models.newmark; "
+            "tpuwave_torch.models.theta, tpuwave_torch.models.newmark, "
+            "tpuwave_torch.core.unstructured, tpuwave_torch.models.general; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuwave')))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

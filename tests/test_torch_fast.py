@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models.fast import FastWaveSolver as JSolver
 from tpuwave_torch.models import convert
 from tpuwave_torch.models.fast import FastWaveSolver as TSolver

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.models import inverse as ti
 from tpuwave_torch.models.convert import fwi_to_torch
 

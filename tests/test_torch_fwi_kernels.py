@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.models.inverse import FwiProblem
 from tpuwave_torch.ops import kernels as tk
 from tpuwave_torch.ops import kernels_varcoef as kv

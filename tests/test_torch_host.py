@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.utils import params as jparams
 from tpuwave_torch import config as tconfig
 from tpuwave_torch.utils import params as tparams

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.models.fast import FastWaveSolver
 from tpuwave_torch.ops import kernels as tk
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.core.mesh import FeSpace as JSpace
 from tpuwave.core.mesh import StructuredTriMesh as JMesh
 from tpuwave.core.quadrature import gauss_simplex as jgauss

@@ -13,6 +13,7 @@ P2 smoother by its own power iteration (the same start vector).
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_engine import _close, _run_both, driven_case
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload

@@ -19,6 +19,8 @@ from pathlib import Path
 
 import pytest
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

@@ -4,6 +4,7 @@ Nel 8, 10 steps, Log Every 1 (the velocity is reconstructed at every log
 point), with the checks of test_torch_p2_cli.py.
 """
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_cli import check_cli_against_tpuwave
 
 

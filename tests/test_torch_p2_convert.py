@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_engine import _close, driven_case
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models import fast_engine as tfe

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave_torch.core.quadrature import gauss_simplex
 from tpuwave_torch.ops import kernels as tk

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.core.mesh import FeSpace as JFeSpace
 from tpuwave.core.mesh import StructuredTriMesh as JMesh
 from tpuwave.core.quadrature import gauss_simplex as jgauss

@@ -8,6 +8,7 @@ identical, states within 1e-10 relative).
 
 import pytest
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_pallas import check_pallas_route
 
 

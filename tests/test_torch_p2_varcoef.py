@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.utils.params import load_params as tload
 
 CPU = torch.device("cpu")

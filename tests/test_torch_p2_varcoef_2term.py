@@ -11,6 +11,7 @@ the cases and tolerances): beta 1/4, ``--precond mg``, c = 1 + 0.5 x +
 
 import pytest
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_cli import check_cli_against_tpuwave, jit_velocity
 from tests.test_torch_p2_engine import _close, _run_both
 from tests.test_torch_p2_varcoef_engine import PRESET, case_over, make_pair

@@ -28,6 +28,7 @@ here too.
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_tdep_c import tdep_case
 from tests.test_torch_p2_cli import cli_case
 from tests.test_torch_p2_engine import CPU, _close, _run_both, driven_case

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_cli import check_cli_against_tpuwave
 from tests.test_torch_p2_engine import CPU, _close, _run_both
 from tests.test_torch_p2_varcoef_engine import PRESET, case_over, make_pair

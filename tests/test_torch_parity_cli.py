@@ -16,7 +16,8 @@
   runner's chunked loop over ``run_steps_diag``), and ``api.build_solver`` routes a
   parity-only keyword (``lumped_explicit``) to the parity engine.
 * ``FastWaveSolver.energy`` equals tpuwave's.
-* Refusals: a ``Mesh File Name`` (imported meshes, ROADMAP A10(b)) and
+* Refusals: an empty ``Mesh File Name`` file (tpuwave's reader raises
+  its ValueError; the port prints its text on one line and exits 1) and
   ``--solver 2term`` on the parity engine (tpuwave's text).
 """
 
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_p2_cli import check_cli_against_tpuwave, cli_case
 
 CPU = torch.device("cpu")
@@ -107,10 +109,6 @@ def test_parity_refusals(tmp_path, capsys, what):
         mesh_file = tmp_path / "rectangle.msh"
         mesh_file.write_text("")
         case["Mesh File Name"] = str(mesh_file)
-        from tpuwave_torch.models.general import make_discretization
-        from tpuwave_torch.utils.params import load_params
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A10\(b\)"):
-            make_discretization(load_params(case), device=CPU)
     else:
         flags = ["--engine", "parity", "--solver", "2term"]
     path = tmp_path / "case.json"
@@ -121,10 +119,13 @@ def test_parity_refusals(tmp_path, capsys, what):
     rc = newmark.main(argv + ["--device", "cpu"])
     err = capsys.readouterr().err.strip().splitlines()
     assert rc == 1 and len(err) == 1
+    jcli = importlib.import_module("tpuwave.cli.newmark")
     if what == "mesh file":
-        assert "ROADMAP A10(b)" in err[0]
+        with pytest.raises(ValueError) as want:
+            jcli.main(argv)
+        assert err == [str(want.value)]
+        assert err[0].startswith("Unrecognised mesh format in ")
     else:
-        jcli = importlib.import_module("tpuwave.cli.newmark")
         assert jcli.main(argv) == 1
         assert capsys.readouterr().err.strip().splitlines() == err
     assert not (tmp_path / "r").exists()

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models.discretization import Discretization as JDisc
 from tpuwave.models.newmark import NewmarkSolver as JNewmark
 from tpuwave.models.theta import ThetaSolver as JTheta

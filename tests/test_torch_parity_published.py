@@ -13,6 +13,7 @@ differences grow).
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.models.discretization import Discretization
 from tpuwave_torch.models.newmark import NewmarkSolver
 from tpuwave_torch.models.theta import ThetaSolver

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave_torch.utils.prng import threefry_bits, threefry_normal
 
 CPU = torch.device("cpu")

@@ -15,6 +15,7 @@ import json
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_engine import _close, _csv_close, _files
 from tests.test_torch_varcoef_engine import CPU, _case, _step_both
 from tpuwave.models import fast_engine as jfe

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_fast_engine import driven_case
 from tests.test_tdep_c import tdep_case
 from tests.test_torch_engine import _close

@@ -37,6 +37,7 @@ def build_solver(params: Params, family: str = "theta",
     gather-path engine). Parity-only keyword arguments (e.g.
     ``lumped_explicit``) route 'auto' to the parity engine.
     """
+    from tpuwave_torch.core.unstructured import read_mesh_file
     from tpuwave_torch.models.fast_engine import resolve_engine
     from tpuwave_torch.models.general import make_discretization
     from tpuwave_torch.models.newmark import NewmarkSolver
@@ -46,11 +47,15 @@ def build_solver(params: Params, family: str = "theta",
         raise ValueError(f"Unknown solver family {family!r}")
     if engine == "auto" and set(solver_kwargs) - _FAST_KWARGS:
         engine = "parity"
+    # an import is read once, for the engine choice and the parity engine
+    mesh = (read_mesh_file(params.mesh_file)
+            if params.mesh_file is not None and not params.mesh_recognised
+            else None)
     solver, disc, reason = resolve_engine(
         params, family, engine,
         make_disc=lambda: make_discretization(params, dtype=dtype,
-                                              device=device),
-        dtype=dtype, device=device, **solver_kwargs)
+                                              device=device, mesh=mesh),
+        mesh=mesh, dtype=dtype, device=device, **solver_kwargs)
     if solver is not None:
         return solver
     if reason is not None and engine == "fast":

@@ -20,8 +20,8 @@ import sys
 from pathlib import Path
 
 from tpuwave_torch import config
-from tpuwave_torch.models.general import (IMPORTED_MESH_REFUSAL,
-                                          make_discretization)
+from tpuwave_torch.core.unstructured import read_mesh_file
+from tpuwave_torch.models.general import make_discretization
 from tpuwave_torch.models.runner import RunConfig, run_solver
 from tpuwave_torch.utils.params import ParamError, load_params
 
@@ -84,7 +84,8 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
                         choices=("none", "cells", "dofs", "dofs2d"),
                         default="none",
                         help="parallel engine for imported unstructured "
-                             "meshes (not ported yet)")
+                             "meshes (none = single device; cells / dofs "
+                             "/ dofs2d not ported yet)")
     parser.add_argument("--vtu-pieces", type=int, default=1,
                         help="VTU pieces per output record (0 = one per "
                              "device)")
@@ -140,9 +141,6 @@ def run_main(family: str, argv=None) -> int:
         print("Hint: check that the file exists and matches the documented "
               "JSON schema (see parameters/*.json).", file=sys.stderr)
         return 1
-    if params.mesh_file is not None:
-        print(IMPORTED_MESH_REFUSAL, file=sys.stderr)
-        return 1
 
     # export the reference's env channels for the duration of the run only
     env_save = {k: os.environ.get(k) for k in
@@ -155,14 +153,25 @@ def run_main(family: str, argv=None) -> int:
     print(f"  Problem name: {problem_name}")
     print(f"  Backend: {device.type}, 1 device(s), 1 process(es)")
 
+    # an imported mesh is read here, so that a missing or malformed file
+    # ends the run with the reader's one-line message (tpuwave's text)
+    mesh = None
+    if params.mesh_file is not None:
+        try:
+            mesh = read_mesh_file(params.mesh_file)
+        except (ValueError, OSError) as e:
+            print(e, file=sys.stderr)
+            return 1
+
     try:
         from tpuwave_torch.models.fast_engine import resolve_engine
         try:
             solver, disc, reason = resolve_engine(
                 params, family, args.engine,
                 make_disc=lambda: make_discretization(params, dtype=dtype,
-                                                      device=device),
-                precond=args.precond, solver=args.solver, dtype=dtype,
+                                                      device=device,
+                                                      mesh=mesh),
+                mesh=mesh, precond=args.precond, solver=args.solver, dtype=dtype,
                 device=device)
         except ValueError as e:
             if args.solver == "3term":

@@ -105,12 +105,14 @@ def _frozen_c_ref(disc) -> float:
 
 def fast_engine_ineligible_reason(problem) -> Optional[str]:
     """None when ``problem`` (a Params) can run on the grid-stencil engine
-    of this port, else why not."""
+    of this port, else why not (tpuwave's texts). Params of an import
+    run here only as models/general.py::recognised_rectangle returns
+    them."""
     if not isinstance(problem, Params):
         return "the port's fast engine takes Params"
     p = problem
-    if p.mesh_file is not None:
-        return "imported mesh (unstructured meshes: ROADMAP A10(b))"
+    if p.mesh_file is not None and not p.mesh_recognised:
+        return "imported mesh (factory routes recognisable rectangles)"
     if p.r not in (1, 2):
         return f"fast engine supports R = 1/2 (R = {p.r})"
     if min(p.nel) < 2:
@@ -172,14 +174,16 @@ def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
 
 
 def resolve_engine(params, family: str, engine: str, *, make_disc,
-                   **solver_kwargs):
+                   mesh=None, **solver_kwargs):
     """Shared ``--engine auto|fast|parity`` resolution of the CLI and
     :mod:`tpuwave_torch.api`, tpuwave's contract.
 
     ``make_disc``: zero-argument callable building the parity
     discretisation (models/general.py::make_discretization), invoked only
-    when the parity engine runs. Returns ``(solver_or_None, disc_or_None,
-    reason_or_None)``:
+    when the parity engine runs. ``mesh``: the import of ``params``,
+    already read (else it is read here). An import that is recognisably
+    a rectangle runs on the fast engine with its ``nel`` / ``geometry``.
+    Returns ``(solver_or_None, disc_or_None, reason_or_None)``:
 
     * solver set          -> a fast engine was built (disc None)
     * solver None, parity -> the caller builds the parity solver on ``disc``
@@ -190,6 +194,14 @@ def resolve_engine(params, family: str, engine: str, *, make_disc,
     if engine not in ("auto", "fast"):
         raise ValueError(f"Unknown engine {engine!r}")
     reason = fast_engine_ineligible_reason(params)
+    if (reason is not None and params.mesh_file is not None
+            and not params.mesh_recognised):
+        from tpuwave_torch.models.general import recognised_rectangle
+        rect = recognised_rectangle(params, mesh)
+        if rect is None:
+            reason = "mesh is not a generated structured rectangle"
+        else:
+            params, reason = rect, fast_engine_ineligible_reason(rect)
     if reason is None:
         return make_fast_solver(params, family, **solver_kwargs), None, None
     return None, make_disc(), reason

@@ -7,7 +7,9 @@ reproduced with the same float accumulation so step counts and time
 stamps match bit-for-bit), divergence early-break at 1e130,
 log_every/print_every cadence, per-step VTU output, and the final
 convergence.csv row with wall-clock time. Folder names, CSV schemas and
-console lines are tpuwave's.
+console lines are tpuwave's; an imported mesh is reported (and, as in
+tpuwave, gets no mesh VTK snapshot: its VTU pieces carry its own
+triangulation).
 
 Single process. Checkpoint/resume (tpuwave utils/checkpoint.py) is not
 ported yet (ROADMAP A1).
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from tpuwave_torch.config import env_flag_enabled
+from tpuwave_torch.core.mesh import StructuredTriMesh
 from tpuwave_torch.utils.csvlog import RunLogs, fmt_e
 from tpuwave_torch.utils.naming import mesh_file_name, run_folder_name
 from tpuwave_torch.utils.profiling import PhaseTimer
@@ -89,7 +92,13 @@ def run_solver(solver, problem_name: str,
     pcout(f"Initializing the finite element space\n  Degree                     = {p.r}")
     pcout(f"Initializing the DoF handler\n  Number of DoFs = {d.n_dofs}")
 
-    if cfg.write_mesh:
+    imported_mesh = p.mesh_file is not None
+    if imported_mesh:
+        pcout(f"  Mesh imported from {p.mesh_file}")
+        if isinstance(d.mesh, StructuredTriMesh):
+            pcout(f"  Recognised as a structured {p.nel[0]}x{p.nel[1]} "
+                  "rectangle -> structured engines")
+    if cfg.write_mesh and not imported_mesh:
         if d.mesh.n_cells > 2_000_000:
             # bench-scale meshes: the serial VTK snapshot alone would be
             # ~100s of MB of host IO

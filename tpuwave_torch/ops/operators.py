@@ -19,11 +19,13 @@ parity path is asserted bitwise reproducible): ``index_add_`` of floats on
 CUDA adds with atomics in no fixed order. :class:`CellConnectivity` builds
 the inverse connectivity once on the host instead: for each DoF its
 (cell, local) slots in ascending order, padded to the largest valence with
-the index of a zero slot (6 on the structured mesh for P1 and for P2
-vertices, 2 for P2 edge midpoints). A scatter-add is then one gather and
-one sum over the slot axis, in the same order on every run. The same
-gather-sum assembles diagonals, row sums and the load vector
-(models/discretization.py).
+the index of a zero slot. That valence is the mesh's own: 6 on the
+structured mesh for P1 and for P2 vertices (2 for P2 edge midpoints), the
+largest number of cells around a vertex of an imported mesh (the table
+pads every DoF to it). A scatter-add is then one gather and one sum
+over the slot axis, in the same order on every run. The same gather-sum
+assembles diagonals, row sums and the load vector
+(models/discretization.py, models/general.py).
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ class CellConnectivity:
     """Cell -> DoF connectivity on a device, with its inverse for the
     deterministic scatter-add.
 
-    ``cell_dofs``: (n_cells, nloc) host integer array, cells interleaved
-    [lower, upper] per grid cell (core/mesh.py).
+    ``cell_dofs``: (n_cells, nloc) host integer array in any cell order:
+    the structured mesh's interleaved [lower, upper] pairs (core/mesh.py)
+    or an imported mesh's cells (core/unstructured.py). Only the class and
+    scaled storage of :class:`MatrixFreeOperator` read the pairing.
     """
 
     def __init__(self, cell_dofs, n_dofs: int, device):
@@ -88,7 +92,8 @@ class MatrixFreeOperator:
     Three storage modes, cheapest first:
       * class:  a_class (2, nloc, nloc), cells interleaved [lower, upper]
       * scaled: class matrices times a per-element scalar (n_cells,)
-      * full:   a_full (n_cells, nloc, nloc)
+      * full:   a_full (n_cells, nloc, nloc), any cell order (imported
+        meshes, models/general.py)
 
     ``conn`` is the :class:`CellConnectivity` of the space (shared by all
     operators on it). The arrays may be numpy or tensors; they are kept as

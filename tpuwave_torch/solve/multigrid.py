@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave_torch.ops import kernels, kernels_p2
 from tpuwave_torch.ops.stencil import apply_stencil
 from tpuwave_torch.ops.stencil_p2 import (P2PlaneStencil, canvas_shape,
@@ -272,7 +273,6 @@ def gmg_for_system(nel: Tuple[int, int], geometry, c: float,
     (nel, geometry) P1 mesh (``stiff_coef`` = beta dt^2 for Newmark,
     (theta dt)^2 for the theta u-system). Level operators are the
     coarse-mesh FEM stencils; all setup is host-side numpy."""
-    from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
     from tpuwave_torch.core.quadrature import gauss_simplex
     from tpuwave_torch.ops.assembly import (element_mass_class,
                                             element_stiffness_class)
@@ -298,9 +298,11 @@ def auto_precond(params, mesh, stiff_coef: float) -> str:
     ``'mg'`` when the V-cycle applies (structured mesh ``mesh``, constant
     wave speed, R in {1, 2}, C not time-dependent) and the system is
     stiffness-dominated enough that it pays (q = stiff_coef * c^2 /
-    (hx * hy) >= AUTO_MG_THRESHOLD), ``'jacobi'`` otherwise."""
+    (hx * hy) >= AUTO_MG_THRESHOLD), ``'jacobi'`` otherwise (an imported
+    mesh among them, as in tpuwave)."""
     p = params
-    eligible = (p.c.constant_value is not None and p.r in (1, 2)
+    eligible = (type(mesh) is StructuredTriMesh
+                and p.c.constant_value is not None and p.r in (1, 2)
                 and not (p.time_dependent_c and p.c.time_dependent))
     if not eligible:
         return "jacobi"
@@ -333,10 +335,13 @@ def gmg_flat_preconditioner(disc, stiff_coef: float, c_ref=None,
     around the V-cycle; at R = 2 it is the plane concatenation of
     ops/stencil_p2.py, on which :class:`P2GmgPreconditioner` runs
     directly. Either way the P1 V-cycle's fine level runs on B4 / B3 when
-    the hierarchy has >= 2 levels. Raises ValueError otherwise.
+    the hierarchy has >= 2 levels. Raises ValueError otherwise (tpuwave's
+    text: an imported mesh, a varying c without ``c_ref``, R > 2).
     """
     p = disc.params
     mesh = disc.mesh
+    if type(mesh) is not StructuredTriMesh:
+        raise ValueError("mg preconditioner needs the structured mesh")
     c_val = p.c.constant_value if c_ref is None else float(c_ref)
     if c_val is None:
         raise ValueError("mg preconditioner needs a constant wave speed C "
@@ -505,7 +510,6 @@ def p2_gmg_for_system(nel: Tuple[int, int], geometry, c: float,
     vector) unless passed in.
     """
     from tpuwave_torch.config import resolve_device
-    from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
     from tpuwave_torch.core.quadrature import gauss_simplex
     from tpuwave_torch.ops.assembly import (element_mass_class,
                                             element_stiffness_class)

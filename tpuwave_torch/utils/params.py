@@ -106,6 +106,10 @@ class Params:
     #: path (the declared default would point every run at a nonexistent
     #: ../mesh/mesh-square-40.msh).
     mesh_file: Optional[str] = None
+    #: the import at ``mesh_file`` is the ``nel`` x ``geometry`` rectangle
+    #: triangulation (models/general.py::recognised_rectangle sets it with
+    #: those two); the structured engines run such Params
+    mesh_recognised: bool = False
     #: tpuwave extension: re-evaluate c(x, y, t) each step (see _DEFAULTS)
     time_dependent_c: bool = False
     raw: Dict = field(default_factory=dict, hash=False, compare=False)
