@@ -40,6 +40,10 @@ ops, the mg V-cycle's P1 levels on B4 / B3) at Nel 24 and at BASELINE.md's
 640^2. Path I: imported meshes (Mesh File Name): the reference's default
 mesh (recognised as the 40 x 40 rectangle: the fast engine, B4 / B3 with
 --precond mg) and perturbed meshes on the parity engine up to 640^2.
+Path J: the run surface (checkpoint / resume, --profile-dir and the
+wall-clock limit of the runner and both CLIs, harness.run_case) at
+640^2 and the sweep scripts (scripts/torch_*.py) at the reference's own
+sizes (``--only run_surface,sweeps`` runs it alone).
 Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
@@ -52,11 +56,11 @@ Phases:
      grids' rows read
   4. the leapfrog: 320 steps through kernel B1 and through kernel B2
      (k = 8 and k = 32), each against the plain loop; DoF*steps/s
-  5. both CLIs (newmark beta 1/4, theta 1/2), 50 steps on --device cuda and
+  5. both CLIs (newmark beta 1/4, theta 1/2), 25 steps on --device cuda and
      on --device cpu: CSVs and per-step CG counts must agree
   6. the full-length newmark run (T = 0.05) on cuda: wall time, and its
      final relative L2 error against tpuwave's value for the same run
-  7. the solver family, 10 steps at 640^2 on --device cuda and on --device
+  7. the solver family, 5 steps at 640^2 on --device cuda and on --device
      cpu: CSVs and per-step counts must agree, and the cuda runs must
      launch B3, B4 and (2-term) B5
   8. newmark beta 1/4 --solver 2term --precond mg at 2048^2 elements
@@ -65,7 +69,7 @@ Phases:
   9. where the time of path B goes (torch.profiler): launches and device
      time of one V-cycle at 2049^2, and the device's idle share over a
      2-term MG CLI run
- 10. the R = 2 solver family, standing mode, 160^2 elements, 10 steps, on
+ 10. the R = 2 solver family, standing mode, 160^2 elements, 5 steps, on
      --device cuda and on --device cpu: CSVs agree and per-step CG counts
      are equal; the cuda runs launch B11 (and B12, B13, B4, B3 with mg)
  11. newmark beta 1/4 --solver 2term --precond mg at R = 2, 1024^2
@@ -77,7 +81,7 @@ Phases:
  12. where the time of path C goes (torch.profiler): launches and device
      time of one P2 V-cycle at 1024^2, and the device's idle share over
      phase 10's 2-term MG run
- 13. FastWaveSolver's implicit family at 640^2, f64, dt 4e-3, 10 steps,
+ 13. FastWaveSolver's implicit family at 640^2, f64, dt 4e-3, 5 steps,
      schemes theta 1, theta 1/2, newmark beta 1/4, every run_* path on
      device="cuda" against device="cpu": u agrees to rel 1e-9, v to 1e-9
      (Newmark) or 1e-5 (theta), and the per-solve iteration counts are
@@ -112,11 +116,11 @@ Phases:
      each kernel leg's end state within rel L2 1e-5 of the torch-ops
      leg's; then 64 steps at 1024^2 f64 on B6 (k = 8): ||u||
      equal to tpuwave's at rtol 1e-10
- 19. both CLIs (newmark beta 1/4, theta 1/2) at 160^2 elements, 10 steps,
+ 19. both CLIs (newmark beta 1/4, theta 1/2) at 160^2 elements, 5 steps,
      with a spatially varying C and with a time-dependent C, --precond
      jacobi and mg, on --device cuda and on --device cpu: CSVs agree,
      per-step CG counts are equal, the mg runs launch B4 and B3
- 20. both CLIs (newmark beta 1/4, theta 1/2) at R = 2, 160^2 elements, 10
+ 20. both CLIs (newmark beta 1/4, theta 1/2) at R = 2, 160^2 elements, 5
      steps, f64, with a spatially varying and with a time-dependent C,
      --precond jacobi and mg, and newmark --solver 2term --precond mg with
      the varying C, on --device cuda and on --device cpu: CSVs agree,
@@ -131,7 +135,7 @@ Phases:
      CPU run; error norms within 1e-11 of the solution's norm); then one step of (b) under torch.profiler: the device-busy
      share, the varcoef apply's share (torch ops) and B11-B13's
 
- 22. both CLIs on the parity engine at Nel 24, 10 steps, f64, Log Every 1:
+ 22. both CLIs on the parity engine at Nel 24, 5 steps, f64, Log Every 1:
      theta 1/2 jacobi, theta 1 mg, newmark 1/4 chebyshev, newmark 1/4
      jacobi with a time-dependent C, theta 1/2 on a forcing preset, and at
      R = 2 theta 1/2 mg and newmark 1/4 chebyshev with a varying C, on
@@ -154,7 +158,7 @@ Phases:
      mg on cuda: recognised as the 40 x 40 rectangle (the fast engine),
      CSVs byte-equal to the Nel 40 run's, B4 and B3 launched; (b) a
      perturbed Nel 24 mesh at R = 1 and 2 (theta 1/2 chebyshev, newmark
-     1/4 jacobi, one with a time-dependent C), 10 steps on the parity
+     1/4 jacobi, one with a time-dependent C), 5 steps on the parity
      engine, --device cuda against --device cpu: CSVs agree, per-step CG
      counts equal, run_steps states within 1e-12, a second cuda run
      bitwise equal; (c) api.solve on perturbed meshes (newmark 1/4 jacobi
@@ -171,6 +175,37 @@ Phases:
      tpuwave's, the final relative L2 error within 1e-6 of its, and cuda
      against cpu; then one step of (a) under torch.profiler: the
      device-busy share and the top device ops
+ 26. the run surface at 640^2, f64, dt 8e-5, 100 steps, Log Every 5, on
+     cuda: (a) three CLI runs (--engine auto newmark beta 1/4; newmark
+     --solver 2term --precond mg; --engine parity theta 1/2 with a
+     time-dependent C, whose state carries k_payload), each with
+     --checkpoint-every 25 and resumed (--resume) from its middle
+     checkpoint copied into a fresh folder: the CSV rows after the
+     checkpoint byte-equal (the convergence row but its wall time), the
+     last checkpoints bitwise equal; the first also without checkpoints
+     (the chunked branch): its rows byte-equal to the checkpointing
+     run's; ms/step of each; (b) the first resume
+     again with --profile-dir: the trace parses, names a port kernel and
+     leaves the CSVs unchanged; (c) harness.run_case with timeout_s 1 on
+     a 12500-step run: code -1, timed_out, the CSVs ending at the step
+     where the run stopped
+ 27. the sweeps through scripts/torch_*.py on cuda: (a) convergence at
+     Nel 320, R = 1 and 2, T 1, five schemes (dt 0.02 and 0.01 implicit,
+     0.001 explicit; the CFL filter drops explicit R = 2): each row's
+     final rel L2 / H1 within rtol 1e-6 (plus one unit in the last printed
+     digit) of tpuwave's or a blowup on both sides, tpuwave's pinned from
+     CPU runs of the JAX package; compare_with_reference.py's summary
+     against analysis/data/convergence-results.csv, reported; (b)
+     dissipation at its defaults (Nel 60, T 5, Log Every 1) with dt >=
+     0.005 (every scheme at 0.15, 0.1 and 0.05, where the CFL filter drops
+     the explicit ones, and Newmark beta 0 at 0.005):
+     dissdisp-results.csv rows against tpuwave's pinned rows, the
+     same way; the compare tool against analysis/data/dissdisp-results.csv,
+     reported; (c) scalability at its defaults (640^2, dt 8e-5, 625 steps,
+     f32, five schemes, --repeats 2): seconds and DoF*steps/s per scheme,
+     the CSV schema; (d) acceptance, --t-max 0.05, 12 presets x 2
+     families: every run exits 0 with its artifacts; final errors printed
+     beside analysis/data/acceptance-summary.csv's
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -377,14 +412,16 @@ PATH_G = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
           "cheby_block", "constrained_stencil_apply")
 PATH_H = ("cheby_block", "constrained_stencil_apply")
 PATH_I = ("cheby_block", "constrained_stencil_apply")
+PATH_J = ("constrained_stencil_apply", "cheby_block", "recurrence_r0")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-#: steps of the cuda-against-cpu runs of the CLI solver families (phases 7
-#: and 10)
-FAMILY_STEPS = 10
+#: steps of the cuda-against-cpu runs (phases 7, 10, 13, 19, 20, 22, 24)
+FAMILY_STEPS = 5
+#: phase 5's steps (cuda against cpu at 640^2)
+CLI_AGREE_STEPS = 25
 #: bytes written before each timed call to evict the card's L2 (50 MB)
 L2_FLUSH_BYTES = 256 << 20
 #: calls under torch.profiler for a kernel's device time in phase 3
@@ -955,7 +992,7 @@ def _flat(its) -> list:
 def phase_fast_agree(torch):
     from tpuwave_torch.models.fast import FastWaveSolver
 
-    n = 10
+    n = FAMILY_STEPS
     say(f"phase 13: FastWaveSolver's implicit family, standing mode, 640^2 "
         f"elements, f64, dt 4e-3, {n} steps: device=cuda against device=cpu "
         f"(u within rel 1e-9; v within 1e-9 (Newmark) / 1e-5 (theta); "
@@ -1372,11 +1409,13 @@ def _compare_csvs(a: Path, b: Path, its_tol: int = 1) -> int:
 
 
 def phase_cli(torch, kn, work: Path):
-    say("phase 5: both CLIs, standing mode, 640^2 elements, dt 8e-5, "
-        "50 steps, f64, Log Every 1: --device cuda against --device cpu")
+    say(f"phase 5: both CLIs, standing mode, 640^2 elements, dt 8e-5, "
+        f"{CLI_AGREE_STEPS} steps, f64, Log Every 1: --device cuda against "
+        f"--device cpu")
     for family, over in (("newmark", {"Beta": "0.25"}),
                          ("theta", {"Theta": "0.5"})):
-        case = _case(work, T=str(50 * 8e-5), **{"Log Every": "1"}, **over)
+        case = _case(work, T=str(CLI_AGREE_STEPS * 8e-5),
+                     **{"Log Every": "1"}, **over)
         before = kn.LAUNCHES["constrained_stencil_apply"]
         w_cuda, _ = _cli(family, case, work / family / "cuda", "cuda")
         n_launch = kn.LAUNCHES["constrained_stencil_apply"] - before
@@ -3233,6 +3272,476 @@ def phase_unstructured_profile(torch, kn, work: Path):
             f"{e.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 26 and 27: path J, the run surface and the sweeps
+# ---------------------------------------------------------------------------
+#: phase 26 (a): (tag, family, flags, overrides of _case), each at 640^2,
+#: f64, dt 8e-5, RUN_SURFACE_STEPS steps, Log Every 5, checkpoints every
+#: CHECKPOINT_EVERY steps
+RUN_SURFACE_RUNS = (
+    ("auto newmark 1/4", "newmark", (), {"Beta": "0.25", "Gamma": "0.5"}),
+    ("newmark 1/4 2term mg", "newmark", ("--solver", "2term", "--precond",
+                                         "mg"),
+     {"Beta": "0.25", "Gamma": "0.5"}),
+    ("parity theta 1/2 time-dep. C", "theta", ("--engine", "parity"),
+     {"Theta": "0.5", **TDEP_C}),
+)
+RUN_SURFACE_STEPS = 100
+CHECKPOINT_EVERY = 25
+RUN_LOGS = ("energy.csv", "error.csv", "probe.csv", "iterations.csv")
+#: the __global__ functions of tpuwave_torch/csrc/*.cu
+_KERNEL_RE = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                        r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+
+
+def port_kernel_names() -> set:
+    names = set()
+    for src in sorted((ROOT / "tpuwave_torch" / "csrc").glob("*.cu")):
+        names |= set(_KERNEL_RE.findall(src.read_text()))
+    return names - {"noop_kernel"}
+
+
+def _run_folder(out: Path) -> Path:
+    return next((out / "res").glob("*/run-*"))
+
+
+def _conv_head(out: Path) -> str:
+    """A run's convergence row without its wall-clock column."""
+    conv = next((out / "res").glob("*/convergence.csv"))
+    return conv.read_text().splitlines()[-1].rsplit(",", 1)[0]
+
+
+def _resume_copy(run: Path, ckpt: Path, out: Path) -> Path:
+    """A fresh run folder under ``out`` that holds ``ckpt`` alone."""
+    fresh = out / "res" / run.parent.name / run.name
+    fresh.mkdir(parents=True)
+    shutil.copy(ckpt, fresh)
+    return fresh
+
+
+def _rows_after(run: Path, name: str, step: int) -> list:
+    rows = (run / name).read_text().splitlines()
+    return [rows[0]] + [r for r in rows[1:] if int(r.split(",")[0]) > step]
+
+
+def _same_checkpoints(a: Path, b: Path) -> bool:
+    """Bitwise equal checkpoint files: every field, step and time."""
+    import numpy as np
+    with np.load(a) as x, np.load(b) as y:
+        return (sorted(x.files) == sorted(y.files)
+                and all(np.array_equal(x[k], y[k]) for k in x.files))
+
+
+def _trace_kernels(path: Path) -> tuple:
+    """(the CUDA kernel events of a Chrome trace, the port's kernels' events
+    counted by kernel name)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = {}
+    for name in port_kernel_names():
+        n = sum(re.search(rf"\b{name}\b", e.get("name", "")) is not None
+                for e in kernels)
+        if n:
+            ours[name] = n
+    return kernels, ours
+
+
+def phase_run_surface(torch, kn, work: Path):
+    from tpuwave_torch import harness
+    from tpuwave_torch.models.runner import time_steps
+
+    n_steps = len(time_steps(RUN_SURFACE_STEPS * 8e-5, 8e-5))
+    say(f"phase 26: the run surface at BASELINE.md's 640^2 elements, f64, "
+        f"dt 8e-5, {n_steps} steps, Log Every 5, on cuda: (a) each run "
+        f"with --checkpoint-every {CHECKPOINT_EVERY} (the first also "
+        f"without), then resumed from a middle checkpoint in a fresh folder "
+        f"(CSV rows "
+        f"after it byte-equal, the convergence row but its wall time, the "
+        f"last checkpoints bitwise equal); (b) the first resume again "
+        f"with --profile-dir (a trace that names a port kernel); (c) "
+        f"harness.run_case with a 1 s wall-clock limit")
+    failed = []
+    for i, (tag, family, flags, over) in enumerate(RUN_SURFACE_RUNS):
+        case = _case(work, T=str(RUN_SURFACE_STEPS * 8e-5),
+                     **{"Log Every": "5"}, **over)
+        base = work / "surface" / re.sub(r"[ .,/=]+", "_", tag)
+        ck = ("--checkpoint-every", str(CHECKPOINT_EVERY))
+        # the first run also without checkpoints (the chunked branch): its
+        # ms/step against the checkpointing run's, and its CSVs
+        runs = ("plain", "full", "resumed") if i == 0 else ("full",
+                                                           "resumed")
+        before = dict(kn.LAUNCHES)
+        walls = {}
+        if i == 0:
+            walls["plain"], _ = _cli(family, case, base / "plain", "cuda",
+                                     flags=flags)
+        walls["full"], _ = _cli(family, case, base / "full", "cuda",
+                                flags=flags + ck)
+        n = {k: kn.LAUNCHES[k] - before[k] for k in PATH_J}
+        full = _run_folder(base / "full")
+        ckpts = sorted(full.glob("checkpoint_*.npz"))
+        mid = ckpts[-2]
+        step = int(mid.name[len("checkpoint_"):-len(".npz")])
+        fresh = _resume_copy(full, mid, base / "resumed")
+        walls["resumed"], text = _cli(family, case, base / "resumed", "cuda",
+                                      quiet=False,
+                                      flags=flags + ck + ("--resume",))
+        if f"Resuming from checkpoint at step {step}," not in text:
+            failed.append(f"{tag}: no resume line for step {step}")
+        rows = sum(len(_rows_after(full, name, step)) - 1
+                   for name in RUN_LOGS)
+        for name in RUN_LOGS:
+            if (fresh / name).read_text().splitlines() != \
+                    _rows_after(full, name, step):
+                failed.append(f"{tag}: {name} after step {step} differs")
+            if i == 0 and (full / name).read_bytes() != \
+                    (_run_folder(base / "plain") / name).read_bytes():
+                failed.append(f"{tag}: {name} differs from the run "
+                              "without checkpoints")
+        for d in runs:
+            if _conv_head(base / "full") != _conv_head(base / d):
+                failed.append(f"{tag}: convergence rows of full and {d} "
+                              "differ")
+        bitwise = _same_checkpoints(ckpts[-1], fresh / ckpts[-1].name)
+        if not bitwise:
+            failed.append(f"{tag}: {ckpts[-1].name} not bitwise equal")
+        loop = {d: float((next((base / d / "res").glob("*/convergence.csv"))
+                          .read_text().splitlines()[-1].rsplit(",", 1)[1]))
+                for d in runs}
+        plain = (f"without checkpoints {loop['plain'] / n_steps * 1e3:.3f} "
+                 "ms/step, " if i == 0 else "")
+        say(f"  {tag:<30} time loop: {plain}with checkpoints "
+            f"{loop['full'] / n_steps * 1e3:.3f} ms/step, resumed from "
+            f"step {step} {loop['resumed'] / (n_steps - step) * 1e3:.3f} "
+            f"ms/step; CLI walls "
+            f"{' / '.join(f'{walls[d]:.2f}' for d in runs)} s; {rows} rows "
+            f"after step {step} byte-equal, {ckpts[-1].name} bitwise "
+            f"{'equal' if bitwise else 'DIFFERENT'}; launches {n}")
+        if i == 0:
+            # (b) the same resume under --profile-dir
+            tdir = base / "trace"
+            prof = _resume_copy(full, mid, base / "profiled")
+            w_prof, _ = _cli(family, case, base / "profiled", "cuda",
+                             flags=flags + ck + ("--resume", "--profile-dir",
+                                                 str(tdir)))
+            path = tdir / "trace.json"
+            kernels, ours = _trace_kernels(path)
+            say(f"  (b) --profile-dir: {path.name} "
+                f"{path.stat().st_size / 2 ** 20:.1f} MiB, "
+                f"{len(kernels)} CUDA kernel events, the port's kernels "
+                f"{ours}; CLI wall {w_prof:.2f} s")
+            if not ours:
+                failed.append("(b) the trace names none of the port's "
+                              "kernels")
+            for name in RUN_LOGS:
+                if (prof / name).read_bytes() != (fresh / name).read_bytes():
+                    failed.append(f"(b) {name} differs under the profiler")
+
+    # (c) the sweeps' per-run timeout on a long case
+    over = {"Nel": "640", "Dt": "8e-5", "T": "1.0", "Save Solution": False,
+            "Log Every": 10}
+    code, elapsed, res = harness.run_case(
+        "newmark-0.25", ROOT / "parameters" / "standing-mode-wsol.json",
+        over, results_root=str(work / "timeout" / "res"), timeout_s=1.0,
+        device="cuda")
+    run = _run_folder(work / "timeout")
+    last = {name: int((run / name).read_text().splitlines()[-1]
+                      .split(",")[0]) for name in RUN_LOGS}
+    say(f"  (c) run_case newmark-0.25, 640^2, 12500 steps, timeout_s 1: "
+        f"code {code}, timed_out {res.timed_out if res else None}, "
+        f"stopped at step {res.timestep_number if res else None} after "
+        f"{res.elapsed_s if res else 0:.3f} s of time loop "
+        f"({elapsed:.2f} s in all); last CSV rows at steps {last}")
+    if code != -1 or not res.timed_out or res.timestep_number <= 0 or \
+            set(last.values()) != {res.timestep_number} or \
+            list((work / "timeout").rglob("convergence.csv")):
+        failed.append(f"(c) code {code}, last rows {last}")
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 26: " + "; ".join(failed))
+
+
+#: phase 27 (a): the convergence sweep at Nel 320, R = 1 and 2, T 1, its
+#: CFL filter on, as two plans (name, schemes, dt): the implicit schemes at
+#: dt 0.02 and 0.01, the explicit ones at dt 0.001 (the filter keeps R = 1
+#: only: R = 2's limit is 4.97e-4)
+CONVERGENCE_PLANS = (
+    ("implicit", ("theta-0.5", "theta-1.0", "newmark-0.25"), ("0.02", "0.01")),
+    ("explicit", ("theta-0.0", "newmark-0.00"), ("0.001",)),
+)
+#: tpuwave's rows of those plans, (method, theta, beta, R, dt) ->
+#: (rel_L2_error_final, rel_H1_error_final) as its merged CSV prints
+#: them, from CPU runs of the JAX package's own sweep script (f64), one
+#: per plan, each in an empty directory:
+#:   JAX_PLATFORMS=cpu python scripts/convergence_sweep.py --nel 320
+#:     --r 1 2 --dt 0.02 0.01 --schemes theta-0.5 theta-1.0 newmark-0.25
+#:     --results-root res --job-id ""
+#:   JAX_PLATFORMS=cpu python scripts/convergence_sweep.py --nel 320
+#:     --r 1 2 --dt 0.001 --schemes theta-0.0 newmark-0.00
+#:     --results-root res --job-id ""
+#: (theta-0.0 blows up at dt 0.001 within its CFL limit, as in
+#: analysis/data/convergence-results.csv)
+TPUWAVE_CONVERGENCE_320 = {
+    ('theta-conv-params', '0.500000', 'N/A', '1', '0.02'):
+        ('1.035672e-02', '1.143130e-02'),
+    ('theta-conv-params', '0.500000', 'N/A', '1', '0.01'):
+        ('2.434971e-03', '5.382905e-03'),
+    ('theta-conv-params', '0.500000', 'N/A', '2', '0.02'):
+        ('1.056619e-02', '1.056628e-02'),
+    ('theta-conv-params', '0.500000', 'N/A', '2', '0.01'):
+        ('2.644694e-03', '2.645180e-03'),
+    ('theta-conv-params', '1.000000', 'N/A', '1', '0.02'):
+        ('1.441142e-01', '1.441725e-01'),
+    ('theta-conv-params', '1.000000', 'N/A', '1', '0.01'):
+        ('8.451169e-02', '8.462533e-02'),
+    ('theta-conv-params', '1.000000', 'N/A', '2', '0.02'):
+        ('1.439390e-01', '1.439390e-01'),
+    ('theta-conv-params', '1.000000', 'N/A', '2', '0.01'):
+        ('8.431971e-02', '8.431971e-02'),
+    ('newmark-conv-params', 'N/A', '0.250000', '1', '0.02'):
+        ('1.035672e-02', '1.143126e-02'),
+    ('newmark-conv-params', 'N/A', '0.250000', '1', '0.01'):
+        ('2.434970e-03', '5.382873e-03'),
+    ('newmark-conv-params', 'N/A', '0.250000', '2', '0.02'):
+        ('1.056619e-02', '1.056619e-02'),
+    ('newmark-conv-params', 'N/A', '0.250000', '2', '0.01'):
+        ('2.644695e-03', '2.644711e-03'),
+    ('theta-conv-params', '0.000000', 'N/A', '1', '0.001'):
+        ('6.382746e+151', 'inf'),
+    ('newmark-conv-params', 'N/A', '0.000000', '1', '0.001'):
+        ('2.233323e-04', '4.793127e-03'),
+}
+#: phase 27 (b): the dissipation sweep at its defaults (Nel 60, R 1, T 5,
+#: Log Every 1) on dt >= 0.005, as two plans (name, schemes, dt): every
+#: scheme from 0.15 to 0.05 (the CFL filter drops the explicit ones: their
+#: limit is 0.0106), and Newmark beta 0 at 0.005, the explicit scheme's
+#: stable run (theta 0 blows up there, as in analysis/data)
+DISSDISP_PLANS = (
+    ("ladder", ("theta-0.0", "theta-0.5", "theta-1.0", "newmark-0.00",
+                "newmark-0.25"), ("0.15", "0.1", "0.05")),
+    ("explicit", ("newmark-0.00",), ("0.005",)),
+)
+#: tpuwave's dissdisp-results.csv rows of those plans, (scheme, dt) ->
+#: (energy_ratio, energy_decay_rate, max_rel_L2, final_rel_L2,
+#: final_rel_H1), from a CPU run of the JAX package's own sweep script
+#: (f64) in an empty directory (its rows of the plans above):
+#:   JAX_PLATFORMS=cpu python scripts/dissipation_dispersion_sweep.py
+#:     --dt 0.15 0.1 0.05 0.02 0.01 0.005 --results-root res --job-id ""
+TPUWAVE_DISSDISP = {
+    ('theta-0.5', '0.15'):
+        ('1.0', '0.0', '11.74243', '0.2647401', '0.2667038'),
+    ('theta-0.5', '0.1'):
+        ('1.0', '0.0', '18.6379', '0.2109595', '0.213215'),
+    ('theta-0.5', '0.05'):
+        ('1.0', '0.0', '4.521223', '0.03605706', '0.04472659'),
+    ('theta-1.0', '0.15'):
+        ('5.369693527420922e-06', '0.19607737849146523', '2.273927', '1.001019', '1.001019'),
+    ('theta-1.0', '0.1'):
+        ('0.00012182248026641552', '0.19605454461171248', '1.865921', '0.9898736', '0.9898736'),
+    ('theta-1.0', '0.05'):
+        ('0.008065766244815484', '0.1964226205455811', '2.920896', '0.9033257', '0.9033291'),
+    ('newmark-0.00', '0.005'):
+        ('0.9999918924616108', '1.6198877900594182e-06', '7.119506', '0.002555843', '0.02560677'),
+    ('newmark-0.25', '0.15'):
+        ('1.0', '0.0', '11.74243', '0.2647401', '0.2667038'),
+    ('newmark-0.25', '0.1'):
+        ('1.0', '0.0', '18.6379', '0.2109595', '0.213215'),
+    ('newmark-0.25', '0.05'):
+        ('1.0', '0.0', '4.521223', '0.03605706', '0.04472659'),
+}
+
+
+def _script(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _in_dir(path: Path, fn, *args):
+    """``fn(*args)`` with ``path`` (made) as the working directory and its
+    console output captured: (result, wall s, text)."""
+    path.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.chdir(path), contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, time.perf_counter() - t0, buf.getvalue()
+
+
+def _blowup(vals) -> bool:
+    """compare_with_reference.py's test of a run that left the solution."""
+    import math
+    return any(not math.isfinite(v) or abs(v) > 1e10 for v in vals)
+
+
+def _pinned_gate(name: str, rows: list, pins: dict, key, cols,
+                 computed=()) -> list:
+    """``rows`` (csv.DictReader rows) against tpuwave's pinned values by
+    ``key(row)``: each of ``cols`` within rtol 1e-6 plus one unit in the
+    last printed digit (``computed`` columns, full-precision floats the
+    sweep derives from printed ones, within rtol 1e-6 plus 1e-12), or a
+    blowup on both sides."""
+    bad = []
+    if sorted(key(r) for r in rows) != sorted(pins):
+        return [f"{name}: rows {sorted(key(r) for r in rows)} against "
+                f"tpuwave's {sorted(pins)}"]
+    for r in rows:
+        want = dict(zip(cols, pins[key(r)]))
+        gv = [float(r[c]) for c in cols]
+        wv = [float(want[c]) for c in cols]
+        if _blowup(gv) or _blowup(wv):
+            if _blowup(gv) != _blowup(wv):
+                bad.append(f"{name} {key(r)}: blowup {gv} vs {wv}")
+            continue
+        for c in cols:
+            if c in computed:
+                a, b = float(r[c]), float(want[c])
+                if abs(a - b) > 1e-6 * max(abs(a), abs(b)) + 1e-12:
+                    bad.append(f"{name} {key(r)} {c}: {r[c]} vs {want[c]}")
+            else:
+                bad += _rows_gate(f"{name} {key(r)}", [c], [r[c]],
+                                  [want[c]], 1e-6)
+    return bad
+
+
+def _compare_tool(ours: Path, ref: Path) -> str:
+    """The summary line of scripts/compare_with_reference.py."""
+    tool = _script("compare_with_reference")
+    argv, sys.argv = sys.argv, ["compare_with_reference", str(ours),
+                                str(ref)]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tool.main()
+    finally:
+        sys.argv = argv
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def phase_sweeps(torch, kn, work: Path):
+    say("phase 27: the sweeps through scripts/torch_*.py on cuda: (a) "
+        "convergence at Nel 320, R = 1 and 2, five schemes, T 1; (b) "
+        "dissipation at its defaults (Nel 60, T 5, Log Every 1), dt >= "
+        "0.005; (c) scalability at its defaults (640^2, dt 8e-5, 625 "
+        "steps, f32, --repeats 2); (d) acceptance, 12 presets x 2 "
+        "families, --t-max 0.05")
+    failed = []
+
+    # (a) convergence
+    conv = _script("torch_convergence_sweep")
+    rows = []
+    for tag, schemes, dts in CONVERGENCE_PLANS:
+        where = work / "sweeps" / f"convergence-{tag}"
+        _, wall, text = _in_dir(where, conv.main, [
+            "--nel", "320", "--r", "1", "2", "--dt", *dts, "--schemes",
+            *schemes, "--results-root", "res", "--job-id", "", "--device",
+            "cuda"])
+        log = list(csv.DictReader((where / "convergence-runlog.csv").open()))
+        got = list(csv.DictReader((where / "convergence-results.csv")
+                                  .open()))
+        rows += got
+        codes = [int(r["returncode"]) for r in log]
+        say(f"  (a) {tag}: {len(log)} runs in {wall:.2f} s, return codes "
+            f"{codes}, run walls "
+            f"{[round(float(r['elapsed_s']), 2) for r in log]} s")
+        if any(codes):
+            failed.append(f"(a) {tag}: return codes {codes}")
+    merged = work / "sweeps" / "convergence-results.csv"
+    with merged.open("w") as fh:
+        w = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    for r in rows:
+        say(f"      {r['method']:<20} R {r['r']} dt {r['dt']:<6} theta "
+            f"{r['theta']:<9} beta {r['beta']:<9} rel L2 "
+            f"{r['rel_L2_error_final']} rel H1 {r['rel_H1_error_final']}")
+    failed += _pinned_gate(
+        "(a)", rows, TPUWAVE_CONVERGENCE_320,
+        lambda r: (r["method"], r["theta"], r["beta"], r["r"], r["dt"]),
+        ("rel_L2_error_final", "rel_H1_error_final"))
+    say(f"  (a) against analysis/data/convergence-results.csv (report "
+        f"only): {_compare_tool(merged, ROOT / 'analysis' / 'data' / 'convergence-results.csv')}")
+
+    # (b) dissipation
+    diss = _script("torch_dissipation_dispersion_sweep")
+    got = []
+    for tag, schemes, dts in DISSDISP_PLANS:
+        where = work / "sweeps" / f"dissdisp-{tag}"
+        _, wall, text = _in_dir(where, diss.main, [
+            "--dt", *dts, "--schemes", *schemes, "--results-root", "res",
+            "--job-id", "", "--device", "cuda"])
+        log = list(csv.DictReader((where / "dissdisp-runlog.csv").open()))
+        got += list(csv.DictReader((where / "dissdisp-results.csv").open()))
+        codes = [int(r["returncode"]) for r in log]
+        n_steps = sum(round(float(r["T"]) / float(r["dt"])) for r in log)
+        say(f"  (b) {tag}: {len(log)} runs, ~{n_steps} steps with per-step "
+            f"diagnostics, in {wall:.2f} s; return codes {codes}")
+        if any(codes):
+            failed.append(f"(b) {tag}: return codes {codes}")
+    diss_csv = work / "sweeps" / "dissdisp-results.csv"
+    with diss_csv.open("w") as fh:
+        w = csv.DictWriter(fh, fieldnames=list(got[0]))
+        w.writeheader()
+        w.writerows(got)
+    for r in got:
+        say(f"      {r['scheme']:<13} dt {r['dt']:<6} E ratio "
+            f"{r['energy_ratio']} final rel L2 {r['final_rel_L2']}")
+    failed += _pinned_gate(
+        "(b)", got, TPUWAVE_DISSDISP,
+        lambda r: (r["scheme"], r["dt"]),
+        ("energy_ratio", "energy_decay_rate", "max_rel_L2", "final_rel_L2",
+         "final_rel_H1"), computed=("energy_ratio", "energy_decay_rate"))
+    say(f"  (b) against analysis/data/dissdisp-results.csv (report only): "
+        f"{_compare_tool(diss_csv, ROOT / 'analysis' / 'data' / 'dissdisp-results.csv')}")
+
+    # (c) scalability
+    where = work / "sweeps" / "scalability"
+    rc, wall, text = _in_dir(where, _script("torch_scalability_sweep").main,
+                             ["--repeats", "2", "--job-id", ""])
+    out = where / "scalability-results-1.csv"
+    got = list(csv.DictReader(out.open()))
+    head = out.read_text().splitlines()[0]
+    want_head = ("scheme,binary,nprocs,repeat,Nel,R,Dt,T,Theta,Beta,Gamma,"
+                 "returncode,seconds")
+    dofs = 641 * 641 * 625
+    say(f"  (c) exit {rc} in {wall:.2f} s (warm runs included); "
+        f"{len(got)} rows")
+    for scheme in dict.fromkeys(r["scheme"] for r in got):
+        secs = [float(r["seconds"]) for r in got if r["scheme"] == scheme]
+        say(f"      {scheme:<13} {' / '.join(f'{s:.4f}' for s in secs)} s, "
+            f"best {dofs / min(secs):.4e} DoF*steps/s")
+    if rc != 0 or head != want_head or len(got) != 10 or \
+            {r["binary"] for r in got} != {"tpuwave_torch-fast"}:
+        failed.append(f"(c) exit {rc}, header {head!r}, {len(got)} rows")
+
+    # (d) acceptance
+    summary = work / "sweeps" / "acceptance-summary.csv"
+    rc, wall, text = _in_dir(work / "sweeps" / "acceptance",
+                             _script("torch_acceptance").main,
+                             ["--t-max", "0.05", "--out", str(summary)])
+    got = list(csv.DictReader(summary.open()))
+    ref = {(r["preset"], r["family"]): r for r in csv.DictReader(
+        (ROOT / "analysis" / "data" / "acceptance-summary.csv").open())}
+    n_ok = sum(r["status"] == "OK" for r in got)
+    say(f"  (d) exit {rc} in {wall:.2f} s: {n_ok} of {len(got)} runs OK")
+    for r in got:
+        if r["final_rel_L2"]:
+            w = ref.get((r["preset"], r["family"]), {})
+            say(f"      {r['preset']:<24} {r['family']:<8} rel L2 "
+                f"{r['final_rel_L2']} (committed tpuwave "
+                f"{w.get('final_rel_L2', '-')}), rel H1 "
+                f"{r['final_rel_H1']} ({w.get('final_rel_H1', '-')}); "
+                f"{r['elapsed_s']} s")
+    if rc != 0 or n_ok != len(got) or len(got) != 24:
+        failed.append(f"(d) exit {rc}, {n_ok} of {len(got)} runs OK")
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 27: " + "; ".join(failed))
+
+
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
 #: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
@@ -3413,6 +3922,10 @@ def main() -> int:
             phase_unstructured_cli(torch, kn, work)
             phase_unstructured_640(torch, kn, work)
 
+        def path_j():
+            phase_run_surface(torch, kn, work)
+            phase_sweeps(torch, kn, work)
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -3428,6 +3941,7 @@ def main() -> int:
         phase_parity_profile(torch, kn, work)
         launches_i = _run_path(kn, "I", PATH_I, path_i)
         phase_unstructured_profile(torch, kn, work)
+        launches_j = _run_path(kn, "J", PATH_J, path_j)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -3440,7 +3954,8 @@ def main() -> int:
             replaces=REPLACES[name],
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
-                launches_f, launches_g, launches_h, launches_i)),
+                launches_f, launches_g, launches_h, launches_i,
+                launches_j)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

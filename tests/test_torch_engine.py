@@ -10,10 +10,17 @@
   convergence.csv wall-clock column aside) and identical iterations.csv.
 * Flags whose paths are not ported exit 1 with a one-line message (the
   solver flags only together with a problem that is not ported).
+* The run-surface flags through both CLIs at Nel 4: --checkpoint-every
+  writes the same checkpoint files, --resume from the same checkpoint ends
+  in the same rows, --profile-dir leaves the CSVs as they are and writes a
+  trace.
 """
 
+import contextlib
 import csv
+import io
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -230,9 +237,6 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
     (["--shard", "rows"], "A11"),
     (["--distributed"], "A11"),
     (["--unstructured-sharding", "cells"], "A11"),
-    (["--checkpoint-every", "2"], "A1"),
-    (["--resume"], "A1"),
-    (["--profile-dir", "trace"], "A13"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     from tpuwave_torch.cli import theta
@@ -244,6 +248,93 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     assert rc == 1
     assert len(err) == 1 and f"ROADMAP {item}" in err[0]
     assert not (tmp_path / "r").exists()
+
+
+def _surface_run(cli, path, root, *flags):
+    """One theta CLI run of the run-surface case into ``root``; its run
+    folder."""
+    extra = ["--device", "cpu"] if cli.__name__.startswith("tpuwave_torch") \
+        else []
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(path), "--results-root", str(root / "res"),
+                       "--mesh-root", str(root / "mesh"), "--quiet", *flags,
+                       *extra])
+    assert rc == 0, out.getvalue()[-2000:]
+    return next((root / "res").glob("*/run-*"))
+
+
+@pytest.fixture(scope="module")
+def surface(tmp_path_factory):
+    """tpuwave's theta CLI run of the run-surface case (the fast engine, Nel
+    4, 5 steps, Log Every 1) with ``--checkpoint-every 2 --profile-dir``,
+    shared by the three cases below: (case file, its run folder, its trace
+    folder)."""
+    from tpuwave.cli import theta as jcli
+    tmp = tmp_path_factory.mktemp("surface")
+    path = _write_case(tmp, "standing-mode-wsol", Nel="4", T="0.05",
+                       Dt="0.01", **{"Save Solution": "false",
+                                     "Log Every": "1"})
+    run = _surface_run(jcli, path, tmp / "j", "--checkpoint-every", "2",
+                       "--profile-dir", str(tmp / "j" / "trace"))
+    return path, run, tmp / "j" / "trace"
+
+
+@pytest.mark.parametrize("flag", ["--checkpoint-every", "--resume",
+                                  "--profile-dir"])
+def test_cli_run_surface_flags_match_tpuwave(tmp_path, surface, flag):
+    """Each flag through the port's theta CLI and tpuwave's (one tpuwave
+    run with --checkpoint-every 2 --profile-dir, shared):
+    --checkpoint-every 2 writes the same checkpoint files (steps 2 and 4:
+    names, steps, times, fields within rtol 1e-10); --resume from
+    tpuwave's checkpoint of step 4, copied into a fresh run folder of each
+    package, ends in the same step-5 rows; with --profile-dir the port's
+    CSVs equal tpuwave's (rtol 1e-10) and each package writes its trace
+    (the port's a Chrome trace)."""
+    from tpuwave.cli import theta as jcli
+    from tpuwave_torch.cli import theta as tcli
+    path, jd, jtrace = surface
+
+    if flag == "--checkpoint-every":
+        td = _surface_run(tcli, path, tmp_path / "t", flag, "2")
+        names = sorted(q.name for q in jd.glob("checkpoint_*"))
+        assert names == ["checkpoint_000002.npz", "checkpoint_000004.npz"]
+        assert names == sorted(q.name for q in td.glob("checkpoint_*"))
+        for name in names:
+            with np.load(jd / name) as a, np.load(td / name) as b:
+                assert sorted(a.files) == sorted(b.files)
+                for k in ("__timestep", "__time"):
+                    assert a[k] == b[k]
+                for k in a.files:
+                    _close(b[k], a[k])
+    elif flag == "--resume":
+        rows = {}
+        for tag, cli in (("j", jcli), ("t", tcli)):
+            fresh = tmp_path / tag / "res" / jd.parent.name / jd.name
+            fresh.mkdir(parents=True)
+            shutil.copy(jd / "checkpoint_000004.npz", fresh)
+            assert _surface_run(cli, path, tmp_path / tag, flag) == fresh
+            rows[tag] = {name: _rows(fresh / name) for name in
+                         ("energy.csv", "error.csv", "probe.csv",
+                          "iterations.csv")}
+        for name, jrows in rows["j"].items():
+            trows = rows["t"][name]
+            assert len(jrows) == len(trows) == 2 and jrows[1][0] == "5"
+            assert trows[0] == _rows(jd / name)[0]
+            for u, v in zip(jrows[1], trows[1]):
+                assert u == v or abs(float(u) - float(v)) <= \
+                    1e-10 * abs(float(u)), (name, u, v)
+    else:
+        td = _surface_run(tcli, path, tmp_path / "t", flag,
+                          str(tmp_path / "trace"))
+        csvs = sorted(q.name for q in td.glob("*.csv"))
+        assert csvs == sorted(q.name for q in jd.glob("*.csv"))
+        assert len(csvs) == 4
+        for name in csvs:
+            _csv_close(jd / name, td / name)
+        trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+        assert trace["traceEvents"]
+        assert any(q.is_file() for q in jtrace.rglob("*"))
 
 
 _C_CASES = {"C=x": {"C": {"Function expression": "1 + 0.5*x",
@@ -297,7 +388,8 @@ def test_import_tpuwave_torch_leaves_jax_out():
             "tpuwave_torch.models.fast_engine_p2, "
             "tpuwave_torch.models.fast_engine_p2_2term, tpuwave_torch.api, "
             "tpuwave_torch.models.theta, tpuwave_torch.models.newmark, "
-            "tpuwave_torch.core.unstructured, tpuwave_torch.models.general; "
+            "tpuwave_torch.core.unstructured, tpuwave_torch.models.general, "
+            "tpuwave_torch.harness, tpuwave_torch.utils.checkpoint; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpuwave')))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -10,7 +10,8 @@ The port covers the structured wave step and its implicit solvers at
 R = 1 and R = 2 (constant wave speed), and the differentiable FWI
 propagator (variable wave speed, time-reversal adjoint):
 
-- ``utils``   expressions, parameter files, CSV/VTU output, naming
+- ``utils``   expressions, parameter files, CSV/VTU output, naming,
+              checkpoints, profiler traces
 - ``core``    structured mesh, P1/P2 shape functions, quadrature
 - ``ops``     element classes, constant 3x3 stencils, the
               variable-coefficient planes, the P2 plane block-stencils,
@@ -23,6 +24,7 @@ propagator (variable wave speed, time-reversal adjoint):
               O(grid) diagnostics, the run driver and FwiProblem
               (simulate, misfit_and_grad, invert)
 - ``cli``     ``python -m tpuwave_torch.cli.newmark|theta <preset>``
+- ``harness`` the sweep scripts' run_case (scripts/torch_*_sweep.py)
 
 The package imports neither ``jax`` nor ``tpuwave``.
 """

@@ -24,6 +24,7 @@ from tpuwave_torch.core.unstructured import read_mesh_file
 from tpuwave_torch.models.general import make_discretization
 from tpuwave_torch.models.runner import RunConfig, run_solver
 from tpuwave_torch.utils.params import ParamError, load_params
+from tpuwave_torch.utils.profiling import trace
 
 DEFAULT_PARAM_FILE = "parameters/sine-membrane.json"
 
@@ -44,13 +45,13 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
                         help="where the run's tensors live; cuda is never "
                              "replaced by cpu silently")
     parser.add_argument("--checkpoint-every", type=int, default=0,
-                        help="snapshot state every N steps (0 = off; not "
-                             "ported yet)")
+                        help="snapshot state every N steps (0 = off)")
     parser.add_argument("--resume", action="store_true",
-                        help="resume from the newest checkpoint (not ported "
-                             "yet)")
+                        help="resume from the newest checkpoint in the run "
+                             "folder")
     parser.add_argument("--profile-dir", default=None,
-                        help="capture a profiler trace (not ported yet)")
+                        help="capture a torch.profiler trace (trace.json) "
+                             "into this directory")
     parser.add_argument("--phase-timing", action="store_true",
                         help="print per-phase wall-clock breakdown")
     parser.add_argument("--engine", choices=("auto", "fast", "parity"),
@@ -103,11 +104,6 @@ def _refused(args):
     if args.unstructured_sharding != "none":
         return (f"--unstructured-sharding {args.unstructured_sharding} is "
                 "not ported yet (ROADMAP A11)")
-    if args.checkpoint_every or args.resume:
-        return ("--checkpoint-every / --resume are not ported yet "
-                "(ROADMAP A1, utils/checkpoint.py)")
-    if args.profile_dir:
-        return "--profile-dir is not ported yet (ROADMAP A13)"
     return None
 
 
@@ -205,9 +201,11 @@ def run_main(family: str, argv=None) -> int:
             solver = cls(disc, precond=args.precond)
         cfg = RunConfig(results_root=args.results_root,
                         mesh_root=args.mesh_root, quiet=args.quiet,
-                        phase_timing=args.phase_timing,
+                        checkpoint_every=args.checkpoint_every,
+                        resume=args.resume, phase_timing=args.phase_timing,
                         vtu_pieces=args.vtu_pieces)
-        result = run_solver(solver, problem_name, cfg)
+        with trace(args.profile_dir):
+            result = run_solver(solver, problem_name, cfg)
     finally:
         for k, v in env_save.items():
             if v is None:

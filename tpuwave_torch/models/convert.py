@@ -31,7 +31,7 @@ import torch
 
 from tpuwave_torch.models.fast import FastState, LeapfrogState
 
-__all__ = ["to_torch", "to_numpy", "fwi_to_torch"]
+__all__ = ["to_torch", "to_numpy", "like_state", "fwi_to_torch"]
 
 
 #: fields that are host ints in the port
@@ -95,6 +95,38 @@ def to_numpy(state) -> dict:
     they are)}."""
     return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
             else v for k, v in state._asdict().items()}
+
+
+def like_state(template, fields: dict):
+    """``type(template)(**fields)`` with each field in the template
+    field's dtype and on its device (a checkpoint's restore, runner.py).
+
+    A host-int field (the 2-term ``n``) comes back as an int; a field the
+    file lacks, or whose template is None (a slot this configuration does
+    not use), takes the NamedTuple's default. An array whose shape differs
+    from the template's (tpuwave pads its R = 2 canvases and boundary
+    strips) is cropped or zero-padded to it, from the leading corner:
+    the padding lies outside every plane's support."""
+    out = {}
+    for k, v in fields.items():
+        want = getattr(template, k, None)
+        if want is None:
+            continue
+        if isinstance(want, int):
+            out[k] = int(np.asarray(v))
+            continue
+        a = np.asarray(v)
+        if a.shape != tuple(want.shape):
+            if a.ndim != want.ndim:
+                raise ValueError(f"checkpoint field {k!r} has shape "
+                                 f"{a.shape}, the state {tuple(want.shape)}")
+            fit = np.zeros(tuple(want.shape), dtype=a.dtype)
+            keep = tuple(slice(0, min(x, y))
+                         for x, y in zip(a.shape, want.shape))
+            fit[keep] = a[keep]
+            a = fit
+        out[k] = torch.tensor(a, dtype=want.dtype, device=want.device)
+    return type(template)(**out)
 
 
 #: the kinds of FWI data ``fwi_to_torch`` takes

@@ -45,6 +45,7 @@ from tpuwave_torch.ops import kernels_varcoef as kv
 from tpuwave_torch.ops.stencil import (P1_CLASS_CORNERS,
                                        apply_varcoef_planes,
                                        assemble_varcoef_planes)
+from tpuwave_torch.utils.checkpoint import load_inversion, save_inversion
 
 __all__ = ["FwiProblem", "FwiResult", "ricker_wavelet", "lowpass_time",
            "envelope_time", "trace_misfit"]
@@ -54,6 +55,30 @@ _A12 = "(ROADMAP A12: not ported yet)"
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} {_A12}")
+
+
+def _adam_leaves(opt, params) -> list:
+    """``torch.optim.Adam``'s state as the leaves of tpuwave's optax Adam
+    state: ``count`` (int32), then ``mu`` and ``nu`` in parameter order."""
+    states = [opt.state[q] for q in params]
+    count = np.asarray(int(states[0]["step"]), np.int32)
+    return ([count] + [st["exp_avg"] for st in states]
+            + [st["exp_avg_sq"] for st in states])
+
+
+def _restore_adam(opt, params, p_leaves, o_leaves):
+    """Load ``save_inversion``'s leaves into the parameters (in place) and
+    into ``opt`` (the inverse of :func:`_adam_leaves`)."""
+    n = len(params)
+    count = float(np.asarray(o_leaves[0]))
+    with torch.no_grad():
+        for i, q in enumerate(params):
+            q.copy_(torch.as_tensor(p_leaves[i]))
+            opt.state[q] = {
+                # torch keeps Adam's step as a host float tensor
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": torch.as_tensor(o_leaves[1 + i]).to(q),
+                "exp_avg_sq": torch.as_tensor(o_leaves[1 + n + i]).to(q)}
 
 
 def ricker_wavelet(times, peak_freq: float, delay: Optional[float] = None):
@@ -806,6 +831,7 @@ class FwiProblem:
                precondition: Optional[str] = None,
                misfit_kind: str = "l2", huber_delta: float = 1.0,
                checkpoint: Optional[str] = None,
+               checkpoint_every: int = 10,
                verbose: bool = False) -> FwiResult:
         """Adam descent on the misfit (``torch.optim.Adam``: beta (0.9,
         0.999), eps 1e-8, optax's defaults), with the box ``bounds``
@@ -816,15 +842,22 @@ class FwiProblem:
         every shot). ``estimate_wavelet`` co-estimates one shared source
         time series from ``wavelet_init`` (default: this problem's); the
         projection applies to c2 only. The misfit history holds each
-        iteration's value before its update."""
+        iteration's value before its update.
+
+        ``checkpoint``: path of a single .npz snapshot (model, optimizer
+        state, misfit history; utils/checkpoint.py) written every
+        ``checkpoint_every`` iterations and at the end; if the file
+        already exists the descent resumes from it (``n_iter`` counts
+        total iterations). The optimizer state is written as tpuwave's
+        optax Adam state leaves (``count`` as int32, then the first
+        moments, then the second moments, each in parameter order), so a
+        snapshot written by either package resumes in the other."""
         if optimizer == "lbfgs":
             _not_ported("optimizer='lbfgs'")
         if optimizer != "adam":
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if precondition is not None:
             _not_ported(f"precondition={precondition!r}")
-        if checkpoint is not None:
-            _not_ported("checkpoint=")
         if estimate_wavelet and (wavelets is not None or wavelet is not None):
             raise ValueError("estimate_wavelet=True estimates one shared "
                              "wavelet; drop the fixed `wavelet(s)` argument")
@@ -858,7 +891,23 @@ class FwiProblem:
         opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                                eps=1e-8)
         misfits = np.empty(n_iter)
-        for i in range(n_iter):
+        start = 0
+        if checkpoint is not None:
+            ck = load_inversion(checkpoint)
+            if ck is not None:
+                n_done, hist, p_leaves, o_leaves = ck
+                if (len(p_leaves) != len(params)
+                        or len(o_leaves) != 1 + 2 * len(params)):
+                    raise ValueError(
+                        f"checkpoint {checkpoint} does not match this "
+                        "inversion configuration (different optimizer or "
+                        "estimate_wavelet setting)")
+                _restore_adam(opt, params, p_leaves, o_leaves)
+                start = min(n_done, n_iter)
+                misfits[:start] = hist[:start]
+                if verbose:
+                    print(f"resumed from {checkpoint} at iteration {start}")
+        for i in range(start, n_iter):
             opt.zero_grad(set_to_none=True)
             with torch.enable_grad():
                 val = loss()
@@ -870,6 +919,10 @@ class FwiProblem:
             misfits[i] = float(val.detach())
             if verbose:
                 print(f"iter {i:3d}  misfit {misfits[i]:.6e}")
+            if checkpoint is not None and ((i + 1) % checkpoint_every == 0
+                                           or i + 1 == n_iter):
+                save_inversion(checkpoint, i + 1, misfits[:i + 1], params,
+                               _adam_leaves(opt, params))
         return FwiResult(c2=c2.detach(), misfits=misfits,
                          wavelet=None if w_est is None else w_est.detach())
 

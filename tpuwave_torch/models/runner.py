@@ -11,8 +11,17 @@ console lines are tpuwave's; an imported mesh is reported (and, as in
 tpuwave, gets no mesh VTK snapshot: its VTU pieces carry its own
 triangulation).
 
-Single process. Checkpoint/resume (tpuwave utils/checkpoint.py) is not
-ported yet (ROADMAP A1).
+Long runs: ``max_wall_s`` ends the time loop once that many wall-clock
+seconds have passed (checked before each chunk and before each step;
+``RunResult.timed_out``, no final errors and no convergence row), and
+``checkpoint_every`` / ``resume`` snapshot the state every N steps and
+continue from the newest snapshot in the run folder (utils/checkpoint.py,
+tpuwave's file schema: a run checkpointed by either package resumes in the
+other). A checkpointing or resumed run takes the per-step loop, as in
+tpuwave: the chunked branch's chunk ends (256 steps, or the log points)
+do not fall on the checkpoint cadence.
+
+Single process.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ import torch
 
 from tpuwave_torch.config import env_flag_enabled
 from tpuwave_torch.core.mesh import StructuredTriMesh
+from tpuwave_torch.models.convert import like_state
+from tpuwave_torch.utils.checkpoint import (load_latest, save_checkpoint,
+                                            truncate_logs_after)
 from tpuwave_torch.utils.csvlog import RunLogs, fmt_e
 from tpuwave_torch.utils.naming import mesh_file_name, run_folder_name
 from tpuwave_torch.utils.profiling import PhaseTimer
@@ -46,6 +58,13 @@ class RunConfig:
     mesh_root: str = "mesh"
     quiet: bool = False
     write_mesh: bool = True
+    #: abort the time loop after this many wall-clock seconds (the sweeps'
+    #: per-run timeout, harness.py). None = no limit.
+    max_wall_s: Optional[float] = None
+    #: snapshot the stepper state every N steps (0 = off)
+    checkpoint_every: int = 0
+    #: resume from the newest checkpoint in the run folder, if any
+    resume: bool = False
     #: print a host-side per-phase wall-clock breakdown at the end
     phase_timing: bool = False
     #: number of VTU pieces per output record (row blocks of the mesh, the
@@ -64,6 +83,7 @@ class RunResult(NamedTuple):
     rel_l2: Optional[float]
     rel_h1: Optional[float]
     output_folder: Path
+    timed_out: bool = False
 
 
 def time_steps(t_final: float, dt: float):
@@ -122,10 +142,20 @@ def run_solver(solver, problem_name: str,
     if param_src and Path(param_src).exists():
         shutil.copyfile(param_src, folder / "parameters.json")
 
+    restored = None
+    if cfg.resume:
+        restored = load_latest(folder)
+        if restored is not None:
+            pcout(f"Resuming from checkpoint at step {restored[0]}, "
+                  f"t = {restored[1]}")
+            # drop rows logged after the checkpoint so the resumed run
+            # does not duplicate timesteps
+            truncate_logs_after(folder, restored[0])
+
     convergence_path = None
     if p.has_exact_solution:
         convergence_path = Path(cfg.results_root) / problem_name / "convergence.csv"
-    logs = RunLogs(folder, convergence_path)
+    logs = RunLogs(folder, convergence_path, append=restored is not None)
 
     # env-variable overrides (reference main-theta.cpp:104-114)
     save_solution = env_flag_enabled("NMPDE_SAVE_SOLUTION", p.save_solution)
@@ -148,6 +178,8 @@ def run_solver(solver, problem_name: str,
 
     pcout("Setting initial conditions...")
     state = solver.initial_state()
+    if restored is not None:
+        state = like_state(state, restored[2])
     norm_u0 = float(torch.linalg.vector_norm(state.u))
     norm_v0 = float(torch.linalg.vector_norm(state_v(state, 0.0)))
     pcout(f"||u0|| = {norm_u0}")
@@ -183,24 +215,40 @@ def run_solver(solver, problem_name: str,
 
     timestep_number = 0
     current_time = 0.0
-    output(0, 0.0)
+    if restored is None:
+        output(0, 0.0)
 
     total_it1 = total_it2 = 0
     current_energy = 0.0
     diverged = False
+    timed_out = False
     times = time_steps(p.t_final, p.dt)
+    if restored is not None:
+        timestep_number, current_time = restored[0], restored[1]
+        times = times[timestep_number:]
 
     phases = PhaseTimer(enabled=cfg.phase_timing)
 
     start = _time.perf_counter()
 
+    def out_of_time() -> bool:
+        nonlocal timed_out
+        if cfg.max_wall_s is not None and \
+                _time.perf_counter() - start > cfg.max_wall_s:
+            pcout(f"Wall-clock limit {cfg.max_wall_s}s exceeded at step "
+                  f"{timestep_number}; aborting run.")
+            timed_out = True
+        return timed_out
+
     # Chunked branch: when the host needs nothing per step beyond CSV rows
-    # (no VTU output), steps run in chunks through solver.run_steps /
-    # run_steps_diag, whose per-step norms (and, at log_every == 1, the
-    # diagnostics) come back to the host once per chunk — the same
-    # trajectory, CG counts, console cadence and CSV bytes as the per-step
-    # loop.
-    scan_ok = not save_solution and not cfg.phase_timing
+    # (no VTU output, no checkpoints), steps run in chunks through
+    # solver.run_steps / run_steps_diag, whose per-step norms (and, at
+    # log_every == 1, the diagnostics) come back to the host once per
+    # chunk — the same trajectory, CG counts, console cadence and CSV
+    # bytes as the per-step loop. The wall-clock limit is checked between
+    # chunks, so it can overshoot by one chunk.
+    scan_ok = (not save_solution and cfg.checkpoint_every == 0
+               and restored is None and not cfg.phase_timing)
     if scan_ok and log_every >= 0 and hasattr(solver, "run_steps"):
         with_diag = log_every == 1
         #: log_every > 1: chunks end exactly at log points, where
@@ -218,6 +266,8 @@ def run_solver(solver, problem_name: str,
         chunk_len = 256
         i = 0
         while i < len(times):
+            if out_of_time():
+                break
             if host_diag:
                 until_log = log_every - (timestep_number % log_every)
                 chunk = times[i:i + min(until_log, chunk_len)]
@@ -294,6 +344,8 @@ def run_solver(solver, problem_name: str,
         times = []   # the per-step loop below is skipped
 
     for t in times:
+        if out_of_time():
+            break
         current_time = t
         timestep_number += 1
         with phases.phase("step"):
@@ -332,6 +384,10 @@ def run_solver(solver, problem_name: str,
                 line += f",  E={current_energy:9.3e}"
             pcout(line)
 
+        if cfg.checkpoint_every > 0 and \
+                timestep_number % cfg.checkpoint_every == 0:
+            save_checkpoint(folder, timestep_number, current_time, state)
+
         with phases.phase("output"):
             output(timestep_number, current_time)
 
@@ -349,7 +405,7 @@ def run_solver(solver, problem_name: str,
         pcout(f"Total CG iterations (2): {total_it2}, avg per step: {avg2:.1f}")
 
     rel_l2 = rel_h1 = None
-    if p.has_exact_solution:
+    if p.has_exact_solution and not timed_out:
         _, _, rl2, rh1 = (float(x) for x in d.errors(state.u, current_time))
         rel_l2, rel_h1 = rl2, rh1
         is_theta = solver.method_name == "theta"
@@ -370,4 +426,4 @@ def run_solver(solver, problem_name: str,
                      final_time=current_time, elapsed_s=elapsed,
                      total_iterations_1=total_it1, total_iterations_2=total_it2,
                      diverged=diverged, rel_l2=rel_l2, rel_h1=rel_h1,
-                     output_folder=folder)
+                     output_folder=folder, timed_out=timed_out)
