@@ -43,7 +43,11 @@ mesh (recognised as the 40 x 40 rectangle: the fast engine, B4 / B3 with
 Path J: the run surface (checkpoint / resume, --profile-dir and the
 wall-clock limit of the runner and both CLIs, harness.run_case) at
 640^2 and the sweep scripts (scripts/torch_*.py) at the reference's own
-sizes (``--only run_surface,sweeps`` runs it alone).
+sizes (``--only run_surface,sweeps`` runs it alone). Path K: the rest of
+FWI (FwiProblem's imaging, encoded supershots and optimizers) at
+scripts/bench_imaging.py's configuration (512^2 elements, 1000 steps, 8
+shots, f32) and at the defaults of the FWI and imaging scripts in f64
+against tpuwave's values (``--only imaging,fwi_optim`` runs it alone).
 Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
@@ -206,6 +210,27 @@ Phases:
      the CSV schema; (d) acceptance, --t-max 0.05, 12 presets x 2
      families: every run exits 0 with its artifacts; final errors printed
      beside analysis/data/acceptance-summary.csv's
+ 28. imaging at scripts/bench_imaging.py's defaults (512^2 elements, dt
+     4e-4, 1000 steps, 8 shots at y = 0.1, 9 receivers at y = 0.9, f32,
+     stencil engine, reversal adjoint), each the best of 3 after a warm
+     run: the sequential gradient per shot x 8, the encoded gradient (one
+     supershot), one LSRTM iteration (born + migrate per shot x 8) and
+     migrate of shot 0 on the kernel engine (B14-B17); gates: (a) the f64
+     dot-product test <born dm, d> = <dm, migrate d> of shot 0, migrate on
+     the stencil and on the kernel engine, rel 1e-9; (b) the f32
+     supershot against the coded sum of the f32 single shots, within 2x
+     its rel L2 gap to the f64 supershot; both with the receivers at y =
+     0.3 (no wave reaches y = 0.9 by t = 0.4)
+ 29. f64 against tpuwave's values (pinned from CPU runs of the JAX
+     package), rtol 1e-6: imaging_showcase.py's defaults (||born||,
+     ||rtm_image||, lsrtm's 11 residual norms); at fwi_demo.py's defaults
+     invert_gauss_newton (3 x 3) and invert_encoded (4 shots, key 0, 5
+     iterations) on its stencil engine with the remat adjoint, and 5
+     L-BFGS iterations with bounds on the kernel engine; fwi_showcase.py's
+     multiscale inversion with the illumination preconditioner, 3 + 3
+     iterations, on the kernel engine; then the grid engine with the
+     remat adjoint at 256^2 against the kernel engine's reversal
+     gradient, rel 1e-9
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -413,6 +438,8 @@ PATH_G = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
 PATH_H = ("cheby_block", "constrained_stencil_apply")
 PATH_I = ("cheby_block", "constrained_stencil_apply")
 PATH_J = ("constrained_stencil_apply", "cheby_block", "recurrence_r0")
+PATH_K = ("varcoef_leapfrog_step", "varcoef_leapfrog_multistep",
+          "varcoef_adjoint_step", "varcoef_adjoint_multistep")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -3742,6 +3769,355 @@ def phase_sweeps(torch, kn, work: Path):
         raise AssertionError("phase 27: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# phases 28 and 29: path K, the rest of FWI (imaging, encoding, optimizers)
+# ---------------------------------------------------------------------------
+#: tpuwave's values pinned by phase 29, f64, computed on the CPU with the
+#: JAX package: imaging_showcase.py's defaults (64^2, dt 0.35/64, 200 steps,
+#: 5 shots and 24 receivers at y = 0.89, ring sponge 0.08, engine stencil,
+#: adjoint reversal; c2_bg and dm_true its smooth background and
+#: reflectivity_model): ||born(c2_bg, dm_true, srcs)||, ||rtm_image(c2_bg,
+#: d, srcs)|| and lsrtm(c2_bg, d, n_iter=10, srcs)'s 11 residual norms:
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64(); import numpy as np, jax.numpy as jnp;
+#:     from tpuwave.models.inverse import FwiProblem;
+#:     y = 0.89; p = FwiProblem((64, 64), ((0., 0.), (1., 1.)), 0.35 / 64,
+#:       200, source=(0.5, y), receivers=[(x, y) for x in
+#:       np.linspace(0.1, 0.9, 24)], sponge_width=0.08, engine='stencil',
+#:       adjoint='reversal', boundary_save='ring');
+#:     s = p.snap_vertices([(x, y) for x in np.linspace(0.15, 0.85, 5)]);
+#:     c = p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1);
+#:     x, z = c[:, 0], 1 - c[:, 1];
+#:     c2 = jnp.asarray(1 + 0.6 * np.clip((z - 0.2) / 0.6, 0, 1));
+#:     dm = np.zeros(p.n_cells); h = 1 / 64;
+#:     dm[(abs(z - 0.45 - 0.2 * (x - 0.2)) < 0.8 * h) & (x > 0.2)
+#:       & (x < 0.7)] = 0.15;
+#:     [dm.__setitem__((x - a) ** 2 + (z - b) ** 2 < (1.5 * h) ** 2, 0.2)
+#:       for a, b in ((0.8, 0.35), (0.35, 0.7))];
+#:     d = p.born(c2, jnp.asarray(dm), sources=s);
+#:     print(repr(float(jnp.linalg.norm(d))), repr(float(jnp.linalg.norm(
+#:       p.rtm_image(c2, d, sources=s)))), repr(tuple(float(v) for v in
+#:       p.lsrtm(c2, d, n_iter=10, sources=s)[1])))"
+TPUWAVE_IMAGING_64 = (
+    0.03400907825174475, 0.019607606559498923,
+    (0.03400907825174475, 0.03081960667031168, 0.02622728848728594,
+     0.02381583205389829, 0.02272789663177734, 0.0212605839507676,
+     0.020204127037653338, 0.018698232446968555, 0.018184856433922446,
+     0.01734504340512944, 0.01645975503305309))
+#: tpuwave's misfit histories at fwi_demo.py's defaults (32^2, dt 0.006,
+#: 160 steps, source (0.25, 0.5), its 8 receivers, c2_true its anomaly,
+#: c2 = 1 to start), f64, on the CPU with the JAX package:
+#: "gauss_newton" invert_gauss_newton(simulate(c2_true), ones, n_outer=3,
+#: n_cg=3, bounds=(0.3, 2.0)) and "encoded" invert_encoded(
+#: simulate_shots(c2_true, s), ones, sources=s, key=PRNGKey(0), n_iter=5,
+#: learning_rate=0.02, bounds=(0.3, 2.0)) with s its 4-shot ring, both
+#: on fwi_demo.py's engine="stencil", adjoint="remat"; "lbfgs" invert(
+#: simulate(c2_true), ones, n_iter=5, optimizer="lbfgs", bounds=(0.3, 2.0))
+#: on engine="stencil", adjoint="reversal":
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64(); import numpy as np, jax, jax.numpy as jnp;
+#:     from tpuwave.models.inverse import FwiProblem;
+#:     r = [(x, y) for x in (0.15, 0.5, 0.85) for y in (0.15, 0.85)]
+#:       + [(0.15, 0.5), (0.85, 0.5)];
+#:     P = lambda **k: FwiProblem((32, 32), ((0., 0.), (1., 1.)), 0.006,
+#:       160, source=(0.25, 0.5), receivers=r, engine='stencil', **k);
+#:     p, q = P(adjoint='remat'), P(adjoint='reversal');
+#:     c = p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1);
+#:     t = jnp.asarray(np.where(np.sum((c - [0.6, 0.5]) ** 2, 1)
+#:       < 0.18 ** 2, 0.65, 1.0)); o = jnp.ones(p.n_cells);
+#:     s = p.snap_vertices([(0.2 + 0.2 * k, 0.2) for k in range(4)]);
+#:     print(p.invert_gauss_newton(p.simulate(t), o, n_outer=3, n_cg=3,
+#:       bounds=(0.3, 2.0)).misfits.tolist(), p.invert_encoded(
+#:       p.simulate_shots(t, s), o, sources=s, key=jax.random.PRNGKey(0),
+#:       n_iter=5, learning_rate=0.02, bounds=(0.3, 2.0)).misfits.tolist(),
+#:       q.invert(q.simulate(t), o, n_iter=5, optimizer='lbfgs',
+#:       bounds=(0.3, 2.0)).misfits.tolist())"
+TPUWAVE_FWI_DEMO = {
+    "gauss_newton": (0.0075150007981942485, 0.006329591884208297,
+                     0.0055159155594254015),
+    "encoded": (0.021266643848478588, 0.030486344621090348,
+                0.03766303447493402, 0.026930051103346467,
+                0.023665671684825695),
+    "lbfgs": (0.0075150007981942485, 0.0074203251194294995,
+              0.006964820015259194, 0.0065907527059744,
+              0.006076680347593183),
+}
+#: tpuwave's misfit history of fwi_showcase.py's inversion at its defaults
+#: (96^2, dt 0.35/96, 360 steps, 6 shots, 24 receivers, ring sponge 0.08,
+#: its layered model and smooth start) with precondition="illumination"
+#: (so optimizer="adam", lr 0.03, reg 1e-3, bounds (0.5, 2.2)), cutoffs
+#: (0.6 f_peak, None), 3 + 3 iterations, f64, engine stencil, adjoint
+#: reversal, on the CPU with the JAX package:
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64(); import numpy as np, jax.numpy as jnp;
+#:     from tpuwave.models.inverse import FwiProblem;
+#:     from scripts.fwi_showcase import layered_model;
+#:     dt, y, w = 0.35 / 96, 0.89, 0.11;
+#:     r = [(x, y) for x in np.linspace(0.12, 0.88, 8)] + [(w, v) for v in
+#:       np.linspace(0.15, 0.85, 8)] + [(1 - w, v) for v in
+#:       np.linspace(0.15, 0.85, 8)];
+#:     p = FwiProblem((96, 96), ((0., 0.), (1., 1.)), dt, 360,
+#:       source=(0.5, y), receivers=r, sponge_width=0.08, engine='stencil',
+#:       adjoint='reversal', boundary_save='ring');
+#:     s = p.snap_vertices([(x, y) for x in np.linspace(0.15, 0.85, 6)]);
+#:     z = 1 - p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1)[:, 1];
+#:     print(p.invert_multiscale(p.simulate_shots(jnp.asarray(
+#:       layered_model(p, np)), s), jnp.asarray(1 + 0.8 * np.clip(
+#:       (z - 0.3) / 0.5, 0, 1)), cutoffs=[0.6 / (20 * dt), None],
+#:       n_iter=[3, 3], learning_rate=0.03, bounds=(0.5, 2.2), sources=s,
+#:       optimizer='adam', reg_lambda=1e-3,
+#:       precondition='illumination').misfits.tolist())"
+TPUWAVE_FWI_SHOWCASE = (0.02738380499505181, 0.02771519159046307,
+                        0.0261017199541852, 0.14619037559435444,
+                        0.13223084319607764, 0.08172156986401438)
+#: phase 28's configuration: scripts/bench_imaging.py's defaults
+IMAGING_NEL, IMAGING_DT, IMAGING_STEPS, IMAGING_SHOTS = 512, 4e-4, 1000, 8
+
+
+def _imaging_problem(torch, dtype, engine="stencil", receivers_y=0.9):
+    """bench_imaging.py's problem: 512^2, source (0.5, 0.1), 9 receivers
+    at y = 0.9 (or ``receivers_y``), the reversal adjoint; its 8 shots at
+    y = 0.1."""
+    import numpy as np
+    from tpuwave_torch.models.inverse import FwiProblem
+    p = FwiProblem((IMAGING_NEL, IMAGING_NEL), UNIT_SQUARE, IMAGING_DT,
+                   IMAGING_STEPS, source=(0.5, 0.1),
+                   receivers=[(x, receivers_y)
+                              for x in np.linspace(0.1, 0.9, 9)],
+                   engine=engine, adjoint="reversal", dtype=dtype,
+                   device="cuda")
+    return p, p.snap_vertices(
+        [(x, 0.1) for x in np.linspace(0.1, 0.9, IMAGING_SHOTS)])
+
+
+def _vg(torch, loss):
+    """value-and-gradient of ``loss`` in its first argument."""
+    def f(m, *rest):
+        m = m.detach().requires_grad_(True)
+        with torch.enable_grad():
+            val = loss(m, *rest)
+            (g,) = torch.autograd.grad(val, m)
+        return val.detach(), g
+    return f
+
+
+def phase_imaging(torch):
+    import numpy as np
+    from tpuwave_torch.utils import prng
+
+    n_shots = IMAGING_SHOTS
+    say(f"phase 28 ({nvidia_smi_line()}): imaging at "
+        f"scripts/bench_imaging.py's defaults: "
+        f"{IMAGING_NEL}^2 elements, dt {IMAGING_DT}, {IMAGING_STEPS} steps, "
+        f"{n_shots} shots at y = 0.1, 9 receivers at y = 0.9, f32, stencil "
+        f"engine, reversal adjoint; each time the best of 3 after a warm "
+        f"run (host clock around a synchronize); gates: (a) the f64 "
+        f"dot-product test <born dm, d> = <dm, migrate d> of shot 0 with "
+        f"migrate on the stencil and on the kernel engine, rel 1e-9; (b) "
+        f"the f32 supershot against sum_s codes_s x the f32 single shots, "
+        f"within 2x the f32 supershot's rel L2 gap to the f64 one (two "
+        f"f32 roundings, each of that size); both gates with the "
+        f"receivers moved to y = 0.3: within t = 0.4 no wave from y = 0.1 "
+        f"reaches y = 0.9, where the traces are rounding noise in f64 and "
+        f"0 in f32")
+    f32, f64 = torch.float32, torch.float64
+    p, srcs = _imaging_problem(torch, f32)
+    pk, _ = _imaging_problem(torch, f32, engine="kernel")
+    rng = np.random.default_rng(0)
+    c2 = torch.tensor(1.0 + 0.05 * rng.random(p.n_cells), dtype=f32,
+                      device="cuda")
+    dm = torch.tensor(rng.normal(size=p.n_cells), dtype=f32, device="cuda")
+    codes = torch.tensor(rng.choice([-1.0, 1.0], n_shots), dtype=f32,
+                         device="cuda")
+    with torch.no_grad():
+        obs = p.simulate_shots(torch.full_like(c2, 1.1), srcs)
+    t_seq, _ = _best_of(torch, lambda: p.misfit_and_grad(c2, obs[0]))
+    enc = _vg(torch, lambda m: p.misfit_encoded(m, srcs, codes, obs))
+    t_enc, _ = _best_of(torch, lambda: enc(c2))
+    t_born, _ = _best_of(torch, lambda: p.born(c2, dm))
+    t_mig, _ = _best_of(torch, lambda: p.migrate(c2, obs[0]))
+    t_migk, _ = _best_of(torch, lambda: pk.migrate(c2, obs[0]))
+    say(f"  sequential gradient {t_seq:.4f} s/shot x {n_shots} = "
+        f"{t_seq * n_shots:.4f} s; encoded gradient (one supershot) "
+        f"{t_enc:.4f} s: {t_seq * n_shots / t_enc:.2f}x (ideal {n_shots}x)")
+    say(f"  one LSRTM iteration: born {t_born:.4f} s + migrate {t_mig:.4f} "
+        f"s per shot x {n_shots} = {(t_born + t_mig) * n_shots:.4f} s; "
+        f"migrate of shot 0 on the kernel engine (B14-B17) {t_migk:.4f} s "
+        f"({t_mig / t_migk:.2f}x the stencil engine's)")
+
+    failed = []
+    # (a) the dot-product test in f64, shot 0
+    p64, _ = _imaging_problem(torch, f64, receivers_y=0.3)
+    pk64, _ = _imaging_problem(torch, f64, engine="kernel", receivers_y=0.3)
+    c2d, dmd = c2.double(), dm.double()
+    shot0 = srcs[:1]
+    d = torch.tensor(rng.normal(size=(1, IMAGING_STEPS, 9)), dtype=f64,
+                     device="cuda")
+    lhs = float(torch.sum(p64.born(c2d, dmd, sources=shot0) * d))
+    for label, q in (("stencil", p64), ("kernel", pk64)):
+        rhs = float(torch.sum(dmd * q.migrate(c2d, d, sources=shot0)))
+        gap = abs(lhs - rhs) / abs(lhs)
+        ok = gap <= 1e-9
+        say(f"  (a) <born dm, d> {lhs!r}, <dm, migrate d> ({label}) {rhs!r}:"
+            f" rel gap {gap:.3e} (bound 1e-9) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"(a) {label} gap {gap:.3e}")
+    del p64, pk64
+    # (b) the supershot is the coded sum of the single shots
+    with torch.no_grad():
+        q, _ = _imaging_problem(torch, f32, receivers_y=0.3)
+        sup = q.simulate_supershot(c2, srcs, codes)
+        lin = torch.einsum("s,snr->nr", codes, q.simulate_shots(c2, srcs))
+        q64, _ = _imaging_problem(torch, f64, receivers_y=0.3)
+        sup64 = q64.simulate_supershot(c2d, srcs, codes.double())
+        del q, q64
+    gap = _rel_l2(torch, sup, sup64)
+    err = _rel_l2(torch, sup, lin)
+    ok = err <= 2.0 * gap
+    say(f"  (b) f32 supershot against the coded sum of the f32 single "
+        f"shots: rel L2 {err:.3e}; the f32 supershot's gap to the f64 "
+        f"one {gap:.3e}; bound {2.0 * gap:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"(b) {err:.3e} > 2 x {gap:.3e}")
+    if failed:
+        raise AssertionError("phase 28: " + "; ".join(failed))
+
+
+def _pinned(label: str, got, want, rtol: float = 1e-6) -> bool:
+    import numpy as np
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    ok = got.shape == want.shape and rel <= rtol
+    say(f"  {label}: {', '.join(f'{v:.10e}' for v in got.ravel())}; "
+        f"max rel diff to tpuwave's {rel:.2e} (bound {rtol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_fwi_optim(torch):
+    import numpy as np
+    from tpuwave_torch.models.inverse import FwiProblem
+
+    layered_model = _script("torch_fwi_showcase").layered_model
+    reflectivity_model = _script("torch_imaging_showcase").reflectivity_model
+
+    say(f"phase 29 ({nvidia_smi_line()}): tpuwave's values in f64 (pinned "
+        "from CPU runs of the JAX package), rtol 1e-6: imaging_showcase.py's "
+        "defaults (born, rtm_image, 10 lsrtm iterations; stencil engine); "
+        "fwi_demo.py's "
+        "defaults (invert_gauss_newton 3 x 3 and invert_encoded with 4 "
+        "shots, key 0, 5 iterations, on its stencil engine with the remat "
+        "adjoint; 5 L-BFGS iterations with bounds (0.3, 2.0) on the kernel "
+        "engine); fwi_showcase.py's multiscale inversion with "
+        "precondition='illumination', 3 + 3 iterations, on the kernel "
+        "engine; and the grid engine with the remat adjoint at 256^2 "
+        "against the kernel engine's reversal gradient, rel 1e-9")
+    f64 = torch.float64
+    kw = dict(dtype=f64, device="cuda")
+    ok = []
+
+    def ones(p):
+        return torch.ones(p.n_cells, **kw)
+
+    # imaging_showcase.py
+    t0 = time.perf_counter()
+    y = 1.0 - 0.08 - 0.03
+    p = FwiProblem((64, 64), UNIT_SQUARE, 0.35 / 64, 200, source=(0.5, y),
+                   receivers=[(x, y) for x in np.linspace(0.1, 0.9, 24)],
+                   sponge_width=0.08, engine="stencil", adjoint="reversal",
+                   boundary_save="ring", **kw)
+    srcs = p.snap_vertices([(x, y) for x in np.linspace(0.15, 0.85, 5)])
+    z = 1.0 - p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1)[:, 1]
+    c2 = torch.tensor(1.0 + 0.6 * np.clip((z - 0.2) / 0.6, 0, 1), **kw)
+    d = p.born(c2, torch.tensor(reflectivity_model(p, np), **kw),
+               sources=srcs)
+    rtm = p.rtm_image(c2, d, sources=srcs)
+    _, norms = p.lsrtm(c2, d, n_iter=10, sources=srcs)
+    want = TPUWAVE_IMAGING_64
+    ok.append(_pinned("imaging_showcase ||born||, ||rtm_image||",
+                      [float(torch.linalg.vector_norm(d)),
+                       float(torch.linalg.vector_norm(rtm))], want[:2]))
+    ok.append(_pinned("imaging_showcase lsrtm residual norms", norms,
+                      want[2]))
+    say(f"    ({time.perf_counter() - t0:.2f} s)")
+
+    # fwi_demo.py
+    t0 = time.perf_counter()
+    recs = [(x, y) for x in (0.15, 0.5, 0.85) for y in (0.15, 0.85)]
+    recs += [(0.15, 0.5), (0.85, 0.5)]
+
+    def demo(**over):
+        return FwiProblem((32, 32), UNIT_SQUARE, 0.006, 160,
+                          source=(0.25, 0.5), receivers=recs, **over, **kw)
+    p = demo(engine="stencil", adjoint="remat")
+    c2t = torch.tensor(_fwi_disk(np, p), **kw)
+    ring = p.snap_vertices([(0.2 + 0.2 * k, 0.2) for k in range(4)])
+    with torch.no_grad():
+        obs, obs4 = p.simulate(c2t), p.simulate_shots(c2t, ring)
+    res = p.invert_gauss_newton(obs, ones(p), n_outer=3, n_cg=3,
+                                bounds=(0.3, 2.0))
+    ok.append(_pinned("fwi_demo invert_gauss_newton misfits", res.misfits,
+                      TPUWAVE_FWI_DEMO["gauss_newton"]))
+    res = p.invert_encoded(obs4, ones(p), sources=ring, key=0, n_iter=5,
+                           learning_rate=0.02, bounds=(0.3, 2.0))
+    ok.append(_pinned("fwi_demo invert_encoded misfits", res.misfits,
+                      TPUWAVE_FWI_DEMO["encoded"]))
+    pk = demo(engine="kernel")
+    res = pk.invert(obs, ones(pk), n_iter=5, optimizer="lbfgs",
+                    bounds=(0.3, 2.0))
+    ok.append(_pinned("fwi_demo invert(lbfgs) misfits (kernel engine)",
+                      res.misfits, TPUWAVE_FWI_DEMO["lbfgs"]))
+    say(f"    ({time.perf_counter() - t0:.2f} s)")
+
+    # fwi_showcase.py
+    t0 = time.perf_counter()
+    nel, dt, y, w = 96, 0.35 / 96, 1.0 - 0.08 - 0.03, 0.08 + 0.03
+    recs = [(x, y) for x in np.linspace(0.12, 0.88, 8)]
+    recs += [(w, v) for v in np.linspace(0.15, 0.85, 8)]
+    recs += [(1.0 - w, v) for v in np.linspace(0.15, 0.85, 8)]
+    p = FwiProblem((nel, nel), UNIT_SQUARE, dt, 360, source=(0.5, y),
+                   receivers=recs, sponge_width=0.08, engine="kernel",
+                   adjoint="reversal", boundary_save="ring", **kw)
+    srcs = p.snap_vertices([(x, y) for x in np.linspace(0.15, 0.85, 6)])
+    z = 1.0 - p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1)[:, 1]
+    with torch.no_grad():
+        obs = p.simulate_shots(torch.tensor(layered_model(p, np), **kw),
+                               srcs)
+    res = p.invert_multiscale(
+        obs, torch.tensor(1.0 + 0.8 * np.clip((z - 0.3) / 0.5, 0, 1), **kw),
+        cutoffs=[0.6 / (20 * dt), None], n_iter=[3, 3], learning_rate=0.03,
+        bounds=(0.5, 2.2), sources=srcs, optimizer="adam", reg_lambda=1e-3,
+        precondition="illumination")
+    ok.append(_pinned("fwi_showcase invert_multiscale misfits (kernel "
+                      "engine)", res.misfits, TPUWAVE_FWI_SHOWCASE))
+    say(f"    ({time.perf_counter() - t0:.2f} s)")
+
+    # the grid engine with the remat adjoint at 256^2
+    t0 = time.perf_counter()
+    grads = {}
+    for label, over in (("grid, remat", dict(engine="grid", adjoint="remat")),
+                        ("kernel, reversal", dict(engine="kernel"))):
+        p = FwiProblem((256, 256), UNIT_SQUARE, 2.5e-3, 200,
+                       source=FWI_SOURCE, receivers=FWI_RECEIVERS, **over,
+                       **kw)
+        c2t = torch.tensor(_fwi_disk(np, p), **kw)
+        with torch.no_grad():
+            obs = p.simulate(c2t)
+        torch.cuda.reset_peak_memory_stats()
+        v, grads[label] = p.misfit_and_grad(torch.full_like(c2t, 0.9), obs)
+        say(f"  256^2 {label:<16}: misfit {float(v)!r}, ||grad|| "
+            f"{float(torch.linalg.vector_norm(grads[label]))!r} (tpuwave "
+            f"{TPUWAVE_FWI_256[0]!r}, {TPUWAVE_FWI_256[1]!r}), peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    rel = _rel_l2(torch, grads["grid, remat"], grads["kernel, reversal"])
+    ok.append(rel <= 1e-9)
+    say(f"  256^2 remat (grid) against reversal (kernel) gradient: rel L2 "
+        f"{rel:.3e} (bound 1e-9) {'ok' if ok[-1] else 'FAIL'} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not all(ok):
+        raise AssertionError("phase 29: a value differs from tpuwave's")
+
+
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
 #: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
@@ -3926,6 +4302,10 @@ def main() -> int:
             phase_run_surface(torch, kn, work)
             phase_sweeps(torch, kn, work)
 
+        def path_k():
+            phase_imaging(torch)
+            phase_fwi_optim(torch)
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -3942,6 +4322,7 @@ def main() -> int:
         launches_i = _run_path(kn, "I", PATH_I, path_i)
         phase_unstructured_profile(torch, kn, work)
         launches_j = _run_path(kn, "J", PATH_J, path_j)
+        launches_k = _run_path(kn, "K", PATH_K, path_k)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -3955,7 +4336,7 @@ def main() -> int:
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
                 launches_f, launches_g, launches_h, launches_i,
-                launches_j)),
+                launches_j, launches_k)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

@@ -347,14 +347,14 @@ def test_invert_multishot_huber_matches_tpuwave(jx):
 
 
 # ---------------------------------------------------------------------------
-# construction guards and what is not ported yet
+# construction and invert guards
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw, exc, match", [
     (dict(sponge_width=0.22), ValueError, "boundary_save='ring'"),
     (dict(engine="pallas"), ValueError, "unknown engine"),
-    (dict(engine="scatter"), NotImplementedError, "A12"),
-    (dict(engine="grid"), NotImplementedError, "A12"),
-    (dict(adjoint="remat"), NotImplementedError, "A12"),
+    (dict(engine="scatter"), ValueError, "adjoint='reversal' needs"),
+    (dict(engine="grid"), ValueError, "adjoint='reversal' needs"),
+    (dict(adjoint="remat"), ValueError, "requires adjoint='reversal'"),
     (dict(boundary_save="all"), ValueError, "boundary_save"),
     (dict(sponge_width=0.6, engine="stencil"), ValueError, "whole domain"),
     (dict(sponge_width=0.5, boundary_save="ring", source=(0.05, 0.5)),
@@ -368,10 +368,9 @@ def test_construction_guards(kw, exc, match):
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(optimizer="lbfgs"), NotImplementedError),
-    (dict(precondition="illumination"), NotImplementedError),
-    # checkpoint= is ported for Adam; with L-BFGS it stays refused
-    (dict(checkpoint="fwi.npz", optimizer="lbfgs"), NotImplementedError),
+    (dict(optimizer="lbfgs", precondition="illumination"), ValueError),
+    (dict(precondition="diagonal"), ValueError),
+    (dict(optimizer="sgd", precondition="illumination"), ValueError),
     (dict(optimizer="sgd"), ValueError),
     (dict(estimate_wavelet=True, wavelet=np.zeros(STEPS)), ValueError),
 ])
@@ -379,15 +378,6 @@ def test_invert_guards(kw, exc):
     p = _port()
     with pytest.raises(exc):
         p.invert(np.zeros((STEPS, 2)), np.ones(p.n_cells), n_iter=1, **kw)
-
-
-def test_unported_methods_name_the_roadmap_item():
-    p = _port()
-    for name in ("invert_multiscale", "illumination", "simulate_supershot",
-                 "born", "migrate", "rtm_image", "lsrtm",
-                 "gauss_newton_hvp", "invert_gauss_newton"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            getattr(p, name)()
 
 
 def test_device_defaults_to_cuda():

@@ -20,6 +20,17 @@ vectors in both packages (same cell order); tpuwave's Pallas route holds
 grids on a padded (H, W) layout, plane stacks as (n, H, W), ring rows as
 (..., 2, W) and ring columns as (..., H, 2) or (..., H, 128) lanes, all
 cropped here to the true (ny+1, nx+1) grid.
+
+An FWI problem's construction (``fwi_problem_kwargs``): tpuwave's keyword
+arguments of ``FwiProblem`` become the port's, with tpuwave's defaults
+made explicit (engine "scatter", adjoint "remat", where the port's are
+"kernel" and "reversal"): engine "pallas" is "kernel",
+``pallas_steps_per_call`` is ``steps_per_call``, the Pallas block rows
+and interpret flag have no counterpart, a jax / numpy dtype becomes the
+torch dtype of its name; ``remat``, ``adjoint``, ``boundary_save`` and
+the rest carry over. An L-BFGS checkpoint's optimizer leaves
+(``lbfgs_leaf_names``) are optax's ``tree_leaves`` of its ``lbfgs()``
+state in both packages.
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ import torch
 
 from tpuwave_torch.models.fast import FastState, LeapfrogState
 
-__all__ = ["to_torch", "to_numpy", "like_state", "fwi_to_torch"]
+__all__ = ["to_torch", "to_numpy", "like_state", "fwi_to_torch",
+           "fwi_problem_kwargs", "lbfgs_leaf_names"]
 
 
 #: fields that are host ints in the port
@@ -152,3 +164,42 @@ def fwi_to_torch(a, grid: Tuple[int, int], device, dtype: torch.dtype,
     elif kind == "ring_cols":
         a = a[..., :rows, :2]
     return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+#: tpuwave FwiProblem's keywords with no counterpart in the port
+_PALLAS_ONLY = ("pallas_block_rows", "pallas_interpret")
+
+
+def fwi_problem_kwargs(device="cpu", **kw) -> dict:
+    """tpuwave ``FwiProblem`` keyword arguments -> the port's, on
+    ``device`` (the positional nel, geometry, dt, n_steps are the same).
+    tpuwave's defaults engine="scatter" and adjoint="remat" are made
+    explicit."""
+    out = {"engine": "scatter", "adjoint": "remat", **kw, "device": device}
+    if out["engine"] == "pallas":
+        out["engine"] = "kernel"
+    if "pallas_steps_per_call" in out:
+        out["steps_per_call"] = out.pop("pallas_steps_per_call")
+    for k in _PALLAS_ONLY:
+        out.pop(k, None)
+    if out.get("dtype") is not None:
+        out["dtype"] = getattr(torch, np.dtype(out["dtype"]).name)
+    if out.get("wavelet") is not None:
+        out["wavelet"] = np.asarray(out["wavelet"])
+    return out
+
+
+def lbfgs_leaf_names(n_params: int = 1) -> list:
+    """Names of the optimizer leaves of an L-BFGS inversion checkpoint, in
+    the order of ``jax.tree_util.tree_leaves(optax.lbfgs().init(params))``
+    (and of ``solve/lbfgs.py::Lbfgs.leaves``) for ``n_params`` parameter
+    arrays (c2, and the wavelet with ``estimate_wavelet``)."""
+    per = [f"{{}}{i}" for i in range(n_params)]
+    names = ["count"]
+    for field in ("params", "updates", "diff_params_memory",
+                  "diff_updates_memory"):
+        names += [p.format(field) for p in per]
+    names += ["weights_memory", "learning_rate", "value"]
+    names += [p.format("grad") for p in per]
+    return names + ["num_linesearch_steps", "decrease_error",
+                    "curvature_error"]

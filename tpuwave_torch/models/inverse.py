@@ -1,31 +1,50 @@
 """Differentiable wave propagation and full-waveform inversion (FWI).
 
-Port of tpuwave/models/inverse.py's time-reversal path. The forward model
-(P1 FEM, lumped-mass leapfrog, homogeneous Dirichlet walls or an absorbing
-sponge)
+Port of tpuwave/models/inverse.py. The forward model (P1 FEM, lumped-mass
+leapfrog, homogeneous Dirichlet walls or an absorbing sponge)
 
     M_L u''  +  K(c2) u = w(t) e_src,     u|dOmega = 0,   u(0)=u0, u'(0)=0
 
 is a function of the per-cell squared wave speed ``c2_cell`` and of the
-source wavelet; the misfit's gradient comes from the hand-written
-adjoint-state method: the backward pass RECONSTRUCTS the forward states by
-running the time-reversible leapfrog backwards from the final pair, so
-memory is O(1) in the step count (with a sponge the forward pass saves the
-interface ring, "boundary saving"). It is a ``torch.autograd.Function``,
-so ``torch.autograd`` chains it with the misfit and the optimizer.
+source wavelet.
 
 Leapfrog recurrence (models/fast.py::leapfrog_step with varying c):
 
     u^{n+1} = 2 u^n - u^{n-1} + dt^2 M_L^{-1} (w_n e_src - K u^n)
 
-Two engines, one algebra:
+Four engines, one algebra:
 
-- ``"kernel"`` (default; tpuwave's ``"pallas"``): the fused CUDA kernels
-  B14-B17 of ``ops/kernels_varcoef.py`` on the true (ny+1, nx+1) grid, up
-  to ``steps_per_call`` steps per kernel pass in both directions;
+- ``"kernel"`` (the port's default; tpuwave's ``"pallas"``): the fused CUDA
+  kernels B14-B17 of ``ops/kernels_varcoef.py`` on the true (ny+1, nx+1)
+  grid, up to ``steps_per_call`` steps per kernel pass in both
+  directions;
 - ``"stencil"``: the same recurrence on flat vectors with the assembled
-  coefficient planes and ``torch.roll`` -- the plain twin of the kernel
-  engine, tpuwave's ``engine="stencil"``.
+  coefficient planes and ``torch.roll``, the plain twin of the kernel
+  engine;
+- ``"grid"``: K(c2) u as slab multiply-adds on (ny, nx) coefficient planes
+  every step (:meth:`FwiProblem.stiffness_apply`);
+- ``"scatter"``: gather, class matvec, and the deterministic gather-sum
+  over the inverse connectivity (``ops/operators.py::CellConnectivity``),
+  the reference-parity form (tpuwave's default).
+
+Two adjoints give the gradients:
+
+- ``"reversal"`` (the port's default; kernel and stencil engines): the
+  hand-written adjoint-state method, a ``torch.autograd.Function`` whose
+  backward pass RECONSTRUCTS the forward states by running the
+  time-reversible leapfrog backwards from the final pair, so memory is
+  O(1) in the step count (with a sponge the forward pass saves the
+  interface ring or the damped strip, "boundary saving");
+- ``"remat"`` (tpuwave's default; scatter, grid and stencil engines):
+  ``torch.autograd`` through the Python step loop, each step under
+  ``torch.utils.checkpoint`` (``remat=True``) so that only its inputs,
+  two fields, are kept.
+
+On top of the propagator: encoded supershots (Krebs et al. 2009), Born
+modelling (the tangent recurrence of the plain step loop), migration and
+RTM as its adjoint, LSRTM (CGLS), Gauss-Newton, the illumination
+preconditioner, multiscale inversion, and Adam or L-BFGS descent
+(``solve/lbfgs.py``: optax's ``lbfgs()``).
 
 On a CPU device the kernel engine's wrappers run their plain versions.
 """
@@ -37,24 +56,26 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from tpuwave_torch.config import DEFAULT_DTYPE, resolve_device
 from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave_torch.core.quadrature import gauss_simplex
 from tpuwave_torch.ops import kernels_varcoef as kv
+from tpuwave_torch.ops.operators import CellConnectivity
 from tpuwave_torch.ops.stencil import (P1_CLASS_CORNERS,
                                        apply_varcoef_planes,
                                        assemble_varcoef_planes)
+from tpuwave_torch.solve.lbfgs import Lbfgs
+from tpuwave_torch.utils import prng
 from tpuwave_torch.utils.checkpoint import load_inversion, save_inversion
 
 __all__ = ["FwiProblem", "FwiResult", "ricker_wavelet", "lowpass_time",
            "envelope_time", "trace_misfit"]
 
-_A12 = "(ROADMAP A12: not ported yet)"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} {_A12}")
+#: the engines that run the plain step loop (Born modelling, several
+#: sources)
+_PLAIN_ENGINES = "('scatter', 'grid', 'stencil')"
 
 
 def _adam_leaves(opt, params) -> list:
@@ -161,10 +182,11 @@ class FwiResult(NamedTuple):
 
 class _ReversalSim(torch.autograd.Function):
     """(c2, wavelet) -> traces with the reconstruction-based backward pass
-    (tpuwave: the ``jax.custom_vjp`` of ``_reversal_sim``). Forward saves
-    (c2, wavelet, u_last, u_prevlast[, boundary saves]); backward returns
-    c2's cotangent through the VJP of the linear plane assembly and the
-    wavelet's; the source index gets none."""
+    (tpuwave: the ``jax.custom_vjp`` of ``_reversal_sim``). ``src`` is a
+    vertex id or a tuple of them (one column of ``wavelet`` each). Forward
+    saves (c2, wavelet, u_last, u_prevlast[, boundary saves]); backward
+    returns c2's cotangent through the VJP of the linear plane assembly
+    and the wavelet's; the sources get none."""
 
     @staticmethod
     def forward(ctx, c2, wavelet, problem, src):
@@ -187,8 +209,8 @@ class _ReversalSim(torch.autograd.Function):
 
 
 class FwiProblem:
-    """Differentiable forward model, time-reversal gradients and the
-    inversion loop (port of tpuwave's ``FwiProblem``).
+    """Differentiable forward model, adjoint gradients, linearized imaging
+    and the inversion loops (port of tpuwave's ``FwiProblem``).
 
     Parameters
     ----------
@@ -203,56 +225,70 @@ class FwiProblem:
         1 / (20 dt)).
     dtype, device : default torch.float64 and "cuda" (raises without a
         card; "cpu" runs the kernel engine's plain versions).
+    remat : with ``adjoint="remat"``, run each step under
+        ``torch.utils.checkpoint`` (recompute it in the backward pass
+        instead of keeping its intermediates).
     sponge_width, sponge_strength : absorbing layer along the walls
         (sigma = strength * q^2, q ramping 0 -> 1 toward the wall; the
         damped leapfrog (1 + s) u' = 2u - (1 - s) u_prev + ..., s = sigma
         dt / 2); 0 keeps hard reflecting walls.
-    engine : "kernel" (the CUDA kernels B14-B17, tpuwave's "pallas") or
-        "stencil" (the plain plane-stencil recurrence).
-    adjoint : "reversal" (the only one ported: O(1)-memory state
-        reconstruction).
-    boundary_save : with a sponge, what the forward pass saves for the
-        reconstruction: "strip" (every sigma > 0 vertex; stencil engine
-        only) or "ring" (the interface ring; gradients exact on
-        ``sponge_interior_cell_mask``).
+    engine : "kernel" (the CUDA kernels B14-B17, tpuwave's "pallas"),
+        "stencil" (the plain plane-stencil recurrence), "grid" (slab
+        multiply-adds) or "scatter" (gather / class matvec / gather-sum).
+    adjoint : "reversal" (O(1)-memory state reconstruction; engines
+        "kernel" and "stencil") or "remat" (autograd through the step
+        loop; every engine but "kernel").
+    boundary_save : with a sponge and the reversal adjoint, what the
+        forward pass saves for the reconstruction: "strip" (every sigma >
+        0 vertex; stencil engine only) or "ring" (the interface ring;
+        gradients exact on ``sponge_interior_cell_mask``).
     steps_per_call : fused steps per kernel pass (B15 / B17), in both
         directions. Results do not depend on it. B15 and B17 run a pass
         of k > 8 steps as ceil(k / 8) launches; 1 runs one step per
         launch (B14 / B16).
 
     The port's defaults (engine "kernel", adjoint "reversal", device
-    "cuda") differ from tpuwave's ("scatter" / "remat"): the scatter and
-    grid engines and the remat adjoint are not ported yet (ROADMAP A12).
+    "cuda") differ from tpuwave's ("scatter" / "remat");
+    ``models/convert.py::fwi_problem_kwargs`` maps a tpuwave construction
+    onto the port's.
     """
 
     def __init__(self, nel: Tuple[int, int], geometry, dt: float,
                  n_steps: int, *, source: Tuple[float, float],
                  receivers: Sequence[Tuple[float, float]],
                  wavelet=None, dtype: Optional[torch.dtype] = None,
-                 device="cuda", sponge_width: float = 0.0,
+                 device="cuda", remat: bool = True,
+                 sponge_width: float = 0.0,
                  sponge_strength: float = 30.0, engine: str = "kernel",
                  adjoint: str = "reversal", boundary_save: str = "strip",
                  interp_receivers: bool = False, steps_per_call: int = 8):
-        if engine in ("scatter", "grid"):
-            _not_ported(f"engine={engine!r}")
-        if engine not in ("kernel", "stencil"):
-            raise ValueError(f"unknown engine {engine!r} (kernel | stencil; "
-                             "tpuwave's 'pallas' is 'kernel' here)")
-        if adjoint == "remat":
-            _not_ported("adjoint='remat'")
-        if adjoint != "reversal":
+        if engine not in ("scatter", "grid", "stencil", "kernel"):
+            raise ValueError(f"unknown engine {engine!r} (scatter | grid | "
+                             "stencil | kernel; tpuwave's 'pallas' is "
+                             "'kernel' here)")
+        if adjoint not in ("remat", "reversal"):
             raise ValueError(f"unknown adjoint {adjoint!r}")
         if boundary_save not in ("strip", "ring"):
             raise ValueError(f"unknown boundary_save {boundary_save!r}")
-        if (engine == "kernel" and sponge_width > 0.0
-                and boundary_save != "ring"):
+        if adjoint == "reversal" and engine not in ("stencil", "kernel"):
+            raise ValueError("adjoint='reversal' needs engine='stencil' "
+                             "or 'kernel' (the reconstruction runs on the "
+                             "assembled stencil planes)")
+        if (adjoint == "reversal" and engine == "kernel"
+                and sponge_width > 0.0 and boundary_save != "ring"):
             raise ValueError("engine='kernel' with a sponge requires "
                              "boundary_save='ring' (the fused path saves "
                              "only the interface ring; use "
                              "engine='stencil' for the exact-everywhere "
                              "'strip' mode)")
+        if engine == "kernel" and adjoint != "reversal":
+            raise ValueError("engine='kernel' requires adjoint='reversal' "
+                             "(the fused kernels have no autograd rule, so "
+                             "gradients go through the hand-written "
+                             "time-reversal backward pass)")
         self.engine = engine
         self.adjoint = adjoint
+        self.remat = bool(remat)
         self.boundary_save = boundary_save
         self.steps_per_call = max(1, int(steps_per_call))
         self.dtype = dtype or DEFAULT_DTYPE
@@ -268,12 +304,17 @@ class FwiProblem:
         grads = self.space.physical_grads(self.space.shape_at(quad))
         # P1: q-independent physical gradients -> K_e = s_e * G_class
         self._g_class_np = np.einsum("cqia,cqja->cqij", grads, grads)[:, 0]
+        self._g_class = self._t(self._g_class_np)
         self._w_sum = float(np.sum(quad.weights))
         self._det_j = float(self.mesh.det_j)
 
         cells = np.asarray(self.mesh.cells, dtype=np.int64)
         self.n_cells = cells.shape[0]
         self.n_vertices = self.mesh.n_vertices
+        self._cells = torch.as_tensor(cells, device=self.device)
+        if engine == "scatter":
+            self._conn = CellConnectivity(cells, self.n_vertices,
+                                          self.device)
         # row-sum lumped mass: detJ/6 per triangle on each of its vertices,
         # accumulated in cell order
         lumped = np.bincount(cells.ravel(), minlength=self.n_vertices,
@@ -300,7 +341,7 @@ class FwiProblem:
         self._sponge_keep = None
         self._sponge_rects = None
         self._ring = None
-        if sponge_width > 0.0:
+        if sponge_width > 0.0 and adjoint == "reversal":
             self._boundary_saving(sigma, boundary_save)
 
         self.receiver_vertices = torch.tensor(
@@ -452,12 +493,38 @@ class FwiProblem:
                 * self._as(c2_cell).reshape(ny, nx, 2))
 
     def stiffness_apply(self, c2_cell, u) -> torch.Tensor:
-        """K(c2) u on a flat field, exact on boundary rows too: 2 classes x
-        the nonzero (i, j) pairs of slab multiply-adds (tpuwave's grid
-        form, ``_stiffness_apply_grid``). Differentiable in c2."""
+        """K(c2) u on a flat field, exact on boundary rows too, and
+        differentiable in c2: the gather / class matvec / gather-sum form
+        on the scatter engine, slab multiply-adds (tpuwave's grid form,
+        ``_stiffness_apply_grid``) on the others."""
+        return self._k_apply(c2_cell, exact=True)(self._as(u))
+
+    def _k_apply(self, c2_cell, exact: bool = False):
+        """u -> K(c2) u for one c2, its scales or planes formed once. On
+        the stencil engine the plane apply, which wraps garbage onto the
+        boundary rows that every step loop masks; ``exact`` takes the grid
+        form there instead."""
+        if self.engine == "scatter":
+            scale = ((self._det_j * self._w_sum)
+                     * self._as(c2_cell)).reshape(-1, 2, 1)
+            conn = self._conn
+
+            def apply(u):
+                ve = conn.gather(u).reshape(-1, 2, 3)   # class pairs
+                we = torch.einsum("kij,ekj->eki", self._g_class, ve)
+                return conn.assemble(we * scale)
+            return apply
+        if self.engine == "stencil" and not exact:
+            return functools.partial(self._apply_stencil_planes,
+                                     self._assemble_stencil_planes(c2_cell))
+        return functools.partial(self._stiffness_apply_grid,
+                                 self._scales(c2_cell))
+
+    def _stiffness_apply_grid(self, s, u) -> torch.Tensor:
+        """2 classes x the nonzero (i, j) pairs of slab multiply-adds on
+        (ny, nx) planes of the scales ``s``."""
         ny, nx = self.mesh.ny, self.mesh.nx
-        s = self._scales(c2_cell)
-        ug = self._as(u).reshape(self._grid)
+        ug = u.reshape(self._grid)
         acc = torch.zeros_like(ug)
         for k in range(2):
             sk = s[..., k]
@@ -667,35 +734,57 @@ class FwiProblem:
         wavelet_bar = torch.cat([wav_0[None], wav])
         return self._planes_vjp(c2_cell, wbar), wavelet_bar
 
-    # -- stencil engine ---------------------------------------------------------
+    # -- the plain step loop (stencil, grid and scatter engines) ------------
+    def _src_index(self, src) -> torch.Tensor:
+        """(S,) int64 vertex ids of a source id or a sequence of them."""
+        return torch.as_tensor(np.asarray(src, np.int64).reshape(-1),
+                               device=self.device)
+
     def _propagate(self, c2_cell, src, wavelet, u0=None,
                    return_final: bool = False):
-        """Core leapfrog loop over (c2_cell, src, wavelet, u0)."""
+        """Core leapfrog loop over (c2_cell, src, wavelet, u0). ``src`` is a
+        vertex id with an (n_steps,) wavelet, or S ids with an (n_steps,
+        S) wavelet (repeated ids add up). With ``remat``, where autograd
+        records the loop, each step runs under torch.utils.checkpoint."""
         if self.engine == "kernel":
             return self._propagate_kernel(c2_cell, src, wavelet, u0,
                                           return_final)
         dt2 = self.dt * self.dt
-        planes = self._assemble_stencil_planes(self._as(c2_cell))
-        src_idx = torch.tensor([int(src)], device=self.device)
+        c2 = self._as(c2_cell)
+        k_apply = self._k_apply(c2)
+        src_idx = self._src_index(src)
 
         def forced_accel(u, w_n):
-            f = (-self._apply_stencil_planes(planes, u)).index_add(
-                0, src_idx, w_n.reshape(1))
+            f = (-k_apply(u)).index_add(0, src_idx, w_n.reshape(-1))
             return f * self._inv_lumped
+
+        def step(u, u_prev, w_n):
+            u_next = (2.0 * u - self._damp_num * u_prev
+                      + dt2 * forced_accel(u, w_n)) * self._damp_den
+            u_next = u_next * self._interior
+            return u_next, self._sample(u_next)
 
         u0 = (torch.zeros(self.n_vertices, dtype=self.dtype,
                           device=self.device) if u0 is None
               else self._as(u0).reshape(-1))
         u1 = (u0 + 0.5 * dt2 * forced_accel(u0, wavelet[0])) * self._interior
         save = self._sponge_rects is not None and return_final
+        # checkpoint only where autograd records the loop
+        ckpt = self.remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (c2, wavelet, u0))
         traces = [self._sample(u1)]
         strips = [self._sponge_save(u1)] if save else []
         u, u_prev = u1, u0
         for w_n in wavelet[1:]:
-            u_next = (2.0 * u - self._damp_num * u_prev
-                      + dt2 * forced_accel(u, w_n)) * self._damp_den
-            u_next = u_next * self._interior
-            traces.append(self._sample(u_next))
+            if ckpt:
+                # the step draws no random numbers: keeping the RNG state
+                # would read the device's each step
+                u_next, tr = _checkpoint(step, u, u_prev, w_n,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
+            else:
+                u_next, tr = step(u, u_prev, w_n)
+            traces.append(tr)
             if save:
                 strips.append(self._sponge_save(u_next))
             u, u_prev = u_next, u
@@ -713,7 +802,8 @@ class FwiProblem:
         driven by the receiver cotangents (the exact damped-leapfrog
         transpose), (c) accumulates the plane correlations
         W_d = -sum_k mu_{k+1} shift(u_k, d), chained through the plane
-        assembly to dJ/dc2. Returns (c2_bar, wavelet_bar)."""
+        assembly to dJ/dc2. Returns (c2_bar, wavelet_bar), the latter of
+        ``wavelet``'s shape."""
         c2_cell = self._as(c2_cell)
         dt2 = self.dt * self.dt
         planes = self._assemble_stencil_planes(c2_cell)
@@ -721,8 +811,7 @@ class FwiProblem:
         keep = self._sponge_keep
         has_sponge = saves is not None and self._sponge_rects is not None
         bden = interior * self._damp_den if has_sponge else interior
-        src = int(src)
-        src_idx = torch.tensor([src], device=self.device)
+        src_idx = self._src_index(src)
 
         def k_apply(u):
             return self._apply_stencil_planes(planes, u)
@@ -739,7 +828,8 @@ class FwiProblem:
             (strips,) = saves
             strip_xs = torch.cat([torch.zeros_like(strips[:1]),
                                   strips[:-2]])[:n - 1]
-        wav = torch.empty(n - 1, dtype=self.dtype, device=self.device)
+        wav = torch.empty((n - 1, src_idx.numel()), dtype=self.dtype,
+                          device=self.device)
         for i in reversed(range(n - 1)):
             blam = bden * lam
             mu = dt2 * inv_m * blam
@@ -748,7 +838,7 @@ class FwiProblem:
             lam_prev_partial = (-(self._damp_num * blam) if has_sponge
                                 else -blam)
             f = (-k_apply(u_cur)).index_add(0, src_idx,
-                                            wavelet[i + 1].reshape(1))
+                                            wavelet[i + 1].reshape(-1))
             u_prev = interior * (2.0 * u_cur - u_next + dt2 * inv_m * f)
             if has_sponge:
                 if keep is not None:
@@ -759,44 +849,61 @@ class FwiProblem:
             wbar = {d: wbar[d] - mu_g * torch.roll(u_g, (-d[1], -d[0]),
                                                    (0, 1))
                     for d in wbar}
-            wav[i] = mu[src]
+            wav[i] = mu[src_idx]
             u_next, u_cur, lam, lam_partial = (u_cur, u_prev, lam_cur,
                                                lam_prev_partial)
         # u_1 = B(dt^2/2 M^-1 w_0 e_src): only the wavelet depends
-        wav_0 = 0.5 * dt2 * (inv_m * (interior * lam))[src]
-        return (self._planes_vjp(c2_cell, wbar),
-                torch.cat([wav_0[None], wav]))
+        wav_0 = 0.5 * dt2 * (inv_m * (interior * lam))[src_idx]
+        wavelet_bar = torch.cat([wav_0[None], wav]).reshape(wavelet.shape)
+        return self._planes_vjp(c2_cell, wbar), wavelet_bar
 
     # -- forward model --------------------------------------------------------
+    def _sim(self, c2, src, wavelet) -> torch.Tensor:
+        """Traces of one propagation through the configured adjoint: the
+        reconstruction backward pass, or autograd through the step loop."""
+        if self.adjoint == "reversal":
+            return _ReversalSim.apply(c2, wavelet, self, src)
+        return self._propagate(c2, src, wavelet)
+
     def simulate(self, c2_cell, u0=None, wavelet=None) -> torch.Tensor:
         """Receiver traces (n_steps, n_rec), differentiable in c2_cell and
-        the wavelet through the time-reversal adjoint. u'(0) = 0; the first
+        the wavelet through the configured adjoint. u'(0) = 0; the first
         step is the Taylor start u^1 = u^0 + dt^2/2 M_L^{-1} (w_0 e_src -
         K u^0). With ``u0`` (a non-zero start, which the reversal adjoint
-        does not cover) the run is forward only."""
+        does not cover) the reversal run is forward only; the remat run
+        stays differentiable."""
         w = self.wavelet if wavelet is None else self._as(wavelet)
         c2 = self._as(c2_cell)
         if u0 is None:
-            return _ReversalSim.apply(c2, w, self, self.source_vertex)
-        with torch.no_grad():
-            return self._propagate(c2, self.source_vertex, w, u0)
+            return self._sim(c2, self.source_vertex, w)
+        if self.adjoint == "reversal":
+            with torch.no_grad():
+                return self._propagate(c2, self.source_vertex, w, u0)
+        return self._propagate(c2, self.source_vertex, w, u0)
 
     def snap_vertices(self, points) -> torch.Tensor:
         """Nearest-vertex ids (int64) for a list of (x, y) points."""
         return torch.tensor([self._nearest(p) for p in points],
                             dtype=torch.int64)
 
+    def _shot_wavelets(self, n_src: int, wavelets) -> torch.Tensor:
+        if wavelets is None:
+            return self.wavelet.expand(n_src, self.n_steps)
+        return self._as(wavelets)
+
+    @staticmethod
+    def _ids(sources) -> list:
+        return [int(s) for s in np.asarray(
+            torch.as_tensor(sources).cpu()).reshape(-1)]
+
     def simulate_shots(self, c2_cell, sources, wavelets=None) -> torch.Tensor:
         """Independent shots, one after the other -> (S, n_steps, n_rec).
         ``sources``: (S,) vertex ids (:meth:`snap_vertices`); ``wavelets``:
         (S, n_steps) per-shot time series (default: this problem's)."""
-        srcs = [int(s) for s in torch.as_tensor(sources).reshape(-1)]
-        if wavelets is None:
-            ws = self.wavelet.expand(len(srcs), self.n_steps)
-        else:
-            ws = self._as(wavelets)
+        srcs = self._ids(sources)
+        ws = self._shot_wavelets(len(srcs), wavelets)
         c2 = self._as(c2_cell)
-        return torch.stack([_ReversalSim.apply(c2, ws[i], self, s)
+        return torch.stack([self._sim(c2, s, ws[i])
                             for i, s in enumerate(srcs)])
 
     def misfit_shots(self, c2_cell, sources, observed, wavelets=None,
@@ -806,6 +913,298 @@ class FwiProblem:
                             self._as(observed), kind,
                             huber_delta=huber_delta)
 
+    # -- source encoding (simultaneous-source / supershot FWI) ---------------
+    def simulate_supershot(self, c2_cell, sources, codes,
+                           wavelets=None) -> torch.Tensor:
+        """One propagation with all sources firing at once, source s
+        scaled by ``codes[s]`` -> (n_steps, n_rec): the encoded-source
+        trick (Krebs et al. 2009). The injection is linear in the force,
+        so an S-source supershot costs one single-shot simulation; with
+        random +-1 codes redrawn per iteration the expected encoded misfit
+        is the sum of the per-shot misfits plus a model-independent
+        constant. ``sources``: (S,) vertex ids; ``codes``: (S,) weights;
+        ``wavelets``: optional (S, n_steps) series. Differentiable in
+        (c2_cell, codes, wavelets) on every engine but "kernel", whose
+        fused kernels inject a single source."""
+        if self.engine == "kernel":
+            raise ValueError("simulate_supershot needs engine in "
+                             f"{_PLAIN_ENGINES}; the fused kernel engine "
+                             "('kernel') injects a single source")
+        srcs = tuple(self._ids(sources))
+        codes = self._as(codes)
+        ws = self._shot_wavelets(len(srcs), wavelets)
+        wmat = (ws.T * codes[None, :]).contiguous()     # (n_steps, S)
+        return self._sim(self._as(c2_cell), srcs, wmat)
+
+    def misfit_encoded(self, c2_cell, sources, codes, observed,
+                       wavelets=None) -> torch.Tensor:
+        """0.5 ||supershot(c2; codes) - sum_s codes_s observed_s||^2, whose
+        Rademacher expectation is ``misfit_shots`` plus a constant;
+        ``observed`` is the (S, n_steps, n_rec) per-shot gather."""
+        codes = self._as(codes)
+        d_enc = torch.einsum("s,snr->nr", codes, self._as(observed))
+        r = self.simulate_supershot(c2_cell, sources, codes, wavelets) - d_enc
+        return 0.5 * torch.sum(r * r)
+
+    def invert_encoded(self, observed, c2_init, *, sources, key,
+                       n_iter: int = 50, learning_rate: float = 0.1,
+                       bounds: Optional[Tuple[float, float]] = None,
+                       wavelets=None, reg_lambda: float = 0.0,
+                       redraw_every: int = 1,
+                       verbose: bool = False) -> FwiResult:
+        """Stochastic encoded-source Adam descent: fresh +-1 codes every
+        ``redraw_every`` iterations (``key, sub = split(key)``, then
+        ``rademacher(sub, S)``, as tpuwave draws them with jax.random:
+        ``key`` is its raw key's two words or an int seed,
+        ``utils/prng.py``), each step on the S-times cheaper
+        :meth:`misfit_encoded`. The misfits are the encoded values."""
+        observed = self._as(observed)
+        srcs = self._ids(sources)
+        key = prng.key_words(key)
+        c2 = self._as(c2_init).detach().clone().requires_grad_(True)
+        opt = torch.optim.Adam([c2], lr=learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8)
+        misfits = np.empty(n_iter)
+        codes = None
+        for i in range(n_iter):
+            if codes is None or i % max(1, redraw_every) == 0:
+                key, sub = prng.split(key)
+                codes = prng.rademacher(sub, len(srcs), self.dtype,
+                                        self.device)
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                val = self.misfit_encoded(c2, srcs, codes, observed,
+                                          wavelets)
+                if reg_lambda > 0.0:
+                    val = val + reg_lambda * self.roughness(c2)
+                val.backward()
+            opt.step()
+            if bounds is not None:
+                with torch.no_grad():
+                    c2.clamp_(bounds[0], bounds[1])
+            misfits[i] = float(val.detach())
+            if verbose:
+                print(f"iter {i:3d}  encoded misfit {misfits[i]:.6e}")
+        return FwiResult(c2=c2.detach(), misfits=misfits, wavelet=None)
+
+    # -- Born modelling / RTM / least-squares migration ---------------------
+    def _plain_only(self, what: str, why: str) -> None:
+        if self.engine == "kernel":
+            raise ValueError(f"{what} needs engine in {_PLAIN_ENGINES}; "
+                             f"{why}")
+
+    def _data_map(self, c2, sources=None, wavelets=None) -> torch.Tensor:
+        """The model -> data map at ``c2``: single-shot (n_steps, n_rec)
+        or multi-shot (S, n_steps, n_rec) traces."""
+        if sources is None:
+            return self.simulate(c2)
+        return self.simulate_shots(c2, sources, wavelets)
+
+    def _vjp(self, c2_cell, cotangent, sources=None, wavelets=None):
+        """(data map at c2, its VJP of ``cotangent(traces)``)."""
+        c2 = self._as(c2_cell).detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = self._data_map(c2, sources, wavelets)
+            ct = cotangent(out.detach())
+            (g,) = torch.autograd.grad(out, c2, grad_outputs=ct)
+        return out.detach(), g
+
+    def born(self, c2_cell, dc2_cell, sources=None,
+             wavelets=None) -> torch.Tensor:
+        """Linearized (Born) modelling: the directional derivative
+        d(traces)/d(c2) . dc2_cell at the background ``c2_cell``, what
+        forward-mode AD of the plain step loop computes (tpuwave's
+        jax.jvp), so not on the kernel engine. K is linear in c2, so the
+        derivative of K(c2) u along dm is K(c2) du + K(dm) u: the tangent
+        recurrence runs beside the step loop, three K applies a step."""
+        self._plain_only("born", "the fused kernels (engine='kernel') have "
+                         "no JVP rule")
+        c2 = self._as(c2_cell).detach()
+        dm = self._as(dc2_cell).detach()
+        with torch.no_grad():
+            if sources is None:
+                return self._born(c2, dm, self.source_vertex, self.wavelet)
+            srcs = self._ids(sources)
+            ws = self._shot_wavelets(len(srcs), wavelets)
+            return torch.stack([self._born(c2, dm, s, ws[i])
+                                for i, s in enumerate(srcs)])
+
+    def _born(self, c2, dm, src, wavelet) -> torch.Tensor:
+        """Born traces of one shot from a zero start: u and its tangent du
+        stepped together (du^1 = 0, as u^0 = 0)."""
+        dt2 = self.dt * self.dt
+        k_apply, dk_apply = self._k_apply(c2), self._k_apply(dm)
+        src_idx = self._src_index(src)
+        num, den, interior = self._damp_num, self._damp_den, self._interior
+        u_prev = torch.zeros(self.n_vertices, dtype=self.dtype,
+                             device=self.device)
+        f = (-k_apply(u_prev)).index_add(0, src_idx, wavelet[0].reshape(-1))
+        u = (u_prev + 0.5 * dt2 * (f * self._inv_lumped)) * interior
+        du, du_prev = torch.zeros_like(u), torch.zeros_like(u)
+        traces = [self._sample(du)]
+        for w_n in wavelet[1:]:
+            f = (-k_apply(u)).index_add(0, src_idx, w_n.reshape(-1))
+            u_next = (2.0 * u - num * u_prev
+                      + dt2 * (f * self._inv_lumped)) * den * interior
+            df = -(dk_apply(u) + k_apply(du))
+            du_next = (2.0 * du - num * du_prev
+                       + dt2 * (df * self._inv_lumped)) * den * interior
+            traces.append(self._sample(du_next))
+            u, u_prev, du, du_prev = u_next, u, du_next, du
+        return torch.stack(traces)
+
+    def migrate(self, c2_cell, data, sources=None,
+                wavelets=None) -> torch.Tensor:
+        """Adjoint of :meth:`born`, the RTM operator L^T d: the VJP of the
+        configured data map (on the kernel engine B14-B17's time
+        reversal), a per-cell image."""
+        data = self._as(data)
+        return self._vjp(c2_cell, lambda _: data, sources, wavelets)[1]
+
+    def rtm_image(self, c2_cell, observed, sources=None, wavelets=None,
+                  normalize: Optional[str] = "illumination",
+                  precond_eps: float = 1e-3) -> torch.Tensor:
+        """Reverse-time-migration image of ``observed`` over the smooth
+        background ``c2_cell``; ``normalize="illumination"`` divides by
+        (I + precond_eps max I) (:meth:`illumination`), ``None`` returns
+        the raw L^T d."""
+        img = self.migrate(c2_cell, observed, sources, wavelets)
+        if normalize is None:
+            return img
+        if normalize != "illumination":
+            raise ValueError(f"unknown normalize {normalize!r}")
+        illum = self.illumination(c2_cell, sources=sources,
+                                  wavelets=wavelets)
+        return img / (illum + precond_eps * torch.max(illum))
+
+    def lsrtm(self, c2_cell, observed, *, n_iter: int = 10, sources=None,
+              wavelets=None, verbose: bool = False):
+        """Least-squares RTM: min_m 0.5 ||L m - d||^2 by CGLS, one Born
+        modelling and one migration per iteration. Returns (m,
+        residual_norms), residual_norms[k] = ||d - L m_k||."""
+        self._plain_only("lsrtm", "Born modeling has no JVP rule on the "
+                         "fused kernel engine ('kernel')")
+        c2 = self._as(c2_cell)
+        d = self._as(observed)
+
+        def L(m):
+            return self.born(c2, m, sources, wavelets)
+
+        def Lt(r):
+            return self.migrate(c2, r, sources, wavelets)
+
+        m = torch.zeros(self.n_cells, dtype=self.dtype, device=self.device)
+        r = d
+        s = Lt(r)
+        p = s
+        gamma = torch.sum(s * s)
+        norms = [float(torch.sqrt(torch.sum(r * r)))]
+        for k in range(n_iter):
+            q = L(p)
+            alpha = gamma / torch.sum(q * q)
+            m = m + alpha * p
+            r = r - alpha * q
+            norms.append(float(torch.sqrt(torch.sum(r * r))))
+            if verbose:
+                print(f"lsrtm iter {k:3d}  ||r|| {norms[-1]:.6e}")
+            s = Lt(r)
+            gamma_new = torch.sum(s * s)
+            p = s + (gamma_new / gamma) * p
+            gamma = gamma_new
+        return m, np.asarray(norms)
+
+    def gauss_newton_hvp(self, c2_cell, v, sources=None, wavelets=None,
+                         damping: float = 0.0) -> torch.Tensor:
+        """(J^T J + damping I) v at ``c2_cell``, J = d(traces)/d(c2): one
+        Born modelling and one migration."""
+        v = self._as(v)
+        hv = self.migrate(c2_cell, self.born(c2_cell, v, sources, wavelets),
+                          sources, wavelets)
+        if damping:
+            hv = hv + damping * v
+        return hv
+
+    def invert_gauss_newton(self, observed, c2_init, *, n_outer: int = 5,
+                            n_cg: int = 5, damping: float = 0.0,
+                            step: float = 1.0,
+                            bounds: Optional[Tuple[float, float]] = None,
+                            sources=None, wavelets=None,
+                            verbose: bool = False) -> FwiResult:
+        """Truncated Gauss-Newton FWI (Levenberg-Marquardt for ``damping``
+        > 0): each outer iteration solves (J^T J + damping I) p = -g by
+        ``n_cg`` CG iterations from p = 0 with :meth:`gauss_newton_hvp`
+        and sets c2 <- clip(c2 + step p). Returns the per-outer-iteration
+        misfits."""
+        self._plain_only("invert_gauss_newton", "Born modeling has no JVP "
+                         "rule on the fused kernel engine ('kernel')")
+        d = self._as(observed)
+        c2 = self._as(c2_init)
+        misfits = np.empty(n_outer)
+        for k in range(n_outer):
+            sim, g = self._vjp(c2, lambda out: out - d, sources, wavelets)
+            r = sim - d
+            misfits[k] = float(0.5 * torch.sum(r * r))
+            if verbose:
+                print(f"gn outer {k:3d}  misfit {misfits[k]:.6e}")
+            p = torch.zeros_like(c2)
+            r = -g
+            q = r
+            rho = torch.sum(r * r)
+            for _ in range(n_cg):
+                hq = self.gauss_newton_hvp(c2, q, sources, wavelets,
+                                           damping=damping)
+                alpha = rho / torch.sum(q * hq)
+                p = p + alpha * q
+                r = r - alpha * hq
+                rho_new = torch.sum(r * r)
+                q = r + (rho_new / rho) * q
+                rho = rho_new
+            c2 = c2 + step * p
+            if bounds is not None:
+                c2 = torch.clamp(c2, bounds[0], bounds[1])
+        return FwiResult(c2=c2, misfits=misfits, wavelet=None)
+
+    # -- illumination / gradient preconditioning -----------------------------
+    def illumination(self, c2_cell, sources=None,
+                     wavelets=None) -> torch.Tensor:
+        """Per-cell source illumination I_e = sum_k mean_v u_k[v]^2 (v over
+        the cell's 3 vertices; summed over shots with ``sources``), the
+        diagonal pseudo-Hessian proxy of classic FWI. On every engine the
+        plain stencil-plane forward in torch ops, as in tpuwave; a
+        constant (no gradient)."""
+        dt2 = self.dt * self.dt
+        with torch.no_grad():
+            planes = self._assemble_stencil_planes(self._as(c2_cell))
+
+            def one(src, w):
+                src_idx = self._src_index(src)
+
+                def accel(u, w_n):
+                    f = (-self._apply_stencil_planes(planes, u)).index_add(
+                        0, src_idx, w_n.reshape(-1))
+                    return f * self._inv_lumped
+
+                u0 = torch.zeros(self.n_vertices, dtype=self.dtype,
+                                 device=self.device)
+                u = (u0 + 0.5 * dt2 * accel(u0, w[0])) * self._interior
+                u_prev, acc = u0, u * u
+                for w_n in w[1:]:
+                    u_next = (2.0 * u - self._damp_num * u_prev
+                              + dt2 * accel(u, w_n)) * self._damp_den
+                    u_next = u_next * self._interior
+                    u, u_prev, acc = u_next, u, acc + u_next * u_next
+                return acc
+
+            if sources is None:
+                acc = one(self.source_vertex, self.wavelet)
+            else:
+                srcs = self._ids(sources)
+                ws = self._shot_wavelets(len(srcs), wavelets)
+                acc = torch.stack([one(s, ws[i])
+                                   for i, s in enumerate(srcs)]).sum(0)
+            return acc[self._cells].mean(1)
+
+    # -- inversion ----------------------------------------------------------
     def misfit(self, c2_cell, observed, wavelet=None, kind: str = "l2",
                huber_delta: float = 1.0):
         """Single-shot data misfit (default 0.5 ||r||^2)."""
@@ -821,7 +1220,6 @@ class FwiProblem:
             (g,) = torch.autograd.grad(val, c2)
         return val.detach(), g
 
-    # -- inversion --------------------------------------------------------------
     def invert(self, observed, c2_init, *, n_iter: int = 50,
                learning_rate: float = 0.1,
                bounds: Optional[Tuple[float, float]] = None,
@@ -829,48 +1227,54 @@ class FwiProblem:
                estimate_wavelet: bool = False, wavelet_init=None,
                optimizer: str = "adam", reg_lambda: float = 0.0,
                precondition: Optional[str] = None,
+               precond_eps: float = 1e-3,
                misfit_kind: str = "l2", huber_delta: float = 1.0,
                checkpoint: Optional[str] = None,
                checkpoint_every: int = 10,
                verbose: bool = False) -> FwiResult:
-        """Adam descent on the misfit (``torch.optim.Adam``: beta (0.9,
-        0.999), eps 1e-8, optax's defaults), with the box ``bounds``
-        projection of c2 after every step. ``reg_lambda`` adds
-        ``reg_lambda * roughness(c2)``; ``misfit_kind`` selects the data
-        functional; with ``sources`` the (S, n_steps, n_rec) gather is
-        fitted shot by shot (``wavelets`` (S, n_steps), or ``wavelet`` for
-        every shot). ``estimate_wavelet`` co-estimates one shared source
-        time series from ``wavelet_init`` (default: this problem's); the
-        projection applies to c2 only. The misfit history holds each
-        iteration's value before its update.
+        """Descent on the misfit with the box ``bounds`` projection of c2
+        after every step. ``reg_lambda`` adds ``reg_lambda *
+        roughness(c2)``; ``misfit_kind`` selects the data functional; with
+        ``sources`` the (S, n_steps, n_rec) gather is fitted shot by shot
+        (``wavelets`` (S, n_steps), or ``wavelet`` for every shot).
+        ``estimate_wavelet`` co-estimates one shared source time series
+        from ``wavelet_init`` (default: this problem's); the projection
+        applies to c2 only. The misfit history holds each iteration's
+        value before its update.
+
+        ``optimizer``: "adam" (``torch.optim.Adam``: beta (0.9, 0.999),
+        eps 1e-8, optax's defaults, step ``learning_rate``) or "lbfgs"
+        (``solve/lbfgs.py``: optax's ``lbfgs()``, memory 10, zoom line
+        search; ``learning_rate`` is ignored; an iteration's misfit is the
+        line search's last value, at the step before the projection).
+        ``precondition="illumination"`` (Adam only) divides the c2
+        gradient by (I + precond_eps max I), I the :meth:`illumination`
+        at ``c2_init``.
 
         ``checkpoint``: path of a single .npz snapshot (model, optimizer
         state, misfit history; utils/checkpoint.py) written every
         ``checkpoint_every`` iterations and at the end; if the file
         already exists the descent resumes from it (``n_iter`` counts
-        total iterations). The optimizer state is written as tpuwave's
-        optax Adam state leaves (``count`` as int32, then the first
-        moments, then the second moments, each in parameter order), so a
-        snapshot written by either package resumes in the other."""
-        if optimizer == "lbfgs":
-            _not_ported("optimizer='lbfgs'")
-        if optimizer != "adam":
-            raise ValueError(f"unknown optimizer {optimizer!r}")
-        if precondition is not None:
-            _not_ported(f"precondition={precondition!r}")
+        total iterations). The optimizer state is written as the leaves
+        of tpuwave's optax state (Adam: ``count`` as int32, then the first
+        moments, then the second moments, each in parameter order;
+        L-BFGS: ``Lbfgs.leaves``), so a snapshot written by either
+        package resumes in the other."""
         if estimate_wavelet and (wavelets is not None or wavelet is not None):
             raise ValueError("estimate_wavelet=True estimates one shared "
                              "wavelet; drop the fixed `wavelet(s)` argument")
+        if precondition not in (None, "illumination"):
+            raise ValueError(f"unknown precondition {precondition!r}")
+        if precondition == "illumination" and optimizer != "adam":
+            raise ValueError("precondition='illumination' needs "
+                             "optimizer='adam' (a scaled gradient breaks "
+                             "the L-BFGS line search)")
+        if optimizer not in ("adam", "lbfgs"):
+            raise ValueError(f"unknown optimizer {optimizer!r}")
         observed = self._as(observed)
-        c2 = self._as(c2_init).detach().clone().requires_grad_(True)
-        params, w_est = [c2], None
-        if estimate_wavelet:
-            w_est = (self.wavelet if wavelet_init is None
-                     else self._as(wavelet_init)).detach().clone()
-            params.append(w_est.requires_grad_(True))
         fixed_w = None if wavelet is None else self._as(wavelet)
 
-        def loss():
+        def loss(c2, w_est):
             w = w_est if w_est is not None else fixed_w
             if sources is None:
                 val = self.misfit(c2, observed, wavelet=w, kind=misfit_kind,
@@ -888,8 +1292,21 @@ class FwiProblem:
                 val = val + reg_lambda * self.roughness(c2)
             return val
 
-        opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                               eps=1e-8)
+        params = [self._as(c2_init).detach().clone()]
+        if estimate_wavelet:
+            params.append((self.wavelet if wavelet_init is None
+                           else self._as(wavelet_init)).detach().clone())
+        g_scale = None
+        if precondition == "illumination":
+            illum = self.illumination(params[0], sources=sources,
+                                      wavelets=wavelets)
+            g_scale = 1.0 / (illum + precond_eps * torch.max(illum))
+        if optimizer == "adam":
+            step, opt_leaves, restore, n_leaves = self._adam_steps(
+                loss, params, learning_rate, bounds, g_scale)
+        else:
+            step, opt_leaves, restore, n_leaves = self._lbfgs_steps(
+                loss, params, bounds)
         misfits = np.empty(n_iter)
         start = 0
         if checkpoint is not None:
@@ -897,65 +1314,124 @@ class FwiProblem:
             if ck is not None:
                 n_done, hist, p_leaves, o_leaves = ck
                 if (len(p_leaves) != len(params)
-                        or len(o_leaves) != 1 + 2 * len(params)):
+                        or len(o_leaves) != n_leaves):
                     raise ValueError(
                         f"checkpoint {checkpoint} does not match this "
                         "inversion configuration (different optimizer or "
                         "estimate_wavelet setting)")
-                _restore_adam(opt, params, p_leaves, o_leaves)
+                restore(p_leaves, o_leaves)
                 start = min(n_done, n_iter)
                 misfits[:start] = hist[:start]
                 if verbose:
                     print(f"resumed from {checkpoint} at iteration {start}")
         for i in range(start, n_iter):
-            opt.zero_grad(set_to_none=True)
-            with torch.enable_grad():
-                val = loss()
-                val.backward()
-            opt.step()
-            if bounds is not None:
-                with torch.no_grad():
-                    c2.clamp_(bounds[0], bounds[1])
-            misfits[i] = float(val.detach())
+            misfits[i] = step()
             if verbose:
                 print(f"iter {i:3d}  misfit {misfits[i]:.6e}")
             if checkpoint is not None and ((i + 1) % checkpoint_every == 0
                                            or i + 1 == n_iter):
                 save_inversion(checkpoint, i + 1, misfits[:i + 1], params,
-                               _adam_leaves(opt, params))
-        return FwiResult(c2=c2.detach(), misfits=misfits,
-                         wavelet=None if w_est is None else w_est.detach())
+                               opt_leaves())
+        return FwiResult(c2=params[0].detach(), misfits=misfits,
+                         wavelet=(params[1].detach() if estimate_wavelet
+                                  else None))
 
-    # -- not ported yet (ROADMAP A12) ---------------------------------------------
-    def invert_multiscale(self, *args, **kwargs):
-        _not_ported("invert_multiscale")
+    def _adam_steps(self, loss, params, learning_rate, bounds, g_scale):
+        """(step, leaves, restore, number of leaves) of Adam over
+        ``params`` (updated in place); ``step()`` returns the misfit before
+        its update."""
+        for q in params:
+            q.requires_grad_(True)
+        opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8)
 
-    def illumination(self, *args, **kwargs):
-        _not_ported("illumination")
+        def step() -> float:
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                val = loss(*params, *([None] * (2 - len(params))))
+                val.backward()
+            if g_scale is not None:
+                params[0].grad.mul_(g_scale)
+            opt.step()
+            if bounds is not None:
+                with torch.no_grad():
+                    params[0].clamp_(bounds[0], bounds[1])
+            return float(val.detach())
 
-    def simulate_supershot(self, *args, **kwargs):
-        _not_ported("simulate_supershot")
+        return (step, lambda: _adam_leaves(opt, params),
+                lambda p_leaves, o_leaves: _restore_adam(opt, params,
+                                                         p_leaves, o_leaves),
+                1 + 2 * len(params))
 
-    def misfit_encoded(self, *args, **kwargs):
-        _not_ported("misfit_encoded")
+    def _lbfgs_steps(self, loss, params, bounds):
+        """(step, leaves, restore, number of leaves) of optax's L-BFGS over
+        ``params`` (replaced in place in the list)."""
+        opt = Lbfgs(params)
 
-    def invert_encoded(self, *args, **kwargs):
-        _not_ported("invert_encoded")
+        def vg(ps):
+            leaves = [q.detach().requires_grad_(True) for q in ps]
+            with torch.enable_grad():
+                val = loss(*leaves, *([None] * (2 - len(leaves))))
+                grads = torch.autograd.grad(val, leaves)
+            return float(val.detach()), [g.detach() for g in grads]
 
-    def born(self, *args, **kwargs):
-        _not_ported("born")
+        def step() -> float:
+            val, g = opt.value_and_grad(params, vg)
+            updates = opt.update(g, params, val, vg)
+            params[:] = [q + u for q, u in zip(params, updates)]
+            if bounds is not None:
+                params[0] = torch.clamp(params[0], bounds[0], bounds[1])
+            return float(val)
 
-    def migrate(self, *args, **kwargs):
-        _not_ported("migrate")
+        def restore(p_leaves, o_leaves):
+            params[:] = [torch.as_tensor(np.asarray(a)).to(q)
+                         for a, q in zip(p_leaves, params)]
+            opt.load_leaves(o_leaves)
 
-    def rtm_image(self, *args, **kwargs):
-        _not_ported("rtm_image")
+        return step, opt.leaves, restore, opt.n_leaves()
 
-    def lsrtm(self, *args, **kwargs):
-        _not_ported("lsrtm")
-
-    def gauss_newton_hvp(self, *args, **kwargs):
-        _not_ported("gauss_newton_hvp")
-
-    def invert_gauss_newton(self, *args, **kwargs):
-        _not_ported("invert_gauss_newton")
+    def invert_multiscale(self, observed, c2_init, *, cutoffs,
+                          n_iter=50, learning_rate: float = 0.1,
+                          bounds: Optional[Tuple[float, float]] = None,
+                          sources=None, optimizer: str = "adam",
+                          reg_lambda: float = 0.0,
+                          precondition: Optional[str] = None,
+                          misfit_kind: str = "l2",
+                          huber_delta: float = 1.0,
+                          verbose: bool = False) -> FwiResult:
+        """Frequency-continuation FWI (Bunks et al. 1995): :meth:`invert`
+        over the low-pass ``cutoffs`` (Hz, ascending; None is the
+        unfiltered band), the observed data and the source wavelet
+        filtered to each stage's band (:func:`lowpass_time`), each stage
+        warm-started from the last. ``n_iter`` is one count or one per
+        stage. Returns the last stage's model and every stage's misfits,
+        concatenated."""
+        observed = self._as(observed)
+        c2 = self._as(c2_init)
+        if isinstance(n_iter, (list, tuple)):
+            if len(n_iter) != len(cutoffs):
+                raise ValueError("need one n_iter per cutoff stage")
+            iters = list(n_iter)
+        else:
+            iters = [n_iter] * len(cutoffs)
+        histories = []
+        for k, fc in enumerate(cutoffs):
+            if fc is None:
+                d_k, w_k = observed, None
+            else:
+                d_k = lowpass_time(observed, self.dt, fc, axis=-2)
+                w_k = lowpass_time(self.wavelet, self.dt, fc)
+            if verbose:
+                print(f"stage {k}: cutoff "
+                      f"{'full band' if fc is None else f'{fc:g} Hz'}")
+            res = self.invert(d_k, c2, n_iter=iters[k],
+                              learning_rate=learning_rate, bounds=bounds,
+                              sources=sources, wavelet=w_k,
+                              wavelets=None, optimizer=optimizer,
+                              reg_lambda=reg_lambda,
+                              precondition=precondition,
+                              misfit_kind=misfit_kind,
+                              huber_delta=huber_delta, verbose=verbose)
+            c2 = res.c2
+            histories.append(res.misfits)
+        return FwiResult(c2=c2, misfits=np.concatenate(histories))

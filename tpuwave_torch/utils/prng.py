@@ -20,15 +20,34 @@ arithmetic, so :func:`threefry_normal` gives the same numbers:
 The 32-bit words live in int64 tensors masked to 32 bits, on the device
 the caller names, in chunks, so a vector of tens of millions of entries
 costs a few hundred elementwise launches and no host loop.
+
+tpuwave's encoded-source inversion draws its +-1 codes with
+``key, sub = jax.random.split(key)`` and
+``jax.random.rademacher(sub, (n,), dtype)``; :func:`split` and
+:func:`rademacher` give the same keys and signs:
+
+* partitionable ``split(key, num)``: new key i is the hash of the counter
+  ``(i >> 32, i & 0xffffffff)`` under ``key``, its two words in order;
+* ``rademacher`` is ``2 * bernoulli(0.5) - 1``, ``bernoulli`` is
+  ``uniform < 0.5``, and the uniform is drawn in jax's default float:
+  with x64 on (tpuwave's f64 runs) the top 52 bits of ``hi << 32 | lo``,
+  else the top 23 of ``hi ^ lo``. Below 0.5 means the top bit is clear,
+  so code i is +1 where bit 31 of ``hi`` (float64) or of ``hi ^ lo``
+  (float32) is 0 and -1 where it is 1.
+
+A key is a jax raw key's two uint32 words (``np.asarray(PRNGKey(s))``)
+or an int seed, read as ``PRNGKey(seed)``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["threefry_normal", "threefry_bits"]
+__all__ = ["threefry_normal", "threefry_bits", "key_words", "split",
+           "rademacher"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -97,14 +116,48 @@ def _threefry2x32(k1: int, k2: int, x0, x1):
     return x0, x1
 
 
-def threefry_bits(seed: int, start: int, stop: int, device):
+def key_words(key) -> tuple:
+    """(k1, k2): the two 32-bit words of a key given as an int seed
+    (``PRNGKey(seed)``: ``(seed >> 32, seed & 0xffffffff)``) or as a raw
+    key's two words (any sequence or array of two integers)."""
+    if isinstance(key, (int, np.integer)):
+        seed = int(key)
+        if not 0 <= seed < 2 ** 63:
+            raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+        return seed >> 32, seed & _M32
+    words = np.asarray(key).reshape(-1)
+    if words.size != 2:
+        raise ValueError(f"a key has two 32-bit words, got {words.size}")
+    k1, k2 = (int(w) & _M32 for w in words)
+    return k1, k2
+
+
+def threefry_bits(key, start: int, stop: int, device):
     """The two 32-bit output words of threefry2x32 for the counters
-    ``start .. stop - 1`` under ``PRNGKey(seed)``, as int64 tensors."""
-    seed = int(seed)
-    if not 0 <= seed < 2 ** 63:
-        raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+    ``start .. stop - 1`` under ``key`` (an int seed or a raw key's two
+    words, :func:`key_words`), as int64 tensors."""
+    k1, k2 = key_words(key)
     idx = torch.arange(start, stop, dtype=torch.int64, device=device)
-    return _threefry2x32(seed >> 32, seed & _M32, idx >> 32, idx & _M32)
+    return _threefry2x32(k1, k2, idx >> 32, idx & _M32)
+
+
+def split(key, num: int = 2) -> list:
+    """jax's partitionable ``split(key, num)``: ``num`` new keys, each a
+    tuple of its two words."""
+    hi, lo = threefry_bits(key, 0, int(num), "cpu")
+    return list(zip(hi.tolist(), lo.tolist()))
+
+
+def rademacher(key, n: int, dtype: torch.dtype = torch.float64,
+               device="cpu") -> torch.Tensor:
+    """``jax.random.rademacher(key, (n,), dtype)``: +-1 of ``dtype``, with
+    the uniform drawn as jax draws it with x64 on for float64 and off for
+    float32 (see the module docstring)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rademacher: dtype {dtype} (float32 | float64)")
+    hi, lo = threefry_bits(key, 0, int(n), device)
+    top = hi if dtype == torch.float64 else hi ^ lo
+    return (1 - 2 * (top >> 31)).to(dtype)
 
 
 def _poly(coeffs, w):
@@ -145,7 +198,7 @@ def threefry_normal(seed: int, n: int, dtype: torch.dtype = torch.float64,
                         torch.tensor(0.0, dtype=dtype)))
     for start in range(0, int(n), _CHUNK):
         stop = min(start + _CHUNK, int(n))
-        hi, lo32 = threefry_bits(seed, start, stop, device)
+        hi, lo32 = threefry_bits(int(seed), start, stop, device)
         if dtype == torch.float64:
             mant = (hi << 20) | (lo32 >> 12)         # top 52 of hi:lo
             scale = 2.0 ** -52
