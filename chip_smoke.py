@@ -48,6 +48,12 @@ FWI (FwiProblem's imaging, encoded supershots and optimizers) at
 scripts/bench_imaging.py's configuration (512^2 elements, 1000 steps, 8
 shots, f32) and at the defaults of the FWI and imaging scripts in f64
 against tpuwave's values (``--only imaging,fwi_optim`` runs it alone).
+Path L: the paths only tpuwave's bench scripts reach, at their 4096^2
+sizes: models/fast_p2.py's P2CanvasSolver (B11-B13, B4 / B3) and its
+2-term recurrence, the P2 solvers in f64 against tpuwave's values, and
+scripts/bench_precision.py's rows: the compensated f32 leapfrog and
+2-term paths (B3, B4) held to tpuwave's accuracy gates, and the f64
+implicit CN 2-term MG run (``--only p2_bench,precision`` runs it alone).
 Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
@@ -60,11 +66,11 @@ Phases:
      grids' rows read
   4. the leapfrog: 320 steps through kernel B1 and through kernel B2
      (k = 8 and k = 32), each against the plain loop; DoF*steps/s
-  5. both CLIs (newmark beta 1/4, theta 1/2), 25 steps on --device cuda and
+  5. both CLIs (newmark beta 1/4, theta 1/2), 10 steps on --device cuda and
      on --device cpu: CSVs and per-step CG counts must agree
   6. the full-length newmark run (T = 0.05) on cuda: wall time, and its
      final relative L2 error against tpuwave's value for the same run
-  7. the solver family, 5 steps at 640^2 on --device cuda and on --device
+  7. the solver family, 3 steps at 640^2 on --device cuda and on --device
      cpu: CSVs and per-step counts must agree, and the cuda runs must
      launch B3, B4 and (2-term) B5
   8. newmark beta 1/4 --solver 2term --precond mg at 2048^2 elements
@@ -73,7 +79,7 @@ Phases:
   9. where the time of path B goes (torch.profiler): launches and device
      time of one V-cycle at 2049^2, and the device's idle share over a
      2-term MG CLI run
- 10. the R = 2 solver family, standing mode, 160^2 elements, 5 steps, on
+ 10. the R = 2 solver family, standing mode, 160^2 elements, 3 steps, on
      --device cuda and on --device cpu: CSVs agree and per-step CG counts
      are equal; the cuda runs launch B11 (and B12, B13, B4, B3 with mg)
  11. newmark beta 1/4 --solver 2term --precond mg at R = 2, 1024^2
@@ -85,7 +91,7 @@ Phases:
  12. where the time of path C goes (torch.profiler): launches and device
      time of one P2 V-cycle at 1024^2, and the device's idle share over
      phase 10's 2-term MG run
- 13. FastWaveSolver's implicit family at 640^2, f64, dt 4e-3, 5 steps,
+ 13. FastWaveSolver's implicit family at 640^2, f64, dt 4e-3, 3 steps,
      schemes theta 1, theta 1/2, newmark beta 1/4, every run_* path on
      device="cuda" against device="cpu": u agrees to rel 1e-9, v to 1e-9
      (Newmark) or 1e-5 (theta), and the per-solve iteration counts are
@@ -93,9 +99,9 @@ Phases:
  14. the same family at 4096^2 elements, f32, dt 1e-3, 20 steps (the
      defaults of scripts/bench_implicit_mg.py): run_implicit_mg (torch
      ops), run_implicit_mg_kernel (B7-B10, B3, B4) and the 2-term path
-     (B5, B3, B4): ms/step, iterations per step, peak device memory, the
-     difference of u between the paths, the error against the analytic
-     standing mode
+     (B5, B3, B4), each timed once after a warm run: ms/step, iterations
+     per step, peak device memory, the difference of u between the paths,
+     the error against the analytic standing mode
  15. run_implicit_mg_kernel at 1024^2, f64, dt 4e-3, 20 steps,
      cg_reduction 1e-12: ||u|| and the relative L2 error against the
      analytic solution equal tpuwave's run_implicit_mg values
@@ -120,7 +126,7 @@ Phases:
      each kernel leg's end state within rel L2 1e-5 of the torch-ops
      leg's; then 64 steps at 1024^2 f64 on B6 (k = 8): ||u||
      equal to tpuwave's at rtol 1e-10
- 19. both CLIs (newmark beta 1/4, theta 1/2) at 160^2 elements, 5 steps,
+ 19. both CLIs (newmark beta 1/4, theta 1/2) at 160^2 elements, 3 steps,
      with a spatially varying C and with a time-dependent C, --precond
      jacobi and mg, on --device cuda and on --device cpu: CSVs agree,
      per-step CG counts are equal, the mg runs launch B4 and B3
@@ -139,7 +145,7 @@ Phases:
      CPU run; error norms within 1e-11 of the solution's norm); then one step of (b) under torch.profiler: the device-busy
      share, the varcoef apply's share (torch ops) and B11-B13's
 
- 22. both CLIs on the parity engine at Nel 24, 5 steps, f64, Log Every 1:
+ 22. both CLIs on the parity engine at Nel 24, 3 steps, f64, Log Every 1:
      theta 1/2 jacobi, theta 1 mg, newmark 1/4 chebyshev, newmark 1/4
      jacobi with a time-dependent C, theta 1/2 on a forcing preset, and at
      R = 2 theta 1/2 mg and newmark 1/4 chebyshev with a varying C, on
@@ -162,7 +168,7 @@ Phases:
      mg on cuda: recognised as the 40 x 40 rectangle (the fast engine),
      CSVs byte-equal to the Nel 40 run's, B4 and B3 launched; (b) a
      perturbed Nel 24 mesh at R = 1 and 2 (theta 1/2 chebyshev, newmark
-     1/4 jacobi, one with a time-dependent C), 5 steps on the parity
+     1/4 jacobi, one with a time-dependent C), 3 steps on the parity
      engine, --device cuda against --device cpu: CSVs agree, per-step CG
      counts equal, run_steps states within 1e-12, a second cuda run
      bitwise equal; (c) api.solve on perturbed meshes (newmark 1/4 jacobi
@@ -173,13 +179,13 @@ Phases:
      file on it (newmark beta 1/4 jacobi, dt 8e-5, T 0.05, --engine
      parity): ms/step, peak device memory, the final relative L2 error
      within 1e-6 of tpuwave's and the CG total equal to its, and the
-     first 5 steps against the cpu (CG counts equal, states within 1e-9);
+     first 2 steps against the cpu (CG counts equal, states within 1e-9);
      (a') the same with a time-dependent C, 10 steps; (b) R = 2 at Nel
      320, theta 1/2 chebyshev, 3 steps: per-step CG counts equal to
      tpuwave's, the final relative L2 error within 1e-6 of its, and cuda
      against cpu; then one step of (a) under torch.profiler: the
      device-busy share and the top device ops
- 26. the run surface at 640^2, f64, dt 8e-5, 100 steps, Log Every 5, on
+ 26. the run surface at 640^2, f64, dt 8e-5, 50 steps, Log Every 5, on
      cuda: (a) three CLI runs (--engine auto newmark beta 1/4; newmark
      --solver 2term --precond mg; --engine parity theta 1/2 with a
      time-dependent C, whose state carries k_payload), each with
@@ -205,15 +211,16 @@ Phases:
      the explicit ones, and Newmark beta 0 at 0.005):
      dissdisp-results.csv rows against tpuwave's pinned rows, the
      same way; the compare tool against analysis/data/dissdisp-results.csv,
-     reported; (c) scalability at its defaults (640^2, dt 8e-5, 625 steps,
-     f32, five schemes, --repeats 2): seconds and DoF*steps/s per scheme,
+     reported; (c) scalability at its defaults (640^2, dt 8e-5, f32, five
+     schemes) but 250 steps (--T 0.02) and --repeats 1: seconds and
+     DoF*steps/s per scheme,
      the CSV schema; (d) acceptance, --t-max 0.05, 12 presets x 2
      families: every run exits 0 with its artifacts; final errors printed
      beside analysis/data/acceptance-summary.csv's
  28. imaging at scripts/bench_imaging.py's defaults (512^2 elements, dt
      4e-4, 1000 steps, 8 shots at y = 0.1, 9 receivers at y = 0.9, f32,
-     stencil engine, reversal adjoint), each the best of 3 after a warm
-     run: the sequential gradient per shot x 8, the encoded gradient (one
+     stencil engine, reversal adjoint), each timed once after a warm run:
+     the sequential gradient per shot x 8, the encoded gradient (one
      supershot), one LSRTM iteration (born + migrate per shot x 8) and
      migrate of shot 0 on the kernel engine (B14-B17); gates: (a) the f64
      dot-product test <born dm, d> = <dm, migrate d> of shot 0, migrate on
@@ -231,6 +238,24 @@ Phases:
      iterations, on the kernel engine; then the grid engine with the
      remat adjoint at 256^2 against the kernel engine's reversal
      gradient, rel 1e-9
+ 30. the P2 bench solvers (models/fast_p2.py): (a) P2CanvasSolver at
+     scripts/bench_p2_mg.py's defaults (4096^2 elements, 67 M DoF, f32,
+     Newmark 1/4, dt 1e-3, 10 steps, mg and jacobi, then the 2-term
+     recurrence, 9 steps; B11 every canvas apply, B12 / B13 and B4 / B3
+     the mg V-cycle): ms/step, DoF*steps/s, CG iterations, the mg against
+     jacobi and 2-term against 3-term end-state differences; (b) f64
+     against tpuwave's pinned CPU runs: P2FastSolver 200^2 theta 1/2 mg,
+     P2CanvasSolver 256^2 Newmark 1/4 mg and its 2-term recurrence,
+     per-step CG counts equal and norms within rtol 1e-10
+ 31. scripts/bench_precision.py's rows at 4096^2 (explicit at its 64
+     steps, implicit cut to 16): the f32, compensated f32 and f64
+     leapfrogs; driven CN through the 2-term MG engine in f32 and in f64
+     (B5, B3, B4; the f64 row the TPU could not run); the compensated f32
+     2-term recurrence, driven and standing (B3, B4 / B3); gates from one
+     f32 start: compensated leapfrog ec < ep / 10 and head < 2 ep, the
+     compensated 2-term ec < ep / 8; the compensated driven 2-term
+     within 3e-6 of the f64 engine at tpuwave's gate size (24^2, 20
+     steps; the 4096^2 difference reported)
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -440,15 +465,17 @@ PATH_I = ("cheby_block", "constrained_stencil_apply")
 PATH_J = ("constrained_stencil_apply", "cheby_block", "recurrence_r0")
 PATH_K = ("varcoef_leapfrog_step", "varcoef_leapfrog_multistep",
           "varcoef_adjoint_step", "varcoef_adjoint_multistep")
+PATH_L = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
+          "constrained_stencil_apply", "cheby_block", "recurrence_r0")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: steps of the cuda-against-cpu runs (phases 7, 10, 13, 19, 20, 22, 24)
-FAMILY_STEPS = 5
+FAMILY_STEPS = 3
 #: phase 5's steps (cuda against cpu at 640^2)
-CLI_AGREE_STEPS = 25
+CLI_AGREE_STEPS = 10
 #: bytes written before each timed call to evict the card's L2 (50 MB)
 L2_FLUSH_BYTES = 256 << 20
 #: calls under torch.profiler for a kernel's device time in phase 3
@@ -1097,7 +1124,7 @@ def phase_fast_4096(torch):
     nel, dt, n = 4096, 1e-3, 20
     say(f"phase 14: FastWaveSolver's implicit family, standing mode, "
         f"{nel}^2 elements ({(nel + 1) ** 2:,} DoF), f32, dt {dt}, {n} "
-        f"steps, on cuda: ms/step (best of 3 after a warm run, host clock "
+        f"steps, on cuda: ms/step (one run after a warm run, host clock "
         f"around a synchronize), solver iterations per step, peak device "
         f"memory; gates: rel diff of u against run_implicit_mg < 1e-3, "
         f"error against the analytic mode finite and, for "
@@ -1114,12 +1141,13 @@ def phase_fast_4096(torch):
         for path, fn in runs:
             torch.cuda.reset_peak_memory_stats()
             if fn is not None:
-                best, out = _best_of(torch, fn)
+                best, out = _best_of(torch, fn, repeats=1)
                 its, steps = list(fs.last_iterations), n
             else:
                 lf0 = fs.implicit_2term_init(st)
                 best, lf = _best_of(
-                    torch, lambda: fs.run_implicit_mg_2term(lf0, n - 1))
+                    torch, lambda: fs.run_implicit_mg_2term(lf0, n - 1),
+                    repeats=1)
                 its, steps = list(fs.last_iterations), n - 1
                 out = fs.implicit_2term_finish(lf)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2983,7 +3011,7 @@ TPUWAVE_UNSTRUCTURED_320 = ([(44, 8)] * 3, 2.9386293448544515e-06)
 #: phase 13's for u at 640^2 (the two devices' roundoff, carried through
 #: 13-52 CG iterations a step at 410,881 DoF, reaches ~1e-10 here; at
 #: Nel 24, phase 24 holds 1e-12)
-UNSTRUCTURED_640_STEPS = 5
+UNSTRUCTURED_640_STEPS = 2
 UNSTRUCTURED_640_RTOL = 1e-9
 
 
@@ -3313,7 +3341,9 @@ RUN_SURFACE_RUNS = (
     ("parity theta 1/2 time-dep. C", "theta", ("--engine", "parity"),
      {"Theta": "0.5", **TDEP_C}),
 )
-RUN_SURFACE_STEPS = 100
+RUN_SURFACE_STEPS = 50
+#: phase 27 (c)'s --T: 250 steps of the sweep's dt 8e-5 (its default 0.05)
+SCALABILITY_T = 0.02
 CHECKPOINT_EVERY = 25
 RUN_LOGS = ("energy.csv", "error.csv", "probe.csv", "iterations.csv")
 #: the __global__ functions of tpuwave_torch/csrc/*.cu
@@ -3652,9 +3682,9 @@ def phase_sweeps(torch, kn, work: Path):
     say("phase 27: the sweeps through scripts/torch_*.py on cuda: (a) "
         "convergence at Nel 320, R = 1 and 2, five schemes, T 1; (b) "
         "dissipation at its defaults (Nel 60, T 5, Log Every 1), dt >= "
-        "0.005; (c) scalability at its defaults (640^2, dt 8e-5, 625 "
-        "steps, f32, --repeats 2); (d) acceptance, 12 presets x 2 "
-        "families, --t-max 0.05")
+        "0.005; (c) scalability at its defaults (640^2, dt 8e-5, f32) "
+        f"but --T {SCALABILITY_T} and --repeats 1; (d) acceptance, 12 "
+        "presets x 2 families, --t-max 0.05")
     failed = []
 
     # (a) convergence
@@ -3727,20 +3757,21 @@ def phase_sweeps(torch, kn, work: Path):
     # (c) scalability
     where = work / "sweeps" / "scalability"
     rc, wall, text = _in_dir(where, _script("torch_scalability_sweep").main,
-                             ["--repeats", "2", "--job-id", ""])
+                             ["--repeats", "1", "--T", str(SCALABILITY_T),
+                              "--job-id", ""])
     out = where / "scalability-results-1.csv"
     got = list(csv.DictReader(out.open()))
     head = out.read_text().splitlines()[0]
     want_head = ("scheme,binary,nprocs,repeat,Nel,R,Dt,T,Theta,Beta,Gamma,"
                  "returncode,seconds")
-    dofs = 641 * 641 * 625
+    dofs = 641 * 641 * round(SCALABILITY_T / 8e-5)
     say(f"  (c) exit {rc} in {wall:.2f} s (warm runs included); "
         f"{len(got)} rows")
     for scheme in dict.fromkeys(r["scheme"] for r in got):
         secs = [float(r["seconds"]) for r in got if r["scheme"] == scheme]
         say(f"      {scheme:<13} {' / '.join(f'{s:.4f}' for s in secs)} s, "
             f"best {dofs / min(secs):.4e} DoF*steps/s")
-    if rc != 0 or head != want_head or len(got) != 10 or \
+    if rc != 0 or head != want_head or len(got) != 5 or \
             {r["binary"] for r in got} != {"tpuwave_torch-fast"}:
         failed.append(f"(c) exit {rc}, header {head!r}, {len(got)} rows")
 
@@ -3910,8 +3941,8 @@ def phase_imaging(torch):
         f"scripts/bench_imaging.py's defaults: "
         f"{IMAGING_NEL}^2 elements, dt {IMAGING_DT}, {IMAGING_STEPS} steps, "
         f"{n_shots} shots at y = 0.1, 9 receivers at y = 0.9, f32, stencil "
-        f"engine, reversal adjoint; each time the best of 3 after a warm "
-        f"run (host clock around a synchronize); gates: (a) the f64 "
+        f"engine, reversal adjoint; each timed once after a warm run "
+        f"(host clock around a synchronize); gates: (a) the f64 "
         f"dot-product test <born dm, d> = <dm, migrate d> of shot 0 with "
         f"migrate on the stencil and on the kernel engine, rel 1e-9; (b) "
         f"the f32 supershot against sum_s codes_s x the f32 single shots, "
@@ -3931,12 +3962,12 @@ def phase_imaging(torch):
                          device="cuda")
     with torch.no_grad():
         obs = p.simulate_shots(torch.full_like(c2, 1.1), srcs)
-    t_seq, _ = _best_of(torch, lambda: p.misfit_and_grad(c2, obs[0]))
+    t_seq, _ = _best_of(torch, lambda: p.misfit_and_grad(c2, obs[0]), 1)
     enc = _vg(torch, lambda m: p.misfit_encoded(m, srcs, codes, obs))
-    t_enc, _ = _best_of(torch, lambda: enc(c2))
-    t_born, _ = _best_of(torch, lambda: p.born(c2, dm))
-    t_mig, _ = _best_of(torch, lambda: p.migrate(c2, obs[0]))
-    t_migk, _ = _best_of(torch, lambda: pk.migrate(c2, obs[0]))
+    t_enc, _ = _best_of(torch, lambda: enc(c2), 1)
+    t_born, _ = _best_of(torch, lambda: p.born(c2, dm), 1)
+    t_mig, _ = _best_of(torch, lambda: p.migrate(c2, obs[0]), 1)
+    t_migk, _ = _best_of(torch, lambda: pk.migrate(c2, obs[0]), 1)
     say(f"  sequential gradient {t_seq:.4f} s/shot x {n_shots} = "
         f"{t_seq * n_shots:.4f} s; encoded gradient (one supershot) "
         f"{t_enc:.4f} s: {t_seq * n_shots / t_enc:.2f}x (ideal {n_shots}x)")
@@ -4116,6 +4147,317 @@ def phase_fwi_optim(torch):
         f"({time.perf_counter() - t0:.2f} s)")
     if not all(ok):
         raise AssertionError("phase 29: a value differs from tpuwave's")
+
+
+# ---------------------------------------------------------------------------
+# phases 30 and 31: path L, the paths only the bench scripts reach
+# ---------------------------------------------------------------------------
+#: tpuwave's P2 bench solvers in f64, pinned by phase 30 (b), computed on
+#: the CPU with the JAX package from sin(pi x) sin(pi y): P2FastSolver at
+#: 200^2 elements, dt 4e-3, theta 1/2, mg, 5 steps (per-step CG of the u-
+#: and v-solves, ||u||, ||v||); P2CanvasSolver at 256^2, dt 4e-3, Newmark
+#: 1/4, mg, mg_pre_degree 2: the a0 solve's CG, 5 steps (CG, ||u||, ||v||,
+#: ||a||), then implicit_2term_init and 4 recurrence steps (CG, ||u||,
+#: ||u_prev||); the CG counts read from inside its jitted loops by a debug
+#: callback around fast_p2.pcg:
+#:   JAX_PLATFORMS=cpu python -c "from tpuwave import config;
+#:     config.use_x64(); import jax, jax.numpy as jnp;
+#:     from tpuwave.models import fast_p2 as m; its = []; pcg = m.pcg;
+#:     m.pcg = lambda *a, **k: (lambda r: (jax.debug.callback(lambda i:
+#:       its.append(int(i)), r.iterations), r)[1])(pcg(*a, **k));
+#:     n = lambda x: float(jnp.linalg.norm(x));
+#:     u0 = lambda x, y: jnp.sin(jnp.pi * x) * jnp.sin(jnp.pi * y);
+#:     g = ((0., 0.), (1., 1.));
+#:     f = m.P2FastSolver((200, 200), g, 4e-3, scheme='theta', theta=0.5,
+#:       dtype=jnp.float64, precond='mg');
+#:     s = f.run_scan(f.initial_state(u0), 5);
+#:     print('flat', its[:], repr(n(s.u)), repr(n(s.v))); its.clear();
+#:     c = m.P2CanvasSolver((256, 256), g, 4e-3, dtype=jnp.float64,
+#:       precond='mg', mg_pre_degree=2);
+#:     s0 = c.initial_state(u0); a0 = its[:]; its.clear();
+#:     s = c.run_scan(s0, 5); print('canvas', a0, its[:], repr(n(s.u)),
+#:       repr(n(s.v)), repr(n(s.a))); its.clear();
+#:     p = c.run_implicit_2term(c.implicit_2term_init(s), 4);
+#:     print('2term', its[:], repr(n(p.u)), repr(n(p.u_prev)))"
+TPUWAVE_P2_BENCH = {
+    "flat": ([3, 4, 3, 4, 3, 4, 3, 4, 3, 4],
+             (199.21099253289273, 78.85088525452387)),
+    "canvas": ([4, 4, 4, 4, 4, 4],
+               (254.9900704458361, 100.92912406052173, 5033.246066623498)),
+    "2term": ([3, 3, 3, 3, 3], (251.96825019530874, 252.7326484971997)),
+}
+
+#: scripts/bench_precision.py's implicit rows: the driven CN case
+#: (sin(4 pi t) on the x <= 1/3 strip of the y = 0 edge), dt 1e-3
+PRECISION_STEPS = 64
+PRECISION_IMPLICIT_STEPS = 16
+
+
+def phase_p2_bench(torch):
+    import numpy as np
+    from tpuwave_torch.models.fast_p2 import P2CanvasSolver, P2FastSolver
+
+    nel, dt, n = 4096, 1e-3, 10
+    u0 = _standing(torch)
+    say(f"phase 30 ({nvidia_smi_line()}): the P2 bench solvers "
+        f"(models/fast_p2.py). (a) P2CanvasSolver at scripts/"
+        f"bench_p2_mg.py's defaults: {nel}^2 elements (67,125,249 DoF), "
+        f"f32, Newmark 1/4, dt {dt}, {n} steps, mg (mg_pre_degree 2) and "
+        f"jacobi, then the 2-term recurrence (init + {n - 1} steps), on "
+        f"cuda; each timed after a 1-step warm run (host clock around a "
+        f"synchronize); gates: every end state finite, mg against jacobi "
+        f"rel diff < 1e-3, the 2-term against the 3-term end state < 1e-2 "
+        f"(the f32 P2 cancellation floor: phase 11b ends 8.6e-4 from the "
+        f"exact mode). (b) f64 against tpuwave's pinned CPU runs: "
+        f"P2FastSolver 200^2 theta 1/2 mg, P2CanvasSolver 256^2 Newmark "
+        f"1/4 mg and its 2-term recurrence: per-step CG counts equal, norms "
+        f"within rtol 1e-10")
+    failed = []
+    ends = {}
+    for precond in ("mg", "jacobi"):
+        t0 = time.perf_counter()
+        s = P2CanvasSolver((nel, nel), UNIT_SQUARE, dt, precond=precond,
+                           mg_pre_degree=2, dtype=torch.float32,
+                           device="cuda")
+        st = s.initial_state(u0)
+        setup = time.perf_counter() - t0
+        s.run_scan(st, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = s.run_scan(st, n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        its = list(s.last_iterations)
+        pair = s.implicit_2term_init(st)
+        s.run_implicit_2term(pair, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pair = s.run_implicit_2term(pair, n - 1)
+        torch.cuda.synchronize()
+        ms2 = (time.perf_counter() - t0) / (n - 1) * 1e3
+        its2 = list(s.last_iterations)
+        d2 = _rel_l2(torch, pair.u, out.u)
+        finite = bool(torch.isfinite(out.u).all()
+                      and torch.isfinite(pair.u).all())
+        ends[precond] = out.u
+        say(f"  {precond:<6} setup {setup:.2f} s; 3-term {ms:8.2f} ms/step "
+            f"({s.n_dofs / ms * 1e3:.3e} DoF*steps/s), CG {its}; 2-term "
+            f"{ms2:8.2f} ms/step ({s.n_dofs / ms2 * 1e3:.3e} DoF*steps/s, "
+            f"{ms / ms2:.2f}x), CG {its2}; 2-term against 3-term rel diff "
+            f"{d2:.3e}")
+        if not (finite and d2 < 1e-2):
+            failed.append(f"(a) {precond}: finite {finite}, 2-term diff "
+                          f"{d2:.3e}")
+        del s, st, out, pair
+    d = _rel_l2(torch, ends["jacobi"], ends["mg"])
+    say(f"  end-state rel diff jacobi vs mg {d:.3e} (bound 1e-3)")
+    if not d < 1e-3:
+        failed.append(f"(a) mg against jacobi {d:.3e}")
+    del ends
+
+    def gate(label, its, want_its, norms, want_norms):
+        rel = float(np.max(np.abs(np.asarray(norms) - want_norms)
+                           / np.asarray(want_norms)))
+        ok = list(its) == list(want_its) and rel <= 1e-10
+        say(f"  (b) {label}: CG {list(its)} (tpuwave {list(want_its)}), "
+            f"norms {', '.join(repr(v) for v in norms)}, max rel diff to "
+            f"tpuwave's {rel:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"(b) {label}")
+
+    def norms(*xs):
+        return [float(torch.linalg.vector_norm(x)) for x in xs]
+
+    f = P2FastSolver((200, 200), UNIT_SQUARE, 4e-3, scheme="theta",
+                     theta=0.5, dtype=torch.float64, precond="mg",
+                     device="cuda")
+    out = f.run_scan(f.initial_state(u0), 5)
+    gate("P2FastSolver 200^2 theta 1/2 mg", _flat(f.last_iterations),
+         *TPUWAVE_P2_BENCH["flat"][:1], norms(out.u, out.v),
+         TPUWAVE_P2_BENCH["flat"][1])
+    c = P2CanvasSolver((256, 256), UNIT_SQUARE, 4e-3, dtype=torch.float64,
+                       precond="mg", mg_pre_degree=2, device="cuda")
+    st = c.initial_state(u0)
+    its = list(c.last_iterations)
+    out = c.run_scan(st, 5)
+    gate("P2CanvasSolver 256^2 Newmark 1/4 mg", its + c.last_iterations,
+         *TPUWAVE_P2_BENCH["canvas"][:1], norms(out.u, out.v, out.a),
+         TPUWAVE_P2_BENCH["canvas"][1])
+    pair = c.implicit_2term_init(out)
+    its = list(c.last_iterations)
+    pair = c.run_implicit_2term(pair, 4)
+    gate("P2CanvasSolver 256^2 2-term (init + 4)", its + c.last_iterations,
+         *TPUWAVE_P2_BENCH["2term"][:1], norms(pair.u, pair.u_prev),
+         TPUWAVE_P2_BENCH["2term"][1])
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 30: " + "; ".join(failed))
+
+
+def phase_precision(torch):
+    from tpuwave_torch.models.fast import (CompensatedState, FastWaveSolver,
+                                           LeapfrogState)
+    from tpuwave_torch.models.fast_engine import make_fast_solver
+    from tpuwave_torch.utils.params import load_params
+
+    prec = _script("torch_bench_precision")
+    nel, n, ni = 4096, PRECISION_STEPS, PRECISION_IMPLICIT_STEPS
+    say(f"phase 31 ({nvidia_smi_line()}): scripts/bench_precision.py's "
+        f"rows at {nel}^2 elements on cuda, each timed once after a warm "
+        f"run (cut from 3 repeats); the explicit rows at its {n} steps "
+        f"(dt 8e-5, standing mode), the implicit rows cut from 64 to {ni} "
+        f"steps (driven CN, dt 1e-3, --solver 2term --precond mg: the f64 "
+        f"row is the one the TPU could not run). Gates, from the same f32 "
+        f"start as the f64 reference (its state cast up): the compensated "
+        f"leapfrog's head + tail rel L2 ec < ep / 10 of the plain f32 "
+        f"leapfrog's and its head < 2 ep; the compensated 2-term (standing "
+        f"CN, tol_factor 1e-3) ec < ep / 8; the compensated driven 2-term "
+        f"within 3e-6 (max rel) of the f64 2-term engine from rest at "
+        f"tpuwave's gate size (24^2, dt 1e-2, 20 steps), its {nel}^2 "
+        f"difference after {ni} steps reported")
+    failed = []
+    u0 = _standing(torch)
+
+    def u0_32(xs, ys):
+        return u0(xs.double(), ys.double()).to(xs.dtype)
+
+    def timed(label, run, state, n_dofs, steps):
+        out = run(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(out)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        say(f"  {label}: {sec / steps * 1e6:9.1f} us/step  "
+            f"{n_dofs * steps / sec:.3e} DoF*steps/s")
+        return out
+
+    def rel(a, ref):
+        return _rel_l2(torch, a, ref)
+
+    # (a) the explicit rows, then the leapfrog gate from one start
+    s32 = FastWaveSolver((nel, nel), UNIT_SQUARE, 8e-5, beta=0.0,
+                         dtype=torch.float32, device="cuda")
+    s64 = FastWaveSolver((nel, nel), UNIT_SQUARE, 8e-5, beta=0.0,
+                         dtype=torch.float64, device="cuda")
+    timed("f32  roll scan   ", lambda st: s32.run_leapfrog_scan(st, n),
+          s32.initial_leapfrog_state(u0), s32.n_dofs, n)
+    timed("f32c compensated ", lambda st: s32.run_leapfrog_compensated(st, n),
+          s32.initial_compensated_state(u0), s32.n_dofs, n)
+    timed("f64  roll scan   ", lambda st: s64.run_leapfrog_scan(st, n),
+          s64.initial_leapfrog_state(u0), s64.n_dofs, n)
+    lf = s32.initial_leapfrog_state(u0_32)
+    ref = s64.run_leapfrog_scan(LeapfrogState(lf.u.double(),
+                                              lf.u_prev.double()), n).u
+    ep = rel(s32.run_leapfrog_scan(lf, n).u, ref)
+    comp = s32.run_leapfrog_compensated(s32.initial_compensated_state(u0_32),
+                                        n)
+    ec = rel(comp.u.double() + comp.u_lo.double(), ref)
+    eh = rel(comp.u, ref)
+    ok = ec < ep / 10 and eh < 2 * ep
+    say(f"  (a) leapfrog, {n} steps: ep {ep:.3e}, ec {ec:.3e} "
+        f"({ep / max(ec, 1e-300):.1f}x), eh {eh:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"(a) ep {ep:.3e} ec {ec:.3e} eh {eh:.3e}")
+    del s32, s64, lf, ref, comp
+
+    # (b) the implicit rows
+    ts = (1e-3 * (1.0 + torch.arange(ni, dtype=torch.float64))).tolist()
+    case = load_params(prec.implicit_case(nel))
+
+    def engine_row(label, dtype):
+        eng = make_fast_solver(case, "theta", solver="2term", precond="mg",
+                               dtype=dtype, device="cuda")
+        first, info = eng.run_steps(eng.initial_state(), ts)
+        timed(label, lambda st: eng.run_steps(st, ts)[0], first,
+              eng.disc.n_dofs, ni)
+        say(f"      CG per step {info['iterations_1'].tolist()}")
+        return torch.as_tensor(eng.disc.vertex_values(first.u),
+                               device="cuda").reshape(nel + 1,
+                                                      nel + 1).double()
+
+    engine_row("f32  implicit CN driven (2term mg)", torch.float32)
+    sc = FastWaveSolver((nel, nel), UNIT_SQUARE, 1e-3, scheme="theta",
+                        theta=0.5, lumped=False, dtype=torch.float32,
+                        device="cuda")
+    def g_strip(x, y, t):
+        # the engine case's G: if(y < 0.0001 && x < 0.34, sin(4 pi t), 0)
+        # (bench_precision.py's own comp row drives x <= 1/3, which at
+        # 4096^2 leaves out the node at x = 1392 / 4096)
+        return torch.where((y < 1e-4) & (x < 0.34),
+                           torch.sin(4.0 * torch.pi * t), 0.0)
+
+    first = sc.run_implicit_mg_2term_comp_driven(
+        sc.implicit_2term_init_comp(sc.initial_state(
+            lambda x, y: torch.zeros_like(x))), ts, g_strip)
+    driven = first.u.double() + first.u_lo.double()
+    timed("f32c implicit CN compensated 2term driven",
+          lambda st: sc.run_implicit_mg_2term_comp_driven(st, ts, g_strip),
+          first, sc.n_dofs, ni)
+    say(f"      CG per step {sc.last_iterations}")
+    timed("f32c implicit CN compensated 2term standing",
+          lambda st: sc.run_implicit_mg_2term_comp(st, ni),
+          sc.implicit_2term_init_comp(sc.initial_state(u0)), sc.n_dofs, ni)
+    say(f"      CG per step {sc.last_iterations}")
+    u_ref = engine_row("f64  implicit CN driven (2term mg)", torch.float64)
+
+    def max_rel(a, ref):
+        return float(torch.max(torch.abs(a - ref))
+                     / torch.clamp(torch.max(torch.abs(ref)), min=1e-30))
+
+    # at 4096^2 the correction solve's L2 stopping floor leaves a local
+    # error that grows with the grid near the strip's end (report only);
+    # the gate is tests/test_multigrid.py:736's own: 24^2, dt 1e-2, 20
+    # steps
+    d_big = max_rel(driven, u_ref)
+    del driven, u_ref, first
+    n24, dt24, k24 = 24, 1e-2, 20
+    case24 = prec.implicit_case(n24)
+    case24["Dt"] = str(dt24)
+    eng = make_fast_solver(load_params(case24), "theta", solver="2term",
+                           precond="mg", dtype=torch.float64, device="cuda")
+    ts24 = (dt24 * (1.0 + torch.arange(k24, dtype=torch.float64))).tolist()
+    out, _ = eng.run_steps(eng.initial_state(), ts24)
+    ref24 = torch.as_tensor(eng.disc.vertex_values(out.u),
+                            device="cuda").reshape(n24 + 1, n24 + 1).double()
+    s24 = FastWaveSolver((n24, n24), UNIT_SQUARE, dt24, scheme="theta",
+                         theta=0.5, lumped=False, dtype=torch.float32,
+                         device="cuda")
+    got = s24.run_implicit_mg_2term_comp_driven(
+        s24.implicit_2term_init_comp(s24.initial_state(
+            lambda x, y: torch.zeros_like(x))), ts24, g_strip)
+    d = max_rel(got.u.double() + got.u_lo.double(), ref24)
+    ok = d < 3e-6
+    say(f"  (b) compensated driven 2-term against the f64 engine: {ni} "
+        f"steps at {nel}^2 max rel diff {d_big:.3e} (reported); the gate "
+        f"at {n24}^2, dt {dt24}, {k24} steps: {d:.3e} (bound 3e-6) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"(b) driven {d:.3e}")
+
+    # (c) the compensated 2-term gate: standing CN from one f32 start
+    s64 = FastWaveSolver((nel, nel), UNIT_SQUARE, 1e-3, scheme="theta",
+                         theta=0.5, lumped=False, dtype=torch.float64,
+                         device="cuda")
+    pair = sc.implicit_2term_init(sc.initial_state(u0_32))
+    ref = s64.run_implicit_mg_2term(LeapfrogState(
+        pair.u.double(), pair.u_prev.double()), ni - 1).u
+    ep = rel(sc.run_implicit_mg_2term(pair, ni - 1).u, ref)
+    zero = torch.zeros_like(pair.u)
+    comp = sc.run_implicit_mg_2term_comp(
+        CompensatedState(pair.u, zero, pair.u_prev, zero), ni - 1,
+        tol_factor=1e-3)
+    ec = rel(comp.u.double() + comp.u_lo.double(), ref)
+    ok = ec < ep / 8
+    say(f"  (c) compensated 2-term, standing CN, {ni - 1} recurrence steps: "
+        f"ep {ep:.3e}, ec {ec:.3e} ({ep / max(ec, 1e-300):.1f}x), CG per "
+        f"step {sc.last_iterations} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"(c) ep {ep:.3e} ec {ec:.3e}")
+    say(f"  {'ok' if not failed else 'FAIL: ' + '; '.join(failed)}")
+    if failed:
+        raise AssertionError("phase 31: " + "; ".join(failed))
 
 
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
@@ -4306,6 +4648,10 @@ def main() -> int:
             phase_imaging(torch)
             phase_fwi_optim(torch)
 
+        def path_l():
+            phase_p2_bench(torch)
+            phase_precision(torch)
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -4323,6 +4669,7 @@ def main() -> int:
         phase_unstructured_profile(torch, kn, work)
         launches_j = _run_path(kn, "J", PATH_J, path_j)
         launches_k = _run_path(kn, "K", PATH_K, path_k)
+        launches_l = _run_path(kn, "L", PATH_L, path_l)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -4336,7 +4683,7 @@ def main() -> int:
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
                 launches_f, launches_g, launches_h, launches_i,
-                launches_j, launches_k)),
+                launches_j, launches_k, launches_l)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

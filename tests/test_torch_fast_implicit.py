@@ -10,7 +10,8 @@ CPU the port's kernel wrappers run their plain versions. Tolerances: the
 two sides run the same CG / Chebyshev recurrences, so f64 trajectories
 agree far below the solver tolerance (rtol 1e-9 on u, v, a for run_scan,
 rel L2 1e-8 for the kernel paths); in f32 tpuwave's own bound against its
-roll path, rtol 1e-3 / atol 1e-5.
+roll path, rtol 1e-3 / atol 1e-5. Also the kernel paths' V-cycle
+routing by hierarchy depth (test_torch_fast_mg.py's solvers).
 """
 
 import jax.numpy as jnp
@@ -19,10 +20,13 @@ import pytest
 import torch
 
 from tests import torch_threads  # noqa: F401  (one torch thread)
+from tests.test_torch_fast_mg import _pair as _mg_pair
 from tpuwave.models.fast import FastWaveSolver as JSolver
 from tpuwave_torch.models import convert
 from tpuwave_torch.models.fast import FastWaveSolver as TSolver
 from tpuwave_torch.ops import kernels
+from tpuwave_torch.solve.multigrid import (GmgPreconditioner,
+                                          KernelGmgPreconditioner)
 
 NEL, GEOM, DT, STEPS = (40, 40), ((0.0, 0.0), (1.0, 1.0)), 0.01, 4
 PALLAS = dict(block_rows=16, interpret=True)
@@ -150,3 +154,13 @@ def test_constructor_needs_a_card_unless_cpu_is_asked():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         TSolver(NEL, GEOM, DT, scheme="theta", theta=0.5)
+
+
+def test_kernel_path_routes_the_vcycle_by_depth():
+    _, t, _, _ = _mg_pair(32, "newmark", beta=0.25, lumped=False)
+    assert isinstance(t._kernel_gmg(), KernelGmgPreconditioner)
+    _, t8, _, _ = _mg_pair(8, "theta", theta=1.0)
+    one_level = t8._kernel_gmg()
+    assert len(one_level.levels) == 1
+    assert type(one_level) is GmgPreconditioner
+    assert t.gmg_preconditioner().levels[0].sm_coeffs == ()   # degree 1

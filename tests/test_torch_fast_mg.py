@@ -20,8 +20,6 @@ from tests import torch_threads  # noqa: F401  (one torch thread)
 from tpuwave.models.fast import FastWaveSolver as JSolver
 from tpuwave_torch.models import convert
 from tpuwave_torch.models.fast import FastWaveSolver as TSolver
-from tpuwave_torch.solve.multigrid import (GmgPreconditioner,
-                                           KernelGmgPreconditioner)
 
 GEOM, DT = ((0.0, 0.0), (1.0, 1.0)), 0.02
 PALLAS = dict(block_rows=16, interpret=True)
@@ -75,16 +73,6 @@ def test_run_implicit_mg_kernel_matches_tpuwave(scheme, kw):
     for f in ("u", "v"):
         assert _rel(getattr(got, f), getattr(ref, f).numpy()) < 1e-9, f
     assert fused_counts == t.last_iterations
-
-
-def test_kernel_path_routes_the_vcycle_by_depth():
-    _, t, _, _ = _pair(32, "newmark", beta=0.25, lumped=False)
-    assert isinstance(t._kernel_gmg(), KernelGmgPreconditioner)
-    _, t8, _, _ = _pair(8, "theta", theta=1.0)
-    one_level = t8._kernel_gmg()
-    assert len(one_level.levels) == 1
-    assert type(one_level) is GmgPreconditioner
-    assert t.gmg_preconditioner().levels[0].sm_coeffs == ()   # degree 1
 
 
 @pytest.mark.parametrize("scheme,kw", [("theta", dict(theta=1.0)),

@@ -100,38 +100,3 @@ def test_engine_matches_tpuwave_step_for_step(jengines, family, precond):
     assert ts.precond == js.precond
     assert ts.precond == ("mg" if precond == "auto" else precond)
     _run_both(jengines.setdefault((family, js.precond), js), ts, case, 3)
-
-
-def test_p2_entry_points_default_to_the_card():
-    """Engines, the factory and the V-cycle builder default to
-    device='cuda' and raise where there is none (never a silent CPU
-    run)."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    from tpuwave_torch.models.fast_engine_p2 import FastP2ThetaSolver
-    from tpuwave_torch.models.fast_engine_p2_2term import (
-        FastP22TermNewmarkSolver)
-    from tpuwave_torch.solve.multigrid import p2_gmg_for_system
-    p = tload(driven_case())
-    for make in (lambda: FastP2ThetaSolver(p),
-                 lambda: FastP22TermNewmarkSolver(p),
-                 lambda: tfe.make_fast_solver(p, "newmark"),
-                 lambda: tfe.make_fast_solver(p, "theta", solver="2term"),
-                 lambda: p2_gmg_for_system((8, 8), ((0, 0), (1, 1)), 1.0,
-                                           0.1)):
-        with pytest.raises(RuntimeError, match="cuda"):
-            make()
-
-
-def test_p2_factory_routes_and_checks_kwargs():
-    from tpuwave_torch.models.fast_engine_p2 import (FastP2NewmarkSolver,
-                                                     FastP2ThetaSolver)
-    p = tload(driven_case(Nel="6"))
-    assert isinstance(tfe.make_fast_solver(p, "theta", device=CPU),
-                      FastP2ThetaSolver)
-    assert isinstance(tfe.make_fast_solver(p, "newmark", solver="cheby",
-                                           device=CPU), FastP2NewmarkSolver)
-    with pytest.raises(TypeError, match="use_pallas"):
-        tfe.make_fast_solver(p, "theta", device=CPU, use_pallas=True)
-    with pytest.raises(ValueError, match="family"):
-        tfe.make_fast_solver(p, "leapfrog", device=CPU)

@@ -11,6 +11,7 @@ diagnostics against tpuwave's, on the CPU in f64.
 * estimate_lambda_max on the same operator against tpuwave's at rtol
   1e-10 (the port reproduces tpuwave's jax.random start vector);
 * P2GridDiagnostics: energy, probe, errors and interpolation;
+* p2_varcoef_data (test_torch_p2_varcoef.py's case) at 1e-14;
 
 all at 1e-12 relative (the two sides add the same terms in different
 orders; f64 roundoff is ~1e-16 per operation, a V-cycle is ~40 applies).
@@ -22,6 +23,9 @@ import torch
 
 import jax.numpy as jnp
 from tests import torch_threads  # noqa: F401  (one torch thread)
+from tests.test_torch_p2_varcoef import _case as _vc_case
+from tests.test_torch_p2_varcoef import _close as _vc_close
+from tests.test_torch_p2_varcoef import _spaces as _vc_spaces
 from tpuwave.core.mesh import FeSpace as JFeSpace
 from tpuwave.core.mesh import StructuredTriMesh as JMesh
 from tpuwave.core.quadrature import gauss_simplex as jgauss
@@ -243,3 +247,13 @@ def test_p2_diagnostics_match_tpuwave(quantity):
                jd.interpolate(jload(_case()).u0))
         np.testing.assert_array_equal(td.vertex_values(ut),
                                       u[:(NX + 1) * (NY + 1)])
+
+
+def test_p2_varcoef_data_matches_tpuwave():
+    from tpuwave.core.quadrature import gauss_simplex as jquad
+    from tpuwave.ops.stencil_p2 import p2_varcoef_data as jdata
+    from tpuwave_torch.core.quadrature import gauss_simplex as tquad
+    from tpuwave_torch.ops.stencil_p2 import p2_varcoef_data as tdata
+    js, ts, _, _ = _vc_spaces(_vc_case("static"))
+    for a, b in zip(tdata(ts, tquad(3)), jdata(js, jquad(3))):
+        _vc_close(a, b, rtol=1e-14, atol=1e-15)

@@ -68,16 +68,6 @@ def _spaces(case):
             TSpace(TMesh(pt.nel, pt.geometry), 2), pj, pt)
 
 
-def test_p2_varcoef_data_matches_tpuwave():
-    from tpuwave.core.quadrature import gauss_simplex as jquad
-    from tpuwave.ops.stencil_p2 import p2_varcoef_data as jdata
-    from tpuwave_torch.core.quadrature import gauss_simplex as tquad
-    from tpuwave_torch.ops.stencil_p2 import p2_varcoef_data as tdata
-    js, ts, _, _ = _spaces(_case("static"))
-    for a, b in zip(tdata(ts, tquad(3)), jdata(js, jquad(3))):
-        _close(a, b, rtol=1e-14, atol=1e-15)
-
-
 def _scales(cmode, t):
     """tpuwave's and the port's (2, Q, ny, nx) scale planes at ``t``."""
     from tpuwave.models.p2_diag import P2GridDiagnostics as JDiag

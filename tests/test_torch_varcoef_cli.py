@@ -5,19 +5,16 @@ test_torch_varcoef_engine.py):
 * the 2-term engine with a varying c (mg and chebyshev): per-step CG
   counts identical, (u, u_prev) and the reconstructed velocity within
   rtol 1e-10;
-* the refusals: 2term with a time-dependent C and cheby with a varying C
-  print tpuwave's own messages, at R = 1 and at R = 2;
 * one CLI run per family whose CSVs equal tpuwave's CLI's.
 """
-
-import json
 
 import pytest
 import torch
 
 from tests import torch_threads  # noqa: F401  (one torch thread)
 from tests.test_torch_engine import _close, _csv_close, _files
-from tests.test_torch_varcoef_engine import CPU, _case, _step_both
+from tests.test_torch_varcoef_engine import (CPU, _case, _cli, _step_both,
+                                              _write)
 from tpuwave.models import fast_engine as jfe
 from tpuwave.utils.params import load_params as jload
 from tpuwave_torch.models import fast_engine as tfe
@@ -38,33 +35,6 @@ def test_2term_engine_varying_c_matches_tpuwave(family, precond):
     _close(st.u.numpy(), sj.u)
     _close(st.u_prev.numpy(), sj.u_prev)
     _close(ts.state_velocity(st, t).numpy(), js.state_velocity(sj, t))
-
-
-def _write(tmp_path, case, name):
-    path = tmp_path / f"{name}.json"
-    path.write_text(json.dumps(case))
-    return path
-
-
-def _cli(module, path, tmp_path, tag, extra=()):
-    return module.main([str(path), "--results-root", str(tmp_path / tag),
-                        "--mesh-root", str(tmp_path / "mesh"), *extra])
-
-
-@pytest.mark.parametrize("r", ["1", "2"])
-@pytest.mark.parametrize("cmode,flags", [("tdep", ("--solver", "2term")),
-                                         ("var", ("--solver", "cheby"))])
-def test_cli_refusals_match_tpuwave(tmp_path, capsys, cmode, flags, r):
-    from tpuwave.cli import newmark as jcli
-    from tpuwave_torch.cli import newmark as tcli
-    path = _write(tmp_path, _case(cmode, R=r), "case")
-    assert _cli(jcli, path, tmp_path, "jax", flags) == 1
-    err_j = capsys.readouterr().err
-    assert _cli(tcli, path, tmp_path, "torch",
-                ("--device", "cpu", *flags)) == 1
-    err_t = capsys.readouterr().err
-    assert err_t == err_j and err_t.startswith(f"--solver {flags[1]} ")
-    assert "Traceback" not in err_t
 
 
 @pytest.mark.parametrize("family,cmode,flags", [

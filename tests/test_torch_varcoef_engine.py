@@ -13,9 +13,13 @@ f64.
   carried K(t^n) payload within 1e-13;
 * GridDiagnostics' varcoef energy and the frozen-c reference constant.
 
-test_torch_varcoef_cli.py holds the 2-term engine, the refusals and the
-CLIs.
+* the refusals: 2term with a time-dependent C and cheby with a varying C
+  print tpuwave's own messages, at R = 1 and at R = 2.
+
+test_torch_varcoef_cli.py holds the 2-term engine and the CLIs.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -98,3 +102,30 @@ def test_varcoef_diagnostics_and_frozen_c_match_tpuwave():
     _close(float(dt_.energy(torch.tensor(u), torch.tensor(v))),
            float(dj.energy(u, v)), rtol=1e-13)
     _close(tfe._frozen_c_ref(dt_), _frozen_c_ref(dj), rtol=1e-14)
+
+
+def _write(tmp_path, case, name):
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps(case))
+    return path
+
+
+def _cli(module, path, tmp_path, tag, extra=()):
+    return module.main([str(path), "--results-root", str(tmp_path / tag),
+                        "--mesh-root", str(tmp_path / "mesh"), *extra])
+
+
+@pytest.mark.parametrize("r", ["1", "2"])
+@pytest.mark.parametrize("cmode,flags", [("tdep", ("--solver", "2term")),
+                                         ("var", ("--solver", "cheby"))])
+def test_cli_refusals_match_tpuwave(tmp_path, capsys, cmode, flags, r):
+    from tpuwave.cli import newmark as jcli
+    from tpuwave_torch.cli import newmark as tcli
+    path = _write(tmp_path, _case(cmode, R=r), "case")
+    assert _cli(jcli, path, tmp_path, "jax", flags) == 1
+    err_j = capsys.readouterr().err
+    assert _cli(tcli, path, tmp_path, "torch",
+                ("--device", "cpu", *flags)) == 1
+    err_t = capsys.readouterr().err
+    assert err_t == err_j and err_t.startswith(f"--solver {flags[1]} ")
+    assert "Traceback" not in err_t

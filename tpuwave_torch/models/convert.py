@@ -1,8 +1,9 @@
 """Carry solver state across from tpuwave and back.
 
 tpuwave's state types are NamedTuples of arrays (``FastState``,
-``LeapfrogState``, ``FastGridState``, ``Fast2TermState``,
-``P22TermState``). ``to_torch`` turns one (or any NamedTuple / sequence of
+``LeapfrogState``, ``CompensatedState``, ``FastGridState``,
+``Fast2TermState``, ``P22TermState``, and the bench solvers' ``P2State``,
+``P2CanvasState`` and ``P2CanvasPair``). ``to_torch`` turns one (or any NamedTuple / sequence of
 array-likes, e.g. its fields as numpy arrays) into the port's counterpart
 with tensors on a given device and dtype; ``to_numpy`` goes back to numpy.
 The 2-term step counter ``n`` is a device scalar in tpuwave and a Python
@@ -40,7 +41,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tpuwave_torch.models.fast import FastState, LeapfrogState
+from tpuwave_torch.models.fast import (CompensatedState, FastState,
+                                       LeapfrogState)
 
 __all__ = ["to_torch", "to_numpy", "like_state", "fwi_to_torch",
            "fwi_problem_kwargs", "lbfgs_leaf_names"]
@@ -60,7 +62,11 @@ def _target(name: str):
     if name == "P22TermState":
         from tpuwave_torch.models.fast_engine_p2_2term import P22TermState
         return P22TermState
-    return {"FastState": FastState, "LeapfrogState": LeapfrogState}.get(name)
+    if name in ("P2State", "P2CanvasState", "P2CanvasPair"):
+        from tpuwave_torch.models import fast_p2
+        return getattr(fast_p2, name)
+    return {"FastState": FastState, "LeapfrogState": LeapfrogState,
+            "CompensatedState": CompensatedState}.get(name)
 
 
 def _field(name, v, device, dtype, canvas):
@@ -83,8 +89,9 @@ def to_torch(state, device, dtype: torch.dtype, kind: Optional[str] = None,
     state type.
 
     ``kind`` names the target type ('FastState', 'LeapfrogState',
-    'FastGridState', 'Fast2TermState', 'P22TermState'); by default the
-    source's own type name. Fields that are None stay None. ``canvas``:
+    'CompensatedState', 'FastGridState', 'Fast2TermState', 'P22TermState',
+    'P2State', 'P2CanvasState', 'P2CanvasPair'); by default the source's
+    own type name. Fields that are None stay None. ``canvas``:
     the (Hc, Wc) every (4, H, W) canvas field is cropped or zero-padded to
     (R = 2 states).
     """

@@ -21,6 +21,11 @@ passes are the hand-written CUDA kernels of ops/kernels.py:
   around restarted Chebyshev blocks (B4) instead of CG
 * :meth:`FastWaveSolver.run_implicit_mg_2term`  displacement-form steps:
   setup B5, matvec B3, V-cycle B4 + B3
+* :meth:`FastWaveSolver.run_implicit_mg_2term_comp` (and ``_driven``) the
+  same recurrence on an f32 (head, tail) pair (``CompensatedState``):
+  matvec B3, V-cycle B4 + B3, the r0 pass and the TwoSum carries in torch
+  ops; :meth:`FastWaveSolver.run_leapfrog_compensated` is the explicit
+  leapfrog on such a pair, in torch ops
 
 :meth:`FastWaveSolver.run_scan` and :meth:`FastWaveSolver.run_implicit_mg`
 are the same schemes in plain torch ops (the V-cycle's level operators
@@ -63,7 +68,7 @@ from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
 from tpuwave_torch.solve.multigrid import gmg_for_system, kernel_cycle
 
 __all__ = ["FastWaveSolver", "FastState", "LeapfrogState",
-           "EDGE_TABLES_RANGE"]
+           "CompensatedState", "EDGE_TABLES_RANGE"]
 
 #: the torch.profiler range around each chunk's edge tables in
 #: FastWaveSolver.run_leapfrog_driven_multistep (its g_fn calls and stacks)
@@ -74,6 +79,44 @@ class FastState(NamedTuple):
     u: torch.Tensor  # (ny+1, nx+1)
     v: torch.Tensor
     a: torch.Tensor
+
+
+def _two_sum(a, b):
+    """Knuth TwoSum: s = fl(a + b) and the EXACT rounding error err, so
+    a + b == s + err in exact arithmetic. Branch-free (no magnitude
+    ordering needed). Exact only if each line rounds on its own: these
+    stay separate torch ops, never fused into one kernel (a contraction
+    into an FMA would break the error term)."""
+    s = a + b
+    z = s - a
+    err = (a - (s - z)) + (b - z)
+    return s, err
+
+
+def _fast_two_sum(a, b):
+    """Dekker Fast2Sum: requires |a| >= |b| (true when a is the
+    state-scale head and b the eps-scale tail). Separate torch ops, as in
+    :func:`_two_sum`."""
+    s = a + b
+    err = (a - s) + b
+    return s, err
+
+
+class CompensatedState(NamedTuple):
+    """f32 state with exact rounding-error carries (~f48 effective).
+
+    The displacement recurrences (leapfrog, implicit 2-term) carry
+    velocity implicitly as (u^n - u^{n-1})/dt, so every eps*|u|-level
+    rounding of the state update is an incoherent velocity kick that the
+    undamped recurrence amplifies by ~1/(omega dt) per mode (see
+    run_implicit_mg_2term). Carrying the update's exact rounding error
+    (TwoSum) in a second f32 array removes those kicks: the pair
+    (u, u_lo) represents the state to ~2^-45.
+    """
+    u: torch.Tensor
+    u_lo: torch.Tensor
+    u_prev: torch.Tensor
+    u_prev_lo: torch.Tensor
 
 
 class LeapfrogState(NamedTuple):
@@ -357,6 +400,44 @@ class FastWaveSolver:
         runners are held against)."""
         for _ in range(int(n_steps)):
             state = self.leapfrog_step(state)
+        return state
+
+    # ------------------------------------------------------------------
+    # error-compensated leapfrog: f32 state + exact rounding-error carries
+    # (~f48 effective), the accuracy mode of the explicit path (see
+    # CompensatedState): one extra stencil apply on the eps-scale tail and
+    # the TwoSum bookkeeping, in torch ops (tpuwave has no kernel here)
+    # ------------------------------------------------------------------
+    def initial_compensated_state(self, u0_fn,
+                                  v0_fn=None) -> CompensatedState:
+        lf = self.initial_leapfrog_state(u0_fn, v0_fn)
+        zero = torch.zeros_like(lf.u)
+        return CompensatedState(u=lf.u, u_lo=zero, u_prev=lf.u_prev,
+                                u_prev_lo=zero)
+
+    def leapfrog_step_compensated(
+            self, state: CompensatedState) -> CompensatedState:
+        """u_next = 2u - u_prev - dt^2 M_L^{-1} K u on the (head, tail)
+        pair: K applied to head AND tail (K is linear; the tail apply is
+        exact relative to its eps scale), the head combination tracked by
+        TwoSum so its rounding lands in the next tail. Head and tail are
+        masked to 0 on the walls separately."""
+        dt2 = self.dt * self.dt
+        uh, ul, ph, pl = state
+        d = -(dt2 * self.inv_lumped) * (self._stiff_diff(uh)
+                                        + self._stiff_diff(ul))
+        t, r1 = _two_sum(2.0 * uh, -ph)      # 2*uh is exact in binary fp
+        small = (2.0 * ul - pl) + (d + r1)
+        un, un_lo = _fast_two_sum(t, small)  # |t| ~ |u| >> |small|
+        un = torch.where(self.boundary, 0.0, un).to(self.dtype)
+        un_lo = torch.where(self.boundary, 0.0, un_lo).to(self.dtype)
+        return CompensatedState(u=un, u_lo=un_lo, u_prev=uh, u_prev_lo=ul)
+
+    def run_leapfrog_compensated(self, state: CompensatedState,
+                                 n_steps: int) -> CompensatedState:
+        """``n_steps`` of :meth:`leapfrog_step_compensated`."""
+        for _ in range(int(n_steps)):
+            state = self.leapfrog_step_compensated(state)
         return state
 
     # ------------------------------------------------------------------
@@ -1067,6 +1148,156 @@ class FastWaveSolver:
         return self._run(LeapfrogState(state.u.contiguous(),
                                        state.u_prev.contiguous()),
                          n_steps, step)
+
+    # ------------------------------------------------------------------
+    # error-compensated displacement-form stepping: the accuracy mode of
+    # run_implicit_mg_2term. The same recurrence on a (head, tail) f32
+    # pair (CompensatedState): K applied to head AND tail in the r0 pass
+    # and the extrapolation 2u - u_prev tracked by TwoSum, so the per-step
+    # eps*|u| rounding kicks that the undamped recurrence amplifies by
+    # ~1/(omega dt) land in the tail instead of the trajectory. The r0
+    # pass and the TwoSum bookkeeping are torch ops; with ``pallas`` (the
+    # kernel route, tpuwave's name kept) every CG matvec is kernel B3 and
+    # the V-cycle's fine level B4 + B3.
+    # ------------------------------------------------------------------
+    def implicit_2term_init_comp(self, state: FastState, *,
+                                 pre_degree: int = 1,
+                                 smooth_range: float = 8.0,
+                                 coarse_tol: float = 1e-2
+                                 ) -> CompensatedState:
+        lf = self.implicit_2term_init(state, pre_degree=pre_degree,
+                                      smooth_range=smooth_range,
+                                      coarse_tol=coarse_tol)
+        zero = torch.zeros_like(lf.u)
+        return CompensatedState(u=lf.u, u_lo=zero, u_prev=lf.u_prev,
+                                u_prev_lo=zero)
+
+    def implicit_2term_finish_comp(self,
+                                   state: CompensatedState) -> FastState:
+        return self.implicit_2term_finish(
+            LeapfrogState(u=state.u, u_prev=state.u_prev))
+
+    def _comp_setup(self, pre_degree, smooth_range, coarse_tol, pallas,
+                    tol_factor):
+        """(c_u, c_up, system apply, V-cycle, eta, s_abs) of the
+        compensated 2-term paths, with tpuwave's refusals."""
+        if self.dtype == torch.float64:
+            raise ValueError("compensated stepping is the f32 accuracy "
+                             "mode; run the plain 2-term path in f64")
+        if self.scheme == "newmark":
+            if self.beta <= 1e-12:
+                raise ValueError("needs beta > 0 for Newmark")
+            c_u, c_up = self.gamma + 0.5, 0.5 - self.gamma
+        elif self.scheme == "theta":
+            c_u, c_up = 2.0 * self.theta, 1.0 - 2.0 * self.theta
+        else:
+            raise ValueError("needs scheme newmark/theta")
+        base = self.gmg_preconditioner(pre_degree=pre_degree,
+                                       smooth_range=smooth_range,
+                                       coarse_tol=coarse_tol)
+        precond = kernel_cycle(base) if pallas else base
+        eta = float(torch.finfo(self.dtype).eps) * float(tol_factor)
+        s_abs = (abs(c_u) + abs(c_up)) * self.dt * self.dt * sum(
+            abs(cc) for row in self.stiff.stencil for cc in row)
+        return (c_u, c_up, self._constrained(self.system, bool(pallas)),
+                precond, eta, s_abs)
+
+    def _comp_step(self, c, c_u, c_up, apply_sys, precond, eta, s_abs,
+                   lift=None):
+        """One compensated recurrence step; ``lift(uh, ph) -> (A(delta
+        1_b), boundary values)`` drives the walls. Returns (state,
+        iterations)."""
+        dt = self.dt
+        interior = self.interior
+        uh, ul, ph, pl = c
+        if c_u == 1.0 and c_up == 0.0:
+            combo_h, combo_l = uh, ul
+        else:
+            combo_h = c_u * uh + c_up * ph
+            combo_l = c_u * ul + c_up * pl
+        # K on head AND tail: the pair represents the state to ~2^-45, so
+        # r0 carries no eps*|u| input-representation noise (unmasked
+        # combo: the stencil sees the true driven boundary)
+        r0 = torch.where(interior,
+                         (-dt * dt) * (self._stiff_diff(combo_h)
+                                       + self._stiff_diff(combo_l)), 0.0)
+        g_new = 0.0
+        if lift is not None:
+            a_delta, g_new = lift(uh, ph)
+            r0 = r0 - torch.where(interior, a_delta, 0.0)
+        rn2 = vdot(r0, r0)
+        xnorm = torch.linalg.vector_norm(
+            torch.where(interior, 2.0 * uh - ph, 0.0))
+        abs_tol = torch.minimum(eta * s_abs * xnorm,
+                                0.5 * torch.sqrt(rn2)).to(self.dtype)
+        res = pcg(apply_sys, r0, torch.zeros_like(r0), r0=r0, norm0_sq=rn2,
+                  precond_inv_diag=precond, abs_tol=abs_tol, max_iter=2000,
+                  reduction=self.cg_reduction)
+        t, r1 = _two_sum(2.0 * uh, -ph)
+        small = (2.0 * ul - pl) + (res.x + r1)
+        un, un_lo = _fast_two_sum(t, small)
+        un = torch.where(interior, un, g_new).to(self.dtype)
+        un_lo = torch.where(interior, un_lo, 0.0).to(self.dtype)
+        return (CompensatedState(u=un, u_lo=un_lo, u_prev=uh, u_prev_lo=ul),
+                res.iterations)
+
+    def run_implicit_mg_2term_comp(self, state: CompensatedState,
+                                   n_steps: int, *, pre_degree: int = 1,
+                                   smooth_range: float = 8.0,
+                                   coarse_tol: float = 1e-2,
+                                   block_rows: int = 128,
+                                   pallas: bool = True,
+                                   tol_factor: float = 1.0,
+                                   interpret: bool = False
+                                   ) -> CompensatedState:
+        """Compensated variant of ``run_implicit_mg_2term`` (f32 only: in
+        f64 run the plain path). One extra stencil pass (K on the tail)
+        and the TwoSum bookkeeping a step; ``tol_factor`` scales the
+        noise-anchored stopping floor (smaller = more CG iterations =
+        less solve-leftover noise). ``block_rows`` and ``interpret`` size
+        tpuwave's Pallas route and have no counterpart."""
+        c_u, c_up, apply_sys, precond, eta, s_abs = self._comp_setup(
+            pre_degree, smooth_range, coarse_tol, pallas, tol_factor)
+        return self._run(
+            CompensatedState(*(x.contiguous() for x in state)), n_steps,
+            lambda c: self._comp_step(c, c_u, c_up, apply_sys, precond,
+                                      eta, s_abs))
+
+    def run_implicit_mg_2term_comp_driven(
+            self, state: CompensatedState, times, g_fn, *,
+            pre_degree: int = 1, smooth_range: float = 8.0,
+            coarse_tol: float = 1e-2, block_rows: int = 128,
+            pallas: bool = True, tol_factor: float = 1.0,
+            interpret: bool = False) -> CompensatedState:
+        """DRIVEN-boundary compensated displacement stepping, one step per
+        entry of ``times`` (each the t^{n+1} stepped to): the TwoSum
+        recurrence of :meth:`run_implicit_mg_2term_comp` with the
+        boundary lift of models/fast_engine_2term.py's plain route. r0
+        gets ``-A(delta 1_b)`` with ``delta = g(t^{n+1}) - 2 u^n|b +
+        u^{n-1}|b`` (head values only: the boundary carries no
+        compensation, u|b = g exactly in f32 as in the plain engine), and
+        the new state's boundary is pinned to g(t^{n+1}). ``g_fn(x, y,
+        t)`` takes torch tensors, t a 0-d tensor of the state's dtype."""
+        c_u, c_up, apply_sys, precond, eta, s_abs = self._comp_setup(
+            pre_degree, smooth_range, coarse_tol, pallas, tol_factor)
+        boundary = self.boundary
+        xs, ys = self.grid_coords()
+
+        def lift_at(t):
+            def lift(uh, ph):
+                g_new = torch.where(boundary,
+                                    self._as_grid(g_fn(xs, ys, t)), 0.0)
+                delta = g_new - torch.where(boundary, 2.0 * uh - ph, 0.0)
+                return self.system(delta), g_new
+            return lift
+
+        state = CompensatedState(*(x.contiguous() for x in state))
+        self.last_iterations = []
+        for t in self._times(times):
+            state, its = self._comp_step(state, c_u, c_up, apply_sys,
+                                         precond, eta, s_abs, lift_at(t))
+            self.last_iterations.append(its)
+        return state
 
     def energy(self, state: FastState) -> torch.Tensor:
         """E = 1/2 (v M v + u K u) in f64, a 0-d tensor: the boundary-

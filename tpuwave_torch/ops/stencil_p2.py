@@ -22,8 +22,9 @@ multiple (tpuwave's Mosaic alignment) is needed on the card.
 The flat DoF ordering (core/mesh.py: vertices, then h/v/d edge blocks,
 each row-major) makes flat <-> planes a reshape/concat. These are the
 plain PyTorch forms; the CUDA kernels of ``ops/kernels_p2.py`` apply the
-same constant block-stencil. The varcoef operator is torch ops (tpuwave
-runs no fused kernel on it either).
+same constant block-stencil. The varcoef operator, and its optional
+constant part (``P2PlaneStencil.axpy_varcoef``), are torch ops (tpuwave
+runs no fused kernel on them either).
 """
 
 from __future__ import annotations
@@ -206,6 +207,12 @@ class P2PlaneStencil:
                              for p in _PLANES}
         return merged
 
+    def axpy_varcoef(self, coef: float,
+                     other: "P2VarcoefStencil") -> "P2VarcoefStencil":
+        """M + coef * K(t) with K a varcoef stencil: a varcoef operator
+        whose constant part is this stencil."""
+        return other.with_constant_part(self, coef)
+
 
 # ---------------------------------------------------------------------------
 # variable-coefficient P2 operator (time / space-dependent wave speed)
@@ -258,7 +265,7 @@ def p2_varcoef_scales(mesh, c, t, frac, w, det, dtype,
 
 
 class P2VarcoefStencil:
-    """Variable-coefficient P2 stiffness.
+    """Variable-coefficient P2 stiffness, plus an optional constant part.
 
     ``scales``: (2, Q, ny, nx) per-class / per-quad-point planes
     det * w_q * c^2(x_ekq, t) (:func:`p2_varcoef_scales`). Every
@@ -267,19 +274,54 @@ class P2VarcoefStencil:
     tpuwave sums those planes inside every apply, where XLA fuses them; in
     eager torch that is over a thousand launches a matvec, so here the (at
     most 72) planes are built ONCE per operator, in tpuwave's order of
-    summation over q, and an apply is one ``addcmul_`` per plane on canvas
-    slices, in tpuwave's (k, i, j) order. Memory: 72 planes of (ny, nx),
-    ~0.6 GB at 1024^2 in f64.
+    summation over q and times ``var_coef``, and an apply is one
+    ``addcmul_`` per plane on canvas slices, in tpuwave's (k, i, j) order.
+    Memory: 72 planes of (ny, nx), ~0.6 GB at 1024^2 in f64.
+
+    ``const_op`` (a :class:`P2PlaneStencil`) adds ``const_coef`` times its
+    apply and its diagonal: ``M.axpy_varcoef(coef, K)`` is the system
+    M + coef K(t) of P2FastSolver's time-dependent step, with
+    ``var_coef = coef`` (:meth:`with_constant_part`).
     """
 
-    def __init__(self, space: FeSpace, scales: torch.Tensor, G, dtype):
+    def __init__(self, space: FeSpace, scales: torch.Tensor, G, dtype,
+                 const_op: "P2PlaneStencil" = None, const_coef: float = 1.0,
+                 var_coef: float = 1.0):
         self.nx, self.ny = space.mesh.nx, space.mesh.ny
         self.dtype = dtype
         self.n_dofs = space.n_dofs
         self.scales = scales                  # (2, Q, ny, nx)
         self.G = np.asarray(G)                # (2, Q, 6, 6) host constants
+        self.const_op = const_op
+        self.const_coef = float(const_coef)
+        self.var_coef = float(var_coef)
         #: {(k, i, j): sum_q G[k, q, i, j] * scales[k, q]}, nonzero only
-        self.planes = self._coeff_sums()
+        self._sums = self._coeff_sums()
+        self.planes = self._scaled(self._sums)
+
+    def with_constant_part(self, const_op: "P2PlaneStencil",
+                           var_coef: float) -> "P2VarcoefStencil":
+        """const_op + var_coef * (this operator's varcoef part), sharing
+        its scale and coefficient planes."""
+        out = object.__new__(P2VarcoefStencil)
+        out.nx, out.ny = self.nx, self.ny
+        out.dtype = self.dtype
+        out.n_dofs = self.n_dofs
+        out.scales = self.scales
+        out.G = self.G
+        out.const_op = const_op
+        out.const_coef = 1.0
+        out.var_coef = float(var_coef)
+        out._sums = self._sums
+        out.planes = out._scaled(self._sums)
+        return out
+
+    def _scaled(self, sums):
+        """The coefficient planes times ``var_coef`` (tpuwave's
+        ``(vc * cp)``, formed once)."""
+        if self.var_coef == 1.0:
+            return sums
+        return {k: self.var_coef * cp for k, cp in sums.items()}
 
     def _coeff_sums(self):
         """sum_q scales[k, q] * G[k, q, i, j] -> (ny, nx) for every (k, i,
@@ -305,8 +347,11 @@ class P2VarcoefStencil:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         cs = self._canvas_shape()
         xc = planes_to_canvases(flat_to_planes(x, self.nx, self.ny), cs)
-        out = self.apply_canvases(xc)
-        return planes_to_flat(canvases_to_planes(out, self.nx, self.ny))
+        y = planes_to_flat(canvases_to_planes(self._var_apply(xc), self.nx,
+                                              self.ny))
+        if self.const_op is not None:
+            y = y + self.const_coef * self.const_op(x)
+        return y
 
     def apply_canvases(self, xc: torch.Tensor) -> torch.Tensor:
         """Apply on stacked common canvases (4, Hc, Wc) (plane order V, H,
@@ -314,6 +359,13 @@ class P2VarcoefStencil:
         coefficient plane * the source window. The caller guarantees zeros
         outside each plane's support; every slice window stays inside the
         canvas for any Hc >= ny + 3, Wc >= nx + 3."""
+        y = self._var_apply(xc)
+        if self.const_op is not None:
+            y = y + self.const_coef * self.const_op.apply_canvases(xc)
+        return y
+
+    def _var_apply(self, xc: torch.Tensor) -> torch.Tensor:
+        """The varcoef part's apply on canvases (see ``apply_canvases``)."""
         out = torch.zeros_like(xc)
         ny, nx = self.ny, self.nx
         for (k, i, j), cp in self.planes.items():
@@ -329,6 +381,25 @@ class P2VarcoefStencil:
         """(4, Hc, Wc) EXACT assembled diagonal on the common canvases
         (support entries only; zero on padding: callers pin the padding to
         a harmless 1.0 themselves). Canvas twin of :meth:`diagonal`."""
+        diag = self._var_diagonal(cshape)
+        if self.const_op is not None:
+            # the constant part on each plane's support only, so the
+            # padding stays exactly zero
+            hc, wc = cshape
+            ri = torch.arange(hc, device=diag.device)[:, None]
+            ci = torch.arange(wc, device=diag.device)[None, :]
+            shapes = p2_plane_shapes(self.nx, self.ny)
+            supp = torch.stack([(ri >= 1) & (ri < 1 + shapes[p][0])
+                                & (ci >= 1) & (ci < 1 + shapes[p][1])
+                                for p in _PLANES])
+            cd = torch.tensor([self.const_op.plane_diag[p] for p in _PLANES],
+                              dtype=diag.dtype,
+                              device=diag.device).reshape(4, 1, 1)
+            diag = diag + torch.where(supp, self.const_coef * cd, 0.0)
+        return diag
+
+    def _var_diagonal(self, cshape) -> torch.Tensor:
+        """The varcoef part's assembled diagonal on canvases."""
         ny, nx = self.ny, self.nx
         diag = self.scales.new_zeros((4, *cshape))
         for k in range(2):
@@ -344,5 +415,8 @@ class P2VarcoefStencil:
     def diagonal(self) -> torch.Tensor:
         """Flat EXACT assembled diagonal (the varcoef diagonal varies per
         node, so it is assembled instead of broadcast)."""
-        d = self.diagonal_canvases(self._canvas_shape())
-        return planes_to_flat(canvases_to_planes(d, self.nx, self.ny))
+        d = planes_to_flat(canvases_to_planes(
+            self._var_diagonal(self._canvas_shape()), self.nx, self.ny))
+        if self.const_op is not None:
+            d = d + self.const_coef * self.const_op.diagonal()
+        return d
