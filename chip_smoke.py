@@ -54,6 +54,10 @@ sizes: models/fast_p2.py's P2CanvasSolver (B11-B13, B4 / B3) and its
 scripts/bench_precision.py's rows: the compensated f32 leapfrog and
 2-term paths (B3, B4) held to tpuwave's accuracy gates, and the f64
 implicit CN 2-term MG run (``--only p2_bench,precision`` runs it alone).
+Path M: domain decomposition (parallel/sharding.py, parallel/halo.py):
+2 and 4 ranks over gloo sharing the one card, and over NCCL at one card a
+rank where there are two cards or more, started by torch.distributed.run
+(``--only shard`` runs it alone).
 Phases:
 
   1. the card: nvidia-smi name and power limit; a CUDA device is required
@@ -256,6 +260,20 @@ Phases:
      compensated 2-term ec < ep / 8; the compensated driven 2-term
      within 3e-6 of the f64 engine at tpuwave's gate size (24^2, 20
      steps; the 4096^2 difference reported)
+ 32. sharding: B3 at global offsets on a rank's padded block against its
+     plain version; (a) 2 and 4 gloo ranks on the one card: the
+     scalability configuration (640^2, dt 8e-5, f64, 10 steps) for theta
+     0, 1/2, 1 and Newmark 0, 1/4 over row slabs and Newmark 1/4 over 2 x
+     2 blocks, each within rel L2 1e-12 of the one-rank run with equal CG
+     counts, ms/step beside the one-rank run's; the newmark CLI --shard
+     rows --precond mg over 2 ranks, 5 steps at 640^2, CSVs byte-equal
+     to the one-rank run's; halo.py's B2 k-step (4096^2 nodes, f32, k =
+     8, 32 steps) over 2 ranks against one-rank B2; (b) with two cards or more,
+     the scalability runs over NCCL at world 2 and min(cards, 4). The
+     one-rank runs and the B3 check come before path M's counts start;
+     the counts are the ranks' own, per job: the scalability runs must
+     launch B3, the halo.py run B2, and no rank may run a kernels.py
+     plain version
 
 Counts of kernel launches are set to 0 before each path and read after
 it; every kernel of a path must have launched. After the paths, the
@@ -467,6 +485,7 @@ PATH_K = ("varcoef_leapfrog_step", "varcoef_leapfrog_multistep",
           "varcoef_adjoint_step", "varcoef_adjoint_multistep")
 PATH_L = ("p2_constrained_apply", "p2_presmooth", "p2_postsmooth",
           "constrained_stencil_apply", "cheby_block", "recurrence_r0")
+PATH_M = ("leapfrog_multistep", "constrained_stencil_apply")
 
 #: the card's published rates (NVIDIA H100 SXM data sheet, 700 W): device
 #: memory, and the peak without tensor cores per dtype
@@ -4460,6 +4479,390 @@ def phase_precision(torch):
         raise AssertionError("phase 31: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# path M (phase 32): domain decomposition over torch.distributed
+# ---------------------------------------------------------------------------
+#: the scalability configuration's schemes (scripts/scalability_sweep.py)
+SHARD_SCHEMES = (("theta", 0.0), ("theta", 0.5), ("theta", 1.0),
+                 ("newmark", 0.0), ("newmark", 0.25))
+#: steps of each sharded scalability run (640^2, dt 8e-5, f64)
+SHARD_STEPS = 10
+#: halo.py's B2 leg: elements (4096^2 nodes: halo.py takes only row
+#: counts that divide over the ranks), steps a pass, passes
+SHARD_HALO = (4095, 8, 4)
+#: seconds a launch of ranks may take before it is killed
+SHARD_TIMEOUT_S = 300
+
+
+def _shard_solver(torch, scheme: str, val: float, sharding, nel: int = 640,
+                  dt: float = 8e-5):
+    from tpuwave_torch.models.fast import FastWaveSolver
+    kw = dict(dtype=torch.float64, device="cuda", sharding=sharding)
+    if scheme == "theta":
+        return FastWaveSolver((nel, nel), UNIT_SQUARE, dt, scheme="theta",
+                              theta=val, lumped=False, **kw)
+    return FastWaveSolver((nel, nel), UNIT_SQUARE, dt, scheme="newmark",
+                          beta=val, gamma=0.5, lumped=val == 0.0, **kw)
+
+
+def shard_worker(job: str, out: Path, backend: str) -> int:
+    """One rank of a path-M launch (``--shard-worker``, started by
+    torch.distributed.run): joins the process group, runs the jobs of
+    ``job`` (comma-separated: scal, halo), and rank 0 writes the gathered
+    results and, per job, the ranks' summed kernel launches and calls of
+    a kernels.py plain version to ``out`` (.npz)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from tpuwave_torch.models.fast import LeapfrogState
+    from tpuwave_torch.ops import _build
+    from tpuwave_torch.ops import kernels as kn
+    from tpuwave_torch.parallel import sharding as shd
+    from tpuwave_torch.parallel.halo import make_multistep_halo_leapfrog
+    _build.load_library()
+    shd.init_distributed(backend=backend, device="cuda")
+    n = shd.world_size()
+    res = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        return out_, time.perf_counter() - t0
+
+    u0 = _standing(torch)
+    jobs = job.split(",")
+    if set(jobs) - {"scal", "halo"}:
+        raise ValueError(f"unknown shard job {job!r}")
+    # every plain version the kernels module holds, counted: on the
+    # card's tensors a wrapper launches its kernel, so none may run
+    refs_run = {"n": 0}
+    for name in [a for a in dir(kn) if a.endswith("_reference")]:
+        def counted(*a, _orig=getattr(kn, name), **k):
+            refs_run["n"] += 1
+            return _orig(*a, **k)
+        setattr(kn, name, counted)
+
+    def scal():
+        grids = [("rows", None)]
+        if n == 4 and backend == "gloo":
+            grids.append(("blocks", (2, 2)))
+        for gname, shape in grids:
+            sh = shd.grid_sharding(shd.device_mesh(shape=shape))
+            schemes = (SHARD_SCHEMES if gname == "rows"
+                       else (("newmark", 0.25),))
+            for scheme, val in schemes:
+                s = _shard_solver(torch, scheme, val, sh)
+                st0 = s.initial_state(u0)
+                s.run_scan(st0, 2)                       # warm
+                st, secs = timed(lambda: s.run_scan(st0, SHARD_STEPS))
+                u = s.layout.gather_all(st.u)
+                key = f"{gname} {scheme} {val}"
+                res[f"u {key}"] = u.cpu().numpy()
+                res[f"its {key}"] = np.asarray(s.last_iterations).reshape(
+                    SHARD_STEPS, -1)
+                res[f"ms {key}"] = np.asarray(1e3 * secs / SHARD_STEPS)
+
+    def halo():
+        from tpuwave_torch.models.fast import FastWaveSolver
+        nel, k, passes = SHARD_HALO
+        fs = FastWaveSolver((nel, nel), UNIT_SQUARE, 8e-5,
+                            dtype=torch.float32, device="cuda")
+        mesh = shd.device_mesh()
+        adv, lay = make_multistep_halo_leapfrog(mesh, fs, k)
+        lf = fs.initial_leapfrog_state(u0)
+        st0 = LeapfrogState(lay.local(lf.u).contiguous(),
+                            lay.local(lf.u_prev).contiguous())
+        del lf
+
+        def run():
+            st = st0
+            for _ in range(passes):
+                st = adv(st)
+            return st
+        run()
+        st, secs = timed(run)
+        res["u halo"] = lay.gather_all(st.u).cpu().numpy()
+        res["ms halo"] = np.asarray(1e3 * secs / (k * passes))
+
+    names = sorted(kn.LAUNCHES)
+    for j in jobs:
+        # this job's launches and plain-version calls, summed over ranks
+        before, refs_before = dict(kn.LAUNCHES), refs_run["n"]
+        {"scal": scal, "halo": halo}[j]()
+        counts = torch.tensor(
+            [float(kn.LAUNCHES[k] - before[k]) for k in names]
+            + [float(refs_run["n"] - refs_before)], dtype=torch.float64,
+            device="cpu" if backend == "gloo" else "cuda")
+        torch.distributed.all_reduce(counts)
+        counts = [int(c) for c in counts.tolist()]
+        res.update({f"launches {j} {k}": np.asarray(c)
+                    for k, c in zip(names, counts)})
+        res[f"references {j}"] = np.asarray(counts[-1])
+    if shd.world_rank() == 0:
+        np.savez(out, **res)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(n: int, argv: list, log: Path, timeout: float =
+                  SHARD_TIMEOUT_S) -> float:
+    """``argv`` (after ``python``) on ``n`` ranks through
+    torch.distributed.run --standalone; every rank ends when one fails
+    (the launcher stops the others) and the call raises. Returns the
+    wall time."""
+    import os
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", *argv]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    with log.open("w") as fh:
+        try:
+            rc = subprocess.run(cmd, cwd=ROOT, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                timeout=timeout).returncode
+        except subprocess.TimeoutExpired:
+            rc = 124
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tail = log.read_text()[-3000:]
+        raise AssertionError(f"{n} ranks ({' '.join(argv[:3])}) exited {rc} "
+                             f"after {wall:.0f} s:\n{tail}")
+    return wall
+
+
+#: the kernel each shard_worker job must launch on its ranks: B3, every
+#: sharded CG matvec of the scalability runs; B2, halo.py's k steps
+SHARD_JOB_KERNELS = {"scal": ("constrained_stencil_apply",),
+                     "halo": ("leapfrog_multistep",)}
+
+
+def _shard_job(kn, n: int, job: str, backend: str, work: Path) -> dict:
+    """One launch of ``n`` ranks running shard_worker's ``job``; adds the
+    ranks' launches to kn.LAUNCHES and returns rank 0's arrays. Raises
+    where a job's ranks launched a kernel of SHARD_JOB_KERNELS no time or
+    ran a plain version."""
+    import numpy as np
+    tag = f"shard-{job.replace(',', '-')}-{backend}-{n}"
+    out = work / f"{tag}.npz"
+    wall = _launch_ranks(n, [str(ROOT / "chip_smoke.py"), "--shard-worker",
+                             job, "--shard-out", str(out),
+                             "--shard-backend", backend],
+                         work / f"{tag}.log")
+    with np.load(out) as data:
+        res = {k: data[k] for k in data.files}
+    bad = []
+    for j in job.split(","):
+        got = {k: int(res[f"launches {j} {k}"]) for k in kn.LAUNCHES}
+        for k, c in got.items():
+            kn.LAUNCHES[k] += c
+        want = {k: got[k] for k in SHARD_JOB_KERNELS[j]}
+        refs = int(res[f"references {j}"])
+        say(f"  {n} {backend} ranks, job {j}: launches {want}, plain "
+            f"versions run {refs}")
+        bad += [f"{j} launched no {k}" for k, c in want.items() if c <= 0]
+        bad += [f"{j} ran {refs} plain versions"] if refs else []
+    say(f"  {n} {backend} ranks, job {job}: {wall:.1f} s wall (launch, "
+        "start-up and run)")
+    if bad:
+        raise AssertionError(f"{n} {backend} ranks: " + "; ".join(bad))
+    return res
+
+
+def _shard_refs(torch):
+    """One-rank runs of the scalability configuration on the card."""
+    refs = {}
+    u0 = _standing(torch)
+    for scheme, val in SHARD_SCHEMES:
+        s = _shard_solver(torch, scheme, val, None)
+        st0 = s.initial_state(u0)
+        s.run_scan(st0, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = s.run_scan(st0, SHARD_STEPS)
+        torch.cuda.synchronize()
+        refs[f"{scheme} {val}"] = (st.u.double(),
+                                   s.last_iterations,
+                                   1e3 * (time.perf_counter() - t0)
+                                   / SHARD_STEPS)
+    return refs
+
+
+def _shard_scal_gate(torch, np, refs, res, n: int, backend: str) -> list:
+    failed = []
+    for key in sorted(k[2:] for k in res if k.startswith("u ")):
+        if key == "halo":
+            continue
+        grid, ref_key = key.split(" ", 1)
+        u_ref, its_ref, ms_ref = refs[ref_key]
+        u = torch.as_tensor(res[f"u {key}"], device="cuda")
+        rel = _rel_l2(torch, u, u_ref)
+        its = res[f"its {key}"].reshape(len(its_ref), -1).tolist()
+        want = np.asarray(its_ref).reshape(len(its_ref), -1).tolist()
+        ok = rel <= 1e-12 and its == want
+        say(f"  {backend} {n} ranks {grid:<6} {ref_key:<13} rel L2 "
+            f"{rel:.3e} (bound 1e-12), CG {np.sum(its)} vs {np.sum(want)} "
+            f"one-rank, {float(res[f'ms {key}']):.3f} ms/step vs "
+            f"{ms_ref:.3f} one-rank {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{backend} {n} {key}: rel {rel:.3e}, CG "
+                          f"{np.sum(its)} vs {np.sum(want)}")
+    return failed
+
+
+def _shard_setup(torch, kn, work: Path) -> dict:
+    """What path M is held to, made before its counted run: B3 at global
+    offsets on a rank's padded block (the second of four row slabs of
+    641^2, one-node halo) against its plain version; the one-rank runs of
+    the scalability configuration; one-rank B2 over halo.py's steps; the
+    one-rank CLI run."""
+    say(f"phase 32: sharding ({time.perf_counter() - T_START:.0f} s since "
+        "the start); one-rank references")
+    fs = _shard_solver(torch, "newmark", 0.25, None)
+    st = fs.system.stencil
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.float64, torch.float32):
+        x = torch.rand((163, 643), generator=g, device="cuda",
+                       dtype=torch.float64).to(dtype)
+        kw = dict(row_offset=159, col_offset=-1, n_rows=641, n_cols=641)
+        got = kn.constrained_stencil_apply(x, st, st[1][1], **kw)
+        want = kn.constrained_stencil_apply_reference(x, st, st[1][1], **kw)
+        torch.cuda.synchronize()
+        bound = (1e-12 * float(want.abs().max())
+                 if dtype == torch.float64
+                 else f32_bound(sum(abs(c) for r in st for c in r)))
+        check(f"B3 at offsets (159, -1) of 641^2 {str(dtype)[6:]}",
+              got[1:-1, 1:-1], want[1:-1, 1:-1], bound)
+    del fs
+
+    from tpuwave_torch.models.fast import FastWaveSolver
+    nel, k, passes = SHARD_HALO
+    fs = FastWaveSolver((nel, nel), UNIT_SQUARE, 8e-5, dtype=torch.float32,
+                        device="cuda")
+    lf = fs.initial_leapfrog_state(_standing(torch))
+    stencil, coef = fs._kernel_args()
+    u, up = lf.u.contiguous(), lf.u_prev.contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        u, up = kn.leapfrog_multistep(u, up, stencil, coef, k)
+    torch.cuda.synchronize()
+    halo_ms = 1e3 * (time.perf_counter() - t0) / (k * passes)
+    halo_bound = f32_bound(
+        3.0 + coef * sum(abs(c) for r in stencil for c in r), k * passes)
+    del fs, lf, up
+
+    case = _case(work, **{"T": "0.0004", "Beta": "0.25",
+                          "Log Every": "1"})
+    one = work / "shard-one"
+    _cli("newmark", case, one, "cuda", flags=("--precond", "mg"))
+    return dict(refs=_shard_refs(torch), halo_u=u, halo_ms=halo_ms,
+                halo_bound=halo_bound, case=case, one=one)
+
+
+def phase_shard(torch, kn, work: Path, pre: dict = None):
+    """Phase 32 (path M): the sharded port over torch.distributed.
+
+    (a) 2 and 4 gloo ranks sharing the one card (asked for explicitly:
+    NCCL refuses two ranks on one card): the scalability configuration
+    (standing mode, 640^2, dt 8e-5, f64, SHARD_STEPS steps) for theta 0,
+    1/2, 1 and Newmark 0, 1/4 over row slabs, and Newmark 1/4 over 2 x 2
+    blocks, each held to the one-rank run (rel L2 <= 1e-12, equal CG
+    counts); the Newmark CLI --shard rows --precond mg over 2 ranks, its
+    CSVs byte-equal to the one-rank run's; halo.py's B2 k-step at 4096^2
+    f32, k = 8, over 2 ranks against one-rank B2 (max abs err).
+    (b) with two cards or more, the scalability runs over NCCL at world
+    min(cards, 4), ms/step per rank count. ``pre``: _shard_setup's
+    references (made here where not given). Only the ranks launch
+    kernels after it, and each rank job must launch its kernels
+    (SHARD_JOB_KERNELS) and run no plain version."""
+    import numpy as np
+    if not pre:
+        pre = _shard_setup(torch, kn, work)
+    say(f"phase 32: the ranks ({time.perf_counter() - T_START:.0f} s since "
+        "the start)")
+    failed = []
+    refs = pre["refs"]
+
+    # (a) gloo ranks on the one card
+    halo = None
+    for n in (2, 4):
+        res = _shard_job(kn, n, "scal,halo" if n == 2 else "scal", "gloo",
+                         work)
+        failed += _shard_scal_gate(torch, np, refs, res, n, "gloo")
+        halo = res if n == 2 else halo
+    res = halo
+
+    nel, k, passes = SHARD_HALO
+    got = torch.as_tensor(res["u halo"], device="cuda")
+    err = float((got - pre["halo_u"]).abs().max())
+    bound = pre["halo_bound"]
+    ok = err <= bound
+    say(f"  halo.py B2 k={k} {nel + 1}^2 nodes f32 over 2 gloo ranks, "
+        f"{k * passes} "
+        f"steps: max abs err {err:.3e} against one-rank B2 (bound "
+        f"{bound:.3e}), {float(res['ms halo']):.3f} ms/step vs "
+        f"{pre['halo_ms']:.3f} one-rank {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"halo {err:.3e}")
+    del got
+
+    # the CLI: newmark --shard rows --precond mg over 2 gloo ranks
+    one, two = pre["one"], work / "shard-two"
+    wall = _launch_ranks(2, ["-m", "tpuwave_torch.cli.newmark",
+                             str(pre["case"]), "--device", "cuda",
+                             "--results-root", str(two / "res"),
+                             "--mesh-root", str(two / "mesh"), "--precond",
+                             "mg", "--shard", "rows", "--dist-backend",
+                             "gloo"],
+                         work / "shard-cli.log")
+    same = []
+    for name in ("probe.csv", "energy.csv", "iterations.csv", "error.csv"):
+        a = next((one / "res").rglob(name)).read_bytes()
+        b = next((two / "res").rglob(name)).read_bytes()
+        same.append(a == b)
+        if a != b:
+            failed.append(f"CLI {name} differs")
+    say(f"  newmark --shard rows --precond mg, 2 gloo ranks, 5 steps at "
+        f"640^2: CSVs byte-equal to one rank: {all(same)} ({wall:.1f} s "
+        "wall)")
+
+    failed += _shard_nccl(torch, np, kn, work, refs)
+    if failed:
+        raise AssertionError("phase 32: " + "; ".join(failed))
+    say("  ok")
+
+
+def _shard_nccl(torch, np, kn, work: Path, refs) -> list:
+    """Phase 32 (b): the scalability runs over NCCL, one card a rank, at
+    world 2 and min(cards, 4); skipped on one card."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say(f"  (b) NCCL: skipped, {cards} card (needs 2 or more)")
+        return []
+    failed = []
+    for n in sorted({2, min(cards, 4)}):
+        res = _shard_job(kn, n, "scal", "nccl", work)
+        failed += _shard_scal_gate(torch, np, refs, res, n, "nccl")
+    return failed
+
+
+def phase_shard_nccl(torch, kn, work: Path):
+    """Phase 32 (b) alone, with the one-rank runs it is held to (for a
+    multi-card machine: ``--only shard_nccl``)."""
+    import numpy as np
+    failed = _shard_nccl(torch, np, kn, work, _shard_refs(torch))
+    if failed:
+        raise AssertionError("phase 32 (b): " + "; ".join(failed))
+    say("  ok")
+
+
 #: the main paths' launches of B4, B9 and B11-B16 per shape (B14 also per
 #: form; see _count_shapes; counted only while _run_path drives a path)
 SHAPE_LAUNCHES = {}
@@ -4555,7 +4958,15 @@ def main() -> int:
                     "this checkout instead of the script's own, e.g. an "
                     "unpacked earlier commit, to time its kernels with this "
                     "script's phases (with --only)")
+    ap.add_argument("--shard-worker", metavar="JOB",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--shard-out", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-backend", default="gloo",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.shard_worker:
+        return shard_worker(args.shard_worker, args.shard_out,
+                            args.shard_backend)
     if args.kernels_from is not None and not args.only:
         ap.error("--kernels-from needs --only")
     import torch
@@ -4652,6 +5063,11 @@ def main() -> int:
             phase_p2_bench(torch)
             phase_precision(torch)
 
+        pre_m = {}
+
+        def path_m():
+            phase_shard(torch, kn, work, pre_m)
+
         _count_shapes(kn)
         launches_a = _run_path(kn, "A", PATH_A, path_a)
         launches_b = _run_path(kn, "B", PATH_B, path_b)
@@ -4670,6 +5086,9 @@ def main() -> int:
         launches_j = _run_path(kn, "J", PATH_J, path_j)
         launches_k = _run_path(kn, "K", PATH_K, path_k)
         launches_l = _run_path(kn, "L", PATH_L, path_l)
+        # path M is held to one-rank runs made before its counts start
+        pre_m.update(_shard_setup(torch, kn, work))
+        launches_m = _run_path(kn, "M", PATH_M, path_m)
 
     say("launches per shape, all paths:")
     for (name, shape), n in sorted(SHAPE_LAUNCHES.items()):
@@ -4683,7 +5102,7 @@ def main() -> int:
             launches=sum(ln.get(name, 0) for ln in (
                 launches_a, launches_b, launches_c, launches_d, launches_e,
                 launches_f, launches_g, launches_h, launches_i,
-                launches_j, launches_k, launches_l)),
+                launches_j, launches_k, launches_l, launches_m)),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             # no single PyTorch call computes any of these (F.conv2d

@@ -9,7 +9,8 @@
   exit codes, the same file set, CSVs equal within rtol 1e-10 (the
   convergence.csv wall-clock column aside) and identical iterations.csv.
 * Flags whose paths are not ported exit 1 with a one-line message (the
-  solver flags only together with a problem that is not ported).
+  solver flags only together with a problem that is not ported; --shard
+  at R = 2 or with a varying or time-dependent C).
 * The run-surface flags through both CLIs at Nel 4: --checkpoint-every
   writes the same checkpoint files, --resume from the same checkpoint ends
   in the same rows, --profile-dir leaves the CSVs as they are and writes a
@@ -234,9 +235,9 @@ def test_cli_reproduces_tpuwave(tmp_path, capsys, family, preset, over):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--shard", "rows"], "A11"),
-    (["--distributed"], "A11"),
-    (["--unstructured-sharding", "cells"], "A11"),
+    (["--unstructured-sharding", "cells"], "A11(b)"),
+    (["--unstructured-sharding", "dofs"], "A11(b)"),
+    (["--unstructured-sharding", "dofs2d"], "A11(b)"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     from tpuwave_torch.cli import theta
@@ -247,6 +248,29 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, flag, item):
     err = capsys.readouterr().err.strip().splitlines()
     assert rc == 1
     assert len(err) == 1 and f"ROADMAP {item}" in err[0]
+    assert not (tmp_path / "r").exists()
+
+
+@pytest.mark.parametrize("shard,over", [
+    ("rows", {"R": "2"}),
+    ("rows", {"C": {"Function expression": "1.0 + 0.5*x",
+                    "Variable names": "x, y, t"}}),
+    ("blocks", {"Time Dependent C": "true",
+                "C": {"Function expression": "1.0 + 0.1*t",
+                      "Variable names": "x, y, t"}}),
+])
+def test_cli_refuses_unported_sharding(tmp_path, capsys, shard, over):
+    """--shard on a problem whose sharded engine is not ported (R = 2, a
+    varying or a time-dependent C) exits 1 with one line naming A11(b),
+    before any output."""
+    from tpuwave_torch.cli import newmark
+    path = _write_case(tmp_path, "standing-mode-wsol", **over)
+    rc = newmark.main([str(path), "--device", "cpu", "--results-root",
+                       str(tmp_path / "r"), "--mesh-root",
+                       str(tmp_path / "m"), "--shard", shard])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert rc == 1
+    assert len(err) == 1 and "ROADMAP A11(b)" in err[0]
     assert not (tmp_path / "r").exists()
 
 

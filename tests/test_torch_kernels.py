@@ -527,6 +527,34 @@ def test_cuda_constrained_apply(cuda_device, dtype, diff, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("diff", [False, True])
+@pytest.mark.parametrize("shape,place", [
+    ((40, 37), (-1, -1, 78, 37)),          # a rank's padded block, direct
+    ((163, 643), (159, -1, 641, 641)),     # 64 x 8 tiles, an inner slab
+    ((1459, 1462), (-1, 700, 1457, 2160)),  # 64 x 32 tiles, a corner block
+])
+def test_cuda_constrained_apply_at_offsets(cuda_device, dtype, diff, shape,
+                                           place):
+    # the block of a larger grid whose node (ro, co) is the block's (0, 0):
+    # pinned by the larger grid's walls; the outputs whose neighbourhood
+    # lies in the block are exact
+    ro, co, nh, nw = place
+    (x,) = _on(cuda_device, np.random.default_rng(8).uniform(-1.0, 1.0,
+                                                              shape),
+               dtype=dtype)
+    kw = dict(row_offset=ro, col_offset=co, n_rows=nh, n_cols=nw)
+    got = tk.constrained_stencil_apply(x, RAND, 1.7, diff=diff, **kw)
+    again = tk.constrained_stencil_apply(x, RAND, 1.7, diff=diff, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = tk.constrained_stencil_apply_reference(x, RAND, 1.7, diff, **kw)
+    got, want = got[1:-1, 1:-1], want[1:-1, 1:-1]
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= _bound(dtype, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_leapfrog_step(cuda_device, dtype):
     u, up = _on(cuda_device, *_fields(7), dtype=dtype)
     got = tk.leapfrog_step(u, up, RAND, 0.05)

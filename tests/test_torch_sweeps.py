@@ -7,8 +7,8 @@ files (run log, merged / summary CSV, time-series folders) with equal rows
 in every column but the wall-clock ones (numbers within rtol 1e-10);
 ``extract_metrics`` equals tpuwave's on one run folder; the scalability
 sweep writes the twin's schema (binary ``tpuwave_torch-fast``) and a
-profiler trace per scheme, and refuses more than one device (ROADMAP
-A11); the acceptance sweep runs a preset through both CLIs.
+profiler trace per scheme (its ranks: tests/test_torch_shard_cli.py); the
+acceptance sweep runs a preset through both CLIs.
 """
 
 import contextlib
@@ -90,17 +90,6 @@ def test_dissipation_plan_and_metrics_match_tpuwave(tmp_path, monkeypatch):
     run_dir = next((tmp_path / "t" / "res").rglob("energy.csv")).parent
     assert tmod.extract_metrics(run_dir) == jmod.extract_metrics(run_dir)
     assert "energy_ratio" in tmod.extract_metrics(run_dir)
-
-
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--distributed"],
-                                   ["--virtual-devices", "8"]])
-def test_scalability_refuses_more_than_one_device(tmp_path, capsys, flags):
-    with contextlib.chdir(tmp_path):
-        rc = _script("torch_scalability_sweep").main(flags +
-                                                     ["--device", "cpu"])
-    err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 1 and len(err) == 1 and "ROADMAP A11" in err[0]
-    assert not list(tmp_path.iterdir())
 
 
 def test_scalability_sweep_writes_the_schema(tmp_path, capsys):

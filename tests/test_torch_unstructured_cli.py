@@ -86,7 +86,7 @@ def test_unstructured_cli_refusals(tmp_path, capsys, what):
     assert rc == 1
     if what == "sharding":
         assert err == ["--unstructured-sharding dofs is not ported yet "
-                       "(ROADMAP A11)"]
+                       "(ROADMAP A11(b))"]
         return
     assert jcli.main(argv) == 1
     assert capsys.readouterr().err.strip().splitlines() == err

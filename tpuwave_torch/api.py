@@ -23,7 +23,7 @@ __all__ = ["solve", "build_solver"]
 #: the keyword arguments the fast engines take; any other routes
 #: ``engine='auto'`` to the parity engine (tpuwave's build_solver contract)
 _FAST_KWARGS = {"precond", "cheby_degree", "solver", "cheby_solver_degree",
-                "mg_pre_degree", "mg_smooth_range"}
+                "mg_pre_degree", "mg_smooth_range", "sharding"}
 
 
 def build_solver(params: Params, family: str = "theta",
@@ -35,7 +35,9 @@ def build_solver(params: Params, family: str = "theta",
     is a structured P1/P2 rectangle it takes, else the parity engine),
     'fast' (require it; ValueError when ineligible) or 'parity' (the
     gather-path engine). Parity-only keyword arguments (e.g.
-    ``lumped_explicit``) route 'auto' to the parity engine.
+    ``lumped_explicit``) route 'auto' to the parity engine. ``sharding=``
+    (parallel/sharding.py::grid_sharding, as ``--shard``) partitions a
+    fast-engine run over the ranks; the parity engine runs unsharded.
     """
     from tpuwave_torch.core.unstructured import read_mesh_file
     from tpuwave_torch.models.fast_engine import resolve_engine
@@ -60,6 +62,7 @@ def build_solver(params: Params, family: str = "theta",
         return solver
     if reason is not None and engine == "fast":
         raise ValueError(f"engine='fast' unavailable: {reason}")
+    solver_kwargs.pop("sharding", None)
     if family == "theta":
         return ThetaSolver(disc, **solver_kwargs)
     return NewmarkSolver(disc, **solver_kwargs)

@@ -7,9 +7,20 @@ problem name = ``<family>-<param-file-stem>``; env flags
 ``NMPDE_SAVE_SOLUTION`` / ``NMPDE_LOG_EVERY`` / ``NMPDE_PARAM_FILE``
 exported for the run, and friendly parse-error hints with exit(1).
 
-The flags are tpuwave's plus ``--device {cuda,cpu}`` (default cuda).
-Flags whose code paths are not ported yet exit with code 1 and a one-line
-message naming the ROADMAP item; nothing falls back to another path.
+The flags are tpuwave's plus ``--device {cuda,cpu}`` (default cuda) and
+``--dist-backend {nccl,gloo}``. Flags whose code paths are not ported yet
+exit with code 1 and a one-line message naming the ROADMAP item; nothing
+falls back to another path.
+
+Ranks: ``--shard rows|blocks`` partitions a structured R = 1 fast run
+with a constant c over the ranks the launcher's environment gives
+(``torchrun --nproc-per-node N``: ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``; parallel/sharding.py::init_distributed); started alone it
+is a world of one, as tpuwave on a one-chip host. ``--distributed`` is
+tpuwave's multi-host switch: without a launcher environment it prints
+tpuwave's notice and runs single-host. The backend is NCCL for ``cuda``
+and gloo for ``cpu`` unless ``--dist-backend`` says otherwise (gloo for
+several ranks on one card). Only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from tpuwave_torch import config
 from tpuwave_torch.core.unstructured import read_mesh_file
 from tpuwave_torch.models.general import make_discretization
 from tpuwave_torch.models.runner import RunConfig, run_solver
+from tpuwave_torch.parallel import sharding as shd
 from tpuwave_torch.utils.params import ParamError, load_params
 from tpuwave_torch.utils.profiling import trace
 
@@ -79,8 +91,12 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
                              "Chebyshev solve blocks")
     parser.add_argument("--shard", choices=("none", "rows", "blocks"),
                         default="none",
-                        help="partition the run across devices (not "
-                             "ported yet)")
+                        help="partition the fast-engine run over the "
+                             "launched ranks (the reference's mpirun -np N "
+                             "domain decomposition): rows = row slabs, "
+                             "blocks = 2-D row x column blocks. Structured "
+                             "R=1 runs with a constant C (the parity "
+                             "engine runs unsharded)")
     parser.add_argument("--unstructured-sharding",
                         choices=("none", "cells", "dofs", "dofs2d"),
                         default="none",
@@ -89,21 +105,37 @@ def _build_parser(family: str) -> argparse.ArgumentParser:
                              "/ dofs2d not ported yet)")
     parser.add_argument("--vtu-pieces", type=int, default=1,
                         help="VTU pieces per output record (0 = one per "
-                             "device)")
+                             "rank, each written by its rank)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host run (not ported yet)")
+                        help="multi-host run: join the process group the "
+                             "launcher's environment describes (torchrun)")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="process-group backend of a multi-rank run "
+                             "(default: nccl on cuda, gloo on cpu; gloo "
+                             "for several ranks on one card)")
     return parser
 
 
 def _refused(args):
     """The one-line refusal for a flag whose path is not ported, or None."""
-    if args.shard != "none":
-        return f"--shard {args.shard} is not ported yet (ROADMAP A11)"
-    if args.distributed:
-        return "--distributed is not ported yet (ROADMAP A11)"
     if args.unstructured_sharding != "none":
         return (f"--unstructured-sharding {args.unstructured_sharding} is "
-                "not ported yet (ROADMAP A11)")
+                "not ported yet (ROADMAP A11(b))")
+    return None
+
+
+def _shard_refusal(args, params):
+    """The one-line refusal of ``--shard`` on a problem whose sharded
+    engine is not ported, or None."""
+    if args.shard == "none" or params.mesh_file is not None:
+        return None
+    if params.r != 1:
+        return (f"--shard {args.shard} at R = {params.r} is not ported yet "
+                "(ROADMAP A11(b))")
+    if params.c.constant_value is None:
+        return (f"--shard {args.shard} with a varying or time-dependent C "
+                "is not ported yet (ROADMAP A11(b))")
     return None
 
 
@@ -121,14 +153,39 @@ def run_main(family: str, argv=None) -> int:
         return 1
     dtype = config.default_float(args.f32)
 
+    joined = False
+    if args.distributed or args.shard != "none":
+        joined = not shd.world_size() > 1 and shd.init_distributed(
+            backend=args.dist_backend, device=device)
+        if args.distributed and shd.world_size() == 1:
+            print("--distributed: no coordination env configured "
+                  "(MASTER_ADDR unset); continuing single-host",
+                  file=sys.stderr)
+    try:
+        return _run(family, args, device, dtype)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(family: str, args, device, dtype) -> int:
+    primary = shd.world_rank() == 0
+    if not primary:
+        args.quiet = True
+
+    def say(*a):
+        if primary:
+            print(*a)
+
     parameters_file = args.parameters
     if parameters_file is None:
         parameters_file = DEFAULT_PARAM_FILE
-        print(f"Usage: tpuwave_torch-{family} <path-to-parameters-file>")
-        print(f"Using default parameter file: {parameters_file}")
+        say(f"Usage: tpuwave_torch-{family} <path-to-parameters-file>")
+        say(f"Using default parameter file: {parameters_file}")
     else:
-        print(f"Using parameter file from argument: {parameters_file}")
-    print("===============================================")
+        say(f"Using parameter file from argument: {parameters_file}")
+    say("===============================================")
 
     try:
         params = load_params(parameters_file)
@@ -138,16 +195,16 @@ def run_main(family: str, argv=None) -> int:
               "JSON schema (see parameters/*.json).", file=sys.stderr)
         return 1
 
-    # export the reference's env channels for the duration of the run only
-    env_save = {k: os.environ.get(k) for k in
-                ("NMPDE_PARAM_FILE", "NMPDE_SAVE_SOLUTION", "NMPDE_LOG_EVERY")}
-    os.environ["NMPDE_PARAM_FILE"] = str(parameters_file)
-    os.environ["NMPDE_SAVE_SOLUTION"] = "1" if params.save_solution else "0"
-    os.environ["NMPDE_LOG_EVERY"] = str(params.effective_log_every)
+    refusal = _shard_refusal(args, params)
+    if refusal is not None:
+        print(refusal, file=sys.stderr)
+        return 1
 
     problem_name = f"{family}-{Path(parameters_file).stem}"
-    print(f"  Problem name: {problem_name}")
-    print(f"  Backend: {device.type}, 1 device(s), 1 process(es)")
+    n_ranks = shd.world_size()
+    say(f"  Problem name: {problem_name}")
+    say(f"  Backend: {device.type}, {n_ranks} device(s), "
+        f"{n_ranks} process(es)")
 
     # an imported mesh is read here, so that a missing or malformed file
     # ends the run with the reader's one-line message (tpuwave's text)
@@ -159,6 +216,24 @@ def run_main(family: str, argv=None) -> int:
             print(e, file=sys.stderr)
             return 1
 
+    solver_kwargs = {}
+    if args.shard != "none":
+        if params.mesh_file is None:
+            mesh_ = (shd.device_mesh(shape=shd.blocks_shape(n_ranks))
+                     if args.shard == "blocks" else shd.device_mesh())
+            solver_kwargs["sharding"] = shd.grid_sharding(mesh_)
+            say(f"  Sharding: {args.shard} over {n_ranks} device(s)")
+        else:
+            say(f"  (--shard {args.shard} ignored: only structured "
+                "fast runs shard)")
+
+    # export the reference's env channels for the duration of the run only
+    env_save = {k: os.environ.get(k) for k in
+                ("NMPDE_PARAM_FILE", "NMPDE_SAVE_SOLUTION", "NMPDE_LOG_EVERY")}
+    os.environ["NMPDE_PARAM_FILE"] = str(parameters_file)
+    os.environ["NMPDE_SAVE_SOLUTION"] = "1" if params.save_solution else "0"
+    os.environ["NMPDE_LOG_EVERY"] = str(params.effective_log_every)
+
     try:
         from tpuwave_torch.models.fast_engine import resolve_engine
         try:
@@ -168,7 +243,7 @@ def run_main(family: str, argv=None) -> int:
                                                       device=device,
                                                       mesh=mesh),
                 mesh=mesh, precond=args.precond, solver=args.solver, dtype=dtype,
-                device=device)
+                device=device, **solver_kwargs)
         except ValueError as e:
             if args.solver == "3term":
                 raise
@@ -185,7 +260,7 @@ def run_main(family: str, argv=None) -> int:
             banner = "  Engine: fast (grid-stencil)"
             if args.solver != "3term":
                 banner += f" [{args.solver}]"
-            print(banner)
+            say(banner)
         elif reason is not None:
             if args.engine == "fast":
                 print("--engine fast unavailable for this problem: "
@@ -193,7 +268,7 @@ def run_main(family: str, argv=None) -> int:
                       "to the parity engine) or --engine parity.",
                       file=sys.stderr)
                 return 1
-            print(f"  Engine: parity (fast engine ineligible: {reason})")
+            say(f"  Engine: parity (fast engine ineligible: {reason})")
         if solver is None:
             from tpuwave_torch.models.newmark import NewmarkSolver
             from tpuwave_torch.models.theta import ThetaSolver

@@ -56,11 +56,11 @@ from tpuwave_torch.ops import kernels
 from tpuwave_torch.ops.assembly import (element_mass_class,
                                         element_stiffness_class)
 from tpuwave_torch.ops.stencil import (P1_CLASS_CORNERS, GridStencilOperator,
-                                       apply_stencil_diff,
                                        apply_varcoef_planes,
                                        assemble_varcoef_planes,
                                        boundary_mask_grid,
                                        class_matrices_to_stencil,
+                                       constrained_apply_on,
                                        lumped_mass_grid)
 from tpuwave_torch.solve.cg import pcg, vdot
 from tpuwave_torch.solve.cheby_iter import (chebyshev_coefficients,
@@ -147,13 +147,26 @@ class FastWaveSolver:
     lumped        : explicit beta=0 diagonal-mass path (no CG)
     dtype, device : of every tensor the solver builds; the device defaults
                     to "cuda" and raises where there is no card
+    sharding      : a parallel/sharding.py::GridSharding (tpuwave's
+                    ``sharding=``): every state tensor is then this rank's
+                    block of the grid (``block_shape``), the stencils
+                    exchange a one-node halo, the masks follow global
+                    coordinates and every norm and dot is summed over the
+                    ranks. Sharded: :meth:`initial_state`, :meth:`step` /
+                    :meth:`run_scan`, :meth:`initial_leapfrog_state`,
+                    :meth:`leapfrog_step` / :meth:`run_leapfrog_scan` and
+                    :meth:`energy`; the other methods raise (ROADMAP
+                    A11(b)). The implicit solves' matvecs are kernel B3 at
+                    the block's offsets, the leapfrog step B2 at the slab's
+                    row offset (row slabs) or B3 and one update (blocks).
     """
 
     def __init__(self, nel: Tuple[int, int], geometry, dt: float, *,
                  c: float = 1.0, scheme: str = "newmark", beta: float = 0.0,
                  gamma: float = 0.5, theta: float = 0.5, lumped: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 device="cuda", cg_reduction: float = 1e-6):
+                 device="cuda", cg_reduction: float = 1e-6,
+                 sharding=None):
         self.mesh = StructuredTriMesh(tuple(nel), geometry)
         self.space = FeSpace(self.mesh, 1)
         self.shape = (self.mesh.ny + 1, self.mesh.nx + 1)
@@ -168,19 +181,34 @@ class FastWaveSolver:
         #: CG relative-reduction factor (reference ReductionControl 1e-6)
         self.cg_reduction = float(cg_reduction)
         self.lumped = bool(lumped) and scheme == "newmark" and beta == 0.0
+        self.sharding = sharding
+        lay = (None if sharding is None
+               else sharding.layout(self.shape, self.device))
+        #: this rank's block of the grid (None: the whole grid, also for
+        #: a sharding over a world of one)
+        self.layout = lay if lay is not None and lay.sharded else None
+        self.block_shape = (self.shape if self.layout is None
+                            else self.layout.block_shape)
 
         quad = gauss_simplex(2)
         m_class = element_mass_class(self.space, quad)
         k_class = element_stiffness_class(self.space, quad, c * c)
         self.mass = GridStencilOperator(class_matrices_to_stencil(m_class),
-                                        self.shape, dtype, self.device)
+                                        self.shape, dtype, self.device,
+                                        self.layout)
         self.stiff = GridStencilOperator(class_matrices_to_stencil(k_class),
-                                         self.shape, dtype, self.device)
-        self.inv_lumped = torch.tensor(1.0 / lumped_mass_grid(self.space),
-                                       dtype=dtype, device=self.device)
+                                         self.shape, dtype, self.device,
+                                         self.layout)
+        inv_lumped = 1.0 / lumped_mass_grid(self.space)
         bnd = boundary_mask_grid(self.space)
-        self.boundary = torch.tensor(bnd, device=self.device)
-        self.interior = torch.tensor(~bnd, device=self.device)
+        if self.layout is not None:
+            inv_lumped = self.layout.local(inv_lumped)
+            bnd = self.layout.local(bnd)
+        self.inv_lumped = torch.tensor(np.ascontiguousarray(inv_lumped),
+                                       dtype=dtype, device=self.device)
+        self.boundary = torch.tensor(np.ascontiguousarray(bnd),
+                                     device=self.device)
+        self.interior = ~self.boundary
 
         if scheme == "newmark":
             self.system = self.mass.axpy(self.beta * self.dt * self.dt,
@@ -199,30 +227,51 @@ class FastWaveSolver:
         self.last_iterations = []
 
     # ------------------------------------------------------------------
+    def _unsharded(self, name: str) -> None:
+        """Refuse a method that has no sharded form yet."""
+        if self.layout is not None:
+            raise ValueError(f"FastWaveSolver.{name} does not run sharded "
+                             "yet (ROADMAP A11(b))")
+
+    def _all_sum(self):
+        """The ranks' sum for pcg / chebyshev_solve (None unsharded)."""
+        return None if self.layout is None else self.layout.all_sum
+
+    def _norm(self, x):
+        if self.layout is None:
+            return torch.linalg.vector_norm(x)
+        return self.layout.norm(x)
+
     def grid_coords(self):
-        """(ny+1, nx+1) x and y coordinate planes on the solver's device."""
+        """(ny+1, nx+1) x and y coordinate planes on the solver's device
+        (this rank's block of them when sharded)."""
         (x0, y0) = self.mesh.origin
         ny1, nx1 = self.shape
-        ix = torch.arange(nx1, dtype=self.dtype, device=self.device)
-        iy = torch.arange(ny1, dtype=self.dtype, device=self.device)
-        xs = (x0 + self.mesh.hx * ix)[None, :].expand(ny1, nx1)
-        ys = (y0 + self.mesh.hy * iy)[:, None].expand(ny1, nx1)
+        r0, r1, c0, c1 = 0, ny1, 0, nx1
+        if self.layout is not None:
+            lay = self.layout
+            r0, r1, c0, c1 = lay.r0, lay.r1, lay.c0, lay.c1
+        ix = torch.arange(c0, c1, dtype=self.dtype, device=self.device)
+        iy = torch.arange(r0, r1, dtype=self.dtype, device=self.device)
+        xs = (x0 + self.mesh.hx * ix)[None, :].expand(r1 - r0, c1 - c0)
+        ys = (y0 + self.mesh.hy * iy)[:, None].expand(r1 - r0, c1 - c0)
         return xs, ys
 
     def _stiff_diff(self, u):
         """K u in zero-row-sum difference form (apply_stencil_diff)."""
-        return apply_stencil_diff(u, self.stiff.stencil)
+        return self.stiff.diff(u)
 
     def _as_grid(self, v):
         return torch.broadcast_to(
             torch.as_tensor(v, dtype=self.dtype, device=self.device),
-            self.shape).contiguous()
+            self.block_shape).contiguous()
 
     def initial_state(self, u0_fn, v0_fn=None) -> FastState:
         """Interpolate initial data; consistent a0 from the lumped mass."""
         xs, ys = self.grid_coords()
         u0 = self._as_grid(u0_fn(xs, ys))
-        v0 = (torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        v0 = (torch.zeros(self.block_shape, dtype=self.dtype,
+                          device=self.device)
               if v0_fn is None else self._as_grid(v0_fn(xs, ys)))
         a0 = torch.where(self.boundary, 0.0,
                          -self._stiff_diff(u0) * self.inv_lumped)
@@ -233,6 +282,7 @@ class FastWaveSolver:
         tolerances (reference WaveNewmark.cpp:298-390; homogeneous data so
         a0|boundary = 0) — use for digit-parity runs of the implicit
         schemes instead of the lumped a0 of initial_state."""
+        self._unsharded("initial_state_consistent")
         st = self.initial_state(u0_fn, v0_fn)
         return FastState(u=st.u, v=st.v, a=self._consistent_accel(st.u))
 
@@ -260,8 +310,7 @@ class FastWaveSolver:
         from tpuwave_torch.solve.cheby_iter import stencil_symbol_bounds
         lam_max = stencil_symbol_bounds(op.stencil)[1]
         eta = 8 * float(torch.finfo(self.dtype).eps)
-        return eta * (lam_max * torch.linalg.vector_norm(x0)
-                      + torch.linalg.vector_norm(rhs))
+        return eta * (lam_max * self._norm(x0) + self._norm(rhs))
 
     @property
     def _max_iter(self) -> int:
@@ -272,7 +321,11 @@ class FastWaveSolver:
         op(w masked to 0 on pinned nodes), pinned rows diag * w. In torch
         ops, or with ``kernel`` through kernel B3."""
         st, diag = op.stencil, op.stencil[1][1]
-        if kernel:
+        if self.layout is not None:
+            # sharded: B3 at the block's offsets, whichever path asks
+            def apply_c(w):
+                return constrained_apply_on(self.layout, w, st, diag)
+        elif kernel:
             def apply_c(w):
                 return kernels.constrained_stencil_apply(w, st, diag)
         else:
@@ -295,7 +348,8 @@ class FastWaveSolver:
                   precond_inv_diag=(self._inv_diag if precond is None
                                     else precond),
                   abs_tol=self._solve_abs_tol(rhs, x0, self.system),
-                  max_iter=self._max_iter, reduction=self.cg_reduction)
+                  max_iter=self._max_iter, reduction=self.cg_reduction,
+                  all_sum=self._all_sum())
         a_new = res.x.to(self.dtype)
         u_new = z + (beta * dt * dt) * a_new
         v_new = v + dt * ((1.0 - gamma) * a + gamma * a_new)
@@ -322,7 +376,8 @@ class FastWaveSolver:
                     precond_inv_diag=(self._inv_diag if precond is None
                                       else precond),
                     abs_tol=self._solve_abs_tol(rhs_u, x0_u, self.system),
-                    max_iter=self._max_iter, reduction=self.cg_reduction)
+                    max_iter=self._max_iter, reduction=self.cg_reduction,
+                    all_sum=self._all_sum())
         u_new = res_u.x.to(self.dtype)
 
         rhs_v = torch.where(
@@ -333,7 +388,8 @@ class FastWaveSolver:
         res_v = pcg(self._constrained(self.mass, kernel), rhs_v, x0_v,
                     precond_inv_diag=1.0 / self.mass.stencil[1][1],
                     abs_tol=self._solve_abs_tol(rhs_v, x0_v, self.mass),
-                    max_iter=self._max_iter, reduction=self.cg_reduction)
+                    max_iter=self._max_iter, reduction=self.cg_reduction,
+                    all_sum=self._all_sum())
         v_new = res_v.x.to(self.dtype)
         return (FastState(u=u_new, v=v_new, a=a),
                 (res_u.iterations, res_v.iterations))
@@ -371,7 +427,8 @@ class FastWaveSolver:
         dt = self.dt
         xs, ys = self.grid_coords()
         u0 = self._as_grid(u0_fn(xs, ys))
-        v0 = (torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        v0 = (torch.zeros(self.block_shape, dtype=self.dtype,
+                          device=self.device)
               if v0_fn is None else self._as_grid(v0_fn(xs, ys)))
         t0, t1 = self._times((0.0, dt))
         rhs = -self._stiff_diff(u0)
@@ -387,12 +444,36 @@ class FastWaveSolver:
         return LeapfrogState(u=u1.to(self.dtype), u_prev=u0)
 
     def leapfrog_step(self, state: LeapfrogState) -> LeapfrogState:
-        """One plain-PyTorch leapfrog step (roll stencil, lumped mass)."""
+        """One plain-PyTorch leapfrog step (roll stencil, lumped mass).
+
+        Sharded: a one-row halo exchange, then kernel B2 for one step on
+        the padded slab at its row offset (row slabs), or a one-node halo
+        exchange, kernel B3 at the block's offsets and one elementwise
+        update (blocks); the walls are pinned to 0."""
+        if self.layout is not None:
+            return self._leapfrog_step_block(state)
         dt2 = self.dt * self.dt
         u, u_prev = state
         u_next = 2.0 * u - u_prev - dt2 * (self.stiff(u) * self.inv_lumped)
         u_next = torch.where(self.boundary, 0.0, u_next).to(self.dtype)
         return LeapfrogState(u=u_next, u_prev=u)
+
+    def _leapfrog_step_block(self, state: LeapfrogState) -> LeapfrogState:
+        lay = self.layout
+        stencil, coef = self._kernel_args()
+        u, up = state
+        if lay.shape[1] == lay.block_shape[1]:
+            # row slabs: B2 on the padded slab, one step
+            un, _ = kernels.leapfrog_multistep(
+                lay.exchange(u, 1, cols=False).contiguous(),
+                torch.nn.functional.pad(up, (0, 0, 1, 1)), stencil, coef, 1,
+                row_offset=lay.r0 - 1, n_rows=lay.shape[0])
+            u_next = un[1:-1]
+        else:
+            su = constrained_apply_on(lay, u, stencil, 0.0)
+            u_next = torch.where(self.boundary, 0.0,
+                                 2.0 * u - up - coef * su)
+        return LeapfrogState(u=u_next.to(self.dtype).contiguous(), u_prev=u)
 
     def run_leapfrog_scan(self, state: LeapfrogState,
                           n_steps: int) -> LeapfrogState:
@@ -410,6 +491,7 @@ class FastWaveSolver:
     # ------------------------------------------------------------------
     def initial_compensated_state(self, u0_fn,
                                   v0_fn=None) -> CompensatedState:
+        self._unsharded("initial_compensated_state")
         lf = self.initial_leapfrog_state(u0_fn, v0_fn)
         zero = torch.zeros_like(lf.u)
         return CompensatedState(u=lf.u, u_lo=zero, u_prev=lf.u_prev,
@@ -422,6 +504,7 @@ class FastWaveSolver:
         exact relative to its eps scale), the head combination tracked by
         TwoSum so its rounding lands in the next tail. Head and tail are
         masked to 0 on the walls separately."""
+        self._unsharded("leapfrog_step_compensated")
         dt2 = self.dt * self.dt
         uh, ul, ph, pl = state
         d = -(dt2 * self.inv_lumped) * (self._stiff_diff(uh)
@@ -460,6 +543,7 @@ class FastWaveSolver:
         ``f_fn`` adds the quadrature-consistent forcing load F(t^n) (the
         semi-discrete recurrence reads M a^n = F^n - K u^n, so f acts at
         the FROM time t - dt; :meth:`grid_load`)."""
+        self._unsharded("leapfrog_step_driven")
         dt2 = self.dt * self.dt
         u, u_prev = state
         accel = -self.stiff(u) * self.inv_lumped
@@ -476,6 +560,7 @@ class FastWaveSolver:
         """One :meth:`leapfrog_step_driven` per stamp of ``times`` (the
         times being stepped TO, accumulated like the reference loop), in
         torch ops."""
+        self._unsharded("run_leapfrog_driven")
         for t in self._times(times):
             state = self.leapfrog_step_driven(state, t, g_fn, f_fn)
         return state
@@ -509,6 +594,7 @@ class FastWaveSolver:
         (O(perimeter) slice writes) — the algebra of
         :meth:`leapfrog_step_driven`. For temporal blocking use
         :meth:`run_leapfrog_driven_multistep` (no forcing there)."""
+        self._unsharded("run_leapfrog_driven_kernel")
         stencil, coef = self._kernel_args()
         dt2 = self.dt * self.dt
         h, w = self.shape
@@ -541,6 +627,7 @@ class FastWaveSolver:
         from FOUR calls of ``g_fn`` with t as a (k, 1) tensor against
         (1, n) edge coordinates, so ``g_fn`` must broadcast in t (torch
         callables and Expression.evaluate do)."""
+        self._unsharded("run_leapfrog_driven_multistep")
         k = int(steps_per_call)
         times = self._times(times)
         n = int(times.shape[0])
@@ -594,25 +681,38 @@ class FastWaveSolver:
         boundary rows — no roll wrap involved).
         """
         vals, frac, w, det = self._load_data()
+        # the cells [ca, cb) x [cc, cd) that touch the nodes [ra, rb) x
+        # [rc, rd) (all of them unsharded; a rank's block and the cells
+        # around it sharded, the same sums node by node)
         ny, nx = self.mesh.ny, self.mesh.nx
+        ra, rb, rc, rd = 0, ny + 1, 0, nx + 1
+        if self.layout is not None:
+            lay = self.layout
+            ra, rb, rc, rd = lay.r0, lay.r1, lay.c0, lay.c1
+        ca, cb = max(ra - 1, 0), min(rb, ny)
+        cc, cd = max(rc - 1, 0), min(rd, nx)
         (x0, y0) = self.mesh.origin
         hx, hy = self.mesh.hx, self.mesh.hy
-        ix = torch.arange(nx, dtype=self.dtype,
-                          device=self.device)[None, :].expand(ny, nx)
-        iy = torch.arange(ny, dtype=self.dtype,
-                          device=self.device)[:, None].expand(ny, nx)
-        out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        mh, mw = cb - ca, cd - cc
+        ix = torch.arange(cc, cd, dtype=self.dtype,
+                          device=self.device)[None, :].expand(mh, mw)
+        iy = torch.arange(ca, cb, dtype=self.dtype,
+                          device=self.device)[:, None].expand(mh, mw)
+        out = torch.zeros((mh + 1, mw + 1), dtype=self.dtype,
+                          device=self.device)
         for k in range(2):
             for q in range(frac.shape[1]):
                 fx, fy = float(frac[k, q, 0]), float(frac[k, q, 1])
                 fv = torch.broadcast_to(torch.as_tensor(
                     f_fn(x0 + (ix + fx) * hx, y0 + (iy + fy) * hy, t),
-                    dtype=self.dtype, device=self.device), (ny, nx))
+                    dtype=self.dtype, device=self.device), (mh, mw))
                 for a in range(3):
                     ox, oy = P1_CLASS_CORNERS[k][a]
-                    out[oy:oy + ny, ox:ox + nx] += (
+                    out[oy:oy + mh, ox:ox + mw] += (
                         (det * float(w[q]) * float(vals[q, a])) * fv)
-        return out
+        if self.layout is None:
+            return out
+        return out[ra - ca:rb - ca, rc - cc:rd - cc].contiguous()
 
     # ------------------------------------------------------------------
     # time-dependent wave speed on the explicit path: the variable-
@@ -644,6 +744,7 @@ class FastWaveSolver:
         """(ny, nx, 2) per-triangle scales det * sum_q w_q c^2(x_q, t):
         the compact payload the varcoef planes are assembled from (the
         time-dependent engines carry it across steps)."""
+        self._unsharded("_tdep_scales")
         _, frac, w, det = self._tdep_data()
         ny, nx = self.mesh.ny, self.mesh.nx
         (x0, y0) = self.mesh.origin
@@ -681,6 +782,7 @@ class FastWaveSolver:
         t^n; the state lands at t^n + dt). Optional ``g_fn`` pins
         time-dependent Dirichlet data at t^{n+1}; optional ``f_fn`` adds
         the quadrature-consistent forcing load F(t^n)."""
+        self._unsharded("leapfrog_step_tdep")
         dt2 = self.dt * self.dt
         u, u_prev = state
         ku = apply_varcoef_planes(self._tdep_planes(c_fn, t), u)
@@ -718,6 +820,7 @@ class FastWaveSolver:
         """``n_steps`` leapfrog steps, one launch of kernel B1 each
         (tpuwave: run_leapfrog_pallas). On CPU tensors the kernel's plain
         version runs."""
+        self._unsharded("run_leapfrog_kernel")
         stencil, coef = self._kernel_args()
         u, up = state.u.contiguous(), state.u_prev.contiguous()
         for _ in range(int(n_steps)):
@@ -730,6 +833,7 @@ class FastWaveSolver:
         kernel B2 (device-memory traffic ~ (2 reads + 2 writes) /
         steps_per_call arrays per step). ``n_steps`` must be a multiple
         of ``steps_per_call``."""
+        self._unsharded("run_leapfrog_multistep")
         if n_steps % steps_per_call != 0:
             raise ValueError("n_steps must be a multiple of steps_per_call")
         stencil, coef = self._kernel_args()
@@ -779,6 +883,7 @@ class FastWaveSolver:
         tpuwave's default smoother degree 1 (``gmg_for_system``'s own is 2);
         CG's stopping rule keeps the solution accuracy, only the iteration
         split changes."""
+        self._unsharded("gmg_preconditioner")
         coef = (self.beta * self.dt * self.dt if self.scheme == "newmark"
                 else (self.theta * self.dt) ** 2)
         return gmg_for_system(
@@ -799,6 +904,7 @@ class FastWaveSolver:
         """Newmark (beta>0) or theta stepping with MG-PCG linear solves
         (same stopping contract as the other implicit paths), setup and
         matvec in torch ops."""
+        self._unsharded("run_implicit_mg")
         self._require_implicit("run_implicit_mg")
         precond = self.gmg_preconditioner(
             pre_degree=pre_degree, smooth_range=smooth_range,
@@ -811,6 +917,7 @@ class FastWaveSolver:
         """Newmark (beta>0) or theta stepping where every CG matvec is
         kernel B3 (tpuwave: run_implicit_pallas), Jacobi-preconditioned;
         the setup stays in torch ops."""
+        self._unsharded("run_implicit_kernel")
         self._require_implicit("run_implicit_kernel")
         return self._run(
             state, n_steps,
@@ -882,6 +989,7 @@ class FastWaveSolver:
         hierarchy the V-cycle is the plain one-level cycle (nothing to
         fuse); B7-B10 and B3 run all the same. The theta v-solve is
         Jacobi-CG on the bare mass."""
+        self._unsharded("run_implicit_mg_kernel")
         self._require_implicit("run_implicit_mg_kernel")
         precond = self._kernel_gmg(pre_degree=pre_degree,
                                    smooth_range=smooth_range,
@@ -927,6 +1035,7 @@ class FastWaveSolver:
         number is mesh-independent, so the iterations needed are fixed
         regardless of mesh, while the best degree for the
         stiffness-dominated u-system varies with theta dt / h."""
+        self._unsharded("run_implicit_cheby")
         self._require_implicit("run_implicit_cheby")
         eta = (1e-12 if self.dtype == torch.float64
                else 8 * float(torch.finfo(self.dtype).eps))
@@ -1000,6 +1109,7 @@ class FastWaveSolver:
         f32 noise into the (u^1, u^0) pair. For Newmark, start from
         ``initial_state_consistent`` for exact agreement with the 3-array
         trajectory (the recurrence derivation uses M a^0 = -K u^0)."""
+        self._unsharded("implicit_2term_init")
         precond = self.gmg_preconditioner(
             pre_degree=pre_degree, smooth_range=smooth_range,
             coarse_tol=coarse_tol)
@@ -1088,6 +1198,7 @@ class FastWaveSolver:
         kernel B5, every CG matvec as B3 and the V-cycle's fine level on
         B4 + B3 (the plain one-level cycle when the hierarchy has a single
         level); ``kernel=False`` is the same step in torch ops."""
+        self._unsharded("run_implicit_mg_2term")
         self._require_implicit("run_implicit_mg_2term")
         if self.scheme == "newmark":
             c_u, c_up = self.gamma + 0.5, 0.5 - self.gamma
@@ -1181,6 +1292,7 @@ class FastWaveSolver:
                     tol_factor):
         """(c_u, c_up, system apply, V-cycle, eta, s_abs) of the
         compensated 2-term paths, with tpuwave's refusals."""
+        self._unsharded("implicit_2term_init_comp")
         if self.dtype == torch.float64:
             raise ValueError("compensated stepping is the f32 accuracy "
                              "mode; run the plain 2-term path in f64")
@@ -1256,6 +1368,7 @@ class FastWaveSolver:
         noise-anchored stopping floor (smaller = more CG iterations =
         less solve-leftover noise). ``block_rows`` and ``interpret`` size
         tpuwave's Pallas route and have no counterpart."""
+        self._unsharded("run_implicit_mg_2term_comp")
         c_u, c_up, apply_sys, precond, eta, s_abs = self._comp_setup(
             pre_degree, smooth_range, coarse_tol, pallas, tol_factor)
         return self._run(
@@ -1278,6 +1391,7 @@ class FastWaveSolver:
         compensation, u|b = g exactly in f32 as in the plain engine), and
         the new state's boundary is pinned to g(t^{n+1}). ``g_fn(x, y,
         t)`` takes torch tensors, t a 0-d tensor of the state's dtype."""
+        self._unsharded("run_implicit_mg_2term_comp_driven")
         c_u, c_up, apply_sys, precond, eta, s_abs = self._comp_setup(
             pre_degree, smooth_range, coarse_tol, pallas, tol_factor)
         boundary = self.boundary
@@ -1303,6 +1417,17 @@ class FastWaveSolver:
         """E = 1/2 (v M v + u K u) in f64, a 0-d tensor: the boundary-
         correct quadratic forms of the parity engine's element operators
         (ops/operators.py), built once and cached."""
+        if self.layout is not None:
+            from tpuwave_torch.models.grid_diag import sharded_quad_form
+            quad = gauss_simplex(2)
+            u = state.u.reshape(self.block_shape).to(torch.float64)
+            v = state.v.reshape(self.block_shape).to(torch.float64)
+            return 0.5 * (
+                sharded_quad_form(self.layout, v, np.asarray(
+                    element_mass_class(self.space, quad)))
+                + sharded_quad_form(self.layout, u, np.asarray(
+                    element_stiffness_class(self.space, quad,
+                                            self.c * self.c))))
         if self._energy_ops is None:
             from tpuwave_torch.ops.operators import (CellConnectivity,
                                                      MatrixFreeOperator)

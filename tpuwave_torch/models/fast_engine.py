@@ -45,6 +45,17 @@ engine (models/theta.py, models/newmark.py) where this one is ineligible.
 State vectors stay FLAT (n_dofs,) for the run driver's diagnostics/IO;
 the steppers reshape to the (ny+1, nx+1) vertex grid internally (free: the
 P1 DoF numbering is row-major over the grid).
+
+Sharded (``sharding=``, parallel/sharding.py, tpuwave's ``_shard_grid``
+hook): at R = 1 with a constant c, each rank holds its block of every
+state vector (flattened), every constrained matvec is kernel B3 at the
+block's global offsets after a one-node halo exchange, the V-cycle is
+solve/multigrid.py::ShardedGmgPreconditioner, ``--solver cheby`` runs the
+unfused block recurrence, and every dot product and norm is summed over
+the ranks, so the CG counts are the ranks' common ones. The fused
+kernels B4-B10 take no part there, as tpuwave's Pallas path is off under
+sharding. A varying or time-dependent c and R = 2 under sharding raise
+(ROADMAP A11(b)).
 """
 
 from __future__ import annotations
@@ -56,15 +67,15 @@ import torch
 
 from tpuwave_torch.config import resolve_device
 from tpuwave_torch.models.fast import FastWaveSolver
-from tpuwave_torch.ops import kernels
-from tpuwave_torch.ops.stencil import apply_varcoef_planes
+from tpuwave_torch.ops.stencil import (apply_varcoef_planes,
+                                       constrained_apply_on)
 from tpuwave_torch.solve.cg import pcg
 from tpuwave_torch.solve.chebyshev import chebyshev_apply
 from tpuwave_torch.solve.cheby_iter import (chebyshev_solve,
                                             stencil_chebyshev,
                                             stencil_symbol_bounds)
 from tpuwave_torch.solve.multigrid import (auto_precond, gmg_for_system,
-                                           kernel_cycle)
+                                           shard_cycle)
 from tpuwave_torch.utils.params import Params
 
 __all__ = ["FastGridState", "FastThetaSolver", "FastNewmarkSolver",
@@ -134,6 +145,13 @@ def make_fast_solver(problem, family: str, *, precond: str = "jacobi",
     plane-canvas engines, which also take ``cheby_solver_degree``,
     ``mg_pre_degree`` and ``mg_smooth_range``."""
     p = problem
+    if engine_kwargs.get("sharding") is not None:
+        if p.r != 1:
+            raise ValueError("sharding at R = 2 is not ported yet "
+                             "(ROADMAP A11(b))")
+        if p.c.constant_value is None:
+            raise ValueError("sharding with a varying or time-dependent C "
+                             "is not ported yet (ROADMAP A11(b))")
     if p.r == 2:
         if solver == "2term":
             from tpuwave_torch.models.fast_engine_p2_2term import (
@@ -240,7 +258,7 @@ class _FastEngineBase(StepLoopMixin):
     def __init__(self, problem, *, dtype: torch.dtype = torch.float64,
                  device="cuda", precond: str = "jacobi",
                  cheby_degree: int = 3, solver: str = "3term",
-                 cheby_solver_degree: int = 8):
+                 cheby_solver_degree: int = 8, sharding=None):
         reason = fast_engine_ineligible_reason(problem)
         if reason is not None:
             raise ValueError(f"fast engine unavailable: {reason}")
@@ -265,16 +283,25 @@ class _FastEngineBase(StepLoopMixin):
                 "stencil-symbol bounds); use 3term/2term for varcoef or "
                 "time-dependent C")
 
+        if sharding is not None and self._c_mode != "const":
+            raise ValueError("sharding with a varying or time-dependent C "
+                             "is not ported yet (ROADMAP A11(b))")
+
         from tpuwave_torch.models.grid_diag import GridDiagnostics
         self.device = resolve_device(device)
-        self.disc = GridDiagnostics(p, dtype=dtype, device=self.device)
         self.dt = p.dt
         self.fs = FastWaveSolver(
             p.nel, p.geometry, p.dt,
             c=1.0 if c_const is None else float(c_const),
             scheme=self.method_name, beta=p.beta, gamma=p.gamma,
-            theta=p.theta, lumped=False, dtype=dtype, device=self.device)
+            theta=p.theta, lumped=False, dtype=dtype, device=self.device,
+            sharding=sharding)
         fs = self.fs
+        self.sharding = sharding
+        #: this rank's block (None: the whole grid)
+        self.layout = fs.layout
+        self.disc = GridDiagnostics(p, dtype=dtype, device=self.device,
+                                    layout=fs.layout)
         self.dtype = dtype
         self._max_iter = 10000 if dtype == torch.float64 else 2000
 
@@ -321,9 +348,9 @@ class _FastEngineBase(StepLoopMixin):
                      else float(c_const))
             # a one-level hierarchy stays the plain cycle (and the 2-term
             # step then takes its unfused setup)
-            self._prec_sys = kernel_cycle(gmg_for_system(
+            self._prec_sys = shard_cycle(gmg_for_system(
                 (fs.mesh.nx, fs.mesh.ny), fs.mesh.geometry, c_ref,
-                self.coef))
+                self.coef), fs.layout)
         elif precond in ("jacobi", "chebyshev"):
             self._prec_sys = None   # derived from the system op per solve
         else:
@@ -386,7 +413,7 @@ class _FastEngineBase(StepLoopMixin):
     def _plane(self, expr, t):
         """expr(x, y, t) on the full vertex grid (only boundary entries
         are ever consumed; interior values are masked away)."""
-        shape = self.fs.shape
+        shape = self.fs.block_shape
         if expr.is_zero:
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         cv = expr.constant_value
@@ -411,8 +438,10 @@ class _FastEngineBase(StepLoopMixin):
                     diag * w)
             return apply_v
 
+        layout = self.layout
+
         def apply_c(w):
-            return kernels.constrained_stencil_apply(w, st, diag)
+            return constrained_apply_on(layout, w, st, diag)
         return apply_c
 
     def _constrain(self, op: _Op, rhs, g_plane, x_prev, *, g_zero: bool):
@@ -438,8 +467,7 @@ class _FastEngineBase(StepLoopMixin):
         if self.dtype == torch.float64:
             return 1e-12
         eta = 8 * float(torch.finfo(self.dtype).eps)
-        return eta * (op.lam_hi * torch.linalg.vector_norm(x0)
-                      + torch.linalg.vector_norm(rhs))
+        return eta * (op.lam_hi * self.fs._norm(x0) + self.fs._norm(rhs))
 
     def _solve(self, op: _Op, rhs, g_plane, x_prev, precond, *,
                g_zero: bool):
@@ -450,7 +478,8 @@ class _FastEngineBase(StepLoopMixin):
             return self._solve_cheby(op, rhs_c, x0)
         return pcg(apply_c, rhs_c, x0, precond_inv_diag=precond,
                    abs_tol=self._abs_tol(rhs_c, x0, op),
-                   max_iter=self._max_iter, reduction=self.fs.cg_reduction)
+                   max_iter=self._max_iter, reduction=self.fs.cg_reduction,
+                   all_sum=self.fs._all_sum())
 
     def _solve_cheby(self, op: _Op, rhs_c, x0):
         """Restarted Chebyshev iteration on the constrained system
@@ -460,7 +489,7 @@ class _FastEngineBase(StepLoopMixin):
         through B3. The loop reads ||r||^2 back once per block and stops
         by the ReductionControl contract of the CG paths."""
         return chebyshev_solve(
-            b=rhs_c, x0=x0, **stencil_chebyshev(op.stencil),
+            b=rhs_c, x0=x0, **stencil_chebyshev(op.stencil, self.layout),
             degree=self._cheby_solver_degree,
             abs_tol=self._abs_tol(rhs_c, x0, op),
             reduction=self.fs.cg_reduction, max_iter=self._max_iter)
@@ -489,8 +518,8 @@ class FastThetaSolver(_FastEngineBase):
     def step(self, state: FastGridState, t: float):
         fs = self.fs
         dt, th = self.dt, fs.theta
-        u = state.u.reshape(fs.shape)
-        v = state.v.reshape(fs.shape)
+        u = state.u.reshape(fs.block_shape)
+        v = state.v.reshape(fs.block_shape)
 
         pay_np1 = None
         if self._c_mode == "tdep":
@@ -537,8 +566,8 @@ class FastThetaSolver(_FastEngineBase):
         info = {
             "iterations_1": res_u.iterations,
             "iterations_2": res_v.iterations,
-            "norm_u": torch.linalg.vector_norm(u_new),
-            "norm_v": torch.linalg.vector_norm(v_new),
+            "norm_u": fs._norm(u_new),
+            "norm_v": fs._norm(v_new),
         }
         return new_state, info
 
@@ -573,7 +602,7 @@ class FastNewmarkSolver(_FastEngineBase):
         d, fs, dt = self.disc, self.fs, self.dt
         u0 = d.interpolate(d.params.u0).to(self.dtype).contiguous()
         v0 = d.interpolate(d.params.v0).to(self.dtype).contiguous()
-        u0g = u0.reshape(fs.shape)
+        u0g = u0.reshape(fs.block_shape)
         rhs = -self._k_at(0.0).apply(u0g)
         if self._f is not None:
             rhs = rhs + fs.grid_load(self._f.evaluate, 0.0)
@@ -590,9 +619,9 @@ class FastNewmarkSolver(_FastEngineBase):
     def step(self, state: FastGridState, t: float):
         fs = self.fs
         dt, beta, gamma = self.dt, fs.beta, fs.gamma
-        u = state.u.reshape(fs.shape)
-        v = state.v.reshape(fs.shape)
-        a = state.a.reshape(fs.shape)
+        u = state.u.reshape(fs.block_shape)
+        v = state.v.reshape(fs.block_shape)
+        a = state.a.reshape(fs.block_shape)
 
         # the elastic force acts at t^{n+1}
         k_np1 = self._k_at(t)
@@ -622,7 +651,7 @@ class FastNewmarkSolver(_FastEngineBase):
         info = {
             "iterations_1": res.iterations,
             "iterations_2": 0,
-            "norm_u": torch.linalg.vector_norm(u_new),
-            "norm_v": torch.linalg.vector_norm(v_new),
+            "norm_u": fs._norm(u_new),
+            "norm_v": fs._norm(v_new),
         }
         return new_state, info

@@ -117,8 +117,11 @@ class _Fast2TermBase(_FastEngineBase):
                             or self.method_name == "newmark")
         if not self._needs_lift:
             u0 = self.disc.interpolate(self.disc.params.u0).to(self.dtype)
-            self._needs_lift = bool(torch.any(
-                torch.where(fs.boundary, u0.reshape(fs.shape), 0.0) != 0.0))
+            hits = torch.sum(torch.where(
+                fs.boundary, u0.reshape(fs.block_shape), 0.0) != 0.0)
+            if self.layout is not None:
+                hits = self.layout.all_sum(hits)
+            self._needs_lift = bool(hits > 0)
         # noise-anchored f32 stopping scale: r0's own computation noise is
         # ~ eps * s_abs * |u| elementwise
         k = self._k_static
@@ -133,9 +136,14 @@ class _Fast2TermBase(_FastEngineBase):
         # its f32-on-an-accelerator gate (a one-level mg hierarchy turns
         # its fused path off, fast_engine.py:374-382)
         # (and, as there, a constant stencil: B5 applies one)
-        self._fused_ok = k.stencil is not None and self._f is None and not (
-            self.precond == "mg"
-            and not isinstance(self._prec_sys, KernelGmgPreconditioner))
+        # (sharded, unfused: B5 sums its norms over the tensor it is
+        # given, tpuwave_torch's counterpart of tpuwave's
+        # fast_engine_2term.py:315)
+        self._fused_ok = (
+            k.stencil is not None and self._f is None
+            and self.layout is None and not (
+                self.precond == "mg"
+                and not isinstance(self._prec_sys, KernelGmgPreconditioner)))
         if self._fused_ok:
             dt = self.dt
             self._kneg = tuple(tuple(-dt * dt * cc for cc in row)
@@ -186,6 +194,11 @@ class _Fast2TermBase(_FastEngineBase):
         kw = dict(abs_tol=self._corr_abs_tol(rn2, x0_norm),
                   reduction=self.fs.cg_reduction, max_iter=self._max_iter,
                   r0=r0, norm0_sq=rn2)
+        if self.layout is not None:
+            return pcg(self._constrained_apply(sys_op), r0,
+                       torch.zeros_like(r0),
+                       precond_inv_diag=self._sys_precond(sys_op),
+                       all_sum=self.layout.all_sum, **kw)
         if self._fused_ok and self.precond == "chebyshev":
             return chebyshev_solve(b=r0, x0=torch.zeros_like(r0),
                                    **stencil_chebyshev(sys_op.stencil),
@@ -229,24 +242,53 @@ class _Fast2TermBase(_FastEngineBase):
         return out
 
     def _grid_edges(self, xg):
-        """(4, L) edge extraction of a (h, w) grid array."""
+        """(4, L) edge extraction of a (h, w) grid array (sharded: of the
+        grid whose block ``xg`` is, on every rank)."""
         h, w = self.fs.shape
         out = self._zeros(4, self._strip_len)
-        out[0, :w] = xg[0, :]
-        out[1, :w] = xg[h - 1, :]
-        out[2, :h] = xg[:, 0]
-        out[3, :h] = xg[:, w - 1]
-        return out
+        lay = self.layout
+        if lay is None:
+            out[0, :w] = xg[0, :]
+            out[1, :w] = xg[h - 1, :]
+            out[2, :h] = xg[:, 0]
+            out[3, :h] = xg[:, w - 1]
+            return out
+        # each edge node from its owner, zeros elsewhere: the sum puts
+        # every value in place exactly
+        r0, r1, c0, c1 = lay.r0, lay.r1, lay.c0, lay.c1
+        if r0 == 0:
+            out[0, c0:c1] = xg[0, :]
+        if r1 == h:
+            out[1, c0:c1] = xg[-1, :]
+        if c0 == 0:
+            out[2, r0:r1] = xg[:, 0]
+        if c1 == w:
+            out[3, r0:r1] = xg[:, -1]
+        return lay.all_sum(out)
 
     def _strip_plane(self, strip):
         """(4, L) strip -> (h, w) plane with the strip values on the four
-        edges (zeros inside; the four recurrences agree at corners)."""
+        edges (zeros inside; the four recurrences agree at corners);
+        sharded, this rank's block of it."""
         h, w = self.fs.shape
-        out = self._zeros(h, w)
-        out[:, 0] = strip[2, :h]
-        out[:, w - 1] = strip[3, :h]
-        out[0, :] = strip[0, :w]
-        out[h - 1, :] = strip[1, :w]
+        lay = self.layout
+        if lay is None:
+            out = self._zeros(h, w)
+            out[:, 0] = strip[2, :h]
+            out[:, w - 1] = strip[3, :h]
+            out[0, :] = strip[0, :w]
+            out[h - 1, :] = strip[1, :w]
+            return out
+        r0, r1, c0, c1 = lay.r0, lay.r1, lay.c0, lay.c1
+        out = self._zeros(*lay.block_shape)
+        if c0 == 0:
+            out[:, 0] = strip[2, r0:r1]
+        if c1 == w:
+            out[:, -1] = strip[3, r0:r1]
+        if r0 == 0:
+            out[0, :] = strip[0, c0:c1]
+        if r1 == h:
+            out[-1, :] = strip[1, c0:c1]
         return out
 
     def _advance_strips(self, vb, ab, ub, t):
@@ -279,8 +321,8 @@ class _Fast2TermBase(_FastEngineBase):
         zb = self._zeros(4, self._strip_len)
         if self.method_name == "newmark":
             a0 = self._consistent_a0(u0)
-            vb = self._grid_edges(v0.reshape(self.fs.shape))
-            ab = self._grid_edges(a0.reshape(self.fs.shape))
+            vb = self._grid_edges(v0.reshape(self.fs.block_shape))
+            ab = self._grid_edges(a0.reshape(self.fs.block_shape))
         else:
             a0 = torch.zeros_like(u0)
             vb = ab = zb
@@ -291,7 +333,7 @@ class _Fast2TermBase(_FastEngineBase):
         """M a0 = F(0) - K u0 with the second-difference accel BC
         (reference WaveNewmark.cpp:298-390)."""
         fs, dt = self.fs, self.dt
-        u0 = u0_flat.reshape(fs.shape)
+        u0 = u0_flat.reshape(fs.block_shape)
         rhs = -self._k_diff(u0)
         if self._f is not None:
             rhs = rhs + fs.grid_load(self._f.evaluate, 0.0)
@@ -309,8 +351,8 @@ class _Fast2TermBase(_FastEngineBase):
                    z = u^0 + dt v^0 + dt^2 (1/2 - b) a^0
         with u^1|b = g(t^1) by the standard elimination."""
         fs, dt = self.fs, self.dt
-        u0 = state.u.reshape(fs.shape)
-        v0 = state.v0.reshape(fs.shape)
+        u0 = state.u.reshape(fs.block_shape)
+        v0 = state.v0.reshape(fs.block_shape)
         k_op = self._k_static
         sys_op = self._system_of(k_op)
         if self.method_name == "theta":
@@ -325,7 +367,7 @@ class _Fast2TermBase(_FastEngineBase):
             x_prev = u0
         else:
             beta = fs.beta
-            a0 = state.a0.reshape(fs.shape)
+            a0 = state.a0.reshape(fs.block_shape)
             z = u0 + dt * v0 + (dt * dt * (0.5 - beta)) * a0
             rhs = self._mass_op.apply(z)
             if self._f is not None:
@@ -342,8 +384,8 @@ class _Fast2TermBase(_FastEngineBase):
         if self._fused_ok:
             return self._recur_step_fused(state, t)
         fs, dt = self.fs, self.dt
-        u = state.u.reshape(fs.shape)
-        up = state.u_prev.reshape(fs.shape)
+        u = state.u.reshape(fs.block_shape)
+        up = state.u_prev.reshape(fs.block_shape)
         sys_op = self._sys_op_static
 
         combo = (u if (self._c_u == 1.0 and self._c_up == 0.0)
@@ -360,8 +402,10 @@ class _Fast2TermBase(_FastEngineBase):
             r0 = r0 - sys_op.apply(torch.where(fs.boundary, delta, 0.0))
         r0 = torch.where(fs.interior, r0, 0.0)
         x0 = torch.where(fs.interior, 2.0 * u - up, 0.0)
-        res = self._solve_corr(r0, vdot(r0, r0),
-                               torch.linalg.vector_norm(x0))
+        rn2 = vdot(r0, r0)
+        if self.layout is not None:
+            rn2 = self.layout.all_sum(rn2)
+        res = self._solve_corr(r0, rn2, self.fs._norm(x0))
         u_new = torch.where(fs.interior, x0 + res.x,
                             self._plane(self._g, t))
         strips = self._next_strips(state, t)
@@ -415,8 +459,8 @@ class _Fast2TermBase(_FastEngineBase):
         O(perimeter) ring lift + the correction solve + edge overlays."""
         fs, dt = self.fs, self.dt
         h, w = fs.shape
-        u = state.u.reshape(fs.shape)
-        up = state.u_prev.reshape(fs.shape)
+        u = state.u.reshape(fs.block_shape)
+        up = state.u_prev.reshape(fs.block_shape)
         r0, x0, rn2, xn2 = kernels.recurrence_r0(
             u, up, self._kneg, self._c_u, self._c_up, mask_combo=False)
         g_edges = None
@@ -446,11 +490,10 @@ class _Fast2TermBase(_FastEngineBase):
         info = {
             "iterations_1": iters,
             "iterations_2": 0,
-            "norm_u": torch.linalg.vector_norm(u_new),
+            "norm_u": self.fs._norm(u_new),
             # backward-difference proxy (module docstring): divergence
             # check and console only; CSVs reconstruct the exact v
-            "norm_v": torch.linalg.vector_norm(u_flat - u_old_flat)
-            / self.dt,
+            "norm_v": self.fs._norm(u_flat - u_old_flat) / self.dt,
         }
         return new_state, info
 
@@ -469,8 +512,8 @@ class _Fast2TermBase(_FastEngineBase):
 
     def _reconstruct_v(self, state, t):
         fs, dt = self.fs, self.dt
-        u = state.u.reshape(fs.shape)
-        up = state.u_prev.reshape(fs.shape)
+        u = state.u.reshape(fs.block_shape)
+        up = state.u_prev.reshape(fs.block_shape)
         diff = (u - up) / dt
         if self.method_name == "theta":
             th = fs.theta

@@ -393,10 +393,10 @@ class P2CanvasSolver(_P2Base):
                  precond: str = "jacobi", mg_pre_degree: int = 1,
                  mg_smooth_range: float = 8.0):
         if sharding is not None:
-            raise ValueError("sharding= is not ported yet (ROADMAP A11)")
+            raise ValueError("sharding= is not ported yet (ROADMAP A11(b))")
         if int(row_multiple) != 1:
             raise ValueError("row_multiple= (the sharded canvas rows) is not "
-                             "ported yet (ROADMAP A11)")
+                             "ported yet (ROADMAP A11(b))")
         super().__init__(nel, geometry, dt, c, scheme, beta, gamma, theta,
                          dtype, device, cg_reduction)
         self.cshape = canvas_shape(self.nx, self.ny)

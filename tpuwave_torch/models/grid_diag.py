@@ -14,6 +14,14 @@ rule and the 1e-14 relative guard). A spatially varying c enters the
 energy through per-cell scales det sum_q w_q c^2(x_q, 0) of the gradient
 class matrices G (the reference freezes c at t = 0 for the energy
 operator).
+
+Sharded (``layout``, parallel/sharding.py::GridLayout): state vectors are
+a rank's block, flattened. Each rank sums the cells its nodes anchor (its
+block plus one halo row and column, :meth:`GridLayout.cell_block`), the
+energy and error sums go through one ``all_sum`` each, and the probe's
+three vertex values come from their owning ranks (summed into place, so
+the probe is the unsharded dot exactly). Every rank must make the same
+calls.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from tpuwave_torch.ops.assembly import (element_mass_class,
 from tpuwave_torch.ops.stencil import P1_CLASS_CORNERS
 from tpuwave_torch.utils.params import Params
 
-__all__ = ["GridDiagnostics"]
+__all__ = ["GridDiagnostics", "sharded_quad_form"]
 
 
 def _partial(fn, a):
@@ -45,13 +53,46 @@ def _partial(fn, a):
     return torch.broadcast_to(tangent.to(a.dtype), a.shape)
 
 
+def _class_form(win, a_class, k):
+    """sum_ij A_k[i, j] w_i w_j over the windows ``win`` of class k."""
+    acc = None
+    for i in range(3):
+        for j in range(3):
+            a = float(a_class[k, i, j])
+            if a == 0.0:
+                continue
+            term = a * (win[i] * win[j])
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def _local_quad_form(layout, wg, a_class):
+    """This rank's share of sum_cells w_e^T A_e w_e (0-d, not summed)."""
+    cb = layout.cell_block(wg)
+    nyc, nxc = cb.shape[0] - 1, cb.shape[1] - 1
+    total = None
+    for k in range(2):
+        win = [cb[oy:oy + nyc, ox:ox + nxc]
+               for (ox, oy) in P1_CLASS_CORNERS[k]]
+        s = torch.sum(_class_form(win, a_class, k))
+        total = s if total is None else total + s
+    return total
+
+
+def sharded_quad_form(layout, wg, a_class):
+    """sum_cells w_e^T A_e w_e of a sharded grid plane (``wg``: this
+    rank's block), summed over the ranks."""
+    return layout.all_sum(_local_quad_form(layout, wg, a_class))
+
+
 class GridDiagnostics:
     """The runner-facing diagnostics of a P1 structured rectangle run,
     on tensors of ``dtype`` on ``device``. State vectors are flat
-    (n_dofs,) in row-major vertex order."""
+    (n_dofs,) in row-major vertex order, or, with a sharded ``layout``,
+    this rank's block of them."""
 
     def __init__(self, params: Params, *, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, layout=None):
         self.params = params
         self.mesh = StructuredTriMesh(params.nel, params.geometry)
         self.dtype = dtype
@@ -59,6 +100,10 @@ class GridDiagnostics:
         ny1, nx1 = self.mesh.ny + 1, self.mesh.nx + 1
         self.shape = (ny1, nx1)
         self.n_dofs = ny1 * nx1
+        self.layout = layout if layout is not None and layout.sharded \
+            else None
+        self.block_shape = (self.shape if self.layout is None
+                            else self.layout.block_shape)
 
         c_const = params.c.constant_value
         space = FeSpace(self.mesh, 1)
@@ -86,6 +131,15 @@ class GridDiagnostics:
                  for (ox, oy) in P1_CLASS_CORNERS[k]]
         self._probe_dofs = torch.tensor(verts, dtype=torch.long,
                                         device=self.device)
+        if self.layout is not None:
+            lay = self.layout
+            bw = lay.block_shape[1]
+            rcs = [divmod(v, nx1) for v in verts]
+            self._probe_own = torch.tensor([lay.owns(r, c) for r, c in rcs],
+                                           device=self.device)
+            self._probe_local = torch.tensor(
+                [(r - lay.r0) * bw + (c - lay.c0) if lay.owns(r, c) else 0
+                 for r, c in rcs], dtype=torch.long, device=self.device)
         self._probe_vals = torch.tensor(
             simplex_shape(1, np.asarray(ref, dtype=np.float64)).values[0],
             dtype=dtype, device=self.device)
@@ -100,10 +154,27 @@ class GridDiagnostics:
 
     def _grid_coords(self):
         (x0, y0) = self.mesh.origin
+        if self.layout is not None:
+            ix, iy = self.layout.iota(self.dtype)
+            return x0 + self.mesh.hx * ix, y0 + self.mesh.hy * iy
         ny1, nx1 = self.shape
         xs = x0 + self.mesh.hx * self._iota(ny1, nx1, 1)
         ys = y0 + self.mesh.hy * self._iota(ny1, nx1, 0)
         return xs, ys
+
+    def _cell_iota(self):
+        """(column, row) index planes of the cells summed here: all of
+        them, or this rank's (GridLayout.cell_bounds)."""
+        if self.layout is not None:
+            return self.layout.iota(self.dtype, cells=True)
+        ny, nx = self.mesh.ny, self.mesh.nx
+        return self._iota(ny, nx, 1), self._iota(ny, nx, 0)
+
+    def norm(self, x):
+        """Global 2-norm of a state vector (0-d)."""
+        if self.layout is None:
+            return torch.linalg.vector_norm(x)
+        return self.layout.norm(x)
 
     @property
     def dof_coords(self):
@@ -114,20 +185,24 @@ class GridDiagnostics:
     # -- interpolation / IO views ---------------------------------------
     def interpolate(self, expr, t=0.0):
         if expr.is_zero:
-            return torch.zeros(self.n_dofs, dtype=self.dtype,
-                               device=self.device)
+            return torch.zeros(self.block_shape[0] * self.block_shape[1],
+                               dtype=self.dtype, device=self.device)
         xs, ys = self._grid_coords()
         vals = torch.broadcast_to(
-            expr.evaluate(xs, ys, t).to(self.dtype), self.shape)
+            expr.evaluate(xs, ys, t).to(self.dtype), self.block_shape)
         return vals.reshape(-1)
 
     def vertex_values(self, u):
-        """Host numpy copy (P1: DoFs ARE the vertices, in mesh order)."""
+        """Host numpy copy (P1: DoFs ARE the vertices, in mesh order);
+        sharded, the whole grid gathered on every rank."""
+        if self.layout is not None:
+            u = self.layout.gather_all(u.reshape(self.block_shape))
+            return u.detach().cpu().numpy().reshape(-1)
         return u.detach().cpu().numpy()
 
     # -- quadratic forms (energy) ---------------------------------------
     def _windows(self, wg, k):
-        ny, nx = self.mesh.ny, self.mesh.nx
+        ny, nx = wg.shape[0] - 1, wg.shape[1] - 1
         return [wg[oy:oy + ny, ox:ox + nx]
                 for (ox, oy) in P1_CLASS_CORNERS[k]]
 
@@ -154,6 +229,13 @@ class GridDiagnostics:
     def energy(self, u, v):
         """E = 1/2 (v^T M v + u^T K u) (reference WaveEquationBase.cpp:
         148-154; K contains c^2). 0-d tensor."""
+        if self.layout is not None:
+            ug = u.to(self.dtype).reshape(self.block_shape)
+            vg = v.to(self.dtype).reshape(self.block_shape)
+            lay = self.layout
+            return 0.5 * lay.all_sum(
+                _local_quad_form(lay, vg, self._m_class)
+                + _local_quad_form(lay, ug, self._k_class))
         ug = u.to(self.dtype).reshape(self.shape)
         vg = v.to(self.dtype).reshape(self.shape)
         return 0.5 * (self._quad_form(vg, self._m_class)
@@ -161,6 +243,11 @@ class GridDiagnostics:
 
     # -- probe ----------------------------------------------------------
     def probe(self, u):
+        if self.layout is not None:
+            # each vertex value from its owner, zeros elsewhere: the sum
+            # puts it in place exactly
+            vals = torch.where(self._probe_own, u[self._probe_local], 0.0)
+            return torch.dot(self.layout.all_sum(vals), self._probe_vals)
         return torch.dot(u[self._probe_dofs], self._probe_vals)
 
     # -- varcoef scales ---------------------------------------------------
@@ -219,12 +306,15 @@ class GridDiagnostics:
         solution expression."""
         vals, grads, frac, w = self._err_data()
         sol = self._sol
-        ny, nx = self.mesh.ny, self.mesh.nx
         (x0, y0) = self.mesh.origin
         hx, hy = self.mesh.hx, self.mesh.hy
-        ix = self._iota(ny, nx, 1)
-        iy = self._iota(ny, nx, 0)
-        ug = u.to(self.dtype).reshape(self.shape)
+        ix, iy = self._cell_iota()
+        ny, nx = ix.shape
+        if self.layout is not None:
+            ug = self.layout.cell_block(
+                u.to(self.dtype).reshape(self.block_shape))
+        else:
+            ug = u.to(self.dtype).reshape(self.shape)
 
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         l2_sq = semi_sq = ex_l2_sq = ex_semi_sq = zero
@@ -248,6 +338,9 @@ class GridDiagnostics:
                 ex_l2_sq = ex_l2_sq + wq * torch.sum(uex ** 2)
                 ex_semi_sq = ex_semi_sq + wq * torch.sum(
                     gex_x ** 2 + gex_y ** 2)
+        if self.layout is not None:
+            l2_sq, semi_sq, ex_l2_sq, ex_semi_sq = self.layout.all_sum(
+                torch.stack([l2_sq, semi_sq, ex_l2_sq, ex_semi_sq]))
 
         err_l2 = torch.sqrt(l2_sq)
         err_h1 = torch.sqrt(l2_sq + semi_sq)

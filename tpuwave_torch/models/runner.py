@@ -21,7 +21,14 @@ other). A checkpointing or resumed run takes the per-step loop, as in
 tpuwave: the chunked branch's chunk ends (256 steps, or the log points)
 do not fall on the checkpoint cadence.
 
-Single process.
+Ranks (parallel/sharding.py): a sharded engine (``solver.layout``) holds
+one block of the state on each rank. Every rank runs the same loop and
+makes the same collective calls (norms, energy, errors, probe, the
+wall-clock check); only world rank 0 prints, writes the CSVs, the mesh
+snapshot and the checkpoints (the state gathered to it), as only
+tpuwave's process 0 does. With ``vtu_pieces=0`` each rank writes the
+VTU piece of its own cells and rank 0 the ``.pvtu`` record (tpuwave's
+``local_pieces``); a resumed rank keeps its block of the checkpoint.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from tpuwave_torch.config import env_flag_enabled
 from tpuwave_torch.core.mesh import StructuredTriMesh
 from tpuwave_torch.models.convert import like_state
+from tpuwave_torch.parallel.sharding import world_rank
 from tpuwave_torch.utils.checkpoint import (load_latest, save_checkpoint,
                                             truncate_logs_after)
 from tpuwave_torch.utils.csvlog import RunLogs, fmt_e
@@ -68,7 +76,8 @@ class RunConfig:
     #: print a host-side per-phase wall-clock breakdown at the end
     phase_timing: bool = False
     #: number of VTU pieces per output record (row blocks of the mesh, the
-    #: ``partitioning`` cell field = piece id); 0 = one per device (1)
+    #: ``partitioning`` cell field = piece id); 0 = one per rank of a
+    #: sharded run, each written by its rank (1 unsharded)
     vtu_pieces: int = 1
 
 
@@ -97,14 +106,84 @@ def time_steps(t_final: float, dt: float):
     return times
 
 
+class _Ranks:
+    """What the run loop needs of a sharded engine's layout: global
+    norms, the gathered state (checkpoints) and this rank's block of a
+    restored one."""
+
+    def __init__(self, solver):
+        lay = getattr(solver, "layout", None)
+        self.layout = lay if lay is not None and lay.sharded else None
+
+    def norm(self, x) -> torch.Tensor:
+        if self.layout is None:
+            return torch.linalg.vector_norm(x)
+        return self.layout.norm(x)
+
+    def any(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is True on any."""
+        if self.layout is None:
+            return flag
+        return float(self.layout.all_sum(
+            torch.tensor(float(flag), dtype=torch.float64,
+                         device=self.layout.device))) > 0.0
+
+    def _grid_fields(self, state, fn):
+        if self.layout is None or not hasattr(state, "_asdict"):
+            return state
+        n = self.layout.block_shape[0] * self.layout.block_shape[1]
+        out = {}
+        for k, v in state._asdict().items():
+            if isinstance(v, torch.Tensor) and v.dim() == 1 \
+                    and v.numel() == n:
+                v = fn(v)
+            out[k] = v
+        return type(state)(**out)
+
+    def gathered(self, state):
+        """The state with every grid field gathered whole on rank 0 (None
+        on the others)."""
+        lay = self.layout
+
+        def whole(v):
+            full = lay.gather(v.reshape(lay.block_shape))
+            return None if full is None else full.reshape(-1)
+        return self._grid_fields(state, whole)
+
+    def local_fields(self, fields: dict) -> dict:
+        """A restored checkpoint's grid fields cut to this rank's block."""
+        if self.layout is None:
+            return fields
+        lay = self.layout
+        n = lay.shape[0] * lay.shape[1]
+        return {k: (np.ascontiguousarray(lay.local(
+                    np.asarray(v).reshape(lay.shape))).reshape(-1)
+                    if np.ndim(v) == 1 and np.size(v) == n else v)
+                for k, v in fields.items()}
+
+    def cell_owner(self, nx: int, n_cells: int) -> np.ndarray:
+        """Rank slot per cell of the structured mesh (cell 2 (j nx + i)
+        + k is anchored at node (j, i))."""
+        lay = self.layout
+        anchor = np.arange(n_cells) // 2
+        cj, ci = anchor // nx, anchor % nx
+        iy = np.searchsorted([a for a, _ in lay.row_bounds], cj,
+                             side="right") - 1
+        ix = np.searchsorted([c for c, _ in lay.col_bounds], ci,
+                             side="right") - 1
+        return iy * len(lay.col_bounds) + ix
+
+
 def run_solver(solver, problem_name: str,
                config: Optional[RunConfig] = None) -> RunResult:
     cfg = config or RunConfig()
     d = solver.disc
     p = d.params
+    ranks = _Ranks(solver)
+    primary = world_rank() == 0
 
     def pcout(*args):
-        if not cfg.quiet:
+        if not cfg.quiet and primary:
             print(*args)
 
     pcout("===============================================")
@@ -118,7 +197,7 @@ def run_solver(solver, problem_name: str,
         if isinstance(d.mesh, StructuredTriMesh):
             pcout(f"  Recognised as a structured {p.nel[0]}x{p.nel[1]} "
                   "rectangle -> structured engines")
-    if cfg.write_mesh and not imported_mesh:
+    if cfg.write_mesh and not imported_mesh and primary:
         if d.mesh.n_cells > 2_000_000:
             # bench-scale meshes: the serial VTK snapshot alone would be
             # ~100s of MB of host IO
@@ -139,7 +218,7 @@ def run_solver(solver, problem_name: str,
     # copy the parameter file for reproducibility
     # (reference WaveEquationBase.cpp:110-131 via NMPDE_PARAM_FILE)
     param_src = os.environ.get("NMPDE_PARAM_FILE") or p.source_path
-    if param_src and Path(param_src).exists():
+    if primary and param_src and Path(param_src).exists():
         shutil.copyfile(param_src, folder / "parameters.json")
 
     restored = None
@@ -150,12 +229,16 @@ def run_solver(solver, problem_name: str,
                   f"t = {restored[1]}")
             # drop rows logged after the checkpoint so the resumed run
             # does not duplicate timesteps
-            truncate_logs_after(folder, restored[0])
+            if primary:
+                truncate_logs_after(folder, restored[0])
+            restored = (restored[0], restored[1],
+                        ranks.local_fields(restored[2]))
 
     convergence_path = None
     if p.has_exact_solution:
         convergence_path = Path(cfg.results_root) / problem_name / "convergence.csv"
-    logs = RunLogs(folder, convergence_path, append=restored is not None)
+    logs = (RunLogs(folder, convergence_path, append=restored is not None)
+            if primary else _NoLogs())
 
     # env-variable overrides (reference main-theta.cpp:104-114)
     save_solution = env_flag_enabled("NMPDE_SAVE_SOLUTION", p.save_solution)
@@ -180,20 +263,28 @@ def run_solver(solver, problem_name: str,
     state = solver.initial_state()
     if restored is not None:
         state = like_state(state, restored[2])
-    norm_u0 = float(torch.linalg.vector_norm(state.u))
-    norm_v0 = float(torch.linalg.vector_norm(state_v(state, 0.0)))
+    norm_u0 = float(ranks.norm(state.u))
+    norm_v0 = float(ranks.norm(state_v(state, 0.0)))
     pcout(f"||u0|| = {norm_u0}")
     pcout(f"||v0|| = {norm_v0}")
     pcout("-----------------------------------------------")
 
-    n_pieces = cfg.vtu_pieces if cfg.vtu_pieces > 0 else 1
+    # sharded with vtu_pieces 0: one piece per rank, of its own cells
+    rank_pieces = ranks.layout is not None and cfg.vtu_pieces <= 0
+    n_pieces = (ranks.layout.size if rank_pieces
+                else cfg.vtu_pieces if cfg.vtu_pieces > 0 else 1)
 
     # piece id per cell: contiguous row blocks of the structured mesh by
-    # centroid y. Built lazily: only when VTU output is written.
+    # centroid y (or the cell's rank). Built lazily: only when VTU output
+    # is written.
     _shard_cache = []
 
     def cell_shard():
         if not _shard_cache:
+            if rank_pieces:
+                _shard_cache.append(ranks.cell_owner(d.mesh.nx,
+                                                     d.mesh.n_cells))
+                return _shard_cache[0]
             coords = np.asarray(d.mesh.vertex_coords)
             cy = coords[np.asarray(d.mesh.cells), 1].mean(axis=1)
             y0, y1 = coords[:, 1].min(), coords[:, 1].max()
@@ -205,13 +296,19 @@ def run_solver(solver, problem_name: str,
     def output(timestep: int, t: float):
         if not save_solution:
             return
+        # (sharded: vertex_values gathers, a call every rank makes)
         point_data = {"u": d.vertex_values(state.u),
                       "v": d.vertex_values(state_v(state, t))}
         if p.has_exact_solution:
             point_data["u_exact"] = d.vertex_values(
                 d.interpolate(p.solution, t))
+        if not (primary or rank_pieces):
+            return
         write_vtu_record(folder, "solution", timestep, d.mesh.vertex_coords,
-                         d.mesh.cells, point_data, cell_shard=cell_shard())
+                         d.mesh.cells, point_data, cell_shard=cell_shard(),
+                         only_pieces=({ranks.layout.index} if rank_pieces
+                                      else None),
+                         write_record=primary)
 
     timestep_number = 0
     current_time = 0.0
@@ -233,8 +330,9 @@ def run_solver(solver, problem_name: str,
 
     def out_of_time() -> bool:
         nonlocal timed_out
-        if cfg.max_wall_s is not None and \
-                _time.perf_counter() - start > cfg.max_wall_s:
+        # (sharded: every rank takes the same decision)
+        if cfg.max_wall_s is not None and ranks.any(
+                _time.perf_counter() - start > cfg.max_wall_s):
             pcout(f"Wall-clock limit {cfg.max_wall_s}s exceeded at step "
                   f"{timestep_number}; aborting run.")
             timed_out = True
@@ -386,7 +484,9 @@ def run_solver(solver, problem_name: str,
 
         if cfg.checkpoint_every > 0 and \
                 timestep_number % cfg.checkpoint_every == 0:
-            save_checkpoint(folder, timestep_number, current_time, state)
+            whole = ranks.gathered(state)
+            if primary:
+                save_checkpoint(folder, timestep_number, current_time, whole)
 
         with phases.phase("output"):
             output(timestep_number, current_time)
@@ -427,3 +527,10 @@ def run_solver(solver, problem_name: str,
                      total_iterations_1=total_it1, total_iterations_2=total_it2,
                      diverged=diverged, rel_l2=rel_l2, rel_h1=rel_h1,
                      output_folder=folder, timed_out=timed_out)
+
+
+class _NoLogs:
+    """The CSV logs of a rank other than 0: every call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None

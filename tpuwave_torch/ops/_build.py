@@ -42,6 +42,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C signature of every entry point of the library
 _SIGNATURES = {
     "tw_constrained_apply": (_I, _VP, _VP, _I, _I, _DP, _D, _I, _VP),
+    "tw_constrained_apply_at": (_I, _VP, _VP, _I, _I, _DP, _D, _I, _I, _I,
+                                _I, _I, _VP),
     "tw_leapfrog_step": (_I, _VP, _VP, _VP, _I, _I, _DP, _D, _VP),
     "tw_leapfrog_multistep": (_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _DP, _D,
                               _I, _I, _LL, _LL, _VP),

@@ -10,8 +10,9 @@ the kernel is held against. Every tensor is the grid at its TRUE shape
 0-d tensors of the grid's dtype on its device, reduced without atomics.
 
 A node is pinned (Dirichlet) when its global row is <= 0 or >= n_rows - 1,
-or its column is <= 0 or >= W - 1; ``n_rows`` is the grid's own height
-unless a row block of a taller grid is stepped (``row_offset``).
+or its column is <= 0 or >= n_cols - 1; ``n_rows`` / ``n_cols`` are the
+grid's own unless a block of a larger grid is stepped (B2's
+``row_offset``, B3's ``row_offset`` and ``col_offset``).
 
 ``LAUNCHES`` counts kernel launches per wrapper (only real CUDA launches,
 never the plain path), so a run can show it went through the kernels; it
@@ -157,43 +158,61 @@ def _dot(a: torch.Tensor) -> torch.Tensor:
 
 
 # -- masks ---------------------------------------------------------------
-def pinned_mask(shape, device, *, row_offset: int = 0,
-                n_rows=None) -> torch.Tensor:
+def pinned_mask(shape, device, *, row_offset: int = 0, col_offset: int = 0,
+                n_rows=None, n_cols=None) -> torch.Tensor:
     """(H, W) bool: Dirichlet nodes (global row <= 0 or >= n_rows - 1,
-    column <= 0 or >= W - 1)."""
+    global column <= 0 or >= n_cols - 1), for a block of a larger grid
+    whose node (row_offset, col_offset) is the block's (0, 0)."""
     h, w = shape
     n_rows = h if n_rows is None else n_rows
+    n_cols = w if n_cols is None else n_cols
     gr = row_offset + torch.arange(h, device=device)[:, None]
-    gc = torch.arange(w, device=device)[None, :]
-    return (gr <= 0) | (gr >= n_rows - 1) | (gc <= 0) | (gc >= w - 1)
+    gc = col_offset + torch.arange(w, device=device)[None, :]
+    return (gr <= 0) | (gr >= n_rows - 1) | (gc <= 0) | (gc >= n_cols - 1)
 
 
 # -- B3: constrained stencil apply -------------------------------------------
-def constrained_stencil_apply_reference(x, stencil, diag, diff=False):
+def constrained_stencil_apply_reference(x, stencil, diag, diff=False, *,
+                                        row_offset: int = 0,
+                                        col_offset: int = 0, n_rows=None,
+                                        n_cols=None):
     """Interior: S(x masked to 0 on pinned nodes); pinned: diag * x (raw).
     ``diff=True``: sum_{d != 0} s_d (xm_d - xm_c), the zero-row-sum
-    difference form."""
-    pinned = pinned_mask(x.shape, x.device)
+    difference form. With offsets the walls are those of the larger grid
+    (see :func:`constrained_stencil_apply`)."""
+    pinned = pinned_mask(x.shape, x.device, row_offset=row_offset,
+                         col_offset=col_offset, n_rows=n_rows, n_cols=n_cols)
     a = torch.where(pinned, 0.0, x)
     s = apply_stencil_diff(a, stencil) if diff else apply_stencil(a, stencil)
     return torch.where(pinned, diag * x, s)
 
 
 def constrained_stencil_apply(x: torch.Tensor, stencil, diag: float,
-                              diff: bool = False) -> torch.Tensor:
+                              diff: bool = False, *, row_offset: int = 0,
+                              col_offset: int = 0, n_rows=None,
+                              n_cols=None) -> torch.Tensor:
     """The constrained operator of the implicit solves (the CG matvec).
 
     Replaces tpuwave's ``constrained_stencil_apply_pallas``: same algebra
-    on the true (H, W) grid."""
+    on the true (H, W) grid. ``row_offset`` / ``col_offset`` / ``n_rows`` /
+    ``n_cols``: the tensor is a block of an (n_rows, n_cols) grid whose
+    node (row_offset, col_offset) is its (0, 0) (a rank's halo-padded
+    block), and the Dirichlet walls are that grid's; only outputs whose
+    3 x 3 neighbourhood lies in the block are exact there."""
     _check("constrained_stencil_apply", x)
-    if x.device.type == "cpu":
-        return constrained_stencil_apply_reference(x, stencil, diag, diff)
-    out = torch.empty_like(x)
     h, w = x.shape
+    n_rows = h if n_rows is None else int(n_rows)
+    n_cols = w if n_cols is None else int(n_cols)
+    if x.device.type == "cpu":
+        return constrained_stencil_apply_reference(
+            x, stencil, diag, diff, row_offset=row_offset,
+            col_offset=col_offset, n_rows=n_rows, n_cols=n_cols)
+    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = _lib().tw_constrained_apply(
+        rc = _lib().tw_constrained_apply_at(
             _DTYPES[x.dtype], _ptr(x), _ptr(out), h, w,
-            _stencil_arg(stencil), float(diag), int(bool(diff)), _stream(x))
+            _stencil_arg(stencil), float(diag), int(bool(diff)),
+            int(row_offset), int(col_offset), n_rows, n_cols, _stream(x))
     _raise_on(rc, "constrained_stencil_apply")
     LAUNCHES["constrained_stencil_apply"] += 1
     return out

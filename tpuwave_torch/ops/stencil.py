@@ -16,6 +16,10 @@ offset, linear in the per-element c^2) serve the FWI propagator
 
 These are the plain PyTorch forms; the CUDA kernels of ``ops/kernels.py``
 and ``ops/kernels_varcoef.py`` are held against them.
+
+Sharded grids (parallel/sharding.py): an operator with a ``layout`` acts
+on a rank's block; it exchanges a one-node halo and applies the stencil
+to the padded block, and the masks come from global coordinates.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ __all__ = [
     "lumped_mass_grid",
     "boundary_mask_grid",
     "GridStencilOperator",
+    "on_block",
+    "constrained_apply_on",
     "P1_CLASS_CORNERS",
     "assemble_varcoef_planes",
     "apply_varcoef_planes",
@@ -140,8 +146,38 @@ def boundary_mask_grid(space: FeSpace) -> np.ndarray:
     return mask
 
 
+def on_block(layout, fn, u: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a 3 x 3 stencil pass) on a rank's block of a sharded grid
+    (parallel/sharding.py::GridLayout): exchange a one-node halo, apply,
+    crop. Every owned output is exact, the global walls included where
+    ``fn`` reads no wrapped value (halos beyond the grid are zeros);
+    ``layout`` None applies ``fn`` to the whole grid."""
+    if layout is None:
+        return fn(u)
+    return fn(layout.exchange(u, 1))[1:-1, 1:-1]
+
+
+def constrained_apply_on(layout, x: torch.Tensor, stencil, diag: float,
+                         diff: bool = False) -> torch.Tensor:
+    """The constrained operator (ops/kernels.py::constrained_stencil_apply,
+    kernel B3 on the card) on a rank's block: a one-node halo exchange,
+    then B3 on the padded block at its global offsets, so the Dirichlet
+    walls are the global grid's; ``layout`` None is the whole grid."""
+    from tpuwave_torch.ops import kernels
+    if layout is None:
+        return kernels.constrained_stencil_apply(x, stencil, diag, diff)
+    xp = layout.exchange(x, 1)
+    out = kernels.constrained_stencil_apply(
+        xp, stencil, diag, diff, row_offset=layout.r0 - 1,
+        col_offset=layout.c0 - 1, n_rows=layout.shape[0],
+        n_cols=layout.shape[1])
+    return out[1:-1, 1:-1]
+
+
 class GridStencilOperator:
-    """Constant-stencil operator acting on (ny+1, nx+1) grid tensors.
+    """Constant-stencil operator acting on (ny+1, nx+1) grid tensors, or,
+    with a ``layout``, on a rank's block of one (halo exchange, then the
+    local apply: :func:`on_block`).
 
     ``diag`` is the interior diagonal broadcast everywhere — boundary rows
     are only ever used through Dirichlet elimination, where any nonzero
@@ -149,20 +185,30 @@ class GridStencilOperator:
     """
 
     def __init__(self, stencil: np.ndarray, shape: Tuple[int, int],
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device, layout=None):
         self.stencil = tuple(tuple(float(c) for c in row)
                              for row in np.asarray(stencil))
         self.shape = shape
         self.dtype = dtype
         self.device = device
+        self.layout = layout
 
     def __call__(self, u):
-        return apply_stencil(u, self.stencil)
+        if self.layout is None:
+            return apply_stencil(u, self.stencil)
+        return on_block(self.layout,
+                        lambda x: apply_stencil(x, self.stencil), u)
+
+    def diff(self, u):
+        """The zero-row-sum difference form (:func:`apply_stencil_diff`)."""
+        return on_block(self.layout,
+                        lambda x: apply_stencil_diff(x, self.stencil), u)
 
     def axpy(self, coef: float,
              other: "GridStencilOperator") -> "GridStencilOperator":
         s = np.asarray(self.stencil) + coef * np.asarray(other.stencil)
-        return GridStencilOperator(s, self.shape, self.dtype, self.device)
+        return GridStencilOperator(s, self.shape, self.dtype, self.device,
+                                   self.layout)
 
 
 # ---------------------------------------------------------------------------

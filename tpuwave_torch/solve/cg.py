@@ -35,7 +35,8 @@ def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor, *,
         precond_inv_diag=None, max_iter: int = 10000, abs_tol=1e-12,
-        reduction: float = 1e-6, r0=None, norm0_sq=None) -> CgResult:
+        reduction: float = 1e-6, r0=None, norm0_sq=None,
+        all_sum=None) -> CgResult:
     """Solve A x = b with (Jacobi-)preconditioned CG.
 
     ``precond_inv_diag``: elementwise inverse diagonal (a float or a
@@ -46,43 +47,61 @@ def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor, *,
     ``b - A x0`` and its squared norm (a 0-d tensor, e.g. from the fused
     2-term setup kernel); they skip the operator application and the
     reduction here.
-    """
-    if precond_inv_diag is None:
-        def precond(r):
-            return r
-    elif callable(precond_inv_diag):
-        precond = precond_inv_diag
-    else:
-        def precond(r):
-            return precond_inv_diag * r
 
+    ``all_sum``: on a sharded grid (b, x0 a rank's block), the sum over
+    the ranks (parallel/sharding.py::GridLayout.all_sum). Every dot
+    product and norm then goes through it, r.z and ||r||^2 in one call, so
+    every rank reads the same ||r|| and stops at the same iteration (a
+    rank that stopped alone would leave the others waiting).
+    """
+    precond = _precond_fn(precond_inv_diag)
+    dot, dot_norm = _reductions(all_sum)
     r = b - apply_a(x0) if r0 is None else r0
-    norm0 = (torch.linalg.vector_norm(r) if norm0_sq is None
-             else torch.sqrt(norm0_sq).to(b.dtype))
+    z = precond(r)
+    if norm0_sq is None:
+        rz, norm0 = dot_norm(r, z)
+    else:
+        rz, norm0 = dot(r, z), torch.sqrt(norm0_sq).to(b.dtype)
     tol = torch.clamp(reduction * norm0,
                       min=torch.as_tensor(abs_tol, dtype=b.dtype,
                                           device=b.device))
     tol_host = float(tol)
 
-    x = x0
-    z = precond(r)
-    p = z
-    rz = vdot(r, z)
-    rnorm = norm0
-    k = 0
+    x, p, rnorm, k = x0, z, norm0, 0
     # one host read of ||r|| per iteration: the stopping test of tpuwave's
     # lax.while_loop, evaluated on the host
     while k < max_iter and float(rnorm) > tol_host:
         ap = apply_a(p)
-        alpha = rz / vdot(p, ap)
+        alpha = rz / dot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
         z = precond(r)
-        rz_new = vdot(r, z)
+        rz_new, rnorm = dot_norm(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
-        rnorm = torch.linalg.vector_norm(r)
         k += 1
     return CgResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=float(rnorm) <= tol_host)
+
+
+def _precond_fn(precond_inv_diag):
+    if precond_inv_diag is None:
+        return lambda r: r
+    if callable(precond_inv_diag):
+        return precond_inv_diag
+    return lambda r: precond_inv_diag * r
+
+
+def _reductions(all_sum):
+    """``(dot, dot_norm)``: ``dot(a, b)`` is a.b and ``dot_norm(r, z)`` is
+    (r.z, ||r||), over the whole grid; on a sharded grid both sum their
+    block's parts over the ranks, ``dot_norm`` in one call."""
+    if all_sum is None:
+        return vdot, lambda r, z: (vdot(r, z), torch.linalg.vector_norm(r))
+
+    def dot_norm(r, z):
+        both = all_sum(torch.stack([vdot(r, z), vdot(r, r)]))
+        return both[0], torch.sqrt(both[1])
+
+    return (lambda a, b: all_sum(vdot(a, b))), dot_norm

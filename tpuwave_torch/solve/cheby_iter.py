@@ -124,7 +124,8 @@ def chebyshev_block(apply_a: Callable, x, r, theta: float, coeffs):
 def chebyshev_solve(apply_a: Callable, b, x0, *, lam_min: float,
                     lam_max: float, degree: int = 8, abs_tol=1e-12,
                     reduction: float = 1e-6, max_iter: int = 10000,
-                    r0=None, norm0_sq=None, block=None) -> CgResult:
+                    r0=None, norm0_sq=None, block=None,
+                    all_sum=None) -> CgResult:
     """Solve ``apply_a`` x = b, an SPD operator with spectrum in [lam_min,
     lam_max], by restarted Chebyshev iteration (tpuwave's
     ``chebyshev_solve``): one host read of ||r||^2 per block of ``degree``
@@ -138,16 +139,19 @@ def chebyshev_solve(apply_a: Callable, b, x0, *, lam_min: float,
     ``iterations`` counts ``degree`` per block. ``b`` and ``x0`` follow
     the constrained-system convention (pinned entries consistent with the
     diagonal rows), so the residual is zero on pinned rows and the
-    iterates keep x0 there. ``r0`` / ``norm0_sq`` as in pcg.
+    iterates keep x0 there. ``r0`` / ``norm0_sq`` as in pcg;
+    ``all_sum`` as in pcg, for a rank's block of a sharded grid (the
+    default block's ||r||^2 and the initial one go through it).
     """
     theta, coeffs = chebyshev_coefficients(lam_min, lam_max, degree)
+    total = (lambda v: v) if all_sum is None else all_sum
     if block is None:
         def block(x, r, th, cf):
             x, r = chebyshev_block(apply_a, x, r, th, cf)
-            return x, r, vdot(r, r)
+            return x, r, total(vdot(r, r))
     if r0 is None:
         r0 = b - apply_a(x0)
-    rr = vdot(r0, r0) if norm0_sq is None else norm0_sq
+    rr = total(vdot(r0, r0)) if norm0_sq is None else norm0_sq
     tol = torch.clamp(reduction * torch.sqrt(rr).to(b.dtype),
                       min=torch.as_tensor(abs_tol, dtype=b.dtype,
                                           device=b.device))
@@ -162,12 +166,25 @@ def chebyshev_solve(apply_a: Callable, b, x0, *, lam_min: float,
                     converged=float(rr) <= tol_sq)
 
 
-def stencil_chebyshev(stencil) -> dict:
+def stencil_chebyshev(stencil, layout=None) -> dict:
     """:func:`chebyshev_solve`'s operator arguments for the constrained
     system of the constant ``stencil`` (interior rows S(x masked on pinned
     rows), pinned rows s[1][1] * x): its apply (kernel B3 on the card),
-    the analytic symbol bounds and, as the block, one pass of kernel B4."""
+    the analytic symbol bounds and, as the block, one pass of kernel B4.
+
+    On a rank's block of a sharded grid (``layout``) every apply is B3
+    after a one-node halo exchange and the block is the recurrence of
+    :func:`chebyshev_block` (B4 would need a halo as deep as its degree
+    and norms over the owned nodes only), its norms summed over the
+    ranks."""
     lo, hi = stencil_symbol_bounds(stencil)
+    if layout is not None:
+        from tpuwave_torch.ops.stencil import constrained_apply_on
+
+        def apply_s(x):
+            return constrained_apply_on(layout, x, stencil, stencil[1][1])
+        return dict(apply_a=apply_s, lam_min=lo, lam_max=hi,
+                    all_sum=layout.all_sum)
 
     def apply_a(x):
         return kernels.constrained_stencil_apply(x, stencil, stencil[1][1])

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from tpuwave_torch.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave_torch.ops import kernels, kernels_p2
-from tpuwave_torch.ops.stencil import apply_stencil
+from tpuwave_torch.ops.stencil import (apply_stencil, constrained_apply_on,
+                                       on_block)
 from tpuwave_torch.ops.stencil_p2 import (P2PlaneStencil, canvas_shape,
                                           canvases_to_planes, flat_to_planes,
                                           planes_to_canvases, planes_to_flat)
@@ -55,6 +56,8 @@ __all__ = ["prolong_p1", "restrict_p1", "MgLevel", "build_gmg_levels",
            "GmgPreconditioner", "KernelGmgPreconditioner", "gmg_for_system",
            "auto_precond", "AUTO_MG_THRESHOLD", "kernel_cycle",
            "gmg_flat_preconditioner", "prolong_p1_to_p2", "restrict_p2_to_p1",
+           "ShardedGmgPreconditioner", "shard_cycle", "restrict_on",
+           "prolong_on",
            "P2GmgPreconditioner", "P2CanvasGmgPreconditioner",
            "p2_gmg_for_system"]
 
@@ -263,6 +266,105 @@ class KernelGmgPreconditioner(GmgPreconditioner):
         ax = kernels.constrained_stencil_apply(x, st, st[1][1])
         x, _, _ = kernels.cheby_block(x, b - ax, st, th, cf)
         return x
+
+
+def restrict_on(layout, r: torch.Tensor) -> torch.Tensor:
+    """:func:`restrict_p1` on a rank's block of a sharded fine grid: the
+    _P_STENCIL pass after a one-node halo exchange, then the nodes of even
+    global row and column (the coarse nodes this rank owns, see
+    parallel/sharding.py::GridLayout.coarsen). The same sums in the same
+    order as the whole-grid transfer."""
+    y = on_block(layout, lambda v: apply_stencil(v, _P_STENCIL), r)
+    return y[layout.r0 % 2::2, layout.c0 % 2::2].contiguous()
+
+
+def prolong_on(fine, coarse, c: torch.Tensor) -> torch.Tensor:
+    """:func:`prolong_p1` onto a rank's fine block (layout ``fine``) from
+    its coarse block (layout ``coarse``, derived from ``fine``): a
+    one-node coarse halo covers every fine node the rank owns."""
+    cp = coarse.exchange(c, 1)
+    f = prolong_p1(cp)
+    a = fine.r0 - 2 * (coarse.r0 - 1)
+    b = fine.c0 - 2 * (coarse.c0 - 1)
+    h, w = fine.block_shape
+    return f[a:a + h, b:b + w]
+
+
+class ShardedGmgPreconditioner(GmgPreconditioner):
+    """The V-cycle of :class:`GmgPreconditioner` on a rank's block of a
+    sharded grid (``layout``, parallel/sharding.py).
+
+    Each level's partition derives from the finer one (coarse node i is
+    fine node 2 i, on the fine node's rank); every level operator is kernel
+    B3 at the block's global offsets after a one-node halo exchange, and
+    the transfers take a one-node halo too. Where a rank would own fewer
+    than 2 rows or columns of a level, that level and every coarser one
+    are agglomerated: the restricted residual is summed into the whole
+    level grid on every rank and the rest of the cycle runs replicated
+    (the plain cycle on the whole grid), each rank keeping its block of
+    the prolongated correction. The fine level is not fused into B4 (it
+    would need a halo as deep as the smoother's degree), as tpuwave turns
+    its Pallas cycle off under sharding. The same fixed SPD polynomial.
+    """
+
+    def __init__(self, levels: Sequence[MgLevel], coarse_theta: float,
+                 coarse_coeffs: Tuple, layout):
+        super().__init__(levels, coarse_theta, coarse_coeffs)
+        if tuple(layout.shape) != tuple(self.levels[0].shape):
+            raise ValueError(f"layout {layout.shape} does not lie on the "
+                             f"fine level {self.levels[0].shape}")
+        lays = [layout]
+        for _ in self.levels[1:]:
+            lays.append(None if lays[-1] is None else lays[-1].coarsen())
+        self.layouts = lays
+        self._block_masks: Dict[int, torch.Tensor] = {}
+
+    def _block_interior(self, l: int) -> torch.Tensor:
+        if l not in self._block_masks:
+            self._block_masks[l] = ~self.layouts[l].pinned()
+        return self._block_masks[l]
+
+    def _cycle_block(self, l: int, b):
+        lay, lev = self.layouts[l], self.levels[l]
+        st, diag = lev.stencil, lev.stencil[1][1]
+
+        def apply_c(x):
+            return constrained_apply_on(lay, x, st, diag)
+        if l == len(self.levels) - 1:
+            return self._coarse_solve(apply_c, b)
+        interior = self._block_interior(l)
+        x, r = chebyshev_block(apply_c, torch.zeros_like(b), b,
+                               lev.sm_theta, lev.sm_coeffs)
+        bc = restrict_on(lay, torch.where(interior, r, 0.0))
+        nxt = self.layouts[l + 1]
+        if nxt is not None:
+            bc = torch.where(self._block_interior(l + 1), bc, 0.0)
+            corr = prolong_on(lay, nxt, self._cycle_block(l + 1, bc))
+        else:
+            # agglomerate: the whole level on every rank
+            full = b.new_zeros(self.levels[l + 1].shape)
+            r0, c0 = -(-lay.r0 // 2), -(-lay.c0 // 2)
+            full[r0:r0 + bc.shape[0], c0:c0 + bc.shape[1]] = bc
+            full = lay.all_sum(full)
+            full = torch.where(self._interior(l + 1, b.device), full, 0.0)
+            corr = lay.local(prolong_p1(self._cycle(l + 1, full)))
+        x = x + torch.where(interior, corr, 0.0)
+        r = b - apply_c(x)
+        x, _ = chebyshev_block(apply_c, x, r, lev.sm_theta, lev.sm_coeffs)
+        return x
+
+    def __call__(self, b):
+        return self._cycle_block(0, b)
+
+
+def shard_cycle(gmg: GmgPreconditioner, layout) -> GmgPreconditioner:
+    """``gmg``'s cycle on a rank's block (:class:`ShardedGmgPreconditioner`)
+    when ``layout`` is sharded; else its kernel form
+    (:func:`kernel_cycle`)."""
+    if layout is None or not layout.sharded:
+        return kernel_cycle(gmg)
+    return ShardedGmgPreconditioner(gmg.levels, gmg.coarse_theta,
+                                    gmg.coarse_coeffs, layout)
 
 
 def gmg_for_system(nel: Tuple[int, int], geometry, c: float,
